@@ -1,0 +1,610 @@
+"""The simulation engine: one eager PyTorch step and its host driver.
+
+`step` is the JAX package's `sim/engine.py::step` for the configurations
+this port runs (`config.machine.check_port_supported`: full-map MESI on a
+mesh, no NoC contention, DRAM queue, prefetcher or faults), taking the
+Pallas branch wherever the JAX step has one. Its three kernels are
+`kernels.step_kernels.probe_classify` (phase 1), `kernels.reductions.
+sharer_reductions` (phase 3) and `kernels.step_kernels.commit_step`
+(phase 4.A); torch keeps the row gathers that stage the directory into
+them and the one row scatter-add after them. The step issues no host
+synchronisation: every scalar it needs stays on the device.
+
+The results are the JAX engine's, bit for bit: the same per-core
+cycles, counters and state fields (tests/test_torch_engine.py).
+
+`Engine` is the host driver. After each chunk of `chunk_steps` steps it
+drains the int32 step counters into int64 host counters and rebases the
+clocks by whole quanta, with one host synchronisation per chunk.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..config.machine import MachineConfig, check_port_supported
+from ..kernels import reductions, step_kernels
+from ..kernels.step_kernels import (
+    PL_HIT_ANY,
+    PL_HIT_STATE,
+    PL_HIT_WAY,
+    PL_LLC_HAS,
+    PL_LLC_HWAY,
+    PL_LLC_VWAY,
+    PL_OTHER_SH,
+    PL_OWNER,
+    PL_VIC_OWNER,
+    PL_VIC_TAG,
+)
+from ..kernels.layouts import first_min, first_true, take
+from ..noc import topology
+from ..stats.counters import COUNTER_NAMES, zero_counters
+from ..trace.format import (
+    EV_BARRIER,
+    EV_END,
+    EV_INS,
+    EV_LD,
+    EV_LOCK,
+    EV_ST,
+    EV_UNLOCK,
+    Trace,
+    validate_sync,
+)
+from .state import E, I, M, MachineState, S, dirm_width, init_state, llc_meta_width
+
+INT32_MAX = 2**31 - 1
+_ACC_BITS = 30  # per-chunk counter increments must stay below 2^30
+_i32 = torch.int32
+
+
+def resolve_device(device=None) -> torch.device:
+    """`cuda` unless the caller names a device; no card and no explicit
+    device is an error, never a quiet run on the CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: pass device='cpu' to run the port on the CPU"
+            )
+        device = "cuda"
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} requested but CUDA is not available")
+    return device
+
+
+def _one_way(cfg: MachineConfig, tile_a, tile_b, kn):
+    """One-way latency and hop count, with the state's latency knobs."""
+    h = topology.hops(cfg, tile_a, tile_b)
+    return h * kn.link_lat + (h + 1) * kn.router_lat, h
+
+
+def _scatter_min(n: int, idx, src):
+    """jnp.full(n, INT32_MAX).at[idx].min(src, mode="drop") with idx == n
+    as the dropped lane: the table has one sentinel slot, sliced off."""
+    t = torch.full((n + 1,), INT32_MAX, dtype=_i32, device=src.device)
+    return t.scatter_reduce_(0, idx.long(), src, "amin")[:n]
+
+
+def _scatter_drop(base, idx, src, reduce: str):
+    """base.at[idx].<reduce>(src, mode="drop") for idx == len(base)."""
+    ext = torch.cat([base, base.new_zeros(1)])
+    if reduce == "set":
+        ext.index_put_((idx.long(),), src.expand(idx.shape).to(_i32))
+    elif reduce == "add":
+        ext.index_add_(0, idx.long(), src.expand(idx.shape).to(_i32))
+    else:
+        ext.scatter_reduce_(0, idx.long(), src, reduce)
+    return ext[: base.shape[0]]
+
+
+def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True):
+    """Advance every core by one step. `events` is the [C, T, 4] int32
+    line-granular trace on the state's device. Updates `st.dirm` IN PLACE
+    (the row scatter-add of the directory deltas; the directory is the
+    largest array of the state) and returns the new state."""
+    C, B = cfg.n_cores, cfg.n_banks
+    S1, W1 = cfg.l1.sets, cfg.l1.ways
+    S2, W2 = cfg.llc.sets, cfg.llc.ways
+    NW, MW, DW = cfg.n_sharer_words, llc_meta_width(cfg), dirm_width(cfg)
+    NS = B * S2  # directory rows
+    T = events.shape[1]
+    n_tiles = cfg.n_tiles
+    dev = events.device
+    arange_c = torch.arange(C, dtype=_i32, device=dev)
+    rows_c = arange_c.long()
+    kn = st.knobs
+    Q, cpi, l1_lat, llc_lat = kn.quantum, kn.cpi, kn.l1_lat, kn.llc_lat
+    acc: dict[str, torch.Tensor] = {}  # counter deltas, folded by commit_step
+
+    def cadd(name, amount):
+        a = amount.to(_i32)
+        acc[name] = acc[name] + a if name in acc else a
+
+    # ---- phase 0: quantum barrier (on step-entry state)
+    rl = cfg.local_run_len
+    if rl:
+        ioff = torch.arange(rl + 1, dtype=_i32, device=dev)
+        pidx = (st.ptr[:, None] + ioff[None, :]).clamp(max=T - 1)
+        pev = events[rows_c[:, None], pidx.long()]  # [C, rl+1, 4]
+        et0 = pev[:, 0, 0]
+    else:
+        et0 = events[rows_c, st.ptr.clamp(max=T - 1).long(), 0]
+    countable0 = (et0 != EV_END) & ~((et0 == EV_BARRIER) & (st.sync_flag != 0))
+    any_countable = countable0.any()
+    any_active = (countable0 & (st.cycles < st.quantum_end)).any()
+    min_nd = torch.where(countable0, st.cycles, INT32_MAX).amin()
+    bumped = (min_nd // Q + 1) * Q
+    quantum_end = torch.where(any_countable & ~any_active, bumped, st.quantum_end)
+    step_no = st.step
+
+    # ---- phase 0.5: closed-form local runs (DESIGN.md §3)
+    cycles_c, ptr_c = st.cycles, st.ptr
+    l1_c = st.l1
+    FS = W1 * S1
+    logB = B.bit_length() - 1
+    if rl:
+        pline = pev[:, :, 2]
+        ps = pline & (S1 - 1)
+        pcf = (
+            torch.arange(W1, dtype=_i32, device=dev)[None, None, :] * S1
+            + ps[:, :, None]
+        ).reshape(C, (rl + 1) * W1)
+        KW = (rl + 1) * W1
+        pts = l1_c.gather(1, torch.cat([pcf, pcf + FS], 1).long())
+        ptagr = pts[:, :KW].reshape(C, rl + 1, W1)
+        pstater = pts[:, KW:].reshape(C, rl + 1, W1)
+        pslot = (pline & (B - 1)) * S2 + ((pline >> logB) & (S2 - 1))
+        pmrows = st.dirm[pslot.long()]  # [C, rl+1, DW]
+        pmeta = pmrows[:, :, : 2 * W2].reshape(C, rl + 1, W2, 2)
+        pmhas, pmway = first_true(pmeta[..., 0] == pline[:, :, None])
+        pown = take(pmeta[..., 1], pmway)
+        pshw = take(pmrows[:, :, MW:], pmway * NW + (arange_c[:, None] >> 5))
+        pbit = ((pshw >> (arange_c[:, None] & 31)) & 1) != 0
+        plhit, plway = first_true((ptagr == pline[:, :, None]) & (pstater != I))
+        plstate = take(pstater, plway)
+        peff = torch.where(
+            ~(plhit & pmhas),
+            I,
+            torch.where(
+                pown == arange_c[:, None], plstate, torch.where(pbit, S, I)
+            ),
+        )
+        phitcol = plway * S1 + ps
+        etr, eargr, eprer = pev[:, :rl, 0], pev[:, :rl, 1], pev[:, :rl, 3]
+        peffr = peff[:, :rl]
+        is_ins_k = etr == EV_INS
+        r_hit_k = (etr == EV_LD) & (peffr != I)
+        w_hit_k = (etr == EV_ST) & ((peffr == E) | (peffr == M))
+        hit_k = r_hit_k | w_hit_k
+        local_k = (is_ins_k | hit_k).to(_i32)
+        pref = local_k.cummin(1).values != 0  # every earlier candidate local
+        cost_k = torch.where(
+            is_ins_k, eargr * cpi[:, None], eprer * cpi[:, None] + l1_lat
+        )
+        cost_p = torch.where(pref, cost_k, 0)
+        clock_before = cycles_c[:, None] + cost_p.cumsum(1, dtype=_i32) - cost_p
+        retire_k = pref & (clock_before < quantum_end)
+        cycles_c = cycles_c + torch.where(retire_k, cost_k, 0).sum(1, dtype=_i32)
+        ptr_c = ptr_c + retire_k.sum(1, dtype=_i32)
+        cadd("l1_read_hits", (r_hit_k & retire_k).sum(1, dtype=_i32))
+        cadd("l1_write_hits", (w_hit_k & retire_k).sum(1, dtype=_i32))
+        cadd(
+            "instructions",
+            torch.where(
+                retire_k, torch.where(is_ins_k, eargr, eprer + 1), 0
+            ).sum(1, dtype=_i32),
+        )
+        run_patch = (hit_k & retire_k, w_hit_k & retire_k, phitcol[:, :rl])
+    else:
+        run_patch = ()
+
+    # ---- phase 0.9 + 1: the arbitration event and its L1 probe
+    if rl:
+        consumed = (ptr_c - st.ptr).long()
+        ev = pev[rows_c, consumed]  # [C, 4]
+    else:
+        ev = events[rows_c, ptr_c.clamp(max=T - 1).long()]
+    et, earg, eaddr, epre = ev.unbind(1)
+    line = eaddr.contiguous()
+    l1s = line & (S1 - 1)
+    bank = line & (B - 1)
+    slot = bank * S2 + ((line >> logB) & (S2 - 1))
+    meta_rows = st.dirm[slot.long()]  # [C, DW], reused by commit_step
+    w1cols = torch.arange(W1, dtype=_i32, device=dev)[None, :] * S1 + l1s[:, None]
+    ptr_pre = l1_c.gather(1, (w1cols + 3 * FS).long())
+    vrows = st.dirm[(ptr_pre // W2).long()].reshape(C, W1 * DW)
+    tag_rows, lru_rows, weff, shw, vic_shw, pc_lanes = step_kernels.probe_classify(
+        cfg, l1_c, vrows, meta_rows, line, arange_c, step_no, *run_patch
+    )
+    hit_any = pc_lanes[:, PL_HIT_ANY] != 0
+    hit_way = pc_lanes[:, PL_HIT_WAY]
+    hit_state = pc_lanes[:, PL_HIT_STATE]
+
+    not_done = et != EV_END
+    frozen = (et == EV_BARRIER) & (st.sync_flag != 0)
+    active = not_done & ~frozen & (cycles_c < quantum_end)
+    is_ins = active & (et == EV_INS)
+    is_st_ev = et == EV_ST
+    is_mem = active & ((et == EV_LD) | is_st_ev)
+    is_lock = active & (et == EV_LOCK)
+    is_unlock = active & (et == EV_UNLOCK)
+    is_barrier = active & (et == EV_BARRIER)
+
+    llc_has = pc_lanes[:, PL_LLC_HAS] != 0
+    llc_hway = pc_lanes[:, PL_LLC_HWAY]
+    owner = pc_lanes[:, PL_OWNER]
+    other_sharers = pc_lanes[:, PL_OTHER_SH] != 0
+
+    read_hit = is_mem & ~is_st_ev & hit_any
+    write_hit = is_mem & is_st_ev & hit_any & ((hit_state == E) | (hit_state == M))
+    upg = is_mem & is_st_ev & hit_any & (hit_state == S)
+    gets = is_mem & ~is_st_ev & ~hit_any
+    getm = is_mem & is_st_ev & ~hit_any
+
+    # ---- phase 2: read-join coalescing + per-(bank,set) arbitration
+    join_elig = gets & llc_has & (owner == -1) & other_sharers
+    req = (gets & ~join_elig) | getm | upg
+    rel = cycles_c - (quantum_end - Q)  # in [0, Q) for active requesters
+    key = rel * C + arange_c  # orders by (cycles, core id)
+    slot_l = slot.long()
+    table = _scatter_min(NS, torch.where(req, slot, NS), key)
+    slot_busy = table[slot_l] != INT32_MAX
+    join = join_elig & ~slot_busy
+    demoted = join_elig & slot_busy
+    table = torch.minimum(table, _scatter_min(NS, torch.where(demoted, slot, NS), key))
+    req = req | demoted
+    winner = req & (table[slot_l] == key)
+    cadd("retries", req & ~winner)
+
+    # ---- phase 3: directory transition on step-start state
+    ctile = arange_c % n_tiles
+    btile = bank % n_tiles
+    req_lat, req_hops = _one_way(cfg, ctile, btile, kn)
+    rep_lat, rep_hops = _one_way(cfg, btile, ctile, kn)
+    bid = torch.where(et == EV_BARRIER, eaddr, 0)
+    htile = bid % n_tiles
+
+    llc_hit = llc_has & winner
+    llc_miss = winner & ~llc_has
+    has_owner = llc_hit & (owner >= 0) & (owner != arange_c)
+    oclamp = owner.clamp(min=0)
+    po_lat, po_hops = _one_way(cfg, btile, oclamp % n_tiles, kn)
+    gets_w = gets & winner
+    write_w = (getm | upg) & winner
+    gets_probe = gets_w & llc_hit & has_owner
+    gets_shared = gets_w & llc_hit & ~has_owner & other_sharers
+    gets_excl_hit = gets_w & llc_hit & ~has_owner & ~other_sharers
+    write_probe = write_w & llc_hit & has_owner
+
+    vic_tag = pc_lanes[:, PL_VIC_TAG]
+    vic_owner = pc_lanes[:, PL_VIC_OWNER]
+    llc_vway = pc_lanes[:, PL_LLC_VWAY]
+    vic_valid = llc_miss & (vic_tag != -1)
+    inv_row = write_w & llc_hit
+    inv_lat, inv_count, inv_hops, back_count, back_hops = reductions.sharer_reductions(
+        cfg, shw, vic_shw, btile, vic_owner, inv_row, vic_valid, arange_c,
+        kn.link_lat, kn.router_lat,
+    )
+
+    # latency composition (golden order)
+    probe_any = gets_probe | write_probe
+    service = torch.where(
+        winner,
+        llc_lat
+        + torch.where(probe_any, 2 * po_lat, 0)
+        + torch.where(inv_row, inv_lat, 0)
+        + torch.where(llc_miss, kn.dram_lat, 0),
+        llc_lat,
+    )
+    lat = l1_lat + req_lat + service + rep_lat
+    lat_join = l1_lat + req_lat + llc_lat + rep_lat
+    ov = cfg.core.o3_overlap_256
+    if ov:
+        lat = lat - ((lat * ov) >> 8)
+        lat_join = lat_join - ((lat_join * ov) >> 8)
+
+    grant = torch.where(
+        join,
+        S,
+        torch.where(write_w, M, torch.where(gets_probe | gets_shared, S, E)),
+    ).to(_i32)
+
+    # ---- counters for winners + joins
+    wj = winner | join
+    cadd("l1_read_misses", gets_w | join)
+    cadd("l1_write_misses", getm & winner)
+    cadd("upgrades", upg & winner)
+    cadd("llc_hits", llc_hit | join)
+    cadd("llc_misses", llc_miss)
+    cadd("dram_accesses", llc_miss)
+    cadd("llc_writebacks", llc_miss & vic_valid & (vic_owner >= 0))
+    cadd("probes", probe_any)
+    cadd("invalidations", torch.where(inv_row, inv_count, 0) + back_count)
+    cadd(
+        "noc_msgs",
+        torch.where(wj, 2, 0)
+        + torch.where(probe_any, 2, 0)
+        + torch.where(inv_row, 2 * inv_count, 0)
+        + torch.where(llc_miss, 2, 0)
+        + 2 * back_count,
+    )
+    cadd(
+        "noc_hops",
+        torch.where(wj, req_hops + rep_hops, 0)
+        + torch.where(probe_any, 2 * po_hops, 0)
+        + torch.where(inv_row, inv_hops, 0)
+        + back_hops,
+    )
+
+    # ---- phase 4.A: local updates (array writes deferred to commit_step)
+    hit = read_hit | write_hit
+    cadd("l1_read_hits", read_hit)
+    cadd("l1_write_hits", write_hit)
+    mem_ret = hit | wj
+    mem_lat = torch.where(hit, l1_lat, torch.where(join, lat_join, lat))
+    cycles = cycles_c + torch.where(
+        is_ins, earg * cpi, torch.where(mem_ret, epre * cpi + mem_lat, 0)
+    )
+    ptr = ptr_c + (is_ins | mem_ret).to(_i32)
+    cadd(
+        "instructions",
+        torch.where(is_ins, earg, 0) + torch.where(mem_ret, epre + 1, 0),
+    )
+    upg_in_place = upg & winner  # an upgrade is always an L1 hit: in place
+    fill = (winner & ~upg_in_place) | join
+    l1_vway = first_min(torch.where(weff == I, -1, lru_rows))
+    cadd("l1_writebacks", fill & (take(weff, l1_vway) == M))
+    takes_own = write_w | gets_excl_hit | llc_miss
+    NSW = NS * W2
+    jway = slot * W2 + llc_hway
+    jtab = _scatter_min(NSW, torch.where(join, jway, NSW), key)
+    jrep = join & (jtab[jway.clamp(max=NSW - 1).long()] == key)
+    commit_lanes = torch.stack(
+        [
+            line, hit_way, l1_vway, hit, write_hit, upg_in_place, winner,
+            join, llc_hit, torch.where(write_hit, M, grant), slot, llc_hway,
+            llc_vway, jrep, takes_own, gets_probe, gets_shared, oclamp,
+        ],
+        1,
+    ).to(_i32)  # column order = step_kernels CL_* indices
+
+    # ---- phase 2.7: synchronization events (unlocks -> lock grants ->
+    # barrier arrivals -> releases)
+    lock_holder = st.lock_holder
+    barrier_count = st.barrier_count
+    barrier_time = st.barrier_time
+    sync_flag = st.sync_flag
+    if has_sync:
+        L = cfg.lock_slots
+        BS = cfg.barrier_slots
+        lslot = line & (L - 1)
+        lat_rt = req_lat + llc_lat + rep_lat
+        rt_hops = req_hops + rep_hops
+        cycles = cycles + torch.where(is_unlock, epre * cpi + lat_rt, 0)
+        ptr = ptr + is_unlock.to(_i32)
+        cadd("instructions", torch.where(is_unlock, epre + 1, 0))
+        cadd("noc_msgs", torch.where(is_unlock, 2, 0))
+        cadd("noc_hops", torch.where(is_unlock, rt_hops, 0))
+        held = lock_holder[lslot.long()] == arange_c
+        lock_holder = _scatter_drop(
+            lock_holder, torch.where(is_unlock & held, lslot, L),
+            torch.full((), -1, dtype=_i32, device=dev), "set",
+        )
+
+        lkey = (cycles_c - (quantum_end - Q)) * C + arange_c
+        ltable = _scatter_min(L, torch.where(is_lock, lslot, L), lkey)
+        lwin = is_lock & (ltable[lslot.long()] == lkey)
+        holder1 = lock_holder[lslot.long()]
+        lgrant = is_lock & ((holder1 == arange_c) | ((holder1 == -1) & lwin))
+        spin = is_lock & ~lgrant
+        first = is_lock & (st.sync_flag == 0)  # pre charged on the first try
+        cycles = (
+            cycles
+            + torch.where(first, epre * cpi, 0)
+            + torch.where(is_lock, lat_rt, 0)
+        )
+        cadd("instructions", torch.where(first, epre, 0) + lgrant.to(_i32))
+        cadd("lock_acquires", lgrant)
+        cadd("lock_spins", spin)
+        cadd("noc_msgs", torch.where(is_lock, 2, 0))
+        cadd("noc_hops", torch.where(is_lock, rt_hops, 0))
+        lock_holder = _scatter_drop(
+            lock_holder, torch.where(lgrant, lslot, L), arange_c, "set"
+        )
+        sync_flag = torch.where(lgrant, 0, torch.where(spin, 1, sync_flag))
+        ptr = ptr + lgrant.to(_i32)
+
+        barr_lat, barr_hops = _one_way(cfg, ctile, htile, kn)
+        wake_lat, wake_hops = _one_way(cfg, htile, ctile, kn)
+        cycles = cycles + torch.where(is_barrier, epre * cpi + barr_lat, 0)
+        cadd("instructions", torch.where(is_barrier, epre, 0))
+        cadd("barrier_waits", is_barrier)
+        cadd("noc_msgs", is_barrier)
+        cadd("noc_hops", torch.where(is_barrier, barr_hops, 0))
+        sync_flag = torch.where(is_barrier, 1, sync_flag)
+        bslot = torch.where(is_barrier, bid, BS)
+        barrier_count = _scatter_drop(
+            barrier_count, bslot, torch.ones((), dtype=_i32, device=dev), "add"
+        )
+        barrier_time = _scatter_drop(barrier_time, bslot, cycles, "amax")
+
+        bid_l = bid.long()
+        wait_m = (et == EV_BARRIER) & (sync_flag == 1)
+        released = wait_m & (barrier_count[bid_l] >= earg)
+        cycles = torch.where(released, barrier_time[bid_l] + wake_lat, cycles)
+        cadd("instructions", released)
+        cadd("noc_msgs", released)
+        cadd("noc_hops", torch.where(released, wake_hops, 0))
+        sync_flag = torch.where(released, 0, sync_flag)
+        ptr = ptr + released.to(_i32)
+        nrel = _scatter_drop(
+            torch.zeros_like(barrier_count), torch.where(released, bid, BS),
+            torch.ones((), dtype=_i32, device=dev), "add",
+        )
+        barrier_count = barrier_count - nrel
+        drained = barrier_count <= 0
+        barrier_count = torch.where(drained, 0, barrier_count)
+        barrier_time = torch.where(drained, 0, barrier_time)
+
+    # ---- end-of-step commit: every deferred L1 write, the directory row
+    # deltas and the counter fold in one kernel, then the row scatter-add
+    zero = torch.zeros(C, dtype=_i32, device=dev)
+    delta = torch.stack([acc.get(k, zero) for k in COUNTER_NAMES])
+    l1_n, delta_row, counters = step_kernels.commit_step(
+        cfg, l1_c, meta_rows, tag_rows, shw, commit_lanes, arange_c, step_no,
+        st.counters, delta, *run_patch,
+    )
+    # dropped lanes (neither winner nor joiner) add a zero row to row 0
+    st.dirm.index_add_(
+        0, torch.where(wj, slot, 0).long(), torch.where(wj[:, None], delta_row, 0)
+    )
+
+    return st._replace(
+        cycles=cycles,
+        ptr=ptr,
+        l1=l1_n,
+        lock_holder=lock_holder,
+        barrier_count=barrier_count,
+        barrier_time=barrier_time,
+        sync_flag=sync_flag,
+        quantum_end=quantum_end,
+        step=step_no + 1,
+        counters=counters,
+    )
+
+
+def run_chunk(cfg, n_steps: int, events, st: MachineState, has_sync=True):
+    """`n_steps` steps, enqueued back to back."""
+    for _ in range(n_steps):
+        st = step(cfg, events, st, has_sync=has_sync)
+    return st
+
+
+class Engine:
+    """Host runner with the JAX `Engine`'s interface and semantics for a
+    single device: `run`, `run_steps`, `cycles`, `counters`, `steps_run`,
+    `state`, `verify_invariants` and `done`."""
+
+    def __init__(
+        self, cfg: MachineConfig, trace: Trace, chunk_steps: int = 256,
+        device=None,
+    ):
+        check_port_supported(cfg)
+        self.device = resolve_device(device)
+        if trace.n_cores != cfg.n_cores:
+            raise ValueError(
+                f"trace has {trace.n_cores} cores but config has {cfg.n_cores}"
+            )
+        self.cfg = cfg
+        self.trace = trace
+        validate_sync(trace, cfg.barrier_slots)
+        t = trace.events[:, :, 0]
+        self.has_sync = bool(
+            ((t == EV_LOCK) | (t == EV_UNLOCK) | (t == EV_BARRIER)).any()
+        )
+        # the per-chunk counter increments must stay below 2^_ACC_BITS: the
+        # largest per-step increment is the instructions counter, at most
+        # (local_run_len + 1) events of max(arg, pre + 1) instructions each
+        ev = trace.events
+        per_ev = max(
+            1, int(ev[:, :, 1].max(initial=0)), int(ev[:, :, 3].max(initial=0)) + 1
+        )
+        per_step = (cfg.local_run_len + 1) * per_ev
+        if chunk_steps * per_step >= 1 << _ACC_BITS:
+            raise ValueError(
+                f"chunk_steps={chunk_steps} x max per-step instruction "
+                f"increment {per_step} overflows the 2^{_ACC_BITS} "
+                "per-chunk counter accumulator; lower chunk_steps or split "
+                "large INS batches"
+            )
+        self.events = torch.from_numpy(
+            np.ascontiguousarray(trace.line_events(cfg.line_bits), np.int32)
+        ).to(self.device)
+        self.state = init_state(cfg, self.device)
+        self.chunk_steps = chunk_steps
+        self.cycle_base = 0
+        self.host_counters = zero_counters(cfg.n_cores)
+        self.steps_run = 0
+
+    def _not_done(self, st: MachineState):
+        T = self.events.shape[1]
+        rows = torch.arange(self.cfg.n_cores, device=self.device)
+        return self.events[rows, st.ptr.clamp(max=T - 1).long(), 0] != EV_END
+
+    def _chunk(self) -> bool:
+        """One chunk, then the drain and the rebase by whole quanta (the JAX
+        package's `_drain_and_rebase`), with ONE host transfer for the
+        counters, the rebase delta and the done flag. Returns done."""
+        st = run_chunk(
+            self.cfg, self.chunk_steps, self.events, self.state, self.has_sync
+        )
+        nd = self._not_done(st)
+        Q = st.knobs.quantum
+        m = torch.where(nd, st.cycles, INT32_MAX).amin()
+        delta = torch.where(nd.any(), (m // Q) * Q, 0)
+        self.state = st._replace(
+            cycles=st.cycles - delta,
+            quantum_end=st.quantum_end - delta,
+            barrier_time=torch.where(
+                st.barrier_count > 0, st.barrier_time - delta, st.barrier_time
+            ),
+            counters=torch.zeros_like(st.counters),
+        )
+        host = torch.cat(
+            [st.counters.flatten(), delta.view(1), (~nd.any()).to(_i32).view(1)]
+        ).cpu().numpy()
+        cnt = host[:-2].reshape(len(COUNTER_NAMES), -1)
+        for i, k in enumerate(COUNTER_NAMES):
+            self.host_counters[k] += cnt[i].astype(np.int64)
+        self.cycle_base += int(host[-2])
+        self.steps_run += self.chunk_steps
+        return bool(host[-1])
+
+    def run(self, max_steps: int = 10_000_000) -> None:
+        """Run to completion; `max_steps` is a deadlock guard rounded up to
+        whole chunks."""
+        max_chunks = -(-max_steps // self.chunk_steps)
+        done = self.done()
+        k = 0
+        while k < max_chunks and not done:
+            done = self._chunk()
+            k += 1
+        if not done:
+            raise RuntimeError("engine: max_steps exceeded (deadlock?)")
+
+    def run_steps(self, n_steps: int) -> None:
+        """Advance `n_steps` (rounded up to whole chunks) without the
+        completion check."""
+        target = self.steps_run + n_steps
+        done = self.done()
+        while self.steps_run < target and not done:
+            done = self._chunk()
+
+    def done_mask(self) -> np.ndarray:
+        """[C] bool: cores whose trace pointer sits on END."""
+        return ~self._not_done(self.state).cpu().numpy()
+
+    def done(self) -> bool:
+        return bool(self.done_mask().all())
+
+    def verify_invariants(self) -> None:
+        """Check the DESIGN.md §5 machine invariants on the current state
+        (host side; raises AssertionError naming the violation)."""
+        from .validate import check_invariants
+
+        check_invariants(self.cfg, self.state, done_mask=self.done_mask())
+
+    @property
+    def cycles(self) -> np.ndarray:
+        return self.state.cycles.cpu().numpy().astype(np.int64) + self.cycle_base
+
+    @property
+    def counters(self) -> dict[str, np.ndarray]:
+        cnt = self.state.counters.cpu().numpy()
+        for i, k in enumerate(COUNTER_NAMES):
+            self.host_counters[k] += cnt[i].astype(np.int64)
+        self.state = self.state._replace(
+            counters=torch.zeros_like(self.state.counters)
+        )
+        return self.host_counters
