@@ -11,39 +11,50 @@ the final line:
 2. build     -- compiles the kernels in primesim_tpu_torch/csrc/ with
                 nvcc (one process per source, in parallel).
 3. kernels   -- each kernel against its plain PyTorch version on the card,
-                exactly (integer simulator: tolerance 0), on random inputs
-                at the headline shapes with sharer words using bit 31.
+                exactly (integer simulator: tolerance 0), on random inputs:
+                the three step kernels at the headline shapes with sharer
+                words using bit 31, router_cascade at rung 3's (1024
+                cores, 62 hops) with and without the barrier-arrival leg,
+                about half the hops masked and link clocks at the clamp.
 4. rung1     -- configs/rung1_64core_fft.json on fft_like(64, n_phases=2,
-                points_per_core=32, seed=7), a trace with barriers: the
-                card's run launches every kernel once per step, equals
-                the port's CPU run in every state field and equals the
-                committed JAX reference fixture.
-5. capture   -- the kernel inputs that the headline run stages at steps 1
-                and 300; each kernel against its plain version on them.
-                Each kernel is then timed alone on
-                step 300's inputs (converted beforehand, so that the
-                wrapper launches the one kernel and nothing else, which
-                phase 7 confirms) with CUDA events: median of 25 after
-                warm-up, each launch queued behind a device sleep so host
-                overhead does not count.
-6. headline  -- the main path: 1024 cores / 1024 banks, 32x32 mesh, the
-                folded fft_like(1024, 4 phases, 256 points, seed 42) trace,
-                chunk_steps=512, run to completion through Engine.run with
-                the launch counters set to 0 just before. Every kernel must
-                have launched once per step, the instruction count must
-                equal the trace's, the results must equal the JAX
-                package's recorded headline run, and the final state must
-                pass the machine invariants. The port's CPU path then runs
-                the same machine and trace: the card's run must equal it
-                in per-core cycles, all 26 counters and every state field.
-7. profile   -- torch.profiler over one 64-step chunk of the headline run
-                from a mid-run state: device busy time, device events per
-                step, the device time by kernel name and each hand-written
-                kernel's mean device time per launch (the profiler adds
-                host overhead, so the window is not a speed figure).
-                Before the window, one wrapper call per kernel on the
-                inputs phase 5 timed, each of which must run its kernel
-                alone.
+                points_per_core=32, seed=7): the card's run launches each
+                of its kernels once per step, equals the port's CPU run in
+                every state field and equals the committed JAX fixture.
+5. capture   -- the first 512 steps (one chunk) of the headline machine
+                and of rung 3 on the card, each equal to the port's CPU run
+                of them in per-core cycles, all 26 counters and every state
+                field. Meanwhile the kernel inputs staged at steps 1 and 300
+                (headline) and 1 and 500 (rung 3's router_cascade) are kept;
+                each kernel equals its plain version on them. Each kernel
+                is then timed alone on the later step's inputs (converted
+                beforehand, so that the wrapper launches the one kernel and
+                nothing else, which phase 8 confirms) with CUDA events:
+                median of 25 after warm-up, each launch queued behind a
+                device sleep so host overhead does not count.
+6. headline  -- the first main path: 1024 cores / 1024 banks, 32x32 mesh,
+                the folded fft_like(1024, 4 phases, 256 points, seed 42)
+                trace, chunk_steps=512, run to completion through
+                Engine.run with the launch counts set to 0 just before.
+                Each of its three kernels must have launched once per step
+                (router_cascade never), the instruction count must equal
+                the trace's, the digest of the run (steps, per-core cycles,
+                all 26 counters, final link and controller clocks) must
+                equal the JAX package's committed one
+                (primesim_tpu_torch/fixtures/headline.json), and the final
+                state must pass the machine invariants.
+7. rung3     -- the second main path: the shipped
+                configs/rung3_1024core_o3.json (router NoC, DRAM queue, O3)
+                on the same trace, likewise: all four kernels once per
+                step, instructions, the digest against
+                fixtures/rung3_headline.json, invariants.
+8. profile   -- first, under torch.profiler, one wrapper call per kernel
+                on the inputs phase 5 timed, each of which must run its
+                kernel alone. Then one 64-step chunk of each main path
+                from a mid-run state (steps 256-319): device busy time,
+                device events per step, the device time by kernel name and
+                each hand-written kernel's mean device time per launch
+                (the profiler adds host overhead, so the window is not a
+                speed figure).
 
 Then the kernel summary line and, last, the result line
 {"ok": true, "device": {...}}.
@@ -66,10 +77,6 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 # (67 TFLOP/s); int32 issues at no more than that, so the bound stays a
 # lower bound on time.
 INT_OPS_PER_S = 67e12
-# The JAX package's own run of the headline machine and trace
-# (BENCH_r05.json "detail"): simulation results, not timings.
-HEADLINE_REF = {"steps": 1536, "instructions": 21163720,
-                "max_core_cycles": 118141, "noc_msgs": 1093900}
 KERNEL_META = {
     "probe_classify": ("primesim_tpu_torch/csrc/probe_classify.cu",
                        "primesim_tpu/kernels/step_kernels.py:258"),
@@ -77,7 +84,13 @@ KERNEL_META = {
                     "primesim_tpu/kernels/step_kernels.py:475"),
     "sharer_reductions": ("primesim_tpu_torch/csrc/sharer_reductions.cu",
                           "primesim_tpu/kernels/reductions.py:103"),
+    "router_cascade": ("primesim_tpu_torch/csrc/router_cascade.cu",
+                       "primesim_tpu/kernels/router_kernels.py:103"),
 }
+STEP_KERNELS = ("probe_classify", "commit_step", "sharer_reductions")
+RUNG3_STAGED = ("router_cascade",)  # staged from rung 3, the rest from the headline
+CHECK_STEPS = 512  # steps of each main path that the CPU run repeats
+CAPTURE = {"headline": (1, 300), "rung3": (1, 500)}
 
 
 def emit(obj) -> None:
@@ -87,16 +100,6 @@ def emit(obj) -> None:
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
-
-
-def headline_config(MachineConfig, CacheConfig, NocConfig):
-    return MachineConfig(
-        n_cores=1024, n_banks=1024,
-        l1=CacheConfig(size=32 * 1024, ways=4, line=64, latency=2),
-        llc=CacheConfig(size=256 * 1024, ways=8, line=64, latency=10),
-        noc=NocConfig(mesh_x=32, mesh_y=32, link_lat=1, router_lat=1),
-        dram_lat=100, quantum=1000, local_run_len=8,
-    )
 
 
 def main() -> int:
@@ -111,26 +114,32 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     from primesim_tpu_torch import convert
-    from primesim_tpu_torch.config.machine import CacheConfig, MachineConfig, NocConfig
-    from primesim_tpu_torch.kernels import build, reductions, step_kernels
+    from primesim_tpu_torch.config.machine import MachineConfig
+    from primesim_tpu_torch.kernels import build, reductions, router_kernels, step_kernels
     from primesim_tpu_torch.sim.engine import Engine
     from primesim_tpu_torch.sim.state import dirm_width, llc_meta_width
+    from primesim_tpu_torch.stats.digest import run_digest
     from primesim_tpu_torch.trace import synth
     from primesim_tpu_torch.trace.format import fold_ins
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     dev = torch.device("cuda")
-    wrappers = {
-        "probe_classify": step_kernels.probe_classify,
-        "commit_step": step_kernels.commit_step,
-        "sharer_reductions": reductions.sharer_reductions,
-    }
-    plains = {
-        "probe_classify": step_kernels.probe_classify_plain,
-        "commit_step": step_kernels.commit_step_plain,
-        "sharer_reductions": reductions.sharer_reductions_plain,
-    }
+    mods = {"probe_classify": step_kernels, "commit_step": step_kernels,
+            "sharer_reductions": reductions, "router_cascade": router_kernels}
+    wrappers = {k: getattr(m, k) for k, m in mods.items()}
+    plains = {k: getattr(m, f"{k}_plain") for k, m in mods.items()}
+
+    def fixture(name):
+        """A committed JAX reference: its machine, trace and record."""
+        with open(os.path.join(ROOT, "primesim_tpu_torch", "fixtures", f"{name}.json")) as f:
+            fx = json.load(f)
+        spec = fx["config"]
+        if isinstance(spec, str):
+            with open(os.path.join(ROOT, spec)) as f:
+                spec = json.load(f)
+        tr = synth.GENERATORS[fx["trace"]["generator"]](**fx["trace"]["args"])
+        return fx, MachineConfig.from_dict(spec), fold_ins(tr) if fx["trace"].get("fold") else tr
 
     # ---- 1. device
     smi = subprocess.run(
@@ -151,12 +160,21 @@ def main() -> int:
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "ptxas": {k: build.ptxas_report(k) for k in build.KERNELS}})
 
-    cfg = headline_config(MachineConfig, CacheConfig, NocConfig)
+    hfx, cfg, trace = fixture("headline")
+    r3fx, cfg3, trace3 = fixture("rung3_headline")
+    if trace3.events.tobytes() != trace.events.tobytes():
+        fail("rung 3's fixture names another trace than the headline's")
     C, S1, W1 = cfg.n_cores, cfg.l1.sets, cfg.l1.ways
     W2, NW = cfg.llc.ways, cfg.n_sharer_words
     MW, DW, FS = llc_meta_width(cfg), dirm_width(cfg), W1 * S1
     NS, rl = cfg.n_banks * cfg.llc.sets, cfg.local_run_len
+    H3 = (cfg3.noc.mesh_x - 1) + (cfg3.noc.mesh_y - 1)
     max_err = {k: 0 for k in wrappers}
+
+    def call(fn, name, args, kw=None):
+        """A wrapper or plain version on staged arguments (the step
+        kernels take the headline machine's config first)."""
+        return fn(cfg, *args, **(kw or {})) if name in STEP_KERNELS else fn(*args, **(kw or {}))
 
     def same_run(phase, gpu, cpu):
         """Fail unless two engines agree in steps, per-core cycles, every
@@ -178,22 +196,24 @@ def main() -> int:
     def reset_launches():
         build.LAUNCHES.update(dict.fromkeys(build.LAUNCHES, 0))
 
-    def compare(name, args):
+    def compare(name, args, kw=None):
         """The kernel (through its wrapper) against the plain version on
-        the same card tensors; returns the max absolute difference."""
-        got = wrappers[name](cfg, *args)
-        want = plains[name](cfg, *args)
+        the same card tensors; returns the kernel's outputs."""
+        got = call(wrappers[name], name, args, kw)
+        want = call(plains[name], name, args, kw)
         torch.cuda.synchronize()
-        err = max(
-            int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
-            for g, w in zip(got, want)
-        )
+        err = 0
+        for g, w in zip(got, want):
+            if (g is None) != (w is None):
+                fail(f"{name}: the kernel and its plain version return different outputs")
+            if g is not None:
+                err = max(err, int((g.to(torch.int64) - w.to(torch.int64)).abs().max()))
         max_err[name] = max(max_err[name], err)
         if err != 0:
             fail(f"{name}: kernel differs from its plain version by {err}")
         return got
 
-    # ---- 3. kernels on random inputs at the headline shapes
+    # ---- 3. kernels on random inputs at the main paths' shapes
     rng = np.random.default_rng(2026)
 
     def cu(a):
@@ -254,9 +274,25 @@ def main() -> int:
         torch.tensor(1, dtype=torch.int32, device=dev),
         torch.tensor(1, dtype=torch.int32, device=dev),
     ])
+    for has_sync in (False, True):
+        LT = (3 if has_sync else 2) * H3
+        ok = rng.random((C, LT)) < 0.5
+        lf = np.where(rng.random((C, LT)) < 0.3,
+                      -(1 << 30) + rng.integers(0, 50, (C, LT)),  # at the clamp
+                      rng.integers(-2000, 900_000, (C, LT)))
+        bs = np.where(ok, rng.integers(-500, 900_000, (C, LT)), 2**31 - 1)
+        hops = [cu(rng.integers(0, H3 + 1, C)) for _ in range(3)]
+        compare("router_cascade", [
+            cu(lf), cu(bs), cu(rng.integers(0, 60, (C, LT))),
+            torch.from_numpy(ok).to(dev), cu(rng.integers(0, 900_000, C)),
+            cu(rng.integers(12, 600, C)), hops[0], hops[1],
+            hops[2] if has_sync else None,
+            torch.tensor(1, dtype=torch.int32, device=dev),
+            torch.tensor(1, dtype=torch.int32, device=dev),
+        ], {"has_sync": has_sync})
     emit({"phase": "kernels", "inputs": "random", "shapes": {
         "C": C, "W1": W1, "S1": S1, "W2": W2, "NW": NW, "MW": MW, "DW": DW,
-        "rl": rl}, "max_abs_err": max_err})
+        "rl": rl, "router_hops": H3, "router_legs": [2, 3]}, "max_abs_err": max_err})
 
     # ---- 4. rung 1: card == CPU == JAX fixture
     with open(os.path.join(ROOT, "primesim_tpu_torch", "fixtures",
@@ -277,7 +313,7 @@ def main() -> int:
         runs[d] = e
     gpu, cpu = runs["cuda"], runs["cpu"]
     for k, n in r1_launches.items():
-        if n != gpu.steps_run:
+        if n != (gpu.steps_run if k in STEP_KERNELS else 0):
             fail(f"rung1: {k} launched {n} times in {gpu.steps_run} steps")
     gs = same_run("rung1", gpu, cpu)
     gpu.verify_invariants()
@@ -296,65 +332,73 @@ def main() -> int:
     emit({"phase": "rung1", "steps": gpu.steps_run, "launches": r1_launches,
           "card_equals_cpu": True, "equals_jax_fixture": True,
           "instructions": int(gc["instructions"].sum())})
+    del runs, gpu, cpu
 
-    # ---- 5. capture: the headline run's staged kernel inputs at one step
-    trace = fold_ins(synth.fft_like(C, n_phases=4, points_per_core=256,
-                                    ins_per_mem=8, seed=42))
-    # step 1 (cold caches) and step 300 (mid-run: shared lines, evictions);
-    # the kernels are timed on step 300's inputs
-    CAPTURE_STEPS = (1, 300)
-    CAPTURE_STEP = CAPTURE_STEPS[-1]
+    # ---- 5. capture: the first chunk of each main path, card == CPU, and
+    # the kernel inputs it stages
     staged = {k: {} for k in wrappers}
 
-    def recorder(name):
+    def recorder(name, steps):
         real = wrappers[name]
         calls = [0]
 
-        def rec(*args):
-            if calls[0] in CAPTURE_STEPS:
-                staged[name][calls[0]] = [a.clone() if torch.is_tensor(a) else a
-                                          for a in args[1:]]
+        def rec(*args, **kw):
+            if calls[0] in steps:
+                a = args[1:] if name in STEP_KERNELS else args
+                staged[name][calls[0]] = (
+                    [x.clone() if torch.is_tensor(x) else x for x in a], kw)
             calls[0] += 1
-            return real(*args)
+            return real(*args, **kw)
         return rec
 
-    mods = {"probe_classify": step_kernels, "commit_step": step_kernels,
-            "sharer_reductions": reductions}
-    for k, m in mods.items():
-        setattr(m, k, recorder(k))
-    try:
-        cap = Engine(cfg, trace, chunk_steps=CAPTURE_STEP + 1, device=dev)
-        cap.run_steps(CAPTURE_STEP + 1)
-    finally:
-        for k, m in mods.items():
-            setattr(m, k, wrappers[k])
-    for k in wrappers:
-        if set(staged[k]) != set(CAPTURE_STEPS):
-            fail(f"capture: {k} staged inputs of steps {sorted(staged[k])} only")
-        for args in staged[k].values():
-            compare(k, args)
-    del cap
+    check_s = {}
+    for path, pcfg, ptr, names in (("headline", cfg, trace, STEP_KERNELS),
+                                   ("rung3", cfg3, trace3, RUNG3_STAGED)):
+        for k in names:
+            setattr(mods[k], k, recorder(k, CAPTURE[path]))
+        try:
+            gpu = Engine(pcfg, ptr, chunk_steps=CHECK_STEPS, device=dev)
+            gpu.run_steps(CHECK_STEPS)
+        finally:
+            for k in names:
+                setattr(mods[k], k, wrappers[k])
+        t0 = time.perf_counter()
+        cpu = Engine(pcfg, ptr, chunk_steps=CHECK_STEPS, device="cpu")
+        cpu.run_steps(CHECK_STEPS)
+        check_s[path] = time.perf_counter() - t0
+        same_run(f"capture {path}", gpu, cpu)
+        del gpu, cpu
+        for k in names:
+            if set(staged[k]) != set(CAPTURE[path]):
+                fail(f"capture: {k} staged inputs of steps {sorted(staged[k])} only")
+            for args, kw in staged[k].values():
+                compare(k, args, kw)
 
     def as_i32(args):
-        """Bool lanes as int32, so that the wrapper casts nothing."""
+        """Bool lanes as int32, so that the step kernels' wrappers cast
+        nothing (router_cascade reads its bool mask as it is)."""
         return [a.to(torch.int32) if torch.is_tensor(a) and a.dtype != torch.int32
                 else a for a in args]
 
-    captured = {k: as_i32(staged[k][CAPTURE_STEP]) for k in wrappers}
+    timed_step = {k: CAPTURE["rung3" if k in RUNG3_STAGED else "headline"][-1]
+                  for k in wrappers}
+    captured = {}
     for k in wrappers:
-        compare(k, captured[k])
+        args, kw = staged[k][timed_step[k]]
+        captured[k] = (as_i32(args) if k in STEP_KERNELS else args, kw)
+        compare(k, *captured[k])
 
-    def device_ms(fn, args, sleep_cycles):
-        """Median device time of fn(cfg, *args) over 25 launches, each
-        queued behind a device sleep so the host's enqueue is hidden."""
+    def device_ms(fn, sleep_cycles):
+        """Median device time of fn() over 25 launches, each queued behind
+        a device sleep so the host's enqueue is hidden."""
         for _ in range(3):
-            fn(cfg, *args)
+            fn()
         times = []
         for _ in range(25):
             s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             torch.cuda._sleep(sleep_cycles)
             s.record()
-            fn(cfg, *args)
+            fn()
             e.record()
             torch.cuda.synchronize()
             times.append(s.elapsed_time(e))
@@ -362,9 +406,10 @@ def main() -> int:
 
     timing = {}
     for k in wrappers:
+        args, kw = captured[k]
         timing[k] = {
-            "ms": device_ms(wrappers[k], captured[k], 4_000_000),
-            "plain_ms": device_ms(plains[k], captured[k], 100_000_000),
+            "ms": device_ms(lambda: call(wrappers[k], k, args, kw), 4_000_000),
+            "plain_ms": device_ms(lambda: call(plains[k], k, args, kw), 100_000_000),
         }
 
     def nbytes(*ts):
@@ -372,14 +417,14 @@ def main() -> int:
 
     # the bytes each function needs on this step's inputs, as the main path
     # stages them: every word it reads, once, and every output word, once
-    a = staged["probe_classify"][CAPTURE_STEP]  # l1 vrows mrows line cid step hm wm cm
+    a = staged["probe_classify"][300][0]  # l1 vrows mrows line cid step hm wm cm
     probe_bytes = (4 * C * (4 * W1  # tag, state, LRU, pointer: the accessed set's ways
                             + 3 * W1  # tag, owner, own sharer word at each way's pointer
                             + 2 * W2 + 2  # home row: its tags and LRUs, two owners
                             + 2 * NW)  # the hit and victim ways' sharer words
                    + nbytes(*a[3:])  # line, cid, step, run patch
                    + 4 * C * (3 * W1 + 2 * NW + step_kernels.PROBE_LANES))  # out
-    a = staged["commit_step"][CAPTURE_STEP]  # l1 mrows tag_rows shw lanes cid step counters delta hm wm cm
+    a = staged["commit_step"][300][0]  # l1 mrows tag_rows shw lanes cid step counters delta hm wm cm
     win = a[4][:, step_kernels.CL_WINNER] != 0
     n_win = int(win.sum())
     n_join = int(((a[4][:, step_kernels.CL_JOIN] != 0) & ~win).sum())
@@ -389,7 +434,7 @@ def main() -> int:
                     + 4 * (n_win + n_join) * NW  # their shw
                     + nbytes(a[2], *a[4:])  # tag rows, lanes, cid, step, counters, delta, patch
                     + 4 * C * DW + nbytes(a[7]))  # delta_row and counters out
-    a = staged["sharer_reductions"][CAPTURE_STEP]  # shw vic_shw btile vic_owner inv_row vic_valid cid link router
+    a = staged["sharer_reductions"][300][0]  # shw vic_shw btile vic_owner inv_row vic_valid cid link router
     irow, vv = a[4] != 0, a[5] != 0
     n_inv, n_vic = int(irow.sum()), int(vv.sum())
     active_rows = int((irow | vv).sum())
@@ -398,6 +443,15 @@ def main() -> int:
                  + 4 * NW * (n_inv + n_vic)  # the sharer words those rows expand
                  + 4 * 5 * C)  # the five outputs
     red_ops = active_rows * min(32 * NW, C) * 30  # ~30 integer ops per target
+    a, kw = staged["router_cascade"][CAPTURE["rung3"][-1]]  # lf bs r ok t0 service hops x3 link router
+    legs = 3 if kw["has_sync"] else 2
+    n_ok = int(a[3].sum())
+    cas_bytes = (a[3].numel()  # every hop's mask byte
+                 + 4 * 3 * n_ok  # link clock, base and rank of the live hops
+                 + 4 * C * (2 + legs) + 8  # t0, service, each leg's hops, two latencies
+                 + 4 * C * (legs - 1)  # the reply (and arrival) leg's end out
+                 + 4 * n_ok)  # the live hops' departures (masked ones are dropped)
+    cas_ops = a[3].numel() * 11  # floor 4, offset 2, running max 1, departure 4 per hop
     bounds = {
         "probe_classify": (probe_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
         "commit_step": (commit_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
@@ -405,116 +459,142 @@ def main() -> int:
             (red_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
             (red_ops / INT_OPS_PER_S * 1e3, "operations"),
         ),
+        "router_cascade": max(
+            (cas_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+            (cas_ops / INT_OPS_PER_S * 1e3, "operations"),
+        ),
     }
-    emit({"phase": "capture", "steps": CAPTURE_STEPS, "timed_step": CAPTURE_STEP,
-          "max_abs_err": max_err,
-          "timing_ms": timing, "bytes": {"probe_classify": probe_bytes,
-          "commit_step": commit_bytes, "sharer_reductions": red_bytes},
+    emit({"phase": "capture", "steps": CAPTURE, "timed_step": timed_step,
+          "card_equals_cpu_steps": CHECK_STEPS, "cpu_s": check_s,
+          "max_abs_err": max_err, "timing_ms": timing,
+          "bytes": {"probe_classify": probe_bytes, "commit_step": commit_bytes,
+                    "sharer_reductions": red_bytes, "router_cascade": cas_bytes},
           "commit_winners": n_win, "commit_joiners": n_join,
           "sharer_rows": {"active": active_rows, "invalidating": n_inv,
-                          "evicting": n_vic}})
-
-    # ---- 6. headline: the main path
-    eng = Engine(cfg, trace, chunk_steps=512, device=dev)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    t0 = time.perf_counter()
-    eng.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(build.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
-    cyc, cnt = eng.cycles, eng.counters
-    ins = int(cnt["instructions"].sum())
-    got_ref = {"steps": eng.steps_run, "instructions": ins,
-               "max_core_cycles": int(cyc.max()),
-               "noc_msgs": int(cnt["noc_msgs"].sum())}
-    h = hashlib.sha256(cyc.astype(np.int64).tobytes())
-    for k in sorted(cnt):
-        h.update(cnt[k].astype(np.int64).tobytes())
-    emit({"phase": "headline", "steps": eng.steps_run, "wall_s": wall,
-          "simulated_mips": ins / wall / 1e6,
-          "peak_memory_bytes": peak, "launches": launches,
-          "cycles_counters_sha256": h.hexdigest(), "result": got_ref,
-          "jax_reference": HEADLINE_REF, "gpu": smi_line})
-    for k, n in launches.items():
-        if n <= 0 or n != eng.steps_run:
-            fail(f"headline: {k} launched {n} times in {eng.steps_run} steps")
-    if ins != trace.total_instructions():
-        fail(f"headline: {ins} instructions retired, trace has {trace.total_instructions()}")
-    if got_ref != HEADLINE_REF:
-        fail(f"headline: {got_ref} != the JAX package's {HEADLINE_REF}")
-    if not eng.done():
-        fail("headline: not every core reached END")
-    eng.verify_invariants()
-    t0 = time.perf_counter()
-    ref = Engine(cfg, trace, chunk_steps=512, device="cpu")
-    ref.run()
-    cpu_s = time.perf_counter() - t0
-    same_run("headline", eng, ref)
-    emit({"phase": "headline_cpu", "steps": ref.steps_run, "wall_s": cpu_s,
-          "card_equals_cpu": True})
-    del ref
-
-    # ---- 7. profile: where the time of one headline chunk goes
-    del eng
-    prof_eng = Engine(cfg, trace, chunk_steps=64, device=dev)
-    prof_eng.run_steps(256)  # mid-run state, as the headline meets it
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        # first what phase 5 timed: one wrapper call per kernel on the
-        # converted inputs, then a fill that marks where they end
-        for k in wrappers:
-            wrappers[k](cfg, *captured[k])
-            torch.cuda.synchronize()
-        torch.full((1,), 7, dtype=torch.int32, device=dev)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        prof_eng.run_steps(64)
-        torch.cuda.synchronize()
-        window_s = time.perf_counter() - t0
-    dev_ev = sorted(
-        (e.time_range.start, e.time_range.end, e.name)
-        for e in prof.events() if e.device_type == DeviceType.CUDA
-    )
-    timed = [n for _, _, n in dev_ev[: len(wrappers) + 1]]
-    marks = [f"{k}_kernel" for k in wrappers] + ["FillFunctor"]
-    if len(timed) != len(marks) or not all(m in n for m, n in zip(marks, timed)):
-        fail(f"profile: the timed calls ran {timed}, not each kernel alone")
-    dev_ev = dev_ev[len(marks):]  # the 64-step window
-    busy_us, end = 0.0, None
-    for a, b, _ in dev_ev:  # union of device intervals
-        if end is None or a > end:
-            busy_us += b - a
-            end = b
-        elif b > end:
-            busy_us += b - end
-            end = b
-    by_name: dict[str, list] = {}
-    for a, b, n in dev_ev:
-        t = by_name.setdefault(n, [0.0, 0])
-        t[0] += b - a
-        t[1] += 1
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    kernel_us = {}
-    for k in wrappers:
-        hits = [tc for n, tc in by_name.items() if f"{k}_kernel" in n]
-        if len(hits) != 1 or hits[0][1] != 64:
-            fail(f"profile: {k}'s kernel shows as {hits} in 64 steps")
-        kernel_us[k] = hits[0][0] / hits[0][1]
-    emit({"phase": "profile", "steps": 64, "window_s": window_s,
-          "device_events": len(dev_ev),
-          "device_events_per_step": len(dev_ev) / 64,
-          "device_busy_us": busy_us,
-          "device_busy_share_of_window": (busy_us * 1e-6 / window_s) if dev_ev else None,
-          "top_device_us": [[n[:80], t, c] for n, (t, c) in top],
-          "kernel_us_per_launch": kernel_us,
+                          "evicting": n_vic},
+          "router_hops": {"legs": legs, "live": n_ok, "all": a[3].numel()},
           "gpu": smi_line})
+
+    # ---- 6./7. the main paths, each with the counts set to 0 just before
+    launches = {}
+    for path, pcfg, fx, ran in (("headline", cfg, hfx, STEP_KERNELS),
+                                ("rung3", cfg3, r3fx, tuple(wrappers))):
+        eng = Engine(pcfg, trace, chunk_steps=fx["chunk_steps"], device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[path] = dict(build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        got = run_digest(eng.steps_run, eng.cycles, eng.counters,
+                         eng.state.link_free.cpu().numpy(),
+                         eng.state.dram_free.cpu().numpy())
+        ins = got["instructions"]
+        sums = got["counter_sums"]
+        emit({"phase": path, "steps": eng.steps_run, "wall_s": wall,
+              "simulated_mips": ins / wall / 1e6, "peak_memory_bytes": peak,
+              "launches": launches[path], "instructions": ins,
+              "max_core_cycles": got["max_core_cycles"],
+              "noc_msgs": sums["noc_msgs"],
+              "noc_contention_cycles": sums["noc_contention_cycles"],
+              "dram_queue_cycles": sums["dram_queue_cycles"],
+              "digest": {k: v for k, v in got.items() if k.endswith("sha256")},
+              "equals_jax_digest": got == fx["digest"], "gpu": smi_line})
+        for k, n in launches[path].items():
+            if n != (eng.steps_run if k in ran else 0):
+                fail(f"{path}: {k} launched {n} times in {eng.steps_run} steps")
+        if ins != trace.total_instructions():
+            fail(f"{path}: {ins} instructions retired, trace has {trace.total_instructions()}")
+        for k, want in fx["digest"].items():
+            if got[k] != want:
+                fail(f"{path}: {k} {got[k]} != the JAX package's {want}")
+        if not eng.done():
+            fail(f"{path}: not every core reached END")
+        eng.verify_invariants()
+        del eng
+
+    # ---- 8. profile: where the time of one chunk of each path goes
+    def device_events(fn):
+        """(device events of fn() as sorted (start, end, name), fn's wall
+        seconds) under torch.profiler. A random fill, which the simulator
+        never makes, marks where fn begins: the trace may still hold
+        kernels that ran before the profile did."""
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.2)  # let the tracer settle before the marker
+            torch.randn(1, device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        evs = list(prof.events())
+        begin = min(e.time_range.start for e in evs
+                    if e.device_type == DeviceType.CPU and e.name == "aten::randn")
+        dev_ev = sorted(
+            (e.time_range.start, e.time_range.end, e.name) for e in evs
+            if e.device_type == DeviceType.CUDA and e.time_range.start >= begin
+        )
+        if dev_ev and "normal" in dev_ev[0][2]:
+            dev_ev = dev_ev[1:]  # the marker's own kernel
+        return dev_ev, wall_s
+
+    # first what phase 5 timed: one wrapper call per kernel on the
+    # converted inputs, each of which must run its kernel and nothing else
+    def alone():
+        for k in wrappers:
+            call(wrappers[k], k, *captured[k])
+            torch.cuda.synchronize()
+
+    timed = [n for _, _, n in device_events(alone)[0]]
+    if len(timed) != len(wrappers) or not all(
+            f"{k}_kernel" in n for k, n in zip(wrappers, timed)):
+        fail(f"profile: the timed calls ran {[n[:80] for n in timed[:8]]}, "
+             "not each kernel alone")
+    kernel_us = {}
+    for path, pcfg, ran in (("headline", cfg, STEP_KERNELS),
+                            ("rung3", cfg3, tuple(wrappers))):
+        prof_eng = Engine(pcfg, trace, chunk_steps=64, device=dev)
+        prof_eng.run_steps(256)  # mid-run state, as the main path meets it
+        torch.cuda.synchronize()
+        dev_ev, window_s = device_events(lambda: prof_eng.run_steps(64))
+        del prof_eng
+        busy_us, end = 0.0, None
+        for a0, b0, _ in dev_ev:  # union of device intervals
+            if end is None or a0 > end:
+                busy_us += b0 - a0
+                end = b0
+            elif b0 > end:
+                busy_us += b0 - end
+                end = b0
+        by_name: dict[str, list] = {}
+        for a0, b0, n in dev_ev:
+            t = by_name.setdefault(n, [0.0, 0])
+            t[0] += b0 - a0
+            t[1] += 1
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+        kernel_us[path] = {}
+        for k in ran:
+            hits = [tc for n, tc in by_name.items() if f"{k}_kernel" in n]
+            if len(hits) != 1 or hits[0][1] != 64:
+                fail(f"profile {path}: {k}'s kernel shows as {hits} in 64 steps")
+            kernel_us[path][k] = hits[0][0] / hits[0][1]
+        emit({"phase": "profile", "path": path, "steps": 64, "window_s": window_s,
+              "device_events": len(dev_ev),
+              "device_events_per_step": len(dev_ev) / 64,
+              "device_busy_us": busy_us,
+              "device_busy_share_of_window": (busy_us * 1e-6 / window_s) if dev_ev else None,
+              "top_device_us": [[n[:80], t, c] for n, (t, c) in top],
+              "kernel_us_per_launch": kernel_us[path],
+              "gpu": smi_line})
 
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": KERNEL_META[k][0],
-         "replaces": KERNEL_META[k][1], "launches": launches[k],
+         "replaces": KERNEL_META[k][1],
+         "launches": launches["rung3" if k in RUNG3_STAGED else "headline"][k],
+         "launches_by_path": {p: launches[p][k] for p in launches},
          "max_abs_err": max_err[k], "ms": timing[k]["ms"],
          "plain_ms": timing[k]["plain_ms"], "bound_ms": bounds[k][0],
          "bound_by": bounds[k][1], "library_ms": None}

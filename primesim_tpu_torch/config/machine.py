@@ -647,8 +647,9 @@ class PortUnsupportedError(ValueError):
 
 def check_port_supported(cfg: MachineConfig) -> None:
     """Raise PortUnsupportedError for the first field outside what the
-    port simulates: the full-map MESI directory on a mesh, without NoC
-    contention, DRAM queueing, prefetching or fault injection.
+    port simulates: the full-map MESI directory on a mesh, with or
+    without NoC contention (the tile, link and router models) and the
+    DRAM controller queue, without prefetching or fault injection.
 
     `step_impl` and `pallas_reduce` are accepted and ignored: they choose
     between the JAX package's XLA and Pallas step bodies, while the port
@@ -656,8 +657,6 @@ def check_port_supported(cfg: MachineConfig) -> None:
     the CPU)."""
     checks = (
         ("faults_enabled", cfg.faults_enabled, False),
-        ("noc.contention", cfg.noc.contention, False),
-        ("dram_queue", cfg.dram_queue, False),
         ("prefetcher", cfg.prefetcher, "none"),
         ("coherence", cfg.coherence, "mesi"),
         ("sharer_group", cfg.sharer_group, 1),

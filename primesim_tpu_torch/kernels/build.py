@@ -27,7 +27,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
-KERNELS = ("probe_classify", "commit_step", "sharer_reductions")
+KERNELS = ("probe_classify", "commit_step", "sharer_reductions", "router_cascade")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

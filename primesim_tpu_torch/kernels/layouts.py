@@ -59,3 +59,15 @@ def take(mat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """mat[..., idx] along the last dim, one index per row: [..., W] and
     [...] int -> [...]."""
     return mat.gather(-1, idx.long().unsqueeze(-1)).squeeze(-1)
+
+
+def check_tensor(name, x, shape, device, dtype=torch.int32) -> None:
+    """Raise ValueError unless `x` is a contiguous `dtype` tensor of
+    `shape` on `device`: what a kernel's C interface takes."""
+    if x.dtype != dtype or tuple(x.shape) != tuple(shape) or not x.is_contiguous():
+        raise ValueError(
+            f"{name} must be contiguous {dtype} {list(shape)}, got "
+            f"{x.dtype} {list(x.shape)}"
+        )
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")

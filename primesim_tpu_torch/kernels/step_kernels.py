@@ -17,7 +17,7 @@ import torch
 from ..config.machine import MachineConfig
 from ..sim.state import I, M, S, dirm_width, llc_meta_width
 from . import build
-from .layouts import first_min, first_true, popcount, take
+from .layouts import check_tensor, first_min, first_true, popcount, take
 
 # probe_classify packed-lane indices (column k of the [C, PROBE_LANES] output)
 (
@@ -233,16 +233,6 @@ def commit_step_plain(
     return blk, drow, counters + delta
 
 
-def _check(name, x, shape, device):
-    if x.dtype != _i32 or tuple(x.shape) != tuple(shape) or not x.is_contiguous():
-        raise ValueError(
-            f"{name} must be contiguous int32 {list(shape)}, got "
-            f"{x.dtype} {list(x.shape)}"
-        )
-    if x.device != device:
-        raise ValueError(f"{name} is on {x.device}, expected {device}")
-
-
 def _run_patch(hm, wm, cm, C, dev, anchor):
     """The run-patch inputs as contiguous int32 [C, rl] tensors (rl = 0:
     a dummy pointer the kernel never reads)."""
@@ -251,7 +241,7 @@ def _run_patch(hm, wm, cm, C, dev, anchor):
     rl = hm.shape[1]
     out = [x.to(_i32).contiguous() for x in (hm, wm, cm)]
     for name, x in zip(("hm", "wm", "cm"), out):
-        _check(name, x, (C, rl), dev)
+        check_tensor(name, x, (C, rl), dev)
     return rl, out
 
 
@@ -269,12 +259,12 @@ def probe_classify(
     C = cfg.n_cores
     S1, W1, W2 = cfg.l1.sets, cfg.l1.ways, cfg.llc.ways
     NW, MW, DW = cfg.n_sharer_words, llc_meta_width(cfg), dirm_width(cfg)
-    _check("l1", l1, (C, 5 * W1 * S1), dev)
-    _check("vrows", vrows, (C, W1 * DW), dev)
-    _check("mrows", mrows, (C, DW), dev)
-    _check("line", line, (C,), dev)
-    _check("cid", cid, (C,), dev)
-    _check("step_no", step_no, (), dev)
+    check_tensor("l1", l1, (C, 5 * W1 * S1), dev)
+    check_tensor("vrows", vrows, (C, W1 * DW), dev)
+    check_tensor("mrows", mrows, (C, DW), dev)
+    check_tensor("line", line, (C,), dev)
+    check_tensor("cid", cid, (C,), dev)
+    check_tensor("step_no", step_no, (), dev)
     rl, patch = _run_patch(hm, wm, cm, C, dev, line)
     outs = [torch.empty(C, W1, dtype=_i32, device=dev) for _ in range(3)]
     outs += [torch.empty(C, NW, dtype=_i32, device=dev) for _ in range(2)]
@@ -307,15 +297,15 @@ def commit_step(
     S1, W1, W2 = cfg.l1.sets, cfg.l1.ways, cfg.llc.ways
     NW, MW, DW = cfg.n_sharer_words, llc_meta_width(cfg), dirm_width(cfg)
     NC = counters.shape[0]
-    _check("l1", l1, (C, 5 * W1 * S1), dev)
-    _check("mrows", mrows, (C, DW), dev)
-    _check("tag_rows", tag_rows, (C, W1), dev)
-    _check("shw", shw, (C, NW), dev)
-    _check("lanes", lanes, (C, COMMIT_LANES), dev)
-    _check("cid", cid, (C,), dev)
-    _check("step_no", step_no, (), dev)
-    _check("counters", counters, (NC, C), dev)
-    _check("delta", delta, (NC, C), dev)
+    check_tensor("l1", l1, (C, 5 * W1 * S1), dev)
+    check_tensor("mrows", mrows, (C, DW), dev)
+    check_tensor("tag_rows", tag_rows, (C, W1), dev)
+    check_tensor("shw", shw, (C, NW), dev)
+    check_tensor("lanes", lanes, (C, COMMIT_LANES), dev)
+    check_tensor("cid", cid, (C,), dev)
+    check_tensor("step_no", step_no, (), dev)
+    check_tensor("counters", counters, (NC, C), dev)
+    check_tensor("delta", delta, (NC, C), dev)
     rl, patch = _run_patch(hm, wm, cm, C, dev, lanes)
     l1_new = torch.empty_like(l1)
     drow = torch.empty(C, DW, dtype=_i32, device=dev)

@@ -2,13 +2,17 @@
 
 `step` is the JAX package's `sim/engine.py::step` for the configurations
 this port runs (`config.machine.check_port_supported`: full-map MESI on a
-mesh, no NoC contention, DRAM queue, prefetcher or faults), taking the
-Pallas branch wherever the JAX step has one. Its three kernels are
+mesh, with or without NoC contention (tile, link or router model) and
+the DRAM controller queue, no prefetcher or faults), taking the Pallas
+branch wherever the JAX step has one. Its kernels are
 `kernels.step_kernels.probe_classify` (phase 1), `kernels.reductions.
-sharer_reductions` (phase 3) and `kernels.step_kernels.commit_step`
+sharer_reductions` (phase 3), `kernels.router_kernels.router_cascade`
+(the router model's cascade) and `kernels.step_kernels.commit_step`
 (phase 4.A); torch keeps the row gathers that stage the directory into
-them and the one row scatter-add after them. The step issues no host
-synchronisation: every scalar it needs stays on the device.
+them, the one row scatter-add after them, the router's per-hop gathers
+and departure scatter, and the sort-based FIFO ranks (`ops.ranking`).
+The step issues no host synchronisation: every scalar it needs stays on
+the device.
 
 The results are the JAX engine's, bit for bit: the same per-core
 cycles, counters and state fields (tests/test_torch_engine.py).
@@ -24,7 +28,7 @@ import numpy as np
 import torch
 
 from ..config.machine import MachineConfig, check_port_supported
-from ..kernels import reductions, step_kernels
+from ..kernels import reductions, router_kernels, step_kernels
 from ..kernels.step_kernels import (
     PL_HIT_ANY,
     PL_HIT_STATE,
@@ -38,7 +42,8 @@ from ..kernels.step_kernels import (
     PL_VIC_TAG,
 )
 from ..kernels.layouts import first_min, first_true, take
-from ..noc import topology
+from ..noc import mesh, topology
+from ..ops.ranking import lane_order, segmented_rank
 from ..stats.counters import COUNTER_NAMES, zero_counters
 from ..trace.format import (
     EV_BARRIER,
@@ -265,6 +270,60 @@ def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True):
     bid = torch.where(et == EV_BARRIER, eaddr, 0)
     htile = bid % n_tiles
 
+    # ---- NoC contention. This step's home transactions (memory winners
+    # and joins, lock/unlock RMWs) and barrier arrivals. Tile model: each
+    # pays contention_lat per other transaction at its home tile. Link
+    # model: contention_lat times the worst (count - 1) over the links of
+    # its XY path. The router model replaces the analytic legs wholesale
+    # once the service times are known (below).
+    router = cfg.noc.contention and cfg.noc.contention_model == "router"
+    home_txn = winner | join
+    if has_sync:
+        home_txn = home_txn | is_lock | is_unlock
+    if cfg.noc.contention and cfg.noc.contention_model != "tile":
+        # the XY routes of the request, reply and barrier-arrival legs
+        req_p = topology.path_links(cfg, ctile, btile)  # [C, H]
+        rep_p = topology.path_links(cfg, btile, ctile)
+        legs = [(req_p, home_txn), (rep_p, home_txn)]
+        if has_sync:
+            arr_p = topology.path_links(cfg, ctile, htile)
+            legs.append((arr_p, is_barrier))
+    if cfg.noc.contention and not router:
+        ccl = kn.contention_lat
+        one = torch.ones((), dtype=_i32, device=dev)
+        if cfg.noc.contention_model == "link":
+            NL = mesh.n_links(cfg)
+            lpth, lmask = mesh.concat_legs(legs)
+            lcnt = _scatter_drop(
+                torch.zeros(NL, dtype=_i32, device=dev),
+                torch.where(lmask & (lpth >= 0), lpth, NL).flatten(), one, "add",
+            )
+
+            def path_worst(pth):
+                cts = lcnt[torch.where(pth >= 0, pth, 0).long()]
+                return torch.where(pth >= 0, cts - 1, 0).amax(1)
+
+            extra_home = ccl * torch.maximum(path_worst(req_p), path_worst(rep_p))
+            extra_bar = ccl * path_worst(arr_p) if has_sync else None
+        else:
+            tcnt = _scatter_drop(
+                torch.zeros(n_tiles, dtype=_i32, device=dev),
+                torch.where(home_txn, btile, n_tiles), one, "add",
+            )
+            if has_sync:
+                tcnt = _scatter_drop(
+                    tcnt, torch.where(is_barrier, htile, n_tiles), one, "add"
+                )
+            extra_home = ccl * (tcnt[btile.long()] - 1)  # valid where home_txn
+            extra_bar = ccl * (tcnt[htile.long()] - 1)  # valid where is_barrier
+        cadd(
+            "noc_contention_cycles",
+            torch.where(home_txn, extra_home, 0)
+            + (torch.where(is_barrier, extra_bar, 0) if has_sync else 0),
+        )
+    else:
+        extra_home = extra_bar = torch.zeros(C, dtype=_i32, device=dev)
+
     llc_hit = llc_has & winner
     llc_miss = winner & ~llc_has
     has_owner = llc_hit & (owner >= 0) & (owner != arange_c)
@@ -287,18 +346,104 @@ def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True):
         kn.link_lat, kn.router_lat,
     )
 
-    # latency composition (golden order)
+    # ---- memory-controller queue: LLC-miss winners queue at their home
+    # bank's controller, waiting for max(dram_free[bank], the bank's
+    # earliest nominal arrival this step) + rank * service. The lane order
+    # is shared with the router block's ranks.
+    if cfg.dram_queue or router:
+        ord_c = lane_order(key)
+    if cfg.dram_queue:
+        svc_d = torch.where(kn.dram_service > 0, kn.dram_service, kn.dram_lat)
+        a_nom = cycles_c + epre * cpi + l1_lat + req_lat + llc_lat
+        dtgt = torch.where(llc_miss, bank, B)  # no prefetcher: every miss
+        dbase = _scatter_min(B, dtgt, a_nom)
+        # non-miss lanes carry the masked segment: their ranks are garbage
+        # that the selects below discard
+        rd = segmented_rank(dtgt[:, None], n_seg=B, order=ord_c)[:, 0]
+        bank_l = bank.long()
+        dstart = torch.maximum(
+            a_nom,
+            torch.maximum(st.dram_free[bank_l], dbase[bank_l]) + rd * svc_d,
+        )
+        extra_dram = torch.where(llc_miss, dstart - a_nom, 0)
+        dram_free_n = _scatter_drop(st.dram_free, dtgt, dstart + svc_d, "amax")
+        cadd("dram_queue_cycles", extra_dram)
+    else:
+        extra_dram = torch.zeros(C, dtype=_i32, device=dev)
+        dram_free_n = st.dram_free
+
+    # latency composition (golden order): the service interval between
+    # the request's arrival at the home bank and the reply's injection
     probe_any = gets_probe | write_probe
     service = torch.where(
         winner,
         llc_lat
         + torch.where(probe_any, 2 * po_lat, 0)
         + torch.where(inv_row, inv_lat, 0)
-        + torch.where(llc_miss, kn.dram_lat, 0),
+        + torch.where(llc_miss, kn.dram_lat, 0)
+        + extra_dram,
         llc_lat,
     )
-    lat = l1_lat + req_lat + service + rep_lat
-    lat_join = l1_lat + req_lat + llc_lat + rep_lat
+    link_free_n = st.link_free
+    if router:
+        # ---- hop-by-hop router: every directed link keeps a next-free
+        # clock across steps; a packet waits at link l for
+        # max(link_free[l], base[l]) + rank * link_lat (base: the link's
+        # earliest nominal arrival this step; rank: packets on l with a
+        # smaller key), then pays router_lat at the next router. The
+        # cascade over the hops is router_cascade; the departures
+        # scatter-max into link_free.
+        NL = mesh.n_links(cfg)
+        L_lat, R_lat = kn.link_lat, kn.router_lat
+        c_hop = L_lat + R_lat
+        H = req_p.shape[1]
+        hidx = torch.arange(H, dtype=_i32, device=dev)[None, :]
+        first_lock = is_lock & (st.sync_flag == 0)
+        mem_lane = winner | join
+        pre_chg = mem_lane | is_unlock | first_lock | is_barrier
+        t0 = (
+            cycles_c
+            + torch.where(pre_chg, epre * cpi, 0)
+            + torch.where(mem_lane, l1_lat, 0)
+        )
+        # nominal (uncontended) arrival at each hop; the reply leg leaves
+        # after llc.latency of service by definition
+        a_req = t0[:, None] + R_lat + hidx * c_hop
+        a_rep = a_req + (req_hops * c_hop + llc_lat + R_lat)[:, None]
+        pth_all, mask_all = mesh.concat_legs(legs)
+        a_all = torch.cat([a_req, a_rep] + ([a_req] if has_sync else []), 1)
+        ok_all = mask_all & (pth_all >= 0)
+        tgt_all = torch.where(ok_all, pth_all, NL)
+        tgt_flat = tgt_all.flatten()
+        base = _scatter_min(NL, tgt_flat, a_all.flatten())
+        r_all = segmented_rank(tgt_all, n_seg=NL, order=ord_c)
+        pc_all = torch.where(pth_all >= 0, pth_all, 0).long()
+        lf_g = st.link_free[pc_all]  # [C, legs*H]
+        bs_g = base[pc_all]
+        if has_sync:
+            arr_lat_a, arr_hops = _one_way(cfg, ctile, htile, kn)
+        else:
+            arr_hops = None
+        t_rep_end, t_arr_end, d_all = router_kernels.router_cascade(
+            lf_g, bs_g, r_all, ok_all, t0, service, req_hops, rep_hops,
+            arr_hops, L_lat, R_lat, has_sync=has_sync,
+        )
+        raw_rt = t_rep_end - t0  # valid on home_txn lanes
+        extra_home = raw_rt - (req_lat + service + rep_lat)
+        if has_sync:
+            raw_arr = t_arr_end - t0  # valid on barrier lanes
+            extra_bar = raw_arr - arr_lat_a
+        link_free_n = _scatter_drop(st.link_free, tgt_flat, d_all.flatten(), "amax")
+        cadd(
+            "noc_contention_cycles",
+            torch.where(home_txn, extra_home, 0)
+            + (torch.where(is_barrier, extra_bar, 0) if has_sync else 0),
+        )
+        lat = l1_lat + raw_rt  # memory lanes, service included
+        lat_join = lat
+    else:
+        lat = l1_lat + req_lat + service + rep_lat + extra_home
+        lat_join = l1_lat + req_lat + llc_lat + rep_lat + extra_home
     ov = cfg.core.o3_overlap_256
     if ov:
         lat = lat - ((lat * ov) >> 8)
@@ -379,7 +524,8 @@ def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True):
         L = cfg.lock_slots
         BS = cfg.barrier_slots
         lslot = line & (L - 1)
-        lat_rt = req_lat + llc_lat + rep_lat
+        # the router's round trip already holds each lane's injection time
+        lat_rt = raw_rt if router else req_lat + llc_lat + rep_lat + extra_home
         rt_hops = req_hops + rep_hops
         cycles = cycles + torch.where(is_unlock, epre * cpi + lat_rt, 0)
         ptr = ptr + is_unlock.to(_i32)
@@ -417,7 +563,8 @@ def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True):
 
         barr_lat, barr_hops = _one_way(cfg, ctile, htile, kn)
         wake_lat, wake_hops = _one_way(cfg, htile, ctile, kn)
-        cycles = cycles + torch.where(is_barrier, epre * cpi + barr_lat, 0)
+        barr_charge = raw_arr if router else barr_lat + extra_bar
+        cycles = cycles + torch.where(is_barrier, epre * cpi + barr_charge, 0)
         cadd("instructions", torch.where(is_barrier, epre, 0))
         cadd("barrier_waits", is_barrier)
         cadd("noc_msgs", is_barrier)
@@ -464,6 +611,8 @@ def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True):
         cycles=cycles,
         ptr=ptr,
         l1=l1_n,
+        link_free=link_free_n,
+        dram_free=dram_free_n,
         lock_holder=lock_holder,
         barrier_count=barrier_count,
         barrier_time=barrier_time,
@@ -543,11 +692,25 @@ class Engine:
         Q = st.knobs.quantum
         m = torch.where(nd, st.cycles, INT32_MAX).amin()
         delta = torch.where(nd.any(), (m // Q) * Q, 0)
+        cfg = self.cfg
+        router = cfg.noc.contention and cfg.noc.contention_model == "router"
         self.state = st._replace(
             cycles=st.cycles - delta,
             quantum_end=st.quantum_end - delta,
             barrier_time=torch.where(
                 st.barrier_count > 0, st.barrier_time - delta, st.barrier_time
+            ),
+            # link and controller clocks are epoch-relative too, shifted
+            # only when their model is on (the fields stay zero otherwise);
+            # the clamp floor lies below every wait comparison, so it is
+            # exact and keeps long-idle clocks from wrapping
+            link_free=(
+                (st.link_free - delta).clamp(min=-(1 << 30))
+                if router else st.link_free
+            ),
+            dram_free=(
+                (st.dram_free - delta).clamp(min=-(1 << 30))
+                if cfg.dram_queue else st.dram_free
             ),
             counters=torch.zeros_like(st.counters),
         )

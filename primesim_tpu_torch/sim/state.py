@@ -77,8 +77,8 @@ class MachineState(NamedTuple):
     ptr: torch.Tensor  # [C] next trace event index
     l1: torch.Tensor  # [C, 5*W1*S1] planes tag/state/lru/ptr/epoch
     dirm: torch.Tensor  # [B*S2, dirm_width(cfg)]
-    link_free: torch.Tensor  # [n_tiles*4] (router NoC; zero here)
-    dram_free: torch.Tensor  # [B] (DRAM queue; zero here)
+    link_free: torch.Tensor  # [n_tiles*4] router NoC link clocks (zero without it)
+    dram_free: torch.Tensor  # [B] DRAM controller clocks (zero without the queue)
     lock_holder: torch.Tensor  # [lock_slots] core id or -1
     barrier_count: torch.Tensor  # [barrier_slots]
     barrier_time: torch.Tensor  # [barrier_slots]

@@ -1,10 +1,15 @@
 """The port's ground rules: it imports no JAX and nothing of the JAX
 package, it refuses to run quietly on the CPU, it names what it does not
 support, its traces and reports are the JAX package's own, and its
-committed rung-1 reference fixture still matches the JAX engine.
+committed reference fixtures still match the JAX engine.
 
-Regenerate the fixture (after a deliberate change of the simulated
-model) with:
+The fixtures are the rung-1 run in full (`rung1_fft_small.json`) and
+digests (`stats/digest.py`) of two full-width runs that chip_smoke.py
+holds the card to: the 1024-core headline machine (`headline.json`) and
+the shipped rung-3 machine (`rung3_headline.json`), both on the folded
+headline trace. Regenerate them all (after a deliberate change of the
+simulated model; the two full-width JAX runs take a few minutes on a
+CPU) with:
     PYTHONPATH=. python tests/test_torch_rules.py --write-fixture
 """
 
@@ -34,6 +39,7 @@ from primesim_tpu_torch.trace.format import fold_ins as t_fold
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(primesim_tpu_torch.__file__)
 FIXTURE = os.path.join(PKG, "fixtures", "rung1_fft_small.json")
+FULL_WIDTH = ("headline", "rung3_headline")
 RUNG1 = os.path.join(REPO, "configs", "rung1_64core_fft.json")
 
 
@@ -99,8 +105,6 @@ def test_engine_without_a_card_or_a_device_raises(monkeypatch):
     "field,kw",
     [
         ("faults_enabled", dict(faults_enabled=True)),
-        ("noc.contention", dict(noc=JNoc(mesh_x=2, mesh_y=2, contention=True))),
-        ("dram_queue", dict(dram_queue=True)),
         ("prefetcher", dict(prefetcher="stride")),
         ("coherence", dict(coherence="moesi")),
         ("sharer_group", dict(sharer_group=2)),
@@ -230,7 +234,41 @@ def test_rung1_fixture_matches_the_port_on_cpu():
         assert got[k] == fx[k], k
 
 
-if __name__ == "__main__" and sys.argv[1:] == ["--write-fixture"]:
+def _full_width(name):
+    """The JAX engine's run of a full-width fixture's machine and trace."""
+    from primesim_tpu.sim.engine import Engine as JEngine
+
+    with open(os.path.join(PKG, "fixtures", f"{name}.json")) as f:
+        fx = json.load(f)
+    spec = fx["config"]
+    if isinstance(spec, str):
+        with open(os.path.join(REPO, spec)) as f:
+            spec = json.load(f)
+    tr = j_synth.GENERATORS[fx["trace"]["generator"]](**fx["trace"]["args"])
+    if fx["trace"].get("fold"):
+        tr = j_fold(tr)
+    eng = JEngine(JCfg.from_dict(spec), tr, chunk_steps=fx["chunk_steps"])
+    eng.run()
+    return fx, eng
+
+
+def digest_of_jax_engine(eng) -> dict:
+    from primesim_tpu_torch.stats.digest import run_digest
+
+    return run_digest(
+        eng.steps_run, eng.cycles, eng.counters,
+        np.asarray(eng.state.link_free), np.asarray(eng.state.dram_free),
+    )
+
+
+@pytest.mark.slow  # two 1024-core JAX runs of 1536 and 2560 steps
+@pytest.mark.parametrize("name", FULL_WIDTH)
+def test_full_width_digests_match_the_jax_engine(name):
+    fx, eng = _full_width(name)
+    assert digest_of_jax_engine(eng) == fx["digest"]
+
+
+def write_fixtures():
     import jax
 
     jax.config.update("jax_platforms", "cpu")
@@ -254,3 +292,36 @@ if __name__ == "__main__" and sys.argv[1:] == ["--write-fixture"]:
         json.dump(spec, f)
         f.write("\n")
     print(f"wrote {FIXTURE}: {eng.steps_run} steps")
+
+    # bench.py's headline machine and trace, and the shipped rung-3
+    # machine on the same trace
+    trace = {
+        "generator": "fft_like",
+        "args": {"n_cores": 1024, "n_phases": 4, "points_per_core": 256,
+                 "ins_per_mem": 8, "seed": 42},
+        "fold": True,
+    }
+    headline = {
+        "n_cores": 1024, "n_banks": 1024,
+        "l1": {"size": 32768, "ways": 4, "line": 64, "latency": 2},
+        "llc": {"size": 262144, "ways": 8, "line": 64, "latency": 10},
+        "noc": {"mesh_x": 32, "mesh_y": 32, "link_lat": 1, "router_lat": 1},
+        "dram_lat": 100, "quantum": 1000, "local_run_len": 8,
+    }
+    configs = {"headline": headline,
+               "rung3_headline": "configs/rung3_1024core_o3.json"}
+    for name in FULL_WIDTH:
+        path = os.path.join(PKG, "fixtures", f"{name}.json")
+        with open(path, "w") as f:
+            json.dump({"config": configs[name], "trace": trace,
+                       "chunk_steps": 512, "digest": None}, f)
+        fx, eng = _full_width(name)
+        fx["digest"] = digest_of_jax_engine(eng)
+        with open(path, "w") as f:
+            json.dump(fx, f, indent=1)
+            f.write("\n")
+        print(f"wrote {path}: {eng.steps_run} steps")
+
+
+if __name__ == "__main__" and sys.argv[1:] == ["--write-fixture"]:
+    write_fixtures()
