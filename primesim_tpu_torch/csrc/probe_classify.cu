@@ -2,20 +2,40 @@
 //
 // Replaces the Pallas kernel primesim_tpu/kernels/step_kernels.py:
 // probe_classify (_probe_kernel). It probes the accessed L1 set across the
-// five planes and applies the local run's deferred LRU / E->M patch,
-// validates each way through its recorded directory pointer (tag, owner,
-// sharer bit), classifies the hit, parses the home LLC row, computes the
+// planes and applies the local run's deferred LRU / E->M patch, validates
+// each way through its recorded directory pointer (tag, owner, sharer
+// bit), classifies the hit, parses the home LLC row, computes the
 // popcount / self-bit / other-sharer predicates and picks the LLC victim
-// by first-minimum LRU. Plain version: kernels/step_kernels.py.
+// by first-minimum LRU. Unlike the Pallas kernel, which needs the rows
+// staged for it (Mosaic cannot gather), it reads the directory itself:
+// the validation words at dirm[ptr / W2] and the home row dirm[slot]. It
+// also returns the home-row words commit_step needs (tag, LRU and epoch at
+// the hit way; LRU and epoch at the victim). Requires 0 <= ptr < NS*W2
+// for every pointer of the accessed set (the engine's pointers are
+// slot*W2 + way, and 0 from the start). Plain version:
+// kernels/step_kernels.py.
 //
-// Bound on the H100: device-memory bytes. Per core it needs the 5*W1
-// words of the accessed L1 set, the W1 staged pointer rows (of which it
-// reads 3 words per way) and the home row; at 1024 cores that is a few
-// MB at most, so a single launch is dominated by latency, not bandwidth.
-// Design: one thread per core indexes every column directly (the Pallas
-// kernel's static masked-select unrolls exist only because Mosaic cannot
-// gather). Loads are per-thread scattered rows; coalescing them through
-// shared memory is later work.
+// Bound on the H100: device-memory bytes. Per core it needs the 4*W1
+// words of the accessed set, three words at each way's pointer, the home
+// row's W2 tags, LRUs and owners and the hit and victim ways' sharer
+// words: under 1 MB at 1024 cores, about 0.26 us at 3.35 TB/s. So a
+// launch is bound by the latency of its dependent loads, not by bytes.
+// Design: one warp per core, 8 cores per 256-thread block (128 blocks at
+// 1024 cores, one per SM). Each round of loads is issued by many lanes at
+// once: lane w < W1 loads way w's tag, state, LRU and pointer; lane
+// v < W2 the home row's tag, owner, LRU and epoch of way v; lane k < rl
+// run-patch slot k (hm and wm as the bytes of the bool tensors, cm
+// through its row stride); then lane w the three words at way w's pointer
+// while lane n < NW loads sharer word n of the hit and the victim way,
+// coalesced. Three dependent rounds of memory in all. Warp primitives do
+// the rest with the Pallas kernel's first-occurrence tie-breaking:
+// first-true is __ballot_sync + __ffs, first-minimum __reduce_min_sync on
+// the signed key and a ballot of the lanes equal to it, the popcount sum
+// __reduce_add_sync, and the run patch an OR-reduction of each slot's way
+// bit. NW > 32 loops in strides of 32 lanes; W1, W2 and rl are at most
+// 32 (the wrapper raises otherwise).
+
+#include <climits>
 
 #include "common.cuh"
 
@@ -23,117 +43,145 @@ using namespace psim;
 
 namespace {
 
-constexpr int PROBE_LANES = 11;
+constexpr int PROBE_LANES = 16;
+constexpr int WARPS = 8;  // cores per block
+constexpr unsigned FULL = 0xffffffffu;
 
-__global__ void probe_classify_kernel(
-    const int* __restrict__ l1, const int* __restrict__ vrows,
-    const int* __restrict__ mrows, const int* __restrict__ line_v,
+__global__ void __launch_bounds__(WARPS * 32) probe_classify_kernel(
+    const int* __restrict__ l1, const int* __restrict__ dirm,
+    const int* __restrict__ slot_v, const int* __restrict__ line_v,
     const int* __restrict__ cid_v, const int* __restrict__ step_p,
-    const int* __restrict__ hm, const int* __restrict__ wm,
+    const uint8_t* __restrict__ hm, const uint8_t* __restrict__ wm,
     const int* __restrict__ cm, int* __restrict__ tag_out,
     int* __restrict__ lru_out, int* __restrict__ weff_out,
     int* __restrict__ shw_out, int* __restrict__ vshw_out,
     int* __restrict__ lanes_out, int C, int S1, int W1, int W2, int NW,
-    int MW, int DW, int rl) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
+    int MW, int DW, int rl, int cm_ld) {
+  const int lane = threadIdx.x & 31;
+  const int c = blockIdx.x * WARPS + (threadIdx.x >> 5);
+  if (c >= C) return;  // the whole warp
   const int FS = W1 * S1;
-  const int* row = l1 + (size_t)c * 5 * FS;
-  const int* vr = vrows + (size_t)c * W1 * DW;
-  const int* mr = mrows + (size_t)c * DW;
   const int line = line_v[c];
   const int cid = cid_v[c];
+  const int* mr = dirm + (size_t)slot_v[c] * DW;
   const int step = *step_p;
   const int l1s = line & (S1 - 1);
   const int u_w = cid >> 5, u_b = cid & 31;  // self sharer word / bit
+  const bool is_way = lane < W1, is_llc = lane < W2;
 
-  // ---- L1 set probe, run patch, pointer validation, hit classification
-  int hit_any = 0, hit_way = 0, hit_state = 0;
-  for (int w = 0; w < W1; ++w) {
-    const int col = w * S1 + l1s;
-    const int tag = row[col];
-    int st = row[FS + col];
-    int lru = row[2 * FS + col];
-    const int ptr = row[3 * FS + col];
-    for (int k = 0; k < rl; ++k) {
-      if (cm[(size_t)c * rl + k] == col) {
-        if (wm[(size_t)c * rl + k]) st = M;
-        if (hm[(size_t)c * rl + k]) lru = step;
-      }
+  // ---- round 2: the accessed set's way, the home row's way, run slot
+  const int* row = l1 + (size_t)c * 5 * FS + lane * S1 + l1s;
+  int tag = 0, st = I, lru = 0, ptr = 0;
+  if (is_way) {
+    tag = row[0];
+    st = row[FS];
+    lru = row[2 * FS];
+    ptr = row[3 * FS];
+  }
+  int ltag = -1, lown = 0, llru = 0, leph = 0;
+  if (is_llc) {
+    ltag = mr[2 * lane];
+    lown = mr[2 * lane + 1];
+    llru = mr[2 * W2 + lane];
+    leph = mr[3 * W2 + lane];
+  }
+  unsigned hbits = 0, wbits = 0;  // ways the run stamps / upgrades
+  if (lane < rl) {
+    const int d = cm[(size_t)c * cm_ld + lane] - l1s;
+    if (d >= 0 && d % S1 == 0 && d / S1 < W1) {
+      const unsigned bit = 1u << (d / S1);
+      if (hm[(size_t)c * rl + lane]) hbits = bit;
+      if (wm[(size_t)c * rl + lane]) wbits = bit;
     }
+  }
+  hbits = __reduce_or_sync(FULL, hbits);
+  wbits = __reduce_or_sync(FULL, wbits);
+  if ((wbits >> lane) & 1u) st = M;
+  if ((hbits >> lane) & 1u) lru = step;
+
+  // ---- LLC home-row parse: hit way, owner, victim
+  const unsigned lmatch = __ballot_sync(FULL, is_llc && ltag == line);
+  const int llc_has = lmatch != 0;
+  const int hway = llc_has ? __ffs(lmatch) - 1 : 0;
+  const int vkey = is_llc ? (ltag != -1 ? llru : -1) : INT_MAX;
+  const int vmin = __reduce_min_sync(FULL, vkey);
+  const int vway = __ffs(__ballot_sync(FULL, is_llc && vkey == vmin)) - 1;
+
+  // ---- round 3: validation words at each way's pointer; the hit and
+  // victim ways' sharer words
+  int weff = I;
+  if (is_way) {
     const int pway = floor_mod(ptr, W2);
-    const int* vw = vr + (size_t)w * DW;
-    const int vtag = vw[2 * pway];
-    const int vown = vw[2 * pway + 1];
-    const int vbit = bit_at(vw[MW + pway * NW + u_w], u_b);
-    const int weff =
-        (st == I || vtag != tag) ? I : (vown == cid ? st : (vbit ? S : I));
-    tag_out[(size_t)c * W1 + w] = tag;
-    lru_out[(size_t)c * W1 + w] = lru;
-    weff_out[(size_t)c * W1 + w] = weff;
-    if (w == 0) hit_state = weff;  // argmax of an all-False row is way 0
-    if (!hit_any && tag == line && weff != I) {
-      hit_any = 1;
-      hit_way = w;
-      hit_state = weff;
-    }
+    const int* pr = dirm + (size_t)floor_div(ptr, W2) * DW;
+    const int vtag = pr[2 * pway];
+    const int vown = pr[2 * pway + 1];
+    const int vsh = pr[MW + pway * NW + u_w];
+    weff = (st == I || vtag != tag) ? I
+                                    : (vown == cid ? st : (bit_at(vsh, u_b) ? S : I));
   }
+  unsigned total = 0;
+  int self_bit = 0;
+  for (int n = lane; n < NW; n += 32) {
+    const int hw = mr[MW + hway * NW + n];
+    const int vw = mr[MW + vway * NW + n];
+    shw_out[(size_t)c * NW + n] = hw;
+    vshw_out[(size_t)c * NW + n] = vw;
+    total += (unsigned)popc(hw);
+    if (n == u_w) self_bit = bit_at(hw, u_b);
+  }
+  total = __reduce_add_sync(FULL, total);
+  self_bit = (int)__reduce_or_sync(FULL, (unsigned)self_bit);
 
-  // ---- LLC home-row parse
-  int llc_has = 0, llc_hway = 0;
-  for (int v = 0; v < W2; ++v) {
-    if (!llc_has && mr[2 * v] == line) {
-      llc_has = 1;
-      llc_hway = v;
-    }
+  // ---- hit classification (argmax of an all-False row is way 0)
+  const unsigned hmatch = __ballot_sync(FULL, is_way && tag == line && weff != I);
+  const int hit_any = hmatch != 0;
+  const int hit_way = hit_any ? __ffs(hmatch) - 1 : 0;
+  const int hit_state = __shfl_sync(FULL, weff, hit_way);
+  if (is_way) {
+    tag_out[(size_t)c * W1 + lane] = tag;
+    lru_out[(size_t)c * W1 + lane] = lru;
+    weff_out[(size_t)c * W1 + lane] = weff;
   }
-  const int owner = mr[2 * llc_hway + 1];
-  int total = 0, self_bit = 0;
-  for (int n = 0; n < NW; ++n) {
-    const int word = mr[MW + llc_hway * NW + n];
-    shw_out[(size_t)c * NW + n] = word;
-    total += popc(word);
-    if (n == u_w) self_bit = bit_at(word, u_b);
+  const int owner = __shfl_sync(FULL, lown, hway);
+  const int htag = __shfl_sync(FULL, ltag, hway);
+  const int hlru = __shfl_sync(FULL, llru, hway);
+  const int heph = __shfl_sync(FULL, leph, hway);
+  const int vtag = __shfl_sync(FULL, ltag, vway);
+  const int vown = __shfl_sync(FULL, lown, vway);
+  const int vlru = __shfl_sync(FULL, llru, vway);
+  const int veph = __shfl_sync(FULL, leph, vway);
+  if (lane == 0) {
+    int* o = lanes_out + (size_t)c * PROBE_LANES;
+    o[0] = hit_any;
+    o[1] = hit_way;
+    o[2] = hit_state;
+    o[3] = llc_has;
+    o[4] = hway;
+    o[5] = owner;
+    o[6] = self_bit;
+    o[7] = (int)total - self_bit > 0;
+    o[8] = vtag;
+    o[9] = vown;
+    o[10] = vway;
+    o[11] = htag;
+    o[12] = hlru;
+    o[13] = heph;
+    o[14] = vlru;
+    o[15] = veph;
   }
-  const int other_sh = (total - self_bit) > 0;
-
-  // ---- victim: first minimum of LRU over valid ways (-1 for invalid)
-  int vway = 0, vmin = 0;
-  for (int v = 0; v < W2; ++v) {
-    const int key = mr[2 * v] != -1 ? mr[2 * W2 + v] : -1;
-    if (v == 0 || key < vmin) {
-      vmin = key;
-      vway = v;
-    }
-  }
-  for (int n = 0; n < NW; ++n)
-    vshw_out[(size_t)c * NW + n] = mr[MW + vway * NW + n];
-
-  int* lanes = lanes_out + (size_t)c * PROBE_LANES;
-  lanes[0] = hit_any;
-  lanes[1] = hit_way;
-  lanes[2] = hit_state;
-  lanes[3] = llc_has;
-  lanes[4] = llc_hway;
-  lanes[5] = owner;
-  lanes[6] = self_bit;
-  lanes[7] = other_sh;
-  lanes[8] = mr[2 * vway];
-  lanes[9] = mr[2 * vway + 1];
-  lanes[10] = vway;
 }
 
 }  // namespace
 
 extern "C" int probe_classify_launch(
-    const int* l1, const int* vrows, const int* mrows, const int* line,
-    const int* cid, const int* step, const int* hm, const int* wm,
+    const int* l1, const int* dirm, const int* slot, const int* line,
+    const int* cid, const int* step, const uint8_t* hm, const uint8_t* wm,
     const int* cm, int* tag_out, int* lru_out, int* weff_out, int* shw_out,
     int* vshw_out, int* lanes_out, int C, int S1, int W1, int W2, int NW,
-    int MW, int DW, int rl, cudaStream_t stream) {
-  const int threads = 128;
-  probe_classify_kernel<<<(C + threads - 1) / threads, threads, 0, stream>>>(
-      l1, vrows, mrows, line, cid, step, hm, wm, cm, tag_out, lru_out,
-      weff_out, shw_out, vshw_out, lanes_out, C, S1, W1, W2, NW, MW, DW, rl);
+    int MW, int DW, int rl, int cm_ld, cudaStream_t stream) {
+  probe_classify_kernel<<<(C + WARPS - 1) / WARPS, WARPS * 32, 0, stream>>>(
+      l1, dirm, slot, line, cid, step, hm, wm, cm, tag_out, lru_out,
+      weff_out, shw_out, vshw_out, lanes_out, C, S1, W1, W2, NW, MW, DW, rl,
+      cm_ld);
   return (int)cudaGetLastError();
 }

@@ -2,12 +2,27 @@
 `commit_step` (phase 4.A plus the counter fold).
 
 They replace the JAX package's Pallas kernels of the same names
-(`kernels/step_kernels.py`) and keep their contracts: the same inputs,
-the same packed lane columns (PL_* out of the probe, CL_* into the
-commit) and the same outputs, bit for bit. Each wrapper runs the CUDA
-kernel (`csrc/probe_classify.cu`, `csrc/commit_step.cu`) on CUDA tensors
-and the plain torch version below on CPU tensors. Full-map MESI only
-(sharer group 1), as `config.machine.check_port_supported` enforces.
+(`kernels/step_kernels.py`) and compute the same functions bit for bit,
+with the packed lane columns of the JAX package (PL_* out of the probe,
+CL_* into the commit). Their contracts differ where Hopper can do what
+Mosaic could not:
+
+- `probe_classify` reads the directory `dirm` itself: each way's three
+  validation words at `dirm[ptr // W2]` and the home row `dirm[slot]`, so
+  the caller stages no rows. It appends five lanes after PL_LLC_VWAY: the
+  home row's tag, LRU and epoch at the hit way and the LRU and epoch at
+  the victim way, which is all `commit_step` reads of the home row.
+- `commit_step` updates `l1`, `dirm` and `counters` IN PLACE and returns
+  nothing: each core's ordered L1 plane writes, the winners' and
+  joiners' directory deltas added word by word (the JAX package's
+  `dirm.at[upd_slot].add(delta_row, mode="drop")`; other lanes add
+  nothing) and `counters += delta`.
+
+Each wrapper runs the CUDA kernel (`csrc/probe_classify.cu`,
+`csrc/commit_step.cu`) on CUDA tensors and the plain torch version below
+on CPU tensors. Full-map MESI only (sharer group 1), as
+`config.machine.check_port_supported` enforces; W1, W2 and the local run
+length are at most 32 (one warp's lanes).
 """
 
 from __future__ import annotations
@@ -19,7 +34,9 @@ from ..sim.state import I, M, S, dirm_width, llc_meta_width
 from . import build
 from .layouts import check_tensor, first_min, first_true, popcount, take
 
-# probe_classify packed-lane indices (column k of the [C, PROBE_LANES] output)
+# probe_classify packed-lane indices (column k of the [C, PROBE_LANES]
+# output): the JAX package's eleven, then the home-row words commit_step
+# needs
 (
     PL_HIT_ANY,
     PL_HIT_WAY,
@@ -32,8 +49,13 @@ from .layouts import check_tensor, first_min, first_true, popcount, take
     PL_VIC_TAG,
     PL_VIC_OWNER,
     PL_LLC_VWAY,
-) = range(11)
-PROBE_LANES = 11
+    PL_HOME_TAG,
+    PL_HOME_LRU,
+    PL_HOME_EPOCH,
+    PL_VIC_LRU,
+    PL_VIC_EPOCH,
+) = range(16)
+PROBE_LANES = 16
 
 # commit_step packed-lane indices (column k of the [C, COMMIT_LANES] input)
 (
@@ -58,16 +80,18 @@ PROBE_LANES = 11
 ) = range(18)
 COMMIT_LANES = 18
 
+WARP = 32  # the kernels give a core's ways, LLC ways and run slots one lane each
+
 _i32 = torch.int32
 
 
 def probe_classify_plain(
-    cfg: MachineConfig, l1, vrows, mrows, line, cid, step_no,
+    cfg: MachineConfig, l1, dirm, slot, line, cid, step_no,
     hm=None, wm=None, cm=None,
 ):
     """Plain torch version of phase 1: returns (tag_rows, lru_rows, weff)
     [C, W1], (shw, vic_shw) [C, NW] and the lanes [C, PROBE_LANES].
-    `vrows` is dirm[ptr // W2] as [C, W1*DW], `mrows` is dirm[slot]."""
+    Every pointer in the accessed set lies in [0, NS*W2)."""
     C = l1.shape[0]
     S1, W1, W2 = cfg.l1.sets, cfg.l1.ways, cfg.llc.ways
     NW, MW, DW = cfg.n_sharer_words, llc_meta_width(cfg), dirm_width(cfg)
@@ -86,12 +110,14 @@ def probe_classify_plain(
         st_w = torch.where(((wm[:, :, None] != 0) & colm).any(1), M, st_w)
         lru_w = torch.where(((hm[:, :, None] != 0) & colm).any(1), step_no, lru_w)
 
-    # pointer validation of every way against its directory entry
+    # pointer validation of every way against its directory entry, the
+    # words (tag, owner, own sharer word) of row ptr // W2 at way ptr % W2
     pway = ptr_w % W2
-    vr = vrows.view(C, W1, DW)
-    vtag = take(vr, 2 * pway)
-    vown = take(vr, 2 * pway + 1)
-    vsh = take(vr, MW + pway * NW + (cid[:, None] >> 5))
+    prow = (ptr_w // W2).long() * DW
+    flat = dirm.view(-1)
+    vtag = flat[prow + 2 * pway]
+    vown = flat[prow + 2 * pway + 1]
+    vsh = flat[prow + MW + pway * NW + (cid[:, None] >> 5)]
     vbit = ((vsh >> (cid[:, None] & 31)) & 1) != 0
     weff = torch.where(
         (st_w == I) | (vtag != tag_w),
@@ -103,25 +129,29 @@ def probe_classify_plain(
     hit_state = take(weff, hit_way)
 
     # LLC home-row parse
+    mrows = dirm[slot.long()]
     ltag = mrows[:, 0 : 2 * W2 : 2]
     lown = mrows[:, 1 : 2 * W2 : 2]
+    llru = mrows[:, 2 * W2 : 3 * W2]
+    leph = mrows[:, 3 * W2 : 4 * W2]
     llc_has, llc_hway = first_true(ltag == line[:, None])
-    owner = take(lown, llc_hway)
     sh_rows = mrows[:, MW:].view(C, W2, NW)
+    rows = torch.arange(C, device=dev)[:, None]
     nw_idx = torch.arange(NW, device=dev)
-    shw = sh_rows[torch.arange(C, device=dev)[:, None], llc_hway.long()[:, None], nw_idx]
+    shw = sh_rows[rows, llc_hway.long()[:, None], nw_idx]
     self_bit = (take(shw, cid >> 5) >> (cid & 31)) & 1
     other_sh = (popcount(shw).sum(1, dtype=_i32) - self_bit) > 0
 
     # victim: first minimum of LRU over valid ways
-    vkey = torch.where(ltag != -1, mrows[:, 2 * W2 : 3 * W2], -1)
-    llc_vway = first_min(vkey)
-    vic_shw = sh_rows[torch.arange(C, device=dev)[:, None], llc_vway.long()[:, None], nw_idx]
+    llc_vway = first_min(torch.where(ltag != -1, llru, -1))
+    vic_shw = sh_rows[rows, llc_vway.long()[:, None], nw_idx]
     lanes = torch.stack(
         [
             hit_any.to(_i32), hit_way, hit_state, llc_has.to(_i32), llc_hway,
-            owner, self_bit, other_sh.to(_i32), take(ltag, llc_vway),
-            take(lown, llc_vway), llc_vway,
+            take(lown, llc_hway), self_bit, other_sh.to(_i32),
+            take(ltag, llc_vway), take(lown, llc_vway), llc_vway,
+            take(ltag, llc_hway), take(llru, llc_hway), take(leph, llc_hway),
+            take(llru, llc_vway), take(leph, llc_vway),
         ],
         1,
     )
@@ -138,17 +168,20 @@ def _write(blk, mask, col, val):
 
 
 def commit_step_plain(
-    cfg: MachineConfig, l1, mrows, tag_rows, shw, lanes, cid, step_no,
-    counters, delta, hm=None, wm=None, cm=None,
-):
-    """Plain torch version of phase 4.A + the counter fold: returns
-    (l1_new [C, 5*W1*S1], delta_row [C, DW], counters_new [NC, C])."""
+    cfg: MachineConfig, l1, dirm, tag_rows, shw, vic_shw, lanes, pc_lanes,
+    cid, step_no, counters, delta, hm=None, wm=None, cm=None,
+) -> None:
+    """Plain torch version of phase 4.A + the counter fold, in place on
+    `l1`, `dirm` and `counters`. `pc_lanes`, `shw` and `vic_shw` are the
+    probe's outputs for this `dirm`: the old home-row words at
+    CL_LLC_HWAY and CL_LLC_VWAY."""
     C = l1.shape[0]
     S1, W1, W2 = cfg.l1.sets, cfg.l1.ways, cfg.llc.ways
     NW, MW, DW = cfg.n_sharer_words, llc_meta_width(cfg), dirm_width(cfg)
     FS = W1 * S1
     dev = l1.device
     lane = lanes.unbind(1)
+    pl = pc_lanes.unbind(1)
     line, hit_way, l1_vway = lane[CL_LINE], lane[CL_HIT_WAY], lane[CL_L1_VWAY]
     st_val, slot = lane[CL_ST_VAL], lane[CL_SLOT]
     llc_hway, llc_vway, oclamp = lane[CL_LLC_HWAY], lane[CL_LLC_VWAY], lane[CL_OCLAMP]
@@ -159,6 +192,11 @@ def commit_step_plain(
                   CL_LLC_HIT, CL_JREP, CL_TAKES_OWN, CL_GETS_PROBE,
                   CL_GETS_SHARED)
     )
+
+    def old(home, vic):
+        """The home-row word at the updated way: the hit way's on an LLC
+        hit, the victim's otherwise."""
+        return torch.where(llc_hit, pl[home], pl[vic])
 
     # ordered L1 plane writes (later writes win)
     l1s = line & (S1 - 1)
@@ -172,26 +210,26 @@ def commit_step_plain(
     wj = winner | join
     st_m = write_hit | wj
     st_col = torch.where(write_hit, hit_col, upd_col)
-    llc_uway = torch.where(llc_hit, llc_hway, llc_vway)
-    eph_way = torch.where(join, llc_hway, llc_uway)
-    new_eph = take(mrows, 3 * W2 + eph_way) + takes_own.to(_i32)
-    fill_ptr = slot * W2 + torch.where(join | llc_hit, llc_hway, llc_vway)
-    blk = l1.clone()
-    _write(blk, dup, dup_col, -1)
-    _write(blk, dup, dup_col + FS, I)
-    _write(blk, hit | wj, torch.where(hit, hit_col, upd_col) + 2 * FS, step_no)
-    _write(blk, st_m, st_col + FS, st_val)
-    _write(blk, wj, upd_col, line)
-    _write(blk, wj, upd_col + 3 * FS, fill_ptr)
-    _write(blk, wj, upd_col + 4 * FS, new_eph)
+    eph_home = join | llc_hit  # the epoch's way: join ? hway : the updated way
+    new_eph = torch.where(eph_home, pl[PL_HOME_EPOCH], pl[PL_VIC_EPOCH]) + takes_own.to(_i32)
+    fill_ptr = slot * W2 + torch.where(eph_home, llc_hway, llc_vway)
+    _write(l1, dup, dup_col, -1)
+    _write(l1, dup, dup_col + FS, I)
+    _write(l1, hit | wj, torch.where(hit, hit_col, upd_col) + 2 * FS, step_no)
+    _write(l1, st_m, st_col + FS, st_val)
+    _write(l1, wj, upd_col, line)
+    _write(l1, wj, upd_col + 3 * FS, fill_ptr)
+    _write(l1, wj, upd_col + 4 * FS, new_eph)
     if hm is not None:
         for k in range(hm.shape[1]):
             cmk = cm[:, k]
-            _write(blk, hm[:, k] != 0, cmk + 2 * FS, step_no)
+            _write(l1, hm[:, k] != 0, cmk + 2 * FS, step_no)
             sup = (wm[:, k] != 0) & ~(st_m & (st_col == cmk))
-            _write(blk, sup, cmk + FS, M)
+            _write(l1, sup, cmk + FS, M)
 
-    # directory row delta
+    # directory: a winner's new pair, LRU, epoch and sharer words at the
+    # updated way; a joiner's LRU (the join representative) and self bit
+    # at the hit way. Each lane adds its delta words to row `slot`.
     nw = torch.arange(NW, dtype=_i32, device=dev)[None, :]
     self_word = torch.where(nw == (cid >> 5)[:, None], 1 << (cid & 31)[:, None], 0)
     owner_word = torch.where(nw == (oclamp >> 5)[:, None], 1 << (oclamp & 31)[:, None], 0)
@@ -201,120 +239,132 @@ def commit_step_plain(
         self_word | owner_word,
         torch.where(gets_shared[:, None], shw | self_word, 0),
     )
-    join_word = self_word & ~shw
-    j = torch.arange(DW, dtype=_i32, device=dev)[None, :]
-    jsh = (j - MW).clamp(min=0)
-    w_sh, n_sh = jsh // NW, (jsh % NW).long().expand(C, DW)
-    uw = llc_uway[:, None]
-    pairv = torch.where((j & 1) == 0, line[:, None], new_owner[:, None])
-    new_full = torch.where(
-        j < 2 * W2,
-        torch.where((j >> 1) == uw, pairv, mrows),
-        torch.where(
-            j < 3 * W2,
-            torch.where(j - 2 * W2 == uw, step_no, mrows),
-            torch.where(
-                j < 4 * W2,
-                torch.where(j - 3 * W2 == uw, new_eph[:, None], mrows),
-                torch.where(
-                    (j >= MW) & (w_sh == uw), new_shw.gather(1, n_sh), mrows
-                ),
-            ),
-        ),
+    zero = torch.zeros_like(line)
+    win_d = torch.cat([
+        torch.stack([
+            line - old(PL_HOME_TAG, PL_VIC_TAG),
+            new_owner - old(PL_OWNER, PL_VIC_OWNER),
+            step_no - old(PL_HOME_LRU, PL_VIC_LRU),
+            new_eph - old(PL_HOME_EPOCH, PL_VIC_EPOCH),
+        ], 1),
+        new_shw - torch.where(llc_hit[:, None], shw, vic_shw),
+    ], 1)
+    jdelta = torch.where(jrep, step_no - pl[PL_HOME_LRU], 0)
+    join_d = torch.cat(
+        [torch.stack([zero, zero, jdelta, zero], 1), self_word & ~shw], 1
     )
-    hw = llc_hway[:, None]
-    jdelta = torch.where(jrep, step_no - take(mrows, 2 * W2 + llc_hway), 0)
-    join_row = torch.where(j == 2 * W2 + hw, jdelta[:, None], 0) + torch.where(
-        (j >= MW) & (w_sh == hw), join_word.gather(1, n_sh), 0
+    way = torch.where(winner, torch.where(llc_hit, llc_hway, llc_vway), llc_hway)[:, None]
+    cols = torch.cat([2 * way, 2 * way + 1, 2 * W2 + way, 3 * W2 + way, MW + way * NW + nw], 1)
+    # lanes neither winner nor joiner add zeros (the JAX package drops them)
+    vals = torch.where(winner[:, None], win_d, torch.where(join[:, None], join_d, 0))
+    dirm.view(-1).index_add_(
+        0, (slot.long()[:, None] * DW + cols).flatten(), vals.flatten()
     )
-    drow = torch.where(
-        winner[:, None], new_full - mrows, torch.where(join[:, None], join_row, 0)
-    ).to(_i32)
-    return blk, drow, counters + delta
+    counters += delta
 
 
-def _run_patch(hm, wm, cm, C, dev, anchor):
-    """The run-patch inputs as contiguous int32 [C, rl] tensors (rl = 0:
-    a dummy pointer the kernel never reads)."""
-    if hm is None:
-        return 0, [anchor] * 3
-    rl = hm.shape[1]
-    out = [x.to(_i32).contiguous() for x in (hm, wm, cm)]
-    for name, x in zip(("hm", "wm", "cm"), out):
-        check_tensor(name, x, (C, rl), dev)
-    return rl, out
+def _check_widths(name: str, cfg: MachineConfig, hm) -> int:
+    """The local run length; raise where a core's ways, LLC ways or run
+    slots outnumber a warp's lanes."""
+    rl = 0 if hm is None else hm.shape[1]
+    for what, n in (("l1.ways", cfg.l1.ways), ("llc.ways", cfg.llc.ways),
+                    ("local run length", rl)):
+        if n > WARP:
+            raise ValueError(f"{name}: {what} = {n} is above {WARP}")
+    return rl
+
+
+def _device(name: str, t) -> torch.device:
+    dev = t.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    return dev
+
+
+def _run_patch(hm, wm, cm, C, rl, dev, anchor):
+    """The run patch as the kernels read it: `hm` and `wm` as bytes of
+    the bool tensors, `cm` through its row stride. Returns (pointers, cm
+    row stride); rl = 0 passes a dummy pointer the kernel never reads."""
+    if not rl:
+        return [anchor] * 3, 0
+    check_tensor("hm", hm, (C, rl), dev, torch.bool)
+    check_tensor("wm", wm, (C, rl), dev, torch.bool)
+    if (cm.dtype != _i32 or tuple(cm.shape) != (C, rl) or cm.device != dev
+            or cm.stride(1) != 1 or cm.stride(0) < rl):
+        raise ValueError(
+            f"cm must be int32 [{C}, {rl}] on {dev} with unit column stride, got "
+            f"{cm.dtype} {list(cm.shape)} strides {cm.stride()} on {cm.device}"
+        )
+    return [hm, wm, cm], cm.stride(0)
 
 
 def probe_classify(
-    cfg: MachineConfig, l1, vrows, mrows, line, cid, step_no,
+    cfg: MachineConfig, l1, dirm, slot, line, cid, step_no,
     hm=None, wm=None, cm=None,
 ):
     """Phase 1 for every core: the CUDA kernel on CUDA tensors, the plain
-    version on CPU tensors. `step_no` is a 0-d int32 tensor."""
-    dev = l1.device
+    version on CPU tensors. `step_no` is a 0-d int32 tensor; `hm`/`wm`
+    are bool and `cm` int32 [C, rl] (a column slice is fine)."""
+    rl = _check_widths("probe_classify", cfg, hm)
+    dev = _device("probe_classify", l1)
     if dev.type == "cpu":
-        return probe_classify_plain(cfg, l1, vrows, mrows, line, cid, step_no, hm, wm, cm)
-    if dev.type != "cuda":
-        raise ValueError(f"probe_classify: unsupported device {dev}")
+        return probe_classify_plain(cfg, l1, dirm, slot, line, cid, step_no, hm, wm, cm)
     C = cfg.n_cores
     S1, W1, W2 = cfg.l1.sets, cfg.l1.ways, cfg.llc.ways
     NW, MW, DW = cfg.n_sharer_words, llc_meta_width(cfg), dirm_width(cfg)
     check_tensor("l1", l1, (C, 5 * W1 * S1), dev)
-    check_tensor("vrows", vrows, (C, W1 * DW), dev)
-    check_tensor("mrows", mrows, (C, DW), dev)
-    check_tensor("line", line, (C,), dev)
-    check_tensor("cid", cid, (C,), dev)
+    check_tensor("dirm", dirm, (cfg.n_banks * cfg.llc.sets, DW), dev)
+    for name, x in (("slot", slot), ("line", line), ("cid", cid)):
+        check_tensor(name, x, (C,), dev)
     check_tensor("step_no", step_no, (), dev)
-    rl, patch = _run_patch(hm, wm, cm, C, dev, line)
+    patch, cm_ld = _run_patch(hm, wm, cm, C, rl, dev, line)
     outs = [torch.empty(C, W1, dtype=_i32, device=dev) for _ in range(3)]
     outs += [torch.empty(C, NW, dtype=_i32, device=dev) for _ in range(2)]
     outs.append(torch.empty(C, PROBE_LANES, dtype=_i32, device=dev))
     build.launch(
         "probe_classify",
-        [l1, vrows, mrows, line, cid, step_no, *patch, *outs],
-        [C, S1, W1, W2, NW, MW, DW, rl],
+        [l1, dirm, slot, line, cid, step_no, *patch, *outs],
+        [C, S1, W1, W2, NW, MW, DW, rl, cm_ld],
         torch.cuda.current_stream(dev),
     )
     return tuple(outs)
 
 
 def commit_step(
-    cfg: MachineConfig, l1, mrows, tag_rows, shw, lanes, cid, step_no,
-    counters, delta, hm=None, wm=None, cm=None,
-):
-    """Phase 4.A + counter fold: the CUDA kernel on CUDA tensors, the
-    plain version on CPU tensors. The caller applies the one remaining
-    row scatter: dirm[upd_slot] += delta_row."""
-    dev = l1.device
+    cfg: MachineConfig, l1, dirm, tag_rows, shw, vic_shw, lanes, pc_lanes,
+    cid, step_no, counters, delta, hm=None, wm=None, cm=None,
+) -> None:
+    """Phase 4.A + counter fold, in place on `l1`, `dirm` and `counters`:
+    the CUDA kernel on CUDA tensors, the plain version on CPU tensors.
+    `tag_rows`, `shw`, `vic_shw` and `pc_lanes` are probe_classify's
+    outputs of this step; the row slot is column CL_SLOT of `lanes`."""
+    rl = _check_widths("commit_step", cfg, hm)
+    dev = _device("commit_step", l1)
     if dev.type == "cpu":
         return commit_step_plain(
-            cfg, l1, mrows, tag_rows, shw, lanes, cid, step_no, counters,
-            delta, hm, wm, cm,
+            cfg, l1, dirm, tag_rows, shw, vic_shw, lanes, pc_lanes, cid,
+            step_no, counters, delta, hm, wm, cm,
         )
-    if dev.type != "cuda":
-        raise ValueError(f"commit_step: unsupported device {dev}")
     C = cfg.n_cores
     S1, W1, W2 = cfg.l1.sets, cfg.l1.ways, cfg.llc.ways
     NW, MW, DW = cfg.n_sharer_words, llc_meta_width(cfg), dirm_width(cfg)
     NC = counters.shape[0]
     check_tensor("l1", l1, (C, 5 * W1 * S1), dev)
-    check_tensor("mrows", mrows, (C, DW), dev)
+    check_tensor("dirm", dirm, (cfg.n_banks * cfg.llc.sets, DW), dev)
     check_tensor("tag_rows", tag_rows, (C, W1), dev)
     check_tensor("shw", shw, (C, NW), dev)
+    check_tensor("vic_shw", vic_shw, (C, NW), dev)
     check_tensor("lanes", lanes, (C, COMMIT_LANES), dev)
+    check_tensor("pc_lanes", pc_lanes, (C, PROBE_LANES), dev)
     check_tensor("cid", cid, (C,), dev)
     check_tensor("step_no", step_no, (), dev)
     check_tensor("counters", counters, (NC, C), dev)
     check_tensor("delta", delta, (NC, C), dev)
-    rl, patch = _run_patch(hm, wm, cm, C, dev, lanes)
-    l1_new = torch.empty_like(l1)
-    drow = torch.empty(C, DW, dtype=_i32, device=dev)
-    cnt = torch.empty_like(counters)
+    patch, cm_ld = _run_patch(hm, wm, cm, C, rl, dev, lanes)
     build.launch(
         "commit_step",
-        [l1, mrows, tag_rows, shw, lanes, cid, step_no, counters, delta,
-         *patch, l1_new, drow, cnt],
-        [C, S1, W1, W2, NW, MW, DW, NC, rl],
+        [l1, dirm, tag_rows, shw, vic_shw, lanes, pc_lanes, cid, step_no,
+         counters, delta, *patch],
+        [C, S1, W1, W2, NW, MW, DW, NC, rl, cm_ld],
         torch.cuda.current_stream(dev),
     )
-    return l1_new, drow, cnt

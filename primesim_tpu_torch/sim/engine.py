@@ -8,9 +8,10 @@ branch wherever the JAX step has one. Its kernels are
 `kernels.step_kernels.probe_classify` (phase 1), `kernels.reductions.
 sharer_reductions` (phase 3), `kernels.router_kernels.router_cascade`
 (the router model's cascade) and `kernels.step_kernels.commit_step`
-(phase 4.A); torch keeps the row gathers that stage the directory into
-them, the one row scatter-add after them, the router's per-hop gathers
-and departure scatter, and the sort-based FIFO ranks (`ops.ranking`).
+(phase 4.A). The probe reads the directory itself and the commit
+updates the L1, the directory and the counters in place; torch keeps the
+router's per-hop gathers and departure scatter and the sort-based FIFO
+ranks (`ops.ranking`).
 The step issues no host synchronisation: every scalar it needs stays on
 the device.
 
@@ -56,7 +57,7 @@ from ..trace.format import (
     Trace,
     validate_sync,
 )
-from .state import E, I, M, MachineState, S, dirm_width, init_state, llc_meta_width
+from .state import E, I, M, MachineState, S, init_state, llc_meta_width
 
 INT32_MAX = 2**31 - 1
 _ACC_BITS = 30  # per-chunk counter increments must stay below 2^30
@@ -105,13 +106,14 @@ def _scatter_drop(base, idx, src, reduce: str):
 
 def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True):
     """Advance every core by one step. `events` is the [C, T, 4] int32
-    line-granular trace on the state's device. Updates `st.dirm` IN PLACE
-    (the row scatter-add of the directory deltas; the directory is the
-    largest array of the state) and returns the new state."""
+    line-granular trace on the state's device. Updates `st.l1`, `st.dirm`
+    and `st.counters` IN PLACE (`commit_step`: the L1 plane writes, the
+    directory deltas and the counter fold) and returns the new state,
+    which holds those same tensors."""
     C, B = cfg.n_cores, cfg.n_banks
     S1, W1 = cfg.l1.sets, cfg.l1.ways
     S2, W2 = cfg.llc.sets, cfg.llc.ways
-    NW, MW, DW = cfg.n_sharer_words, llc_meta_width(cfg), dirm_width(cfg)
+    NW, MW = cfg.n_sharer_words, llc_meta_width(cfg)
     NS = B * S2  # directory rows
     T = events.shape[1]
     n_tiles = cfg.n_tiles
@@ -145,7 +147,6 @@ def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True):
 
     # ---- phase 0.5: closed-form local runs (DESIGN.md §3)
     cycles_c, ptr_c = st.cycles, st.ptr
-    l1_c = st.l1
     FS = W1 * S1
     logB = B.bit_length() - 1
     if rl:
@@ -156,7 +157,7 @@ def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True):
             + ps[:, :, None]
         ).reshape(C, (rl + 1) * W1)
         KW = (rl + 1) * W1
-        pts = l1_c.gather(1, torch.cat([pcf, pcf + FS], 1).long())
+        pts = st.l1.gather(1, torch.cat([pcf, pcf + FS], 1).long())
         ptagr = pts[:, :KW].reshape(C, rl + 1, W1)
         pstater = pts[:, KW:].reshape(C, rl + 1, W1)
         pslot = (pline & (B - 1)) * S2 + ((pline >> logB) & (S2 - 1))
@@ -212,15 +213,10 @@ def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True):
         ev = events[rows_c, ptr_c.clamp(max=T - 1).long()]
     et, earg, eaddr, epre = ev.unbind(1)
     line = eaddr.contiguous()
-    l1s = line & (S1 - 1)
     bank = line & (B - 1)
     slot = bank * S2 + ((line >> logB) & (S2 - 1))
-    meta_rows = st.dirm[slot.long()]  # [C, DW], reused by commit_step
-    w1cols = torch.arange(W1, dtype=_i32, device=dev)[None, :] * S1 + l1s[:, None]
-    ptr_pre = l1_c.gather(1, (w1cols + 3 * FS).long())
-    vrows = st.dirm[(ptr_pre // W2).long()].reshape(C, W1 * DW)
     tag_rows, lru_rows, weff, shw, vic_shw, pc_lanes = step_kernels.probe_classify(
-        cfg, l1_c, vrows, meta_rows, line, arange_c, step_no, *run_patch
+        cfg, st.l1, st.dirm, slot, line, arange_c, step_no, *run_patch
     )
     hit_any = pc_lanes[:, PL_HIT_ANY] != 0
     hit_way = pc_lanes[:, PL_HIT_WAY]
@@ -594,23 +590,18 @@ def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True):
         barrier_count = torch.where(drained, 0, barrier_count)
         barrier_time = torch.where(drained, 0, barrier_time)
 
-    # ---- end-of-step commit: every deferred L1 write, the directory row
-    # deltas and the counter fold in one kernel, then the row scatter-add
+    # ---- end-of-step commit: every deferred L1 write, the directory
+    # deltas and the counter fold in one kernel, in place
     zero = torch.zeros(C, dtype=_i32, device=dev)
     delta = torch.stack([acc.get(k, zero) for k in COUNTER_NAMES])
-    l1_n, delta_row, counters = step_kernels.commit_step(
-        cfg, l1_c, meta_rows, tag_rows, shw, commit_lanes, arange_c, step_no,
-        st.counters, delta, *run_patch,
-    )
-    # dropped lanes (neither winner nor joiner) add a zero row to row 0
-    st.dirm.index_add_(
-        0, torch.where(wj, slot, 0).long(), torch.where(wj[:, None], delta_row, 0)
+    step_kernels.commit_step(
+        cfg, st.l1, st.dirm, tag_rows, shw, vic_shw, commit_lanes, pc_lanes,
+        arange_c, step_no, st.counters, delta, *run_patch,
     )
 
     return st._replace(
         cycles=cycles,
         ptr=ptr,
-        l1=l1_n,
         link_free=link_free_n,
         dram_free=dram_free_n,
         lock_holder=lock_holder,
@@ -619,7 +610,6 @@ def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True):
         sync_flag=sync_flag,
         quantum_end=quantum_end,
         step=step_no + 1,
-        counters=counters,
     )
 
 

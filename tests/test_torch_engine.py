@@ -183,3 +183,24 @@ def test_o3_overlap_and_heterogeneous_cpi():
         core=CoreConfig(cpi=1, cpi_pattern=(1, 3), o3_overlap_256=96),
     )
     assert_port_matches_everything(cfg, GENERATOR_TRACES["fft_like"](), chunk_steps=32)
+
+
+def test_step_commits_in_place():
+    """`step` updates the L1, the directory and the counters in place:
+    the new state holds the same tensors, with the step's writes in them,
+    and equals the JAX step from the same state."""
+    cfg = small_test_config(8, n_banks=4, quantum=300, local_run_len=2,
+                            step_impl="pallas")
+    tr = GENERATOR_TRACES["false_sharing"]()
+    je = JEngine(cfg, tr, chunk_steps=16)
+    je.run_steps(16)
+    tcfg = port_cfg(cfg)
+    tst = convert.state_from_numpy(tcfg, jax_arrays(je.state), "cpu")
+    before = {f: getattr(tst, f).clone() for f in ("l1", "dirm", "counters")}
+    events = torch.from_numpy(tr.line_events(cfg.line_bits))
+    t_next = t_engine.step(tcfg, events, tst, has_sync=je.has_sync)
+    for f, old in before.items():
+        assert getattr(t_next, f) is getattr(tst, f), f
+        assert not torch.equal(getattr(t_next, f), old), f
+    j_next = j_run_chunk(cfg, 1, je.events, je.state, has_sync=je.has_sync)
+    assert_states_equal(j_next, t_next, "in place")
