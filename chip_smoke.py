@@ -17,11 +17,19 @@ the final line:
                 full-size directory, zero but for 8192 random rows, the
                 last among them, that the pointers and home slots name;
                 the commit on the probe's outputs, winners and joiners
-                sharing rows), router_cascade at rung 3's (1024 cores, 62
-                hops) with and without the barrier-arrival leg, about half
-                the hops masked and link clocks at the clamp. commit_step
-                updates l1, dirm and counters in place: each of its calls
-                here and below gets fresh clones of them.
+                sharing rows); sharer_reductions also at 40 cores on 16
+                tiles (padding bits, victim owners among them) and at
+                1100 cores (35 words: more than a warp's lanes);
+                router_cascade at rung 3's shapes (1024 cores, 62 hops,
+                4096 links) with and without the barrier-arrival leg, and
+                at 64 cores with 2, 126 and 254 hops (1, 4 and 8 chunks of
+                32 lanes): -1-padded routes of random lengths, lanes masked per
+                leg (so masked hops with pth >= 0), a third of the hops on
+                eight hot links, link clocks and bases near the rebase
+                clamp and near INT32_MAX; its end times and link_free_out
+                are compared. commit_step updates l1, dirm and counters in
+                place and router_cascade its link_free_out: each of their
+                calls here and below gets fresh clones of them.
 4. rung1     -- configs/rung1_64core_fft.json on fft_like(64, n_phases=2,
                 points_per_core=32, seed=7): the card's run launches each
                 of its kernels once per step, equals the port's CPU run in
@@ -32,18 +40,20 @@ the final line:
                 field. Meanwhile the kernel inputs staged at steps 1 and 300
                 (headline) and 1 and 500 (rung 3's router_cascade) are kept;
                 each kernel equals its plain version on them. Each kernel
-                is then timed alone on the later step's inputs (the bool
-                lanes of sharer_reductions converted beforehand, so that
-                every wrapper launches its kernel and nothing else) with
-                CUDA events: median of 25 after warm-up, each launch queued
-                behind a device sleep so host overhead does not count, and
-                what commit_step updates in place (the L1, the counters and
-                the directory rows its lanes name) restored from the staged
-                inputs before each launch, outside the timed window. The
+                is then timed alone on the later step's inputs, as the
+                engine passes them (every wrapper launches its kernel and
+                nothing else), with CUDA events: median of 25 after
+                warm-up, each launch queued behind a device sleep so host
+                overhead does not count, and what the kernels update in
+                place (commit_step's L1, counters and the directory rows
+                its lanes name; router_cascade's link_free_out) restored
+                from the staged inputs before each launch, outside the
+                timed window. The
                 event method's own floor is the same median for a
                 torch.cuda._sleep(0) launch. Bounds are computed from the
                 staged inputs. The phase's line is printed in phase 8, with
-                the profiler's times of the same calls.
+                the profiler's times of the same calls, the router's live
+                hops per leg and the sharer rows' set bits.
 6. headline  -- the first main path: 1024 cores / 1024 banks, 32x32 mesh,
                 the folded fft_like(1024, 4 phases, 256 points, seed 42)
                 trace, chunk_steps=512, run to completion through
@@ -70,10 +80,12 @@ the final line:
                 the capture line, printed now. Then one 64-step chunk of
                 each main path from a mid-run state
                 (steps 256-319) under torch.profiler: device busy time,
-                device events per step, the device time by kernel name and
-                each hand-written kernel's mean device time per launch
-                (the profiler adds host overhead, so the window is not a
-                speed figure).
+                device events per step, the device time by kernel name, by
+                torch operator and input shapes (which call site launched
+                it), and each
+                hand-written kernel's mean device time per launch (the
+                profiler adds host overhead, so the window is not a speed
+                figure).
 
 Then the kernel summary line and, last, the result line
 {"ok": true, "device": {...}}.
@@ -107,7 +119,9 @@ KERNEL_META = {
                        "primesim_tpu/kernels/router_kernels.py:103"),
 }
 STEP_KERNELS = ("probe_classify", "commit_step", "sharer_reductions")
-INPLACE = {"commit_step": (0, 1, 9)}  # argument positions of l1, dirm, counters
+# argument positions of what a kernel updates in place: commit_step's l1,
+# dirm and counters, router_cascade's link_free_out
+INPLACE = {"commit_step": (0, 1, 9), "router_cascade": (12,)}
 RUNG3_STAGED = ("router_cascade",)  # staged from rung 3, the rest from the headline
 CHECK_STEPS = 512  # steps of each main path that the CPU run repeats
 PROF_REPS = 10  # profiled launches of each kernel alone
@@ -192,10 +206,13 @@ def main() -> int:
     H3 = (cfg3.noc.mesh_x - 1) + (cfg3.noc.mesh_y - 1)
     max_err = {k: 0 for k in wrappers}
 
-    def call(fn, name, args, kw=None):
+    def call(fn, name, args, kw=None, mcfg=None):
         """A wrapper or plain version on staged arguments (the step
-        kernels take the headline machine's config first)."""
-        return fn(cfg, *args, **(kw or {})) if name in STEP_KERNELS else fn(*args, **(kw or {}))
+        kernels take a machine's config first, the headline's unless
+        `mcfg` names another)."""
+        if name in STEP_KERNELS:
+            return fn(mcfg or cfg, *args, **(kw or {}))
+        return fn(*args, **(kw or {}))
 
     def same_run(phase, gpu, cpu):
         """Fail unless two engines agree in steps, per-core cycles, every
@@ -223,17 +240,18 @@ def main() -> int:
         return [a.clone() if i in INPLACE.get(name, ()) else a
                 for i, a in enumerate(args)]
 
-    def outputs(fn, name, args, kw=None):
-        """fn on fresh clones: what it returns, or the tensors it updates."""
+    def outputs(fn, name, args, kw=None, mcfg=None):
+        """fn on fresh clones: what it returns, then the tensors it
+        updates in place."""
         a = fresh(name, args)
-        out = call(fn, name, a, kw)
-        return [a[i] for i in INPLACE[name]] if name in INPLACE else out
+        out = call(fn, name, a, kw, mcfg)
+        return list(out or ()) + [a[i] for i in INPLACE.get(name, ())]
 
-    def compare(name, args, kw=None):
+    def compare(name, args, kw=None, mcfg=None):
         """The kernel (through its wrapper) against the plain version on
         the same card tensors; returns the kernel's outputs."""
-        got = outputs(wrappers[name], name, args, kw)
-        want = outputs(plains[name], name, args, kw)
+        got = outputs(wrappers[name], name, args, kw, mcfg)
+        want = outputs(plains[name], name, args, kw, mcfg)
         torch.cuda.synchronize()
         err = 0
         for g, w in zip(got, want):
@@ -314,32 +332,66 @@ def main() -> int:
         cu(rng.integers(0, 2**30, (26, C))), *patch,
     ])
     del dirm
-    compare("sharer_reductions", [
-        cu(words((C, NW))), cu(words((C, NW))),
-        cu(rng.integers(0, cfg.n_tiles, C)), cu(rng.integers(-1, C, C)),
-        cu(rng.integers(0, 2, C)), cu(rng.integers(0, 2, C)), cid,
-        torch.tensor(1, dtype=torch.int32, device=dev),
-        torch.tensor(1, dtype=torch.int32, device=dev),
-    ])
-    for has_sync in (False, True):
-        LT = (3 if has_sync else 2) * H3
-        ok = rng.random((C, LT)) < 0.5
-        lf = np.where(rng.random((C, LT)) < 0.3,
-                      -(1 << 30) + rng.integers(0, 50, (C, LT)),  # at the clamp
-                      rng.integers(-2000, 900_000, (C, LT)))
-        bs = np.where(ok, rng.integers(-500, 900_000, (C, LT)), 2**31 - 1)
-        hops = [cu(rng.integers(0, H3 + 1, C)) for _ in range(3)]
-        compare("router_cascade", [
-            cu(lf), cu(bs), cu(rng.integers(0, 60, (C, LT))),
-            torch.from_numpy(ok).to(dev), cu(rng.integers(0, 900_000, C)),
-            cu(rng.integers(12, 600, C)), hops[0], hops[1],
-            hops[2] if has_sync else None,
+    def sharer_args(mcfg):
+        n = mcfg.n_cores
+        return [
+            cu(words((n, mcfg.n_sharer_words))), cu(words((n, mcfg.n_sharer_words))),
+            cu(rng.integers(0, mcfg.n_tiles, n)), cu(rng.integers(-1, 32 * mcfg.n_sharer_words, n)),
+            torch.from_numpy(rng.random(n) < 0.5).to(dev),
+            torch.from_numpy(rng.random(n) < 0.5).to(dev), cu(np.arange(n)),
             torch.tensor(1, dtype=torch.int32, device=dev),
             torch.tensor(1, dtype=torch.int32, device=dev),
-        ], {"has_sync": has_sync})
+        ]
+
+    # the headline's 32 words, then padding bits (40 cores on 16 tiles)
+    # and more words than lanes (1100 cores: 35 words)
+    compare("sharer_reductions", sharer_args(cfg))
+    spec = json.loads(cfg.to_json())
+    for n, mx, my in ((40, 4, 4), (1100, 44, 25)):
+        mcfg = MachineConfig.from_dict({**spec, "n_cores": n, "noc": {
+            **spec["noc"], "mesh_x": mx, "mesh_y": my}})
+        compare("sharer_reductions", sharer_args(mcfg), mcfg=mcfg)
+
+    def router_args(n, H, NL, has_sync):
+        """Random routes of random lengths, -1-padded; lanes masked per
+        leg (so masked hops with pth >= 0); a third of the hops on eight
+        hot links; link clocks and bases live, near the rebase clamp and
+        near INT32_MAX."""
+        legs = 3 if has_sync else 2
+        hot = rng.choice(NL, 8, replace=False)
+
+        def clocks(empty):
+            u = rng.random(NL)
+            return np.where(u < 0.2, -(1 << 30) + rng.integers(0, 50, NL),
+                            np.where(u < 0.2 + empty, 2**31 - 1 - rng.integers(0, 50, NL),
+                                     rng.integers(-2000, 900_000, NL)))
+
+        hops = rng.integers(0, H + 1, (n, legs))  # each leg's route length
+        pth = np.where(rng.random((n, legs, H)) < 1 / 3,
+                       hot[rng.integers(0, 8, (n, legs, H))],
+                       rng.integers(0, NL, (n, legs, H)))
+        pth = np.where(np.arange(H) < hops[:, :, None], pth, -1).reshape(n, legs * H)
+        ok = np.repeat(rng.random((n, legs)) < 0.5, H, axis=1) & (pth >= 0)
+        return [
+            cu(clocks(0.05)), cu(clocks(0.3)), cu(pth), torch.from_numpy(ok).to(dev),
+            cu(rng.integers(0, 60, (n, legs * H))), cu(rng.integers(0, 900_000, n)),
+            cu(rng.integers(12, 600, n)), cu(hops[:, 0]), cu(hops[:, 1]),
+            cu(hops[:, 2]) if has_sync else None,
+            torch.tensor(1, dtype=torch.int32, device=dev),
+            torch.tensor(1, dtype=torch.int32, device=dev),
+            cu(clocks(0.05)),  # link_free_out: another copy's clocks
+        ]
+
+    # rung 3's shapes, then routes of 1, 4 and 8 chunks of 32 hops
+    for n, H, NL, has_sync in ((C, H3, 4 * cfg3.n_tiles, False),
+                               (C, H3, 4 * cfg3.n_tiles, True),
+                               (64, 2, 16, True), (64, 126, 16384, False),
+                               (64, 254, 65536, True)):
+        compare("router_cascade", router_args(n, H, NL, has_sync), {"has_sync": has_sync})
     emit({"phase": "kernels", "inputs": "random", "shapes": {
         "C": C, "W1": W1, "S1": S1, "W2": W2, "NW": NW, "MW": MW, "DW": DW,
-        "rl": rl, "router_hops": H3, "router_legs": [2, 3]}, "max_abs_err": max_err})
+        "rl": rl, "router_hops": [2, H3, 126, 254], "router_legs": [2, 3],
+        "sharer_cores": [C, 40, 1100]}, "max_abs_err": max_err})
 
     # ---- 4. rung 1: card == CPU == JAX fixture
     with open(os.path.join(ROOT, "primesim_tpu_torch", "fixtures",
@@ -424,15 +476,7 @@ def main() -> int:
     timed_step = {k: CAPTURE["rung3" if k in RUNG3_STAGED else "headline"][-1]
                   for k in wrappers}
 
-    def as_i32(args):
-        """sharer_reductions' bool lanes as int32, so that its wrapper
-        casts nothing (the other wrappers read bool masks as they are)."""
-        return [a.to(torch.int32) if torch.is_tensor(a) and a.dtype == torch.bool
-                else a for a in args]
-
     captured = {k: staged[k][timed_step[k]] for k in wrappers}
-    args, kw = captured["sharer_reductions"]
-    captured["sharer_reductions"] = (as_i32(args), kw)
 
     def timed_call(k):
         """(launch, prep): one wrapper call on the timed step's inputs, and
@@ -445,7 +489,7 @@ def main() -> int:
         pairs = []
         for i in INPLACE.get(k, ()):
             rows = (torch.unique(args[5][:, step_kernels.CL_SLOT]).long()
-                    if i == 1 else None)
+                    if (k, i) == ("commit_step", 1) else None)
             pairs.append((work[i], rows, args[i] if rows is None else args[i][rows]))
 
         def prep():
@@ -474,12 +518,15 @@ def main() -> int:
             times.append(s.elapsed_time(e))
         return float(np.median(times))
 
-    def device_events(fn):
+    def device_events(fn, by_op=False):
         """(device events of fn() as sorted (start, end, name), fn's wall
-        seconds) under torch.profiler. A random fill, which the simulator
-        never makes, marks where fn begins: the trace may still hold
-        kernels that ran before the profile did."""
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        seconds, and with `by_op` the 16 torch operators, by input shapes,
+        whose own kernels took the most device time) under
+        torch.profiler. A random fill, which the simulator never makes,
+        marks where fn begins: the trace may still hold kernels that ran
+        before the profile did."""
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     record_shapes=by_op) as prof:
             time.sleep(0.2)  # let the tracer settle before the marker
             torch.randn(1, device=dev)
             torch.cuda.synchronize()
@@ -496,7 +543,12 @@ def main() -> int:
         )
         if dev_ev and "normal" in dev_ev[0][2]:
             dev_ev = dev_ev[1:]  # the marker's own kernel
-        return dev_ev, wall_s
+        ops = sorted(
+            ([e.key, str(e.input_shapes)[:100], e.self_device_time_total, e.count]
+             for e in prof.key_averages(group_by_input_shape=True)
+             if e.device_type == DeviceType.CPU and e.self_device_time_total > 0),
+            key=lambda o: -o[2])[:16] if by_op else None
+        return dev_ev, wall_s, ops
 
     timing = {}
     for k in wrappers:
@@ -536,23 +588,31 @@ def main() -> int:
                     + 4 * C * 8  # the home-row words of the probe's lanes
                     + 4 * (n_win * NW + n_join))  # old sharer words, a joiner's own word
     a = staged["sharer_reductions"][300][0]  # shw vic_shw btile vic_owner inv_row vic_valid cid link router
-    irow, vv = a[4] != 0, a[5] != 0
+    irow, vv = a[4], a[5]  # bool
     n_inv, n_vic = int(irow.sum()), int(vv.sum())
     active_rows = int((irow | vv).sum())
-    red_bytes = (nbytes(a[4], a[5], a[7], a[8])  # both flags of every row, two latencies
+    red_out = outputs(plains["sharer_reductions"], "sharer_reductions", a)
+    inv_bits, back_bits = int(red_out[1].sum()), int(red_out[3].sum())  # set bits walked
+    red_bytes = (nbytes(a[4], a[5], a[7], a[8])  # both flag bytes of every row, two latencies
                  + 4 * 3 * active_rows  # btile, vic_owner, cid of the active rows
-                 + 4 * NW * (n_inv + n_vic)  # the sharer words those rows expand
+                 + 4 * NW * (n_inv + n_vic)  # the sharer words of those rows
                  + 4 * 5 * C)  # the five outputs
-    red_ops = active_rows * min(32 * NW, C) * 30  # ~30 integer ops per target
-    a, kw = staged["router_cascade"][CAPTURE["rung3"][-1]]  # lf bs r ok t0 service hops x3 link router
+    # per word read: mask, popcount, sum; per set bit: find and clear it,
+    # the target's tile, its hop count and the hop sum, and for the
+    # invalidation set the latency and its max
+    red_ops = 5 * NW * (n_inv + n_vic) + 16 * inv_bits + 12 * back_bits
+    a, kw = staged["router_cascade"][CAPTURE["rung3"][-1]]  # lf base pth ok r t0 service hops x3 link router out
     legs = 3 if kw["has_sync"] else 2
     n_ok = int(a[3].sum())
+    live_by_leg = [int(x) for x in a[3].view(C, legs, -1).sum((0, 2))]
     cas_bytes = (a[3].numel()  # every hop's mask byte
-                 + 4 * 3 * n_ok  # link clock, base and rank of the live hops
+                 + 4 * 4 * n_ok  # route, link clock, base and rank of the live hops
+                 + 8 * n_ok  # read-modify-write of each live hop's departure
                  + 4 * C * (2 + legs) + 8  # t0, service, each leg's hops, two latencies
-                 + 4 * C * (legs - 1)  # the reply (and arrival) leg's end out
-                 + 4 * n_ok)  # the live hops' departures (masked ones are dropped)
-    cas_ops = a[3].numel() * 11  # floor 4, offset 2, running max 1, departure 4 per hop
+                 + 4 * C * (legs - 1))  # the reply (and arrival) leg's end out
+    # floor 4, offset 2, running max 1, departure 4 per live hop; the
+    # masked hops' SENT offsets and running max, 2 each
+    cas_ops = 11 * n_ok + 2 * (a[3].numel() - n_ok)
     bounds = {
         "probe_classify": (probe_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
         "commit_step": (commit_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
@@ -574,8 +634,10 @@ def main() -> int:
           "commit_winners": n_win, "commit_joiners": n_join,
           "commit_words_changed": {"l1": l1_words, "dirm": dirm_words},
           "sharer_rows": {"active": active_rows, "invalidating": n_inv,
-                          "evicting": n_vic},
-          "router_hops": {"legs": legs, "live": n_ok, "all": a[3].numel()},
+                          "evicting": n_vic, "invalidation_bits": inv_bits,
+                          "back_invalidation_bits": back_bits},
+          "router_hops": {"legs": legs, "live": n_ok, "live_by_leg": live_by_leg,
+                          "all": a[3].numel()},
           "gpu": smi_line}
     del staged  # the other staged steps, before the main paths' peaks
 
@@ -659,7 +721,7 @@ def main() -> int:
         prof_eng = Engine(pcfg, trace, chunk_steps=64, device=dev)
         prof_eng.run_steps(256)  # mid-run state, as the main path meets it
         torch.cuda.synchronize()
-        dev_ev, window_s = device_events(lambda: prof_eng.run_steps(64))
+        dev_ev, window_s, top_ops = device_events(lambda: prof_eng.run_steps(64), by_op=True)
         del prof_eng
         busy_us, end = 0.0, None
         for a0, b0, _ in dev_ev:  # union of device intervals
@@ -687,6 +749,7 @@ def main() -> int:
               "device_busy_us": busy_us,
               "device_busy_share_of_window": (busy_us * 1e-6 / window_s) if dev_ev else None,
               "top_device_us": [[n[:80], t, c] for n, (t, c) in top],
+              "top_ops_device_us": top_ops,
               "kernel_us_per_launch": kernel_us[path],
               "gpu": smi_line})
 

@@ -1,11 +1,13 @@
-"""The dense invalidation / back-invalidation reductions.
+"""The invalidation / back-invalidation reductions.
 
 `sharer_reductions` replaces the JAX package's Pallas kernel
 `kernels/reductions.py::sharer_reductions`: on CUDA tensors it launches
-`csrc/sharer_reductions.cu`; on CPU tensors it runs the plain version
-below, the same function written as dense torch ops over [C, 32*NW]
-target bits. Full-map directory and mesh topology only (the port's
-`check_port_supported`).
+`csrc/sharer_reductions.cu` (one warp per core, over the set bits of the
+row's sharer words) and nothing else: the flags `inv_row`/`vic_valid` are
+read as the bytes of bool tensors and `vic_owner` through its stride. On
+CPU tensors it runs the plain version below, the same function written
+as dense torch ops over [C, 32*NW] target bits. Full-map directory and
+mesh topology only (the port's `check_port_supported`).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import torch
 from ..config.machine import MachineConfig
 from ..noc import topology
 from . import build
+from .layouts import check_tensor
 
 
 def sharer_reductions_plain(
@@ -49,20 +52,14 @@ def sharer_reductions_plain(
     )
 
 
-def _i32(x, C, device):
-    """A [C] lane as a contiguous int32 tensor (bool lanes converted)."""
-    x = x.to(torch.int32).contiguous()
-    if x.shape != (C,) or x.device != device:
-        raise ValueError(f"lane must be [{C}] on {device}, got {tuple(x.shape)} on {x.device}")
-    return x
-
-
 def sharer_reductions(
     cfg: MachineConfig, shw, vic_shw, btile, vic_owner, inv_row, vic_valid,
     cid, link_lat, router_lat,
 ):
     """The kernel on CUDA tensors, its plain version on CPU tensors.
-    `link_lat`/`router_lat` are 0-d int32 tensors on the same device."""
+    `inv_row`/`vic_valid` are bool [C], `vic_owner` int32 [C] of any
+    stride, the other lanes contiguous int32 [C]; `link_lat`/`router_lat`
+    are 0-d int32 tensors on the same device."""
     dev = shw.device
     if dev.type == "cpu":
         return sharer_reductions_plain(
@@ -72,16 +69,25 @@ def sharer_reductions(
     if dev.type != "cuda":
         raise ValueError(f"sharer_reductions: unsupported device {dev}")
     C, NW = cfg.n_cores, cfg.n_sharer_words
-    for name, x in (("shw", shw), ("vic_shw", vic_shw)):
-        if x.dtype != torch.int32 or x.shape != (C, NW) or not x.is_contiguous():
-            raise ValueError(f"sharer_reductions: {name} must be contiguous int32 [{C}, {NW}]")
-    lanes = [_i32(x, C, dev) for x in (btile, vic_owner, inv_row, vic_valid, cid)]
-    scal = [_i32(x.reshape(1), 1, dev) for x in (link_lat, router_lat)]
+    check_tensor("shw", shw, (C, NW), dev)
+    check_tensor("vic_shw", vic_shw, (C, NW), dev)
+    for name, x in (("btile", btile), ("cid", cid)):
+        check_tensor(name, x, (C,), dev)
+    for name, x in (("inv_row", inv_row), ("vic_valid", vic_valid)):
+        check_tensor(name, x, (C,), dev, torch.bool)  # read as bytes
+    if vic_owner.dtype != torch.int32 or vic_owner.shape != (C,) or vic_owner.device != dev:
+        raise ValueError(
+            f"vic_owner must be int32 [{C}] on {dev}, got {vic_owner.dtype} "
+            f"{list(vic_owner.shape)} on {vic_owner.device}"
+        )
+    for name, x in (("link_lat", link_lat), ("router_lat", router_lat)):
+        check_tensor(name, x, (), dev)
     outs = [torch.empty(C, dtype=torch.int32, device=dev) for _ in range(5)]
     build.launch(
         "sharer_reductions",
-        [shw, vic_shw, *lanes, *scal, *outs],
-        [C, NW, cfg.n_tiles, cfg.noc.mesh_x],
+        [shw, vic_shw, btile, vic_owner, inv_row, vic_valid, cid, link_lat,
+         router_lat, *outs],
+        [C, NW, cfg.n_tiles, cfg.noc.mesh_x, vic_owner.stride(0)],
         torch.cuda.current_stream(dev),
     )
     return tuple(outs)

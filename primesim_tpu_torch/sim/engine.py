@@ -8,10 +8,11 @@ branch wherever the JAX step has one. Its kernels are
 `kernels.step_kernels.probe_classify` (phase 1), `kernels.reductions.
 sharer_reductions` (phase 3), `kernels.router_kernels.router_cascade`
 (the router model's cascade) and `kernels.step_kernels.commit_step`
-(phase 4.A). The probe reads the directory itself and the commit
-updates the L1, the directory and the counters in place; torch keeps the
-router's per-hop gathers and departure scatter and the sort-based FIFO
-ranks (`ops.ranking`).
+(phase 4.A). The probe reads the directory itself, the commit
+updates the L1, the directory and the counters in place, and the cascade
+reads the link clocks at the live hops and scatter-maxes its departures
+itself; torch keeps the router's `base` scatter-min and the sort-based
+FIFO ranks (`ops.ranking`).
 The step issues no host synchronisation: every scalar it needs stays on
 the device.
 
@@ -387,8 +388,8 @@ def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True):
         # max(link_free[l], base[l]) + rank * link_lat (base: the link's
         # earliest nominal arrival this step; rank: packets on l with a
         # smaller key), then pays router_lat at the next router. The
-        # cascade over the hops is router_cascade; the departures
-        # scatter-max into link_free.
+        # cascade over the hops, with the link gathers and the departures'
+        # scatter-max into link_free, is router_cascade.
         NL = mesh.n_links(cfg)
         L_lat, R_lat = kn.link_lat, kn.router_lat
         c_hop = L_lat + R_lat
@@ -410,26 +411,24 @@ def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True):
         a_all = torch.cat([a_req, a_rep] + ([a_req] if has_sync else []), 1)
         ok_all = mask_all & (pth_all >= 0)
         tgt_all = torch.where(ok_all, pth_all, NL)
-        tgt_flat = tgt_all.flatten()
-        base = _scatter_min(NL, tgt_flat, a_all.flatten())
+        base = _scatter_min(NL, tgt_all.flatten(), a_all.flatten())
         r_all = segmented_rank(tgt_all, n_seg=NL, order=ord_c)
-        pc_all = torch.where(pth_all >= 0, pth_all, 0).long()
-        lf_g = st.link_free[pc_all]  # [C, legs*H]
-        bs_g = base[pc_all]
         if has_sync:
             arr_lat_a, arr_hops = _one_way(cfg, ctile, htile, kn)
         else:
             arr_hops = None
-        t_rep_end, t_arr_end, d_all = router_kernels.router_cascade(
-            lf_g, bs_g, r_all, ok_all, t0, service, req_hops, rep_hops,
-            arr_hops, L_lat, R_lat, has_sync=has_sync,
+        # a copy: every floor must read the clocks before any departure
+        link_free_n = st.link_free.clone()
+        t_rep_end, t_arr_end = router_kernels.router_cascade(
+            st.link_free, base, pth_all, ok_all, r_all, t0, service,
+            req_hops, rep_hops, arr_hops, L_lat, R_lat, link_free_n,
+            has_sync=has_sync,
         )
         raw_rt = t_rep_end - t0  # valid on home_txn lanes
         extra_home = raw_rt - (req_lat + service + rep_lat)
         if has_sync:
             raw_arr = t_arr_end - t0  # valid on barrier lanes
             extra_bar = raw_arr - arr_lat_a
-        link_free_n = _scatter_drop(st.link_free, tgt_flat, d_all.flatten(), "amax")
         cadd(
             "noc_contention_cycles",
             torch.where(home_txn, extra_home, 0)

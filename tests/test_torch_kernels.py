@@ -6,7 +6,9 @@ held against on the card (chip_smoke.py), take the same inputs made from
 a numpy seed. Integer simulator, so every comparison is exact: the
 tolerance is 0. Shapes: 8 cores (one sharer word) and 64 cores (two
 words, crossing the word boundary), local-run lengths 0, 2 and 8, with
-sharer words that use bit 31 and with tied tags and LRU stamps.
+sharer words that use bit 31 and with tied tags and LRU stamps; the
+reductions also on victim owners that are recorded sharers, self bits,
+padding bits above C, bit 31 in every word and rows with every bit set.
 
 The port's step kernels read and update the directory `dirm` itself,
 where the JAX package's are handed staged rows: the probe cases stage
@@ -400,19 +402,53 @@ def test_sharer_bit_31():
     assert list(words.view(np.uint32)) == [1 << 31, 1 << 31]
 
 
-@pytest.mark.parametrize("C", [8, 64])
-def test_sharer_reductions_matches_pallas(C):
+SHARER_CASES = [
+    pytest.param(C, case, id=f"{case}-{C}" if case != "random" else str(C))
+    for case in ("random", "owner_is_sharer", "self_bit", "padding_bits",
+                 "bit31_every_word", "all_bits_row")
+    for C in ((8,) if case == "padding_bits" else (8, 64))
+]
+
+
+@pytest.mark.parametrize("C,case", SHARER_CASES)
+def test_sharer_reductions_matches_pallas(C, case):
+    """Random rows, then one case each: a victim owner that is also a
+    recorded sharer (counted once), the self bit in the invalidation
+    words (never counted), padding bits of targets >= C (8 cores: bits
+    8-31, and owners among them), bit 31 in every word, and rows with all
+    32*NW bits set."""
     jcfg, tcfg = _cfgs(C)
     rng = np.random.default_rng(300 + C)
     NW = jcfg.n_sharer_words
+    shw, vic_shw = _words(rng, (C, NW)), _words(rng, (C, NW))
+    vic_owner = rng.integers(-1, C, C)
+    inv_row, vic_valid = rng.random(C) < 0.5, rng.random(C) < 0.5
+    cid = np.arange(C)
+    if case == "owner_is_sharer":
+        vic_valid[:] = True
+        vic_owner = rng.integers(0, C, C)
+        vic_shw[cid, vic_owner // 32] |= (1 << (vic_owner % 32)).astype(np.uint32).view(np.int32)
+    elif case == "self_bit":
+        inv_row[:] = True
+        shw[cid, cid // 32] |= (1 << (cid % 32)).astype(np.uint32).view(np.int32)
+    elif case == "padding_bits":
+        inv_row[:] = vic_valid[:] = True
+        pad = np.int32(-(1 << C))  # bits C..31 of the one word
+        shw[:, 0] |= pad
+        vic_shw[:, 0] |= pad
+        vic_owner[::2] = rng.integers(C, 32, (C + 1) // 2)
+    elif case == "bit31_every_word":
+        inv_row[:] = vic_valid[:] = True
+        shw |= np.int32(-(2**31))
+        vic_shw |= np.int32(-(2**31))
+    elif case == "all_bits_row":
+        full = rng.random(C) < 0.5
+        shw[full] = vic_shw[full] = -1
+        inv_row[full] = vic_valid[full] = True
     arrs = [
-        _words(rng, (C, NW)),
-        _words(rng, (C, NW)),
+        shw, vic_shw,
         rng.integers(0, jcfg.n_tiles, C).astype(np.int32),  # btile
-        rng.integers(-1, C, C).astype(np.int32),  # vic_owner
-        rng.integers(0, 2, C).astype(np.int32),  # inv_row
-        rng.integers(0, 2, C).astype(np.int32),  # vic_valid
-        np.arange(C, dtype=np.int32),
+        vic_owner.astype(np.int32), inv_row, vic_valid, cid.astype(np.int32),
         np.asarray(3, np.int32),  # link latency
         np.asarray(2, np.int32),  # router latency
     ]
@@ -423,6 +459,11 @@ def test_sharer_reductions_matches_pallas(C):
         j_out, t_out, ["inv_lat", "inv_cnt", "inv_hops", "back_cnt", "back_hops"]
     )
     assert t_out[1].numpy().max() > 0 and t_out[3].numpy().max() > 0
+    cnt = t_out[1].numpy()
+    if case == "all_bits_row":
+        assert cnt[full].max() == C - 1  # every target but the core itself
+    if case == "padding_bits":
+        assert cnt.max() <= C - 1 and t_out[3].numpy().max() <= C
 
 
 def test_popcount_counts_bit_31():

@@ -1,11 +1,13 @@
 """The hop-by-hop router in the port against the JAX package, on the CPU.
 
 The kernel: `router_cascade_plain`, which the CUDA kernel is held to on
-the card (chip_smoke.py), against the JAX package's Pallas
-`router_cascade` in interpret mode, on numpy-seeded inputs at the route
-widths of 2x2, 4x4 and 32x32 meshes (H = 2, 6 and 62), with and without
-the barrier-arrival leg, about half the hops masked and link clocks down
-at the rebase clamp.
+the card (chip_smoke.py), against the JAX engine's composition around the
+Pallas `router_cascade` in interpret mode (the `link_free`/`base`
+gathers, the cascade, the departures' drop-scatter-max), on numpy-seeded
+inputs at the route widths of 2x2, 4x4 and 32x32 meshes (H = 2, 6 and
+62), with and without the barrier-arrival leg: -1-padded routes, masked
+hops with pth >= 0, many lanes on one link and link clocks down at the
+rebase clamp.
 
 Whole runs: the port's `Engine(device="cpu")` against the JAX `Engine`
 (XLA and Pallas steps) and the golden model on the router machines and
@@ -37,87 +39,145 @@ from test_step_pallas import GENERATOR_TRACES
 from test_torch_engine import assert_port_matches_everything, port_cfg, port_trace
 
 
-def _cascade_inputs(C, H, has_sync, seed):
+def _cascade_inputs(C, mesh, has_sync, seed):
+    """(link_free, base, pth_all, ok_all, r_all, t0, service, req_hops,
+    rep_hops, arr_hops) for a mesh of `mesh` tiles: routes of random
+    lengths, -1-padded, a third of their hops on four hot links (many
+    lanes cross one link), lane masks per leg (so masked hops with
+    pth >= 0), link clocks at the rebase clamp and live, and base from
+    real arrivals or the empty-link INT32_MAX."""
     rng = np.random.default_rng(seed)
-    LT = (3 if has_sync else 2) * H
-    # link clocks from the rebase clamp up to live values; base from real
-    # arrivals or the empty-link INT32_MAX
-    lf = np.where(
-        rng.random((C, LT)) < 0.3,
-        -(1 << 30) + rng.integers(0, 50, (C, LT)),
-        rng.integers(-2000, 5000, (C, LT)),
+    legs = 3 if has_sync else 2
+    H = max(1, (mesh[0] - 1) + (mesh[1] - 1))
+    NL = 4 * mesh[0] * mesh[1]
+    link_free = np.where(
+        rng.random(NL) < 0.3,
+        -(1 << 30) + rng.integers(0, 50, NL),
+        rng.integers(-2000, 5000, NL),
     )
-    bs = np.where(
-        rng.random((C, LT)) < 0.1, 2**31 - 1, rng.integers(-500, 5000, (C, LT))
+    base = np.where(rng.random(NL) < 0.2, 2**31 - 1, rng.integers(-500, 5000, NL))
+    hot = rng.choice(NL, 4, replace=False)
+    n = rng.integers(0, H + 1, (C, legs))  # route length of each leg
+    k = np.arange(H)[None, None, :]
+    pth = np.where(
+        rng.random((C, legs, H)) < 0.33,
+        hot[rng.integers(0, 4, (C, legs, H))],
+        rng.integers(0, NL, (C, legs, H)),
     )
-    ok = rng.random((C, LT)) < 0.5
-    bs = np.where(ok, np.minimum(bs, 10_000), bs)  # a real hop has a real base
-    r = rng.integers(0, 40, (C, LT))
+    pth = np.where(k < n[:, :, None], pth, -1).reshape(C, legs * H)
+    mask = np.repeat(rng.random((C, legs)) < 0.6, H, axis=1)
+    ok = mask & (pth >= 0)
+    r = rng.integers(0, 40, (C, legs * H))
     lanes = [
         rng.integers(-1000, 5000, C),  # t0
         rng.integers(1, 400, C),  # service
-        *(rng.integers(0, H + 1, C) for _ in range(3)),  # req/rep/arr hops
+        *(n[:, i] if i < legs else n[:, 0] for i in range(3)),  # hops
     ]
-    i32 = [a.astype(np.int32) for a in (lf, bs, r)]
-    return i32 + [ok] + [a.astype(np.int32) for a in lanes]
+    i32 = [a.astype(np.int32) for a in (link_free, base, pth)]
+    return i32 + [ok, r.astype(np.int32)] + [a.astype(np.int32) for a in lanes]
+
+
+def _cascade_both(arrs, L, R, has_sync):
+    """The JAX engine's composition around the Pallas kernel (gathers at
+    pc, the cascade, `.at[tgt].max(departs, mode="drop")`) and the port's
+    fused router_cascade on the same inputs: ((t_rep_end, t_arr_end,
+    link_free'), the same from the port)."""
+    import jax.numpy as jnp
+
+    link_free, base, pth, ok, r, *lanes = [jnp.asarray(a) for a in arrs]
+    pc = jnp.where(pth >= 0, pth, 0)
+    t_rep, t_arr, d_all = j_cascade(
+        link_free[pc], base[pc], r, ok, *lanes, L, R, has_sync=has_sync
+    )
+    tgt = jnp.where(ok, pth, link_free.shape[0])
+    want = (t_rep, t_arr, link_free.at[tgt].max(d_all, mode="drop"))
+    t = [torch.from_numpy(a) for a in arrs]
+    out = t[0].clone()
+    got = router_kernels.router_cascade(
+        *t[:9], t[9] if has_sync else None,
+        torch.tensor(L, dtype=torch.int32), torch.tensor(R, dtype=torch.int32),
+        out, has_sync=has_sync,
+    )
+    np.testing.assert_array_equal(t[0].numpy(), arrs[0])  # read only
+    return want, (*got, out)
+
+
+def _assert_cascade_same(want, got, has_sync):
+    for n, a, b in zip(("t_rep_end", "t_arr_end", "link_free_out"), want, got):
+        if n == "t_arr_end" and not has_sync:
+            assert a is None and b is None
+            continue
+        assert b.dtype == torch.int32
+        np.testing.assert_array_equal(b.numpy(), np.asarray(a), err_msg=n)
 
 
 @pytest.mark.parametrize("has_sync", [False, True])
 @pytest.mark.parametrize("mesh,C", [((2, 2), 8), ((4, 4), 16), ((32, 32), 64)])
 def test_cascade_plain_matches_pallas(mesh, C, has_sync):
-    import jax.numpy as jnp
-
     assert router_kernels.SENT == J_SENT
     H = (mesh[0] - 1) + (mesh[1] - 1)
-    arrs = _cascade_inputs(C, H, has_sync, seed=H * 10 + has_sync)
+    arrs = _cascade_inputs(C, mesh, has_sync, seed=H * 10 + has_sync)
+    ok, pth = arrs[3], arrs[2]
+    assert (~ok & (pth >= 0)).any() and (pth < 0).any()
+    live = pth[ok]
+    assert len(live) > len(np.unique(live))  # duplicate targets
     for L, R in ((1, 1), (3, 2)):
-        want = j_cascade(
-            *[jnp.asarray(a) for a in arrs], L, R, has_sync=has_sync
-        )
-        t = [torch.from_numpy(a) for a in arrs]
-        got = router_kernels.router_cascade(
-            *t[:8], t[8] if has_sync else None,
-            torch.tensor(L, dtype=torch.int32), torch.tensor(R, dtype=torch.int32),
-            has_sync=has_sync,
-        )
-        names = ("t_rep_end", "t_arr_end", "departs")
-        for n, a, b in zip(names, want, got):
-            if n == "t_arr_end" and not has_sync:
-                assert a is None and b is None
-                continue
-            assert b.dtype == torch.int32
-            np.testing.assert_array_equal(b.numpy(), np.asarray(a), err_msg=n)
+        want, got = _cascade_both(arrs, L, R, has_sync)
+        _assert_cascade_same(want, got, has_sync)
+        assert (got[2].numpy() != arrs[0]).any()
 
 
 def test_cascade_wraps_like_jax():
-    """Floors and clocks near the int32 limits wrap in both packages."""
-    import jax.numpy as jnp
-
-    arrs = _cascade_inputs(8, 2, True, seed=5)
-    arrs[0][:, :] = 2**31 - 3  # max(lf, bs) + rank*L wraps past INT32_MAX
-    arrs[3][:, :] = True
-    arrs[4][:] = 2**31 - 2  # t0 + R wraps
-    want = j_cascade(*[jnp.asarray(a) for a in arrs], 2, 1, has_sync=True)
-    t = [torch.from_numpy(a) for a in arrs]
-    got = router_kernels.router_cascade(
-        *t, torch.tensor(2, dtype=torch.int32), torch.tensor(1, dtype=torch.int32),
-        has_sync=True,
-    )
-    for a, b in zip(want, got):
-        np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+    """Floors, clocks and departures near the int32 limits wrap in both
+    packages, and the signed max keeps the wrapped departures."""
+    arrs = _cascade_inputs(8, (2, 2), True, seed=5)
+    arrs[0][:] = 2**31 - 3  # max(lf, bs) + rank*L wraps past INT32_MAX
+    arrs[2][:] = np.random.default_rng(6).integers(0, 16, arrs[2].shape)
+    arrs[3][:] = True
+    arrs[5][:] = 2**31 - 2  # t0 + R wraps
+    want, got = _cascade_both(arrs, 2, 1, True)
+    _assert_cascade_same(want, got, True)
 
 
 def test_cascade_wrapper_checks_its_device_and_counts_nothing_on_cpu():
-    arrs = [torch.from_numpy(a) for a in _cascade_inputs(8, 2, False, seed=1)]
+    arrs = [torch.from_numpy(a) for a in _cascade_inputs(8, (2, 2), False, seed=1)]
     one = torch.tensor(1, dtype=torch.int32)
     before = dict(build.LAUNCHES)
-    router_kernels.router_cascade(*arrs[:8], None, one, one, has_sync=False)
+    out = arrs[0].clone()
+    router_kernels.router_cascade(*arrs[:9], None, one, one, out, has_sync=False)
     assert build.LAUNCHES == before
     assert "router_cascade" in build.KERNELS
+    meta = [a.to("meta") for a in arrs[:9]]
     with pytest.raises(ValueError, match="unsupported device"):
         router_kernels.router_cascade(
-            *[a.to("meta") for a in arrs[:8]], None, one.to("meta"),
-            one.to("meta"), has_sync=False,
+            *meta, None, one.to("meta"), one.to("meta"), meta[0].clone(),
+            has_sync=False,
+        )
+
+
+def test_cascade_raises_when_the_output_is_link_free():
+    """The floors read link_free while departures raise the output, so the
+    two must be separate buffers."""
+    arrs = [torch.from_numpy(a) for a in _cascade_inputs(8, (2, 2), False, seed=2)]
+    one = torch.tensor(1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="must be a copy"):
+        router_kernels.router_cascade(
+            *arrs[:9], None, one, one, arrs[0], has_sync=False
+        )
+
+
+def test_cascade_raises_above_256_hops():
+    """The kernel holds a leg's hops in 8 chunks of 32 lanes; the wrapper
+    raises above that on any device, before dispatch."""
+    C, H = 2, router_kernels.MAX_HOPS + 1
+    z = torch.zeros((C, 2 * H), dtype=torch.int32)
+    lane = torch.zeros(C, dtype=torch.int32)
+    one = torch.tensor(1, dtype=torch.int32)
+    lf = torch.zeros(8, dtype=torch.int32)
+    with pytest.raises(ValueError, match="257 hops per leg is above 256"):
+        router_kernels.router_cascade(
+            lf, lf.clone(), z, z != 0, z, lane, lane, lane, lane, None, one,
+            one, lf.clone(), has_sync=False,
         )
 
 
