@@ -17,9 +17,17 @@ the final line:
                 full-size directory, zero but for 8192 random rows, the
                 last among them, that the pointers and home slots name;
                 the commit on the probe's outputs, winners and joiners
-                sharing rows); sharer_reductions also at 40 cores on 16
-                tiles (padding bits, victim owners among them) and at
-                1100 cores (35 words: more than a warp's lanes);
+                sharing rows); the probe and the commit again at rung 5's
+                shapes (16384 cores, 64-core sharer groups, its 3.2 GB
+                directory) with random fill-time and entry epochs, so that
+                group-bit copies meet changed epochs (the phase fails if
+                none does); sharer_reductions also at 40 cores on 16
+                tiles (padding bits, victim owners among them), at
+                1100 cores (35 words: more than a warp's lanes), at rung
+                4's 4096 cores (128 words) and in its group mode at rung
+                5's 16384 cores and 256 groups, with rows whose requester's
+                group is flagged and rows whose victim owner lies outside
+                the victim's flagged groups;
                 router_cascade at rung 3's shapes (1024 cores, 62 hops,
                 4096 links) with and without the barrier-arrival leg, and
                 at 64 cores with 2, 126 and 254 hops (1, 4 and 8 chunks of
@@ -34,6 +42,12 @@ the final line:
                 points_per_core=32, seed=7): the card's run launches each
                 of its kernels once per step, equals the port's CPU run in
                 every state field and equals the committed JAX fixture.
+   reduced   -- the two large-core directory modes at 256 cores: rung 5's
+                machine with 4-core groups and rung 4's with a 2-word
+                chunk, each on a folded fft_like(256, 8 phases, 16
+                points) trace, run to completion on the card and on the
+                CPU: equal in every field, the step kernels launched once
+                per step.
 5. capture   -- the first 512 steps (one chunk) of the headline machine
                 and of rung 3 on the card, each equal to the port's CPU run
                 of them in per-core cycles, all 26 counters and every state
@@ -72,6 +86,18 @@ the final line:
                 on the same trace, likewise: all four kernels once per
                 step, instructions, the digest against
                 fixtures/rung3_headline.json, invariants.
+   rung4     -- the shipped configs/rung4_4096core_biglittle.json (4096
+                cores and banks, 64x64 mesh, chunked full map: 128 sharer
+                words, a 9.66 GB directory) at full geometry on the folded
+                fft_like(4096, 4 phases, 128 points, seed 42) trace,
+                likewise against fixtures/rung4_full.json: the three step
+                kernels once per step, router_cascade never.
+   rung5     -- the shipped configs/rung5_16384core_wafer.json (16384
+                cores, 128x128 mesh, 64-core sharer groups) on the folded
+                fft_like(16384, 8 phases, 32 points, seed 42) trace,
+                likewise against fixtures/rung5_full.json. Neither large
+                path is repeated on the CPU (the reduced phase holds their
+                modes there); each engine is freed before the next.
 8. profile   -- first, in the process's first torch.profiler session (no
                 session precedes the main paths' timing), 10 wrapper calls
                 per kernel on the inputs phase 5 timed, each on fresh
@@ -85,7 +111,12 @@ the final line:
                 it), and each
                 hand-written kernel's mean device time per launch (the
                 profiler adds host overhead, so the window is not a speed
-                figure).
+                figure). Rungs 4 and 5 get the same window; then, of the
+                next 64 steps, the inputs of the step whose
+                sharer_reductions has the most invalidating or evicting
+                rows are staged, each kernel is held to its plain version
+                on them, timed alone by CUDA events as in phase 5 and
+                given a bound from them (one "mode" line per path).
 
 Then the kernel summary line and, last, the result line
 {"ok": true, "device": {...}}.
@@ -126,6 +157,10 @@ RUNG3_STAGED = ("router_cascade",)  # staged from rung 3, the rest from the head
 CHECK_STEPS = 512  # steps of each main path that the CPU run repeats
 PROF_REPS = 10  # profiled launches of each kernel alone
 CAPTURE = {"headline": (1, 300), "rung3": (1, 500)}
+# the full-geometry large-core paths: (path, fixture); their profile
+# window covers steps 256-319 and their kernels are staged at the busiest
+# of steps 320-383
+LARGE = (("rung4", "rung4_full"), ("rung5", "rung5_full"))
 
 
 def emit(obj) -> None:
@@ -151,7 +186,7 @@ def main() -> int:
     from primesim_tpu_torch import convert
     from primesim_tpu_torch.config.machine import MachineConfig
     from primesim_tpu_torch.kernels import build, reductions, router_kernels, step_kernels
-    from primesim_tpu_torch.sim.engine import Engine
+    from primesim_tpu_torch.sim.engine import Engine, group_tables
     from primesim_tpu_torch.sim.state import dirm_width, llc_meta_width
     from primesim_tpu_torch.stats.digest import run_digest
     from primesim_tpu_torch.trace import synth
@@ -195,10 +230,14 @@ def main() -> int:
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "ptxas": {k: build.ptxas_report(k) for k in build.KERNELS}})
 
+    t0 = time.perf_counter()
     hfx, cfg, trace = fixture("headline")
     r3fx, cfg3, trace3 = fixture("rung3_headline")
     if trace3.events.tobytes() != trace.events.tobytes():
         fail("rung 3's fixture names another trace than the headline's")
+    large = {path: fixture(name) for path, name in LARGE}
+    cfg4, cfg5 = large["rung4"][1], large["rung5"][1]
+    traces_s = time.perf_counter() - t0
     C, S1, W1 = cfg.n_cores, cfg.l1.sets, cfg.l1.ways
     W2, NW = cfg.llc.ways, cfg.n_sharer_words
     MW, DW, FS = llc_meta_width(cfg), dirm_width(cfg), W1 * S1
@@ -273,65 +312,89 @@ def main() -> int:
     def words(shape):  # random 32-bit words, about half with bit 31 set
         return rng.integers(0, 2**32, shape, dtype=np.uint64).astype(np.uint32).view(np.int32)
 
-    def dir_rows(n, n_lines):
-        r = np.zeros((n, DW), np.int32)
-        r[:, 0 : 2 * W2 : 2] = rng.integers(-1, n_lines, (n, W2))
-        r[:, 1 : 2 * W2 : 2] = rng.integers(-1, C, (n, W2))
-        r[:, 2 * W2 : 4 * W2] = rng.integers(0, 3, (n, 2 * W2))
-        r[:, MW:] = words((n, W2 * NW))
-        return r
+    def step_kernels_random(mcfg):
+        """probe_classify, then commit_step on its outputs, on random
+        inputs at mcfg's shapes: the full-size directory, zero but for a
+        pool of random rows (the last row among them) that the pointers
+        and home slots name; the home slots come from 256 of them, so
+        rows are shared. Returns the live group-bit copies whose
+        fill-time epoch differs from their entry's (0 on a full map)."""
+        C, S1, W1 = mcfg.n_cores, mcfg.l1.sets, mcfg.l1.ways
+        W2, NW = mcfg.llc.ways, mcfg.n_sharer_words
+        MW, DW, FS = llc_meta_width(mcfg), dirm_width(mcfg), W1 * S1
+        NS, rl = mcfg.n_banks * mcfg.llc.sets, mcfg.local_run_len
+        n_lines = 6
+        pool = np.append(rng.choice(NS - 1, 8191, replace=False), NS - 1)
+        prow = rng.integers(0, len(pool), (C, W1))
+        ptr = pool[prow] * W2 + rng.integers(0, W2, (C, W1))
+        slot = pool[rng.integers(len(pool) - 256, len(pool), C)]
+        line = rng.integers(0, n_lines, C)
+        cols = np.arange(W1)[None, :] * S1 + (line & (S1 - 1))[:, None]
+        l1 = np.concatenate([
+            rng.integers(-1, n_lines, (C, FS)), rng.integers(0, 4, (C, FS)),
+            rng.integers(0, 4, (C, FS)), rng.integers(0, NS * W2, (C, FS)),
+            rng.integers(0, 3, (C, FS)),
+        ], axis=1)
+        l1[np.arange(C)[:, None], 3 * FS + cols] = ptr
+        rows = np.zeros((len(pool), DW), np.int64)
+        rows[:, 0 : 2 * W2 : 2] = rng.integers(-1, n_lines, (len(pool), W2))
+        rows[:, 1 : 2 * W2 : 2] = rng.integers(-1, C, (len(pool), W2))
+        rows[:, 2 * W2 : 4 * W2] = rng.integers(0, 3, (len(pool), 2 * W2))
+        rows[:, MW:] = words((len(pool), W2 * NW))
+        at = {r: i for i, r in enumerate(pool)}
+        cc, ww = np.nonzero(rng.random((C, W1)) < 0.5)  # live copies, a third owned
+        for c, w in zip(cc, ww):
+            i, pway = at[ptr[c, w] // W2], ptr[c, w] % W2
+            rows[i, 2 * pway] = l1[c, cols[c, w]]
+            if rng.random() < 0.3:
+                rows[i, 2 * pway + 1] = c
+        mismatched = 0
+        if mcfg.sharer_group > 1:  # group-bit copies whose epoch moved on
+            i = np.vectorize(at.get)(ptr // W2)
+            pway = ptr % W2
+            g = (np.arange(C) >> (mcfg.sharer_group.bit_length() - 1))[:, None]
+            word = rows[i, MW + pway * NW + (g >> 5)] & 0xFFFFFFFF
+            rc = np.arange(C)[:, None]
+            mismatched = int((
+                (l1[rc, FS + cols] != 0) & (rows[i, 2 * pway] == l1[rc, cols])
+                & (rows[i, 2 * pway + 1] != rc) & (((word >> (g & 31)) & 1) != 0)
+                & (rows[i, 3 * W2 + pway] != l1[rc, 4 * FS + cols])
+            ).sum())
+            if not mismatched:
+                fail("kernels: no group-bit copy meets a changed epoch")
+        dirm = torch.zeros(NS, DW, dtype=torch.int32, device=dev)
+        dirm[torch.from_numpy(pool).to(dev)] = cu(rows)
+        run_cols = np.where(rng.random((C, rl)) < 0.5,
+                            rng.integers(0, W1, (C, rl)) * S1 + (line & (S1 - 1))[:, None],
+                            rng.integers(0, FS, (C, rl)))
+        patch = [torch.from_numpy(rng.random((C, rl)) < 0.5).to(dev),
+                 torch.from_numpy(rng.random((C, rl)) < 0.5).to(dev), cu(run_cols)]
+        cid = cu(np.arange(C))
+        step_no = torch.tensor(777, dtype=torch.int32, device=dev)
+        pc_out = compare("probe_classify", [
+            cu(l1), dirm, cu(slot), cu(line), cid, step_no, *patch,
+        ], mcfg=mcfg)
+        pc_lanes = pc_out[5].cpu().numpy()
+        flags = rng.integers(0, 2, (C, 18))
+        lanes = np.stack([
+            line, rng.integers(0, W1, C), rng.integers(0, W1, C), *flags[:, 3:9].T,
+            rng.integers(0, 4, C), slot, pc_lanes[:, step_kernels.PL_LLC_HWAY],
+            pc_lanes[:, step_kernels.PL_LLC_VWAY], *flags[:, 13:17].T,
+            rng.integers(0, C, C),
+        ], axis=1)
+        compare("commit_step", [
+            cu(rng.integers(-5, 50, (C, 5 * FS))), dirm, pc_out[0], pc_out[3],
+            pc_out[4], cu(lanes), pc_out[5], cid, step_no,
+            cu(rng.integers(-(2**31), 2**31, (26, C), dtype=np.int64)),
+            cu(rng.integers(0, 2**30, (26, C))), *patch,
+        ], mcfg=mcfg)
+        del dirm, pc_out
+        torch.cuda.empty_cache()
+        return mismatched
 
-    # the full-size directory, zero but for a pool of random rows (the
-    # last row among them) that the pointers and home slots name; the
-    # home slots come from 256 of them, so rows are shared
-    n_lines = 6
-    pool = np.append(rng.choice(NS - 1, 8191, replace=False), NS - 1)
-    prow = rng.integers(0, len(pool), (C, W1))
-    ptr = pool[prow] * W2 + rng.integers(0, W2, (C, W1))
-    slot = pool[rng.integers(len(pool) - 256, len(pool), C)]
-    line = rng.integers(0, n_lines, C)
-    cols = np.arange(W1)[None, :] * S1 + (line & (S1 - 1))[:, None]
-    l1 = np.concatenate([
-        rng.integers(-1, n_lines, (C, FS)), rng.integers(0, 4, (C, FS)),
-        rng.integers(0, 4, (C, FS)), rng.integers(0, NS * W2, (C, FS)),
-        rng.integers(0, 3, (C, FS)),
-    ], axis=1)
-    l1[np.arange(C)[:, None], 3 * FS + cols] = ptr
-    rows = dir_rows(len(pool), n_lines)
-    at = {r: i for i, r in enumerate(pool)}
-    cc, ww = np.nonzero(rng.random((C, W1)) < 0.5)  # live copies, a third owned
-    for c, w in zip(cc, ww):
-        i, pway = at[ptr[c, w] // W2], ptr[c, w] % W2
-        rows[i, 2 * pway] = l1[c, cols[c, w]]
-        if rng.random() < 0.3:
-            rows[i, 2 * pway + 1] = c
-    dirm = torch.zeros(NS, DW, dtype=torch.int32, device=dev)
-    dirm[torch.from_numpy(pool).to(dev)] = cu(rows)
-    run_cols = np.where(rng.random((C, rl)) < 0.5,
-                        rng.integers(0, W1, (C, rl)) * S1 + (line & (S1 - 1))[:, None],
-                        rng.integers(0, FS, (C, rl)))
-    patch = [torch.from_numpy(rng.random((C, rl)) < 0.5).to(dev),
-             torch.from_numpy(rng.random((C, rl)) < 0.5).to(dev), cu(run_cols)]
-    cid = cu(np.arange(C))
-    step_no = torch.tensor(777, dtype=torch.int32, device=dev)
-    pc_out = compare("probe_classify", [
-        cu(l1), dirm, cu(slot), cu(line), cid, step_no, *patch,
-    ])
-    pc_lanes = pc_out[5].cpu().numpy()
-    flags = rng.integers(0, 2, (C, 18))
-    lanes = np.stack([
-        line, rng.integers(0, W1, C), rng.integers(0, W1, C), *flags[:, 3:9].T,
-        rng.integers(0, 4, C), slot, pc_lanes[:, step_kernels.PL_LLC_HWAY],
-        pc_lanes[:, step_kernels.PL_LLC_VWAY], *flags[:, 13:17].T,
-        rng.integers(0, C, C),
-    ], axis=1)
-    compare("commit_step", [
-        cu(rng.integers(-5, 50, (C, 5 * FS))), dirm, pc_out[0], pc_out[3],
-        pc_out[4], cu(lanes), pc_out[5], cid, step_no,
-        cu(rng.integers(-(2**31), 2**31, (26, C), dtype=np.int64)),
-        cu(rng.integers(0, 2**30, (26, C))), *patch,
-    ])
-    del dirm
+    step_kernels_random(cfg)
+    epoch_mismatches = step_kernels_random(cfg5)  # 64-core groups, epochs
+
     def sharer_args(mcfg):
         n = mcfg.n_cores
         return [
@@ -343,14 +406,39 @@ def main() -> int:
             torch.tensor(1, dtype=torch.int32, device=dev),
         ]
 
-    # the headline's 32 words, then padding bits (40 cores on 16 tiles)
-    # and more words than lanes (1100 cores: 35 words)
+    # the headline's 32 words, then padding bits (40 cores on 16 tiles),
+    # more words than lanes (1100 cores: 35 words) and rung 4's 128 words
     compare("sharer_reductions", sharer_args(cfg))
     spec = json.loads(cfg.to_json())
     for n, mx, my in ((40, 4, 4), (1100, 44, 25)):
         mcfg = MachineConfig.from_dict({**spec, "n_cores": n, "noc": {
             **spec["noc"], "mesh_x": mx, "mesh_y": my}})
         compare("sharer_reductions", sharer_args(mcfg), mcfg=mcfg)
+    compare("sharer_reductions", sharer_args(cfg4), mcfg=cfg4)
+
+    # the group mode at rung 5: sparse and dense group words, a quarter of
+    # the rows invalidating with the requester's own group flagged, a
+    # quarter evicting with the owner outside the victim's flagged groups
+    n, G = cfg5.n_cores, cfg5.sharer_group
+    ga = sharer_args(cfg5)
+    sh, vsh = words((n, cfg5.n_sharer_words)), words((n, cfg5.n_sharer_words))
+    sparse = rng.random(n) < 0.5
+    sh[sparse] &= words((int(sparse.sum()), cfg5.n_sharer_words))
+    own = rng.integers(-1, n, n)
+    gs, og = np.arange(n) // G, np.maximum(own, 0) // G
+    self_rows, out_rows = rng.random(n) < 0.25, rng.random(n) < 0.25
+    sh.view(np.uint32)[self_rows, gs[self_rows] >> 5] |= (
+        np.uint32(1) << (gs[self_rows] & 31).astype(np.uint32))
+    out_rows &= own >= 0
+    vsh.view(np.uint32)[out_rows, og[out_rows] >> 5] &= ~(
+        np.uint32(1) << (og[out_rows] & 31).astype(np.uint32))
+    ga[0], ga[1], ga[3] = cu(sh), cu(vsh), cu(own)
+    ga[4][torch.from_numpy(self_rows).to(dev)] = True
+    ga[5][torch.from_numpy(out_rows).to(dev)] = True
+    compare("sharer_reductions", ga, {"tables": group_tables(cfg5, dev)}, mcfg=cfg5)
+    group_rows = {"requester_group_flagged": int(self_rows.sum()),
+                  "owner_outside_flagged_groups": int(out_rows.sum())}
+    del ga
 
     def router_args(n, H, NL, has_sync):
         """Random routes of random lengths, -1-padded; lanes masked per
@@ -391,7 +479,11 @@ def main() -> int:
     emit({"phase": "kernels", "inputs": "random", "shapes": {
         "C": C, "W1": W1, "S1": S1, "W2": W2, "NW": NW, "MW": MW, "DW": DW,
         "rl": rl, "router_hops": [2, H3, 126, 254], "router_legs": [2, 3],
-        "sharer_cores": [C, 40, 1100]}, "max_abs_err": max_err})
+        "sharer_cores": [C, 40, 1100, cfg4.n_cores],
+        "coarse": {"C": cfg5.n_cores, "G": cfg5.sharer_group,
+                   "NW": cfg5.n_sharer_words, "DW": dirm_width(cfg5),
+                   "epoch_mismatched_copies": epoch_mismatches, **group_rows}},
+        "traces_s": traces_s, "max_abs_err": max_err})
 
     # ---- 4. rung 1: card == CPU == JAX fixture
     with open(os.path.join(ROOT, "primesim_tpu_torch", "fixtures",
@@ -432,6 +524,38 @@ def main() -> int:
           "card_equals_cpu": True, "equals_jax_fixture": True,
           "instructions": int(gc["instructions"].sum())})
     del runs, gpu, cpu
+
+    # ---- reduced: the coarse vector and the chunked full map at 256
+    # cores, card == CPU to completion
+    small_tr = fold_ins(synth.fft_like(256, n_phases=8, points_per_core=16,
+                                       ins_per_mem=8, seed=42))
+    reduced = {}
+    for name, big, kw in (("rung5_G4", cfg5, {"sharer_group": 4}),
+                          ("rung4_K2", cfg4, {"sharer_chunk_words": 2})):
+        spec = json.loads(big.to_json())
+        mcfg = MachineConfig.from_dict({
+            **spec, **kw, "n_cores": 256, "n_banks": 256,
+            "noc": {**spec["noc"], "mesh_x": 16, "mesh_y": 16}})
+        gpu = Engine(mcfg, small_tr, chunk_steps=128, device=dev)
+        reset_launches()
+        gpu.run()
+        n_launch = dict(build.LAUNCHES)
+        t0 = time.perf_counter()
+        cpu = Engine(mcfg, small_tr, chunk_steps=128, device="cpu")
+        cpu.run()
+        cpu_s = time.perf_counter() - t0
+        for k, n in n_launch.items():
+            if n != (gpu.steps_run if k in STEP_KERNELS else 0):
+                fail(f"reduced {name}: {k} launched {n} times in {gpu.steps_run} steps")
+        same_run(f"reduced {name}", gpu, cpu)
+        gpu.verify_invariants()
+        reduced[name] = {"steps": gpu.steps_run, "sharer_words": mcfg.n_sharer_words,
+                         "sharer_group": mcfg.sharer_group,
+                         "sharer_chunk_words": mcfg.sharer_chunk_words,
+                         "invalidations": int(gpu.counters["invalidations"].sum()),
+                         "cpu_s": cpu_s, "launches": n_launch}
+        del gpu, cpu
+    emit({"phase": "reduced", "card_equals_cpu": True, "machines": reduced})
 
     # ---- 5. capture: the first chunk of each main path, card == CPU, and
     # the kernel inputs it stages
@@ -478,13 +602,12 @@ def main() -> int:
 
     captured = {k: staged[k][timed_step[k]] for k in wrappers}
 
-    def timed_call(k):
-        """(launch, prep): one wrapper call on the timed step's inputs, and
+    def timed_call(k, args, kw, mcfg=None):
+        """(launch, prep): one wrapper call on a step's staged inputs, and
         what restores the tensors it updates in place beforehand (outside
         the timed window). commit_step changes only the directory rows its
         lanes name (column CL_SLOT), so only those rows are restored: a
         copy of the whole directory would leave L2 full of dirty lines."""
-        args, kw = captured[k]
         work = fresh(k, args)
         pairs = []
         for i in INPLACE.get(k, ()):
@@ -498,7 +621,7 @@ def main() -> int:
                     w.copy_(src)
                 else:
                     w.index_copy_(0, rows, src)
-        return (lambda fn: call(fn, k, work, kw)), prep
+        return (lambda fn: call(fn, k, work, kw, mcfg)), prep
 
     def device_ms(fn, sleep_cycles, prep=lambda: None):
         """Median device time of fn() over 25 launches, each queued behind
@@ -550,57 +673,121 @@ def main() -> int:
             key=lambda o: -o[2])[:16] if by_op else None
         return dev_ev, wall_s, ops
 
-    timing = {}
-    for k in wrappers:
-        launch, prep = timed_call(k)
-        timing[k] = {
+    def time_alone(k, args, kw, mcfg=None):
+        """The kernel's and its plain version's event times on staged
+        inputs."""
+        launch, prep = timed_call(k, args, kw, mcfg)
+        return {
             "ms": device_ms(lambda: launch(wrappers[k]), 4_000_000, prep),
             "plain_ms": device_ms(lambda: launch(plains[k]), 100_000_000, prep),
         }
+
+    timing = {k: time_alone(k, *captured[k]) for k in wrappers}
     event_floor_ms = device_ms(lambda: torch.cuda._sleep(0), 4_000_000)
 
     def nbytes(*ts):
         return sum(t.numel() * t.element_size() for t in ts if torch.is_tensor(t))
 
-    # the bytes each function needs on this step's inputs, as the main path
+    # the bytes each function needs on a step's inputs, as the main path
     # stages them: every word it reads, once, and every output word, once
-    a = staged["probe_classify"][300][0]  # l1 dirm slot line cid step hm wm cm
-    probe_bytes = (4 * C * (4 * W1  # tag, state, LRU, pointer: the accessed set's ways
-                            + 3 * W1  # tag, owner, own sharer word at each way's pointer
-                            + 2 * W2 + 4  # home row: tags, LRUs, two owners, two epochs
-                            + 2 * NW)  # the hit and victim ways' sharer words
-                   + nbytes(*a[2:])  # slot, line, cid, step, run patch
-                   + 4 * C * (3 * W1 + 2 * NW + step_kernels.PROBE_LANES))  # out
-    # commit_step, in place: the L1 and directory words it changes (the
-    # old directory words come from the probe's lanes), the counters in
-    # and out with the delta, the lanes and the probe outputs it reads
-    a = staged["commit_step"][300][0]  # l1 dirm tag shw vic_shw lanes pc cid step counters delta hm wm cm
-    new_l1, new_dirm, _ = outputs(wrappers["commit_step"], "commit_step", a)
-    l1_words = int((new_l1 != a[0]).sum())
-    dirm_words = int((new_dirm != a[1]).sum())
-    del new_l1, new_dirm
-    win = a[5][:, step_kernels.CL_WINNER] != 0
-    n_win = int(win.sum())
-    n_join = int(((a[5][:, step_kernels.CL_JOIN] != 0) & ~win).sum())
-    commit_bytes = (4 * (l1_words + dirm_words)
-                    + 3 * nbytes(a[9])  # counters in and out, delta in
-                    + nbytes(a[2], a[5], *a[7:9], *a[11:])  # tag rows, lanes, cid, step, patch
-                    + 4 * C * 8  # the home-row words of the probe's lanes
-                    + 4 * (n_win * NW + n_join))  # old sharer words, a joiner's own word
-    a = staged["sharer_reductions"][300][0]  # shw vic_shw btile vic_owner inv_row vic_valid cid link router
-    irow, vv = a[4], a[5]  # bool
-    n_inv, n_vic = int(irow.sum()), int(vv.sum())
-    active_rows = int((irow | vv).sum())
-    red_out = outputs(plains["sharer_reductions"], "sharer_reductions", a)
-    inv_bits, back_bits = int(red_out[1].sum()), int(red_out[3].sum())  # set bits walked
-    red_bytes = (nbytes(a[4], a[5], a[7], a[8])  # both flag bytes of every row, two latencies
-                 + 4 * 3 * active_rows  # btile, vic_owner, cid of the active rows
-                 + 4 * NW * (n_inv + n_vic)  # the sharer words of those rows
-                 + 4 * 5 * C)  # the five outputs
-    # per word read: mask, popcount, sum; per set bit: find and clear it,
-    # the target's tile, its hop count and the hop sum, and for the
-    # invalidation set the latency and its max
-    red_ops = 5 * NW * (n_inv + n_vic) + 16 * inv_bits + 12 * back_bits
+    def probe_bound(a, mcfg):  # l1 dirm slot line cid step hm wm cm
+        C, W1, W2, NW = mcfg.n_cores, mcfg.l1.ways, mcfg.llc.ways, mcfg.n_sharer_words
+        coarse = mcfg.sharer_group > 1
+        b = (4 * C * (4 * W1  # tag, state, LRU, pointer: the accessed set's ways
+                      + 3 * W1  # tag, owner, own sharer word at each way's pointer
+                      + (2 * W1 if coarse else 0)  # fill-time and entry epochs
+                      + 2 * W2 + 4  # home row: tags, LRUs, two owners, two epochs
+                      + 2 * NW)  # the hit and victim ways' sharer words
+             + nbytes(*a[2:])  # slot, line, cid, step, run patch
+             + 4 * C * (3 * W1 + 2 * NW + step_kernels.PROBE_LANES))  # out
+        return b, {"bytes": b}
+
+    def commit_bound(a, mcfg):
+        """In place: the L1 and directory words it changes (the old
+        directory words come from the probe's lanes), the counters in and
+        out with the delta, the lanes and the probe outputs it reads."""
+        # l1 dirm tag shw vic_shw lanes pc cid step counters delta hm wm cm
+        C, NW = mcfg.n_cores, mcfg.n_sharer_words
+        new_l1, new_dirm, _ = outputs(wrappers["commit_step"], "commit_step", a, mcfg=mcfg)
+        rows = torch.unique(a[5][:, step_kernels.CL_SLOT]).long()  # all it may change
+        l1_words = int((new_l1 != a[0]).sum())
+        dirm_words = int((new_dirm[rows] != a[1][rows]).sum())
+        del new_l1, new_dirm
+        win = a[5][:, step_kernels.CL_WINNER] != 0
+        n_win = int(win.sum())
+        n_join = int(((a[5][:, step_kernels.CL_JOIN] != 0) & ~win).sum())
+        b = (4 * (l1_words + dirm_words)
+             + 3 * nbytes(a[9])  # counters in and out, delta in
+             + nbytes(a[2], a[5], *a[7:9], *a[11:])  # tag rows, lanes, cid, step, patch
+             + 4 * C * 8  # the home-row words of the probe's lanes
+             + 4 * (n_win * NW + n_join))  # old sharer words, a joiner's own word
+        return b, {"bytes": b, "winners": n_win, "joiners": n_join,
+                   "words_changed": {"l1": l1_words, "dirm": dirm_words}}
+
+    def set_bits(words, rows, n_bits):
+        """[rows, 32*NW] bool: the set bits below n_bits of the rows' words."""
+        t = torch.arange(32 * words.shape[1], device=dev)
+        bits = ((words[rows][:, t >> 5] >> (t & 31)) & 1) != 0
+        return bits & (t < n_bits)
+
+    def sharer_bound(a, kw, mcfg):
+        """Both flag bytes of every row, the lanes and sharer words of the
+        active rows, the outputs; per set bit of those words, the full map
+        computes a hop count, the group mode reads table words (memb[g]
+        and the home tile's max and summed hops, each distinct word
+        once)."""
+        # shw vic_shw btile vic_owner inv_row vic_valid cid link router
+        C, NW = mcfg.n_cores, mcfg.n_sharer_words
+        irow, vv = a[4], a[5]  # bool
+        n_inv, n_vic = int(irow.sum()), int(vv.sum())
+        active_rows = int((irow | vv).sum())
+        coarse = mcfg.sharer_group > 1
+        n_bits = mcfg.n_sharer_groups if coarse else C
+        inv_b = set_bits(a[0], irow, n_bits)
+        back_b = set_bits(a[1], vv, n_bits)
+        inv_bits, back_bits = int(inv_b.sum()), int(back_b.sum())
+        b = (nbytes(a[4], a[5], a[7], a[8])  # both flag bytes of every row, two latencies
+             + 4 * 3 * active_rows  # btile, vic_owner, cid of the active rows
+             + 4 * NW * (n_inv + n_vic)  # the sharer words of those rows
+             + 4 * 5 * C)  # the five outputs
+        info = {"active": active_rows, "invalidating": n_inv, "evicting": n_vic,
+                "invalidation_bits": inv_bits, "back_invalidation_bits": back_bits}
+        if coarse:
+            n_grp = mcfg.n_sharer_groups
+
+            def pairs(bits, rows):  # distinct (home tile, group) of set bits
+                bt = a[2][rows].long()[:, None]
+                g = torch.arange(bits.shape[1], device=dev)[None, :]
+                return torch.unique(torch.masked_select(bt * n_grp + g, bits))
+
+            max_words = pairs(inv_b, irow)
+            sum_words = torch.unique(torch.cat([max_words, pairs(back_b, vv)]))
+            memb_words = torch.unique(torch.cat([max_words, sum_words]) % n_grp)
+            table_words = len(max_words) + len(sum_words) + len(memb_words)
+            b += 4 * table_words
+            info["table_words"] = table_words
+            # per set bit: find and clear it, three table loads, two sums,
+            # and for the invalidation set the latency and its max
+            ops = 5 * NW * (n_inv + n_vic) + 13 * inv_bits + 7 * back_bits
+        else:
+            # per word read: mask, popcount, sum; per set bit: find and
+            # clear it, the target's tile, its hop count and the hop sum,
+            # and for the invalidation set the latency and its max
+            ops = 5 * NW * (n_inv + n_vic) + 16 * inv_bits + 12 * back_bits
+        info["ops"] = ops
+        return max((b / HBM_BYTES_PER_S * 1e3, "bytes"),
+                   (ops / INT_OPS_PER_S * 1e3, "operations")), info, b
+
+    def bound_of(k, a, kw, mcfg):
+        """((ms, "bytes" or "operations"), detail, bytes) of a step
+        kernel on staged inputs."""
+        if k == "sharer_reductions":
+            return sharer_bound(a, kw, mcfg)
+        b, info = (probe_bound if k == "probe_classify" else commit_bound)(a, mcfg)
+        return (b / HBM_BYTES_PER_S * 1e3, "bytes"), info, b
+
+    a_h = {k: staged[k][300] for k in STEP_KERNELS}
+    step_bounds = {k: bound_of(k, *a_h[k], cfg) for k in STEP_KERNELS}
     a, kw = staged["router_cascade"][CAPTURE["rung3"][-1]]  # lf base pth ok r t0 service hops x3 link router out
     legs = 3 if kw["has_sync"] else 2
     n_ok = int(a[3].sum())
@@ -613,29 +800,19 @@ def main() -> int:
     # floor 4, offset 2, running max 1, departure 4 per live hop; the
     # masked hops' SENT offsets and running max, 2 each
     cas_ops = 11 * n_ok + 2 * (a[3].numel() - n_ok)
-    bounds = {
-        "probe_classify": (probe_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
-        "commit_step": (commit_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
-        "sharer_reductions": max(
-            (red_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
-            (red_ops / INT_OPS_PER_S * 1e3, "operations"),
-        ),
-        "router_cascade": max(
-            (cas_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
-            (cas_ops / INT_OPS_PER_S * 1e3, "operations"),
-        ),
-    }
+    bounds = {k: step_bounds[k][0] for k in STEP_KERNELS}
+    bounds["router_cascade"] = max(
+        (cas_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+        (cas_ops / INT_OPS_PER_S * 1e3, "operations"),
+    )
     capture_line = {"phase": "capture", "steps": CAPTURE, "timed_step": timed_step,
           "card_equals_cpu_steps": CHECK_STEPS, "cpu_s": check_s,
           "max_abs_err": max_err, "timing_ms": timing,
           "event_floor_ms": event_floor_ms, "profiler_reps": PROF_REPS,
-          "bytes": {"probe_classify": probe_bytes, "commit_step": commit_bytes,
-                    "sharer_reductions": red_bytes, "router_cascade": cas_bytes},
-          "commit_winners": n_win, "commit_joiners": n_join,
-          "commit_words_changed": {"l1": l1_words, "dirm": dirm_words},
-          "sharer_rows": {"active": active_rows, "invalidating": n_inv,
-                          "evicting": n_vic, "invalidation_bits": inv_bits,
-                          "back_invalidation_bits": back_bits},
+          "bytes": {**{k: step_bounds[k][2] for k in STEP_KERNELS},
+                    "router_cascade": cas_bytes},
+          "commit": step_bounds["commit_step"][1],
+          "sharer_rows": step_bounds["sharer_reductions"][1],
           "router_hops": {"legs": legs, "live": n_ok, "live_by_leg": live_by_leg,
                           "all": a[3].numel()},
           "gpu": smi_line}
@@ -643,10 +820,13 @@ def main() -> int:
 
     # ---- 6./7. the main paths, each with the counts set to 0 just before
     launches = {}
-    for path, pcfg, fx, ran in (("headline", cfg, hfx, STEP_KERNELS),
-                                ("rung3", cfg3, r3fx, tuple(wrappers))):
+    main_paths = [("headline", cfg, hfx, trace, STEP_KERNELS),
+                  ("rung3", cfg3, r3fx, trace3, tuple(wrappers))]
+    main_paths += [(path, large[path][1], large[path][0], large[path][2], STEP_KERNELS)
+                   for path, _ in LARGE]
+    for path, pcfg, fx, ptrace, ran in main_paths:
         held = torch.cuda.memory_allocated()  # the timed step's inputs, kept for phase 8
-        eng = Engine(pcfg, trace, chunk_steps=fx["chunk_steps"], device=dev)
+        eng = Engine(pcfg, ptrace, chunk_steps=fx["chunk_steps"], device=dev)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
@@ -673,15 +853,19 @@ def main() -> int:
         for k, n in launches[path].items():
             if n != (eng.steps_run if k in ran else 0):
                 fail(f"{path}: {k} launched {n} times in {eng.steps_run} steps")
-        if ins != trace.total_instructions():
-            fail(f"{path}: {ins} instructions retired, trace has {trace.total_instructions()}")
+        if ins != ptrace.total_instructions():
+            fail(f"{path}: {ins} instructions retired, trace has {ptrace.total_instructions()}")
         for k, want in fx["digest"].items():
             if got[k] != want:
                 fail(f"{path}: {k} {got[k]} != the JAX package's {want}")
         if not eng.done():
             fail(f"{path}: not every core reached END")
+        t0 = time.perf_counter()
         eng.verify_invariants()
+        if path in large:
+            emit({"phase": f"{path} invariants", "seconds": time.perf_counter() - t0})
         del eng
+        torch.cuda.empty_cache()
 
     # ---- 8. profile. First the profiler's device time per launch of the
     # calls phase 5 timed, in the process's first profiler session (none
@@ -715,14 +899,67 @@ def main() -> int:
     emit(capture_line)
     del captured
 
-    kernel_us = {}
-    for path, pcfg, ran in (("headline", cfg, STEP_KERNELS),
-                            ("rung3", cfg3, tuple(wrappers))):
-        prof_eng = Engine(pcfg, trace, chunk_steps=64, device=dev)
+    def stage_busiest_step(eng):
+        """Run one more chunk of `eng` and keep the step kernels' inputs of
+        its busiest step: the one whose sharer_reductions gets the most
+        rows that invalidate or evict. Each tensor argument is cloned once
+        (the L1 and the directory, which several kernels take, are written
+        only by commit_step, last in the step, so the clones made at the
+        reduction's call hold the probe's inputs too). Returns (step,
+        {kernel: (args, kw)})."""
+        best = {"rows": -1}
+        cur = {"step": eng.steps_run - 1}
+
+        def grab(memo, x):
+            if not torch.is_tensor(x):
+                return x
+            if id(x) not in memo:
+                memo[id(x)] = (x, x.clone())  # the original keeps its id
+            return memo[id(x)][1]
+
+        def recorder(name):
+            real = wrappers[name]
+
+            def rec(mcfg, *args, **kw):
+                if name == "probe_classify":
+                    cur.update(step=cur["step"] + 1, probe=(args, kw), take=False)
+                elif name == "sharer_reductions":
+                    rows = int((args[4] | args[5]).sum())  # a sync: staging only
+                    if rows > best["rows"]:
+                        memo = {}
+                        best.clear()
+                        best.update(rows=rows, step=cur["step"], memo=memo, got={
+                            k: ([grab(memo, x) for x in a], kw_)
+                            for k, (a, kw_) in (("probe_classify", cur["probe"]),
+                                                (name, (args, kw)))})
+                        cur["take"] = True
+                elif cur["take"]:  # commit_step of the step just kept
+                    best["got"][name] = ([grab(best["memo"], x) for x in args], kw)
+                return real(mcfg, *args, **kw)
+            return rec
+
+        for k in STEP_KERNELS:
+            setattr(mods[k], k, recorder(k))
+        try:
+            eng.run_steps(eng.chunk_steps)
+        finally:
+            for k in STEP_KERNELS:
+                setattr(mods[k], k, wrappers[k])
+        if set(best.get("got", ())) != set(STEP_KERNELS):
+            fail(f"stage: no step with every step kernel after step {cur['step']}")
+        return best["step"], best["got"]
+
+    kernel_us, modes = {}, {}
+    for path, pcfg, ptrace, ran in (
+            ("headline", cfg, trace, STEP_KERNELS), ("rung3", cfg3, trace3, tuple(wrappers)),
+            *((p, large[p][1], large[p][2], STEP_KERNELS) for p, _ in LARGE)):
+        prof_eng = Engine(pcfg, ptrace, chunk_steps=64, device=dev)
         prof_eng.run_steps(256)  # mid-run state, as the main path meets it
         torch.cuda.synchronize()
         dev_ev, window_s, top_ops = device_events(lambda: prof_eng.run_steps(64), by_op=True)
+        mode_in = stage_busiest_step(prof_eng) if path in large else None
         del prof_eng
+        torch.cuda.empty_cache()
         busy_us, end = 0.0, None
         for a0, b0, _ in dev_ev:  # union of device intervals
             if end is None or a0 > end:
@@ -752,6 +989,26 @@ def main() -> int:
               "top_ops_device_us": top_ops,
               "kernel_us_per_launch": kernel_us[path],
               "gpu": smi_line})
+        if mode_in is None:
+            continue
+        # the large path's kernels alone on the staged step: held to their
+        # plain versions, timed by events, bounded
+        staged_step, mode_in = mode_in
+        modes[path] = {}
+        for k in STEP_KERNELS:
+            args, kw = mode_in[k]
+            compare(k, args, kw, mcfg=pcfg)
+            bnd, info, nb = bound_of(k, args, kw, pcfg)
+            modes[path][k] = {
+                **time_alone(k, args, kw, pcfg), "profiler_us_in_step": kernel_us[path][k],
+                "launches": launches[path][k], "bound_ms": bnd[0], "bound_by": bnd[1],
+                "bytes": nb, "detail": info,
+            }
+        del mode_in
+        torch.cuda.empty_cache()
+        emit({"phase": "mode", "path": path, "staged_step": staged_step,
+              "kernels": modes[path], "max_abs_err": max_err,
+              "event_floor_ms": event_floor_ms, "gpu": smi_line})
 
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": KERNEL_META[k][0],
@@ -762,7 +1019,10 @@ def main() -> int:
          "plain_ms": timing[k]["plain_ms"],
          "profiler_us_per_launch": timing[k]["profiler_us"],
          "bound_ms": bounds[k][0],
-         "bound_by": bounds[k][1], "library_ms": None}
+         "bound_by": bounds[k][1], "library_ms": None,
+         "modes": {p: {f: m[k][f] for f in ("launches", "ms", "plain_ms",
+                                             "profiler_us_in_step", "bound_ms", "bound_by")}
+                   for p, m in modes.items() if k in m}}
         for k in wrappers
     ]})
     emit({"ok": True, "device": {"platform": "gpu",

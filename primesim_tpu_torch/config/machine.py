@@ -647,8 +647,9 @@ class PortUnsupportedError(ValueError):
 
 def check_port_supported(cfg: MachineConfig) -> None:
     """Raise PortUnsupportedError for the first field outside what the
-    port simulates: the full-map MESI directory on a mesh, with or
-    without NoC contention (the tile, link and router models) and the
+    port simulates: the MESI directory on a mesh, full-map (dense or
+    chunked, `sharer_chunk_words`) or coarse (`sharer_group` > 1), with
+    or without NoC contention (the tile, link and router models) and the
     DRAM controller queue, without prefetching or fault injection.
 
     `step_impl` and `pallas_reduce` are accepted and ignored: they choose
@@ -659,8 +660,6 @@ def check_port_supported(cfg: MachineConfig) -> None:
         ("faults_enabled", cfg.faults_enabled, False),
         ("prefetcher", cfg.prefetcher, "none"),
         ("coherence", cfg.coherence, "mesi"),
-        ("sharer_group", cfg.sharer_group, 1),
-        ("sharer_chunk_words", cfg.sharer_chunk_words, 0),
         ("noc.topology", cfg.noc.topology, "mesh"),
     )
     for name, value, supported in checks:

@@ -13,7 +13,11 @@
 // the kernel never reads dirm. The adds are atomicAdd on unsigned int:
 // wraparound is the int32 arithmetic of the JAX package, and the sum of
 // the winner's and the joiners' deltas on one slot does not depend on the
-// order of the atomics. Plain version: kernels/step_kernels.py.
+// order of the atomics. Under the coarse sharer vector (logG > 0) the
+// self and owner bits are the cores' groups, cid >> logG and
+// oclamp >> logG; the engine never joins there (same-group joiners'
+// bits would not commit independently), so the join branch is not taken.
+// Plain version: kernels/step_kernels.py.
 //
 // Bound on the H100: device-memory bytes. In place, the function moves
 // only the L1 and directory words it changes, the [NC, C] counters in and
@@ -65,7 +69,7 @@ __global__ void __launch_bounds__(WARPS * 32) commit_step_kernel(
     const int* __restrict__ delta, const uint8_t* __restrict__ hm,
     const uint8_t* __restrict__ wm, const int* __restrict__ cm, int C,
     int S1, int W1, int W2, int NW, int MW, int DW, int NC, int rl,
-    int cm_ld) {
+    int cm_ld, int logG) {
   const int c0 = blockIdx.x * WARPS;
   for (int t = threadIdx.x; t < NC * WARPS; t += blockDim.x) {
     const int c = c0 + t % WARPS;
@@ -164,7 +168,8 @@ __global__ void __launch_bounds__(WARPS * 32) commit_step_kernel(
   // ---- directory deltas, added to row `slot`
   if (!wj) return;
   int* drow = dirm + (size_t)slot * DW;
-  const int self_w = cid >> 5, self_b = cid & 31;
+  const int grp = cid >> logG;  // the core's sharer bit: itself or its group
+  const int self_w = grp >> 5, self_b = grp & 31;
   if (winner) {
     if (lane < 4) {
       const int col = lane < 2 ? 2 * uway + lane : (lane == 2 ? 2 * W2 : 3 * W2) + uway;
@@ -174,7 +179,8 @@ __global__ void __launch_bounds__(WARPS * 32) commit_step_kernel(
       const int ov = lane == 0 ? o_tag : lane == 1 ? o_own : lane == 2 ? o_lru : o_eph;
       add_word(drow, col, wrap_sub(nv, ov));
     }
-    const int own_w = oclamp >> 5, own_b = oclamp & 31;
+    const int ogrp = oclamp >> logG;
+    const int own_w = ogrp >> 5, own_b = ogrp & 31;
     const int* old_sh = (llc_hit ? shw : vshw) + (size_t)c * NW;
     for (int n = lane; n < NW; n += 32) {
       const int self_word = n == self_w ? bit_word(self_b) : 0;
@@ -199,9 +205,9 @@ extern "C" int commit_step_launch(
     const int* lanes, const int* pc_lanes, const int* cid, const int* step,
     int* counters, const int* delta, const uint8_t* hm, const uint8_t* wm,
     const int* cm, int C, int S1, int W1, int W2, int NW, int MW, int DW,
-    int NC, int rl, int cm_ld, cudaStream_t stream) {
+    int NC, int rl, int cm_ld, int logG, cudaStream_t stream) {
   commit_step_kernel<<<(C + WARPS - 1) / WARPS, WARPS * 32, 0, stream>>>(
       l1, dirm, tag_rows, shw, vshw, lanes, pc_lanes, cid, step, counters,
-      delta, hm, wm, cm, C, S1, W1, W2, NW, MW, DW, NC, rl, cm_ld);
+      delta, hm, wm, cm, C, S1, W1, W2, NW, MW, DW, NC, rl, cm_ld, logG);
   return (int)cudaGetLastError();
 }

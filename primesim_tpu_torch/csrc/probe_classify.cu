@@ -6,7 +6,11 @@
 // each way through its recorded directory pointer (tag, owner, sharer
 // bit), classifies the hit, parses the home LLC row, computes the
 // popcount / self-bit / other-sharer predicates and picks the LLC victim
-// by first-minimum LRU. Unlike the Pallas kernel, which needs the rows
+// by first-minimum LRU. Under the coarse sharer vector (logG > 0: each
+// sharer bit covers 2^logG cores) the self bit is the core's group's, a
+// group-bit S copy also needs its fill-time epoch (L1 plane 4) equal to
+// the entry's epoch at its pointer, and other-sharers is "any bit set".
+// Unlike the Pallas kernel, which needs the rows
 // staged for it (Mosaic cannot gather), it reads the directory itself:
 // the validation words at dirm[ptr / W2] and the home row dirm[slot]. It
 // also returns the home-row words commit_step needs (tag, LRU and epoch at
@@ -33,7 +37,10 @@
 // the signed key and a ballot of the lanes equal to it, the popcount sum
 // __reduce_add_sync, and the run patch an OR-reduction of each slot's way
 // bit. NW > 32 loops in strides of 32 lanes; W1, W2 and rl are at most
-// 32 (the wrapper raises otherwise).
+// 32 (the wrapper raises otherwise). The coarse mode branches on the
+// launch argument logG, the same for every thread: its two extra words
+// per way (the L1 epoch in round 2, the entry's epoch in round 3) ride
+// the existing rounds, and the full-map path loads nothing more.
 
 #include <climits>
 
@@ -56,7 +63,7 @@ __global__ void __launch_bounds__(WARPS * 32) probe_classify_kernel(
     int* __restrict__ lru_out, int* __restrict__ weff_out,
     int* __restrict__ shw_out, int* __restrict__ vshw_out,
     int* __restrict__ lanes_out, int C, int S1, int W1, int W2, int NW,
-    int MW, int DW, int rl, int cm_ld) {
+    int MW, int DW, int rl, int cm_ld, int logG) {
   const int lane = threadIdx.x & 31;
   const int c = blockIdx.x * WARPS + (threadIdx.x >> 5);
   if (c >= C) return;  // the whole warp
@@ -66,17 +73,20 @@ __global__ void __launch_bounds__(WARPS * 32) probe_classify_kernel(
   const int* mr = dirm + (size_t)slot_v[c] * DW;
   const int step = *step_p;
   const int l1s = line & (S1 - 1);
-  const int u_w = cid >> 5, u_b = cid & 31;  // self sharer word / bit
+  const bool coarse = logG > 0;  // uniform across the launch
+  const int grp = cid >> logG;  // the core's sharer bit: itself or its group
+  const int u_w = grp >> 5, u_b = grp & 31;  // self sharer word / bit
   const bool is_way = lane < W1, is_llc = lane < W2;
 
   // ---- round 2: the accessed set's way, the home row's way, run slot
   const int* row = l1 + (size_t)c * 5 * FS + lane * S1 + l1s;
-  int tag = 0, st = I, lru = 0, ptr = 0;
+  int tag = 0, st = I, lru = 0, ptr = 0, eph = 0;
   if (is_way) {
     tag = row[0];
     st = row[FS];
     lru = row[2 * FS];
     ptr = row[3 * FS];
+    if (coarse) eph = row[4 * FS];  // the fill-time epoch
   }
   int ltag = -1, lown = 0, llru = 0, leph = 0;
   if (is_llc) {
@@ -116,8 +126,10 @@ __global__ void __launch_bounds__(WARPS * 32) probe_classify_kernel(
     const int vtag = pr[2 * pway];
     const int vown = pr[2 * pway + 1];
     const int vsh = pr[MW + pway * NW + u_w];
-    weff = (st == I || vtag != tag) ? I
-                                    : (vown == cid ? st : (bit_at(vsh, u_b) ? S : I));
+    // a group bit keeps the copy only if no sharer-clearing transition
+    // bumped the entry's epoch since the fill
+    const bool vbit = bit_at(vsh, u_b) && (!coarse || pr[3 * W2 + pway] == eph);
+    weff = (st == I || vtag != tag) ? I : (vown == cid ? st : (vbit ? S : I));
   }
   unsigned total = 0;
   int self_bit = 0;
@@ -159,7 +171,7 @@ __global__ void __launch_bounds__(WARPS * 32) probe_classify_kernel(
     o[4] = hway;
     o[5] = owner;
     o[6] = self_bit;
-    o[7] = (int)total - self_bit > 0;
+    o[7] = coarse ? total > 0 : (int)total - self_bit > 0;
     o[8] = vtag;
     o[9] = vown;
     o[10] = vway;
@@ -178,10 +190,10 @@ extern "C" int probe_classify_launch(
     const int* cid, const int* step, const uint8_t* hm, const uint8_t* wm,
     const int* cm, int* tag_out, int* lru_out, int* weff_out, int* shw_out,
     int* vshw_out, int* lanes_out, int C, int S1, int W1, int W2, int NW,
-    int MW, int DW, int rl, int cm_ld, cudaStream_t stream) {
+    int MW, int DW, int rl, int cm_ld, int logG, cudaStream_t stream) {
   probe_classify_kernel<<<(C + WARPS - 1) / WARPS, WARPS * 32, 0, stream>>>(
       l1, dirm, slot, line, cid, step, hm, wm, cm, tag_out, lru_out,
       weff_out, shw_out, vshw_out, lanes_out, C, S1, W1, W2, NW, MW, DW, rl,
-      cm_ld);
+      cm_ld, logG);
   return (int)cudaGetLastError();
 }

@@ -8,6 +8,18 @@
 // targets of 2*(h*link + (h+1)*router), inv_cnt and inv_hops (sums of 1
 // and 2h over them), back_cnt and back_hops over the victim's sharers
 // plus its owner (counted once when it is also a recorded sharer).
+// Under the coarse sharer vector (logG > 0, each bit one group of 2^logG
+// cores) it computes instead what the JAX engine computes in XLA for that
+// case (primesim_tpu/sim/engine.py, the sharer_group > 1 branch of the
+// target reductions): each set group bit g of a row stands for memb[g]
+// cores, whose largest and summed round-trip hop counts from the home
+// tile are max2hops[btile, g] and sum2hops[btile, g] (static tables).
+// inv_lat is the max over the flagged groups, the requester's own
+// included, of 2*(mh*link + (mh+1)*router) from each group's max hops;
+// inv_cnt and inv_hops sum memb and sum2hops less the requester (one
+// count and 2*its hops) when its group is flagged; back_cnt and
+// back_hops sum the victim's groups plus its owner (one count, 2*its
+// hops) when the owner's group bit is not set.
 // Plain version: kernels/reductions.py.
 //
 // Bound on the H100: bytes, and in practice launch latency. The function
@@ -30,6 +42,14 @@
 // two agree only while 2*(h*link + (h+1)*router) does not wrap, and the
 // configuration bounds the latencies from below only. Sums and products
 // go through uint32_t (common.cuh), as int32 wraps in JAX.
+// The coarse mode is the same warp per core over the set GROUP bits (8
+// words at 16384 cores and 64-core groups: lanes 0-7 hold a word each):
+// per set bit three table words (memb[g] and the home tile's two table
+// entries) instead of a hop count, so the function needs the set bits'
+// table words, not the [C, n_groups] expansion that the JAX engine
+// builds. The requester's and the owner's group bits are tested by the
+// lane that holds their word and OR-reduced. Which mode runs is the
+// launch argument logG, the same for every thread.
 
 #include "common.cuh"
 
@@ -53,8 +73,10 @@ __global__ void __launch_bounds__(WARPS * 32) sharer_reductions_kernel(
     const int* __restrict__ cid_v, const int* __restrict__ link_p,
     const int* __restrict__ router_p, int* __restrict__ inv_lat,
     int* __restrict__ inv_cnt, int* __restrict__ inv_hops,
-    int* __restrict__ back_cnt, int* __restrict__ back_hops, int C, int NW,
-    int n_tiles, int mesh_x, int vo_ld) {
+    int* __restrict__ back_cnt, int* __restrict__ back_hops,
+    const int* __restrict__ memb, const int* __restrict__ max2hops,
+    const int* __restrict__ sum2hops, int C, int NW, int n_tiles, int mesh_x,
+    int vo_ld, int logG, int n_grp) {
   const int c = blockIdx.x * WARPS + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (c >= C) return;  // the whole warp leaves together
@@ -74,8 +96,67 @@ __global__ void __launch_bounds__(WARPS * 32) sharer_reductions_kernel(
   const int* sw = shw + (size_t)c * NW;
   const int* vw = vic_shw + (size_t)c * NW;
 
+  auto hops_to = [&](int t) {  // hops from the home tile to core t's tile
+    const int tt = t % n_tiles;
+    return (uint32_t)(abs(bx - tt % mesh_x) + abs(by - tt / mesh_x));
+  };
+
   int mlat = 0;
   uint32_t icnt = 0, ihops = 0, bcnt = 0, bhops = 0;
+  if (logG > 0) {
+    const int* mh_row = max2hops + (size_t)bt * n_grp;
+    const int* sh_row = sum2hops + (size_t)bt * n_grp;
+    const int gs = self >> logG, og = max(vo, 0) >> logG;
+    unsigned self_rec = 0, own_rec = 0;
+    for (int w = lane; w < NW; w += 32) {
+      const uint32_t valid = valid_bits(w, n_grp);
+      if (irow) {
+        uint32_t m = (uint32_t)sw[w] & valid;
+        if ((gs >> 5) == w) self_rec = (m >> (gs & 31)) & 1u;
+        while (m) {
+          const int g = 32 * w + __ffs(m) - 1;
+          m &= m - 1;
+          const uint32_t mh = (uint32_t)mh_row[g];
+          icnt += (uint32_t)memb[g];
+          ihops += (uint32_t)sh_row[g];
+          mlat = max(mlat, (int)(2u * (mh * link + (mh + 1u) * router)));
+        }
+      }
+      if (vv) {
+        uint32_t m = (uint32_t)vw[w] & valid;
+        if ((og >> 5) == w) own_rec = (m >> (og & 31)) & 1u;
+        while (m) {
+          const int g = 32 * w + __ffs(m) - 1;
+          m &= m - 1;
+          bcnt += (uint32_t)memb[g];
+          bhops += (uint32_t)sh_row[g];
+        }
+      }
+    }
+    mlat = __reduce_max_sync(FULL, mlat);
+    icnt = __reduce_add_sync(FULL, icnt);
+    ihops = __reduce_add_sync(FULL, ihops);
+    bcnt = __reduce_add_sync(FULL, bcnt);
+    bhops = __reduce_add_sync(FULL, bhops);
+    self_rec = __reduce_or_sync(FULL, self_rec);
+    own_rec = __reduce_or_sync(FULL, own_rec);
+    if (lane == 0) {
+      if (self_rec) {  // the requester is no message (set only when irow)
+        icnt -= 1u;
+        ihops -= 2u * hops_to(self);
+      }
+      if (vv && vo >= 0 && !own_rec) {  // the owner outside its group bit
+        bcnt += 1u;
+        bhops += 2u * hops_to(vo);
+      }
+      inv_lat[c] = mlat;
+      inv_cnt[c] = (int)icnt;
+      inv_hops[c] = (int)ihops;
+      back_cnt[c] = (int)bcnt;
+      back_hops[c] = (int)bhops;
+    }
+    return;
+  }
   for (int w = lane; w < NW; w += 32) {
     const uint32_t valid = valid_bits(w, C);
     if (irow) {
@@ -85,8 +166,7 @@ __global__ void __launch_bounds__(WARPS * 32) sharer_reductions_kernel(
       while (m) {
         const int t = 32 * w + __ffs(m) - 1;
         m &= m - 1;
-        const int tt = t % n_tiles;
-        const uint32_t h = abs(bx - tt % mesh_x) + abs(by - tt / mesh_x);
+        const uint32_t h = hops_to(t);
         ihops += 2u * h;
         mlat = max(mlat, (int)(2u * (h * link + (h + 1u) * router)));
       }
@@ -99,8 +179,7 @@ __global__ void __launch_bounds__(WARPS * 32) sharer_reductions_kernel(
       while (m) {
         const int t = 32 * w + __ffs(m) - 1;
         m &= m - 1;
-        const int tt = t % n_tiles;
-        bhops += 2u * (abs(bx - tt % mesh_x) + abs(by - tt / mesh_x));
+        bhops += 2u * hops_to(t);
       }
     }
   }
@@ -124,12 +203,14 @@ extern "C" int sharer_reductions_launch(
     const int* shw, const int* vic_shw, const int* btile,
     const int* vic_owner, const uint8_t* inv_row, const uint8_t* vic_valid,
     const int* cid, const int* link, const int* router, int* inv_lat,
-    int* inv_cnt, int* inv_hops, int* back_cnt, int* back_hops, int C, int NW,
-    int n_tiles, int mesh_x, int vo_ld, cudaStream_t stream) {
+    int* inv_cnt, int* inv_hops, int* back_cnt, int* back_hops,
+    const int* memb, const int* max2hops, const int* sum2hops, int C, int NW,
+    int n_tiles, int mesh_x, int vo_ld, int logG, int n_grp,
+    cudaStream_t stream) {
   const int blocks = (C + WARPS - 1) / WARPS;
   sharer_reductions_kernel<<<blocks, WARPS * 32, 0, stream>>>(
       shw, vic_shw, btile, vic_owner, inv_row, vic_valid, cid, link, router,
-      inv_lat, inv_cnt, inv_hops, back_cnt, back_hops, C, NW, n_tiles,
-      mesh_x, vo_ld);
+      inv_lat, inv_cnt, inv_hops, back_cnt, back_hops, memb, max2hops,
+      sum2hops, C, NW, n_tiles, mesh_x, vo_ld, logG, n_grp);
   return (int)cudaGetLastError();
 }

@@ -6,8 +6,15 @@
 row's sharer words) and nothing else: the flags `inv_row`/`vic_valid` are
 read as the bytes of bool tensors and `vic_owner` through its stride. On
 CPU tensors it runs the plain version below, the same function written
-as dense torch ops over [C, 32*NW] target bits. Full-map directory and
-mesh topology only (the port's `check_port_supported`).
+as dense torch ops over [C, 32*NW] target bits. A chunked full map
+(`sharer_chunk_words` > 0) computes the same function, so it takes the
+same kernel and plain version.
+
+Under the coarse sharer vector (`sharer_group` > 1) the same kernel runs
+a group mode: the JAX engine's group-table reductions (its XLA branch
+for that case, `sim/engine.py`), from the static per-(home tile, group)
+tables of `group_tables`. Its plain version is a transcription of that
+branch in torch. Mesh topology only (the port's `check_port_supported`).
 """
 
 from __future__ import annotations
@@ -19,13 +26,21 @@ from ..noc import topology
 from . import build
 from .layouts import check_tensor
 
+_i32 = torch.int32
+
 
 def sharer_reductions_plain(
     cfg: MachineConfig, shw, vic_shw, btile, vic_owner, inv_row, vic_valid,
-    cid, link_lat, router_lat,
+    cid, link_lat, router_lat, tables=None,
 ):
     """Plain torch version: returns (inv_lat, inv_count, inv_hops,
-    back_count, back_hops), each [C] int32."""
+    back_count, back_hops), each [C] int32. Under sharer_group > 1 the
+    group mode, from `tables`."""
+    if cfg.sharer_group > 1:
+        return _group_reductions_plain(
+            cfg, shw, vic_shw, btile, vic_owner, inv_row, vic_valid, cid,
+            link_lat, router_lat, tables,
+        )
     C = shw.shape[0]
     NW = cfg.n_sharer_words
     mx = cfg.noc.mesh_x
@@ -52,23 +67,87 @@ def sharer_reductions_plain(
     )
 
 
+def _group_reductions_plain(
+    cfg: MachineConfig, shw, vic_shw, btile, vic_owner, inv_row, vic_valid,
+    cid, link_lat, router_lat, tables,
+):
+    """Plain torch version of the coarse-vector reductions, line for line
+    the JAX engine's sharer_group > 1 branch: [C, n_groups] flags of the
+    set group bits reduced against the home tile's rows of `tables` =
+    (memb, max2hops, sum2hops)."""
+    memb, max2hops, sum2hops = tables
+    C, NW = shw.shape
+    n_grp = cfg.n_sharer_groups
+    logG = cfg.sharer_group.bit_length() - 1
+    bit5 = torch.arange(32, dtype=_i32, device=shw.device)
+
+    def group_bools(words):  # [C, NW] -> [C, n_grp]
+        b = (words[:, :, None] >> bit5[None, None, :]) & 1
+        return b.reshape(C, NW * 32)[:, :n_grp] != 0
+
+    grp, vic_grp = group_bools(shw), group_bools(vic_shw)
+    bt = btile.long()
+    mh_rows = max2hops[bt]  # [C, n_grp]
+    ml_rows = 2 * (mh_rows * link_lat + (mh_rows + 1) * router_lat)
+    sumh_rows = sum2hops[bt]
+    g_c = cid >> logG
+    selfg = torch.arange(n_grp, dtype=_i32, device=shw.device)[None, :] == g_c[:, None]
+    self_rec = (grp & selfg).any(1)
+    inv_lat = torch.where(inv_row, torch.where(grp, ml_rows, 0).amax(1), 0)
+    inv_count = torch.where(
+        inv_row,
+        torch.where(grp, memb[None, :], 0).sum(1, dtype=_i32) - self_rec.to(_i32),
+        0,
+    )
+    self_hops = topology.hops(cfg, btile, cid % cfg.n_tiles)
+    inv_hops = torch.where(
+        inv_row,
+        torch.where(grp, sumh_rows, 0).sum(1, dtype=_i32)
+        - torch.where(self_rec, 2 * self_hops, 0),
+        0,
+    )
+    owner = vic_owner.clamp(min=0)
+    og = owner >> logG
+    own_rec = vic_grp.gather(1, og.long()[:, None])[:, 0] & (vic_owner >= 0)
+    own_extra = (vic_owner >= 0) & ~own_rec
+    own_hops = topology.hops(cfg, btile, owner % cfg.n_tiles)
+    back_count = torch.where(
+        vic_valid,
+        torch.where(vic_grp, memb[None, :], 0).sum(1, dtype=_i32) + own_extra.to(_i32),
+        0,
+    )
+    back_hops = torch.where(
+        vic_valid,
+        torch.where(vic_grp, sumh_rows, 0).sum(1, dtype=_i32)
+        + torch.where(own_extra, 2 * own_hops, 0),
+        0,
+    )
+    return tuple(x.to(_i32) for x in (inv_lat, inv_count, inv_hops, back_count, back_hops))
+
+
 def sharer_reductions(
     cfg: MachineConfig, shw, vic_shw, btile, vic_owner, inv_row, vic_valid,
-    cid, link_lat, router_lat,
+    cid, link_lat, router_lat, tables=None,
 ):
     """The kernel on CUDA tensors, its plain version on CPU tensors.
     `inv_row`/`vic_valid` are bool [C], `vic_owner` int32 [C] of any
     stride, the other lanes contiguous int32 [C]; `link_lat`/`router_lat`
-    are 0-d int32 tensors on the same device."""
+    are 0-d int32 tensors on the same device. Under `cfg.sharer_group` >
+    1, `tables` is `group_tables(cfg, device)`: (memb [n_groups],
+    max2hops and sum2hops [n_tiles, n_groups]), int32 on the device."""
     dev = shw.device
+    coarse = cfg.sharer_group > 1
+    if coarse and tables is None:
+        raise ValueError("sharer_reductions: sharer_group > 1 needs the group tables")
     if dev.type == "cpu":
         return sharer_reductions_plain(
             cfg, shw, vic_shw, btile, vic_owner, inv_row, vic_valid, cid,
-            link_lat, router_lat,
+            link_lat, router_lat, tables,
         )
     if dev.type != "cuda":
         raise ValueError(f"sharer_reductions: unsupported device {dev}")
     C, NW = cfg.n_cores, cfg.n_sharer_words
+    n_grp = cfg.n_sharer_groups
     check_tensor("shw", shw, (C, NW), dev)
     check_tensor("vic_shw", vic_shw, (C, NW), dev)
     for name, x in (("btile", btile), ("cid", cid)):
@@ -82,12 +161,20 @@ def sharer_reductions(
         )
     for name, x in (("link_lat", link_lat), ("router_lat", router_lat)):
         check_tensor(name, x, (), dev)
+    if coarse:
+        memb, max2hops, sum2hops = tables
+        check_tensor("memb", memb, (n_grp,), dev)
+        check_tensor("max2hops", max2hops, (cfg.n_tiles, n_grp), dev)
+        check_tensor("sum2hops", sum2hops, (cfg.n_tiles, n_grp), dev)
+    else:
+        memb = max2hops = sum2hops = cid  # never read by the full-map mode
     outs = [torch.empty(C, dtype=torch.int32, device=dev) for _ in range(5)]
     build.launch(
         "sharer_reductions",
         [shw, vic_shw, btile, vic_owner, inv_row, vic_valid, cid, link_lat,
-         router_lat, *outs],
-        [C, NW, cfg.n_tiles, cfg.noc.mesh_x, vic_owner.stride(0)],
+         router_lat, *outs, memb, max2hops, sum2hops],
+        [C, NW, cfg.n_tiles, cfg.noc.mesh_x, vic_owner.stride(0),
+         cfg.sharer_group.bit_length() - 1, n_grp],
         torch.cuda.current_stream(dev),
     )
     return tuple(outs)

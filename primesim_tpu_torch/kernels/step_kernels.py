@@ -20,8 +20,12 @@ Mosaic could not:
 
 Each wrapper runs the CUDA kernel (`csrc/probe_classify.cu`,
 `csrc/commit_step.cu`) on CUDA tensors and the plain torch version below
-on CPU tensors. Full-map MESI only (sharer group 1), as
-`config.machine.check_port_supported` enforces; W1, W2 and the local run
+on CPU tensors. Under the coarse sharer vector (`cfg.sharer_group` =
+G > 1) a core's sharer bit is its group's, g = cid >> log2(G): the probe
+then also reads the L1 epoch plane and keeps a group-bit S copy only
+while its fill-time epoch equals the directory entry's (the JAX
+package's epoch guard), and a line counts as shared whenever any group
+bit is set; the commit records group bits. W1, W2 and the local run
 length are at most 32 (one warp's lanes).
 """
 
@@ -96,13 +100,16 @@ def probe_classify_plain(
     S1, W1, W2 = cfg.l1.sets, cfg.l1.ways, cfg.llc.ways
     NW, MW, DW = cfg.n_sharer_words, llc_meta_width(cfg), dirm_width(cfg)
     FS = W1 * S1
+    coarse = cfg.sharer_group > 1
+    g = cid >> (cfg.sharer_group.bit_length() - 1)  # the core's sharer bit
     dev = l1.device
     l1s = line & (S1 - 1)
     w1cols = torch.arange(W1, dtype=_i32, device=dev)[None, :] * S1 + l1s[:, None]
+    n_planes = 5 if coarse else 4  # the epoch plane only under Dir-G
     planes = l1.gather(
-        1, torch.cat([w1cols + p * FS for p in range(4)], 1).long()
-    )
-    tag_w, st_w, lru_w, ptr_w = planes.split(W1, 1)
+        1, torch.cat([w1cols + p * FS for p in range(n_planes)], 1).long()
+    ).split(W1, 1)
+    tag_w, st_w, lru_w, ptr_w = planes[:4]
     if hm is not None:
         # the local run's deferred L1 writes, patched in: E->M at wm
         # columns, LRU stamps at hm columns
@@ -111,14 +118,17 @@ def probe_classify_plain(
         lru_w = torch.where(((hm[:, :, None] != 0) & colm).any(1), step_no, lru_w)
 
     # pointer validation of every way against its directory entry, the
-    # words (tag, owner, own sharer word) of row ptr // W2 at way ptr % W2
+    # words (tag, owner, own sharer word) of row ptr // W2 at way ptr % W2;
+    # under Dir-G the group bit also needs the entry's epoch unchanged
     pway = ptr_w % W2
     prow = (ptr_w // W2).long() * DW
     flat = dirm.view(-1)
     vtag = flat[prow + 2 * pway]
     vown = flat[prow + 2 * pway + 1]
-    vsh = flat[prow + MW + pway * NW + (cid[:, None] >> 5)]
-    vbit = ((vsh >> (cid[:, None] & 31)) & 1) != 0
+    vsh = flat[prow + MW + pway * NW + (g[:, None] >> 5)]
+    vbit = ((vsh >> (g[:, None] & 31)) & 1) != 0
+    if coarse:
+        vbit = vbit & (flat[prow + 3 * W2 + pway] == planes[4])
     weff = torch.where(
         (st_w == I) | (vtag != tag_w),
         I,
@@ -139,8 +149,10 @@ def probe_classify_plain(
     rows = torch.arange(C, device=dev)[:, None]
     nw_idx = torch.arange(NW, device=dev)
     shw = sh_rows[rows, llc_hway.long()[:, None], nw_idx]
-    self_bit = (take(shw, cid >> 5) >> (cid & 31)) & 1
-    other_sh = (popcount(shw).sum(1, dtype=_i32) - self_bit) > 0
+    self_bit = (take(shw, g >> 5) >> (g & 31)) & 1
+    total = popcount(shw).sum(1, dtype=_i32)
+    # a group bit may stand for other cores: under Dir-G any set bit shares
+    other_sh = total > 0 if coarse else (total - self_bit) > 0
 
     # victim: first minimum of LRU over valid ways
     llc_vway = first_min(torch.where(ltag != -1, llru, -1))
@@ -231,8 +243,10 @@ def commit_step_plain(
     # updated way; a joiner's LRU (the join representative) and self bit
     # at the hit way. Each lane adds its delta words to row `slot`.
     nw = torch.arange(NW, dtype=_i32, device=dev)[None, :]
-    self_word = torch.where(nw == (cid >> 5)[:, None], 1 << (cid & 31)[:, None], 0)
-    owner_word = torch.where(nw == (oclamp >> 5)[:, None], 1 << (oclamp & 31)[:, None], 0)
+    logG = cfg.sharer_group.bit_length() - 1
+    g, og = cid >> logG, oclamp >> logG  # sharer bits: the cores' groups
+    self_word = torch.where(nw == (g >> 5)[:, None], 1 << (g & 31)[:, None], 0)
+    owner_word = torch.where(nw == (og >> 5)[:, None], 1 << (og & 31)[:, None], 0)
     new_owner = torch.where(takes_own, cid, -1)
     new_shw = torch.where(
         gets_probe[:, None],
@@ -324,7 +338,7 @@ def probe_classify(
     build.launch(
         "probe_classify",
         [l1, dirm, slot, line, cid, step_no, *patch, *outs],
-        [C, S1, W1, W2, NW, MW, DW, rl, cm_ld],
+        [C, S1, W1, W2, NW, MW, DW, rl, cm_ld, cfg.sharer_group.bit_length() - 1],
         torch.cuda.current_stream(dev),
     )
     return tuple(outs)
@@ -365,6 +379,6 @@ def commit_step(
         "commit_step",
         [l1, dirm, tag_rows, shw, vic_shw, lanes, pc_lanes, cid, step_no,
          counters, delta, *patch],
-        [C, S1, W1, W2, NW, MW, DW, NC, rl, cm_ld],
+        [C, S1, W1, W2, NW, MW, DW, NC, rl, cm_ld, cfg.sharer_group.bit_length() - 1],
         torch.cuda.current_stream(dev),
     )

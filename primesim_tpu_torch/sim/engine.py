@@ -1,10 +1,13 @@
 """The simulation engine: one eager PyTorch step and its host driver.
 
 `step` is the JAX package's `sim/engine.py::step` for the configurations
-this port runs (`config.machine.check_port_supported`: full-map MESI on a
-mesh, with or without NoC contention (tile, link or router model) and
-the DRAM controller queue, no prefetcher or faults), taking the Pallas
-branch wherever the JAX step has one. Its kernels are
+this port runs (`config.machine.check_port_supported`: MESI on a mesh
+with a full-map sharer vector, dense or chunked, or a coarse one
+(`sharer_group` > 1: group bits, the epoch guard, no read joins, the
+group-table reductions of `_group_tables`), with or without NoC
+contention (tile, link or router model) and the DRAM controller queue,
+no prefetcher or faults), taking the Pallas branch wherever the JAX step
+has one. Its kernels are
 `kernels.step_kernels.probe_classify` (phase 1), `kernels.reductions.
 sharer_reductions` (phase 3), `kernels.router_kernels.router_cascade`
 (the router model's cascade) and `kernels.step_kernels.commit_step`
@@ -25,6 +28,8 @@ clocks by whole quanta, with one host synchronisation per chunk.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -78,6 +83,45 @@ def resolve_device(device=None) -> torch.device:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested but CUDA is not available")
     return device
+
+
+@functools.lru_cache(maxsize=4)
+def _group_tables(cfg: MachineConfig):
+    """Static per-(home tile, sharer group) tables of the coarse vector
+    (sharer_group > 1), the JAX package's `_group_tables`: member count
+    [n_groups], and the max one-way hops and summed round-trip hops over
+    each group's members from each tile [n_tiles, n_groups], int32 numpy.
+    Geometry only: the latency knobs are applied at the use site.
+    Temporaries stay near 16M elements; cached per config (16384 tiles x
+    256 groups x 64 members is 268M hop counts, seconds of numpy)."""
+    G = cfg.sharer_group
+    C = cfg.n_cores
+    n_grp = cfg.n_sharer_groups
+    nt = cfg.n_tiles
+    mx = cfg.noc.mesh_x
+    ids = np.arange(n_grp)[:, None] * G + np.arange(G)[None, :]  # [n_grp, G]
+    valid = ids < C
+    mt = (ids % nt).astype(np.int64)
+    gx, gy = mt % mx, mt // mx
+    members = valid.sum(1).astype(np.int32)
+    max2hops = np.zeros((nt, n_grp), np.int32)
+    sum2hops = np.zeros((nt, n_grp), np.int32)
+    step = max(1, (1 << 24) // (n_grp * G))
+    for lo in range(0, nt, step):
+        t = np.arange(lo, min(lo + step, nt))
+        tx, ty = (t % mx)[:, None, None], (t // mx)[:, None, None]
+        h = topology.coord_hops(cfg.noc.topology, tx, ty, gx[None], gy[None])
+        max2hops[t] = np.where(valid[None], h, 0).max(2).astype(np.int32)
+        sum2hops[t] = np.where(valid[None], 2 * h, 0).sum(2).astype(np.int32)
+    return members, max2hops, sum2hops
+
+
+@functools.lru_cache(maxsize=4)
+def group_tables(cfg: MachineConfig, device: torch.device):
+    """`_group_tables(cfg)` as int32 tensors on `device`, uploaded once
+    per (config, device) as the step names it (`events.device`, e.g.
+    cuda:0): the coarse-vector reductions' `tables`."""
+    return tuple(torch.from_numpy(a).to(device) for a in _group_tables(cfg))
 
 
 def _one_way(cfg: MachineConfig, tile_a, tile_b, kn):
@@ -150,6 +194,8 @@ def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True):
     cycles_c, ptr_c = st.cycles, st.ptr
     FS = W1 * S1
     logB = B.bit_length() - 1
+    coarse = cfg.sharer_group > 1
+    g_c = arange_c >> (cfg.sharer_group.bit_length() - 1)  # sharer bit
     if rl:
         pline = pev[:, :, 2]
         ps = pline & (S1 - 1)
@@ -158,18 +204,26 @@ def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True):
             + ps[:, :, None]
         ).reshape(C, (rl + 1) * W1)
         KW = (rl + 1) * W1
-        pts = st.l1.gather(1, torch.cat([pcf, pcf + FS], 1).long())
+        # tag and state planes, and under Dir-G the fill-time epoch plane
+        pl_cols = [pcf, pcf + FS] + ([pcf + 4 * FS] if coarse else [])
+        pts = st.l1.gather(1, torch.cat(pl_cols, 1).long())
         ptagr = pts[:, :KW].reshape(C, rl + 1, W1)
-        pstater = pts[:, KW:].reshape(C, rl + 1, W1)
+        pstater = pts[:, KW : 2 * KW].reshape(C, rl + 1, W1)
         pslot = (pline & (B - 1)) * S2 + ((pline >> logB) & (S2 - 1))
         pmrows = st.dirm[pslot.long()]  # [C, rl+1, DW]
         pmeta = pmrows[:, :, : 2 * W2].reshape(C, rl + 1, W2, 2)
         pmhas, pmway = first_true(pmeta[..., 0] == pline[:, :, None])
         pown = take(pmeta[..., 1], pmway)
-        pshw = take(pmrows[:, :, MW:], pmway * NW + (arange_c[:, None] >> 5))
-        pbit = ((pshw >> (arange_c[:, None] & 31)) & 1) != 0
+        pshw = take(pmrows[:, :, MW:], pmway * NW + (g_c[:, None] >> 5))
+        pbit = ((pshw >> (g_c[:, None] & 31)) & 1) != 0
         plhit, plway = first_true((ptagr == pline[:, :, None]) & (pstater != I))
         plstate = take(pstater, plway)
+        if coarse:
+            # epoch guard: the group bit keeps this core's S copy only if
+            # no sharer-clearing transition happened since its fill
+            pleph = take(pts[:, 2 * KW :].reshape(C, rl + 1, W1), plway)
+            pveph = take(pmrows[:, :, 3 * W2 : 4 * W2], pmway)
+            pbit = pbit & (pveph == pleph)
         peff = torch.where(
             ~(plhit & pmhas),
             I,
@@ -244,8 +298,11 @@ def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True):
     gets = is_mem & ~is_st_ev & ~hit_any
     getm = is_mem & is_st_ev & ~hit_any
 
-    # ---- phase 2: read-join coalescing + per-(bank,set) arbitration
+    # ---- phase 2: read-join coalescing + per-(bank,set) arbitration.
+    # No joins under Dir-G: same-group joiners' bit updates would collide.
     join_elig = gets & llc_has & (owner == -1) & other_sharers
+    if coarse:
+        join_elig = torch.zeros_like(join_elig)
     req = (gets & ~join_elig) | getm | upg
     rel = cycles_c - (quantum_end - Q)  # in [0, Q) for active requesters
     key = rel * C + arange_c  # orders by (cycles, core id)
@@ -340,7 +397,7 @@ def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True):
     inv_row = write_w & llc_hit
     inv_lat, inv_count, inv_hops, back_count, back_hops = reductions.sharer_reductions(
         cfg, shw, vic_shw, btile, vic_owner, inv_row, vic_valid, arange_c,
-        kn.link_lat, kn.router_lat,
+        kn.link_lat, kn.router_lat, group_tables(cfg, dev) if coarse else None,
     )
 
     # ---- memory-controller queue: LLC-miss winners queue at their home
@@ -660,6 +717,8 @@ class Engine:
             np.ascontiguousarray(trace.line_events(cfg.line_bits), np.int32)
         ).to(self.device)
         self.state = init_state(cfg, self.device)
+        if cfg.sharer_group > 1:  # built and uploaded here, before any step
+            group_tables(cfg, self.events.device)
         self.chunk_steps = chunk_steps
         self.cycle_base = 0
         self.host_counters = zero_counters(cfg.n_cores)
@@ -742,10 +801,17 @@ class Engine:
 
     def verify_invariants(self) -> None:
         """Check the DESIGN.md §5 machine invariants on the current state
-        (host side; raises AssertionError naming the violation)."""
+        (host side; raises AssertionError naming the violation). The state
+        is copied to the host once: every view the checks take of it
+        (directory, sharers, and under sharer_group > 1 both epoch planes)
+        reads that copy."""
         from .validate import check_invariants
 
-        check_invariants(self.cfg, self.state, done_mask=self.done_mask())
+        host = self.state._replace(
+            **{f: getattr(self.state, f).cpu() for f in self.state._fields
+               if f != "knobs"}
+        )
+        check_invariants(self.cfg, host, done_mask=self.done_mask())
 
     @property
     def cycles(self) -> np.ndarray:

@@ -407,6 +407,27 @@ def from_event_lists(
     return Trace(events, lengths, line_addressed=line_addressed)
 
 
+def from_arrays(
+    events: np.ndarray, lengths=None, line_addressed: bool = False
+) -> Trace:
+    """`from_event_lists` for events already in one int64 array
+    [n_cores, n, 4] (type, arg, addr, pre), core c's first `lengths[c]`
+    rows its events (all n when `lengths` is None): the same address
+    check, the same int32 wrap of each field, and an END after each
+    core's events."""
+    n_cores, n = events.shape[:2]
+    lengths = np.full(n_cores, n) if lengths is None else np.asarray(lengths)
+    live = np.arange(n)[None, :] < lengths[:, None]
+    oob = live & ((events[:, :, 2] < 0) | (events[:, :, 2] >= 2**31))
+    if oob.any():
+        c, o = _first_bad(oob)
+        raise TraceError("addresses must be in [0, 2^31) (31-bit)", core=c, offset=o)
+    out = np.zeros((n_cores, int(lengths.max(initial=0)) + 1, N_FIELDS), np.int32)
+    out[:, :, 0] = EV_END
+    out[:, :n][live] = events[live].astype(np.int32)
+    return Trace(out, (lengths + 1).astype(np.int32), line_addressed=line_addressed)
+
+
 def fold_ins(trace: Trace) -> Trace:
     """Fold INS batches into the following memory/sync event's `pre` field.
 
@@ -415,23 +436,35 @@ def fold_ins(trace: Trace) -> Trace:
     retires in the same simulation step as the memory/sync operation that
     follows it. INS batches not followed by one (trailing work before END)
     are kept as explicit INS events.
+
+    Whole-array numpy, event for event the JAX package's per-core loop: a
+    kept event's batch is the INS args summed (int64) since the previous
+    kept event or END, and an END after a batch leaves it as one INS
+    event (every row ends with END: `Trace` checks it).
     """
-    out: list[list[tuple]] = []
-    for c in range(trace.n_cores):
-        evs: list[tuple] = []
-        acc = 0
-        for i in range(int(trace.lengths[c])):
-            t, arg, addr, pre = (int(x) for x in trace.events[c, i])
-            if t == EV_INS:
-                acc += arg
-            elif t != EV_END:
-                evs.append((t, arg, addr, pre + acc))
-                acc = 0
-            else:  # END
-                if acc:
-                    evs.append((EV_INS, acc, 0))
-                    acc = 0
-        if acc:
-            evs.append((EV_INS, acc, 0))
-        out.append(evs)
-    return from_event_lists(out, line_addressed=trace.line_addressed)
+    ev = trace.events.astype(np.int64)
+    C, T = ev.shape[:2]
+    rows = np.arange(C)
+    idx = np.arange(T)
+    live = idx[None, :] < np.asarray(trace.lengths)[:, None]
+    t = ev[:, :, 0]
+    is_ins = live & (t == EV_INS)
+    is_end = live & (t == EV_END)
+    kept = live & ~is_ins & ~is_end
+    closer = kept | is_end  # where a batch ends
+    csum = np.cumsum(np.where(is_ins, ev[:, :, 1], 0), axis=1)
+    # each closer's batch: the INS sum since the previous closer
+    last = np.maximum.accumulate(np.where(closer, idx, -1), axis=1)
+    prev = np.concatenate([np.full((C, 1), -1), last[:, :-1]], axis=1)
+    acc = csum - np.where(prev >= 0, np.take_along_axis(csum, np.maximum(prev, 0), 1), 0)
+    flush = is_end & (acc != 0)  # a batch with no kept event after it
+    out = np.where(kept[:, :, None], ev, 0)
+    out[:, :, 3] += np.where(kept, acc, 0)
+    out[flush, 0] = EV_INS
+    out[flush, 1] = acc[flush]
+    emit = kept | flush
+    n = emit.sum(1)
+    packed = np.zeros((C, int(n.max(initial=0)), N_FIELDS), np.int64)
+    r = np.broadcast_to(rows[:, None], emit.shape)
+    packed[r[emit], (np.cumsum(emit, axis=1) - 1)[emit]] = out[emit]
+    return from_arrays(packed, n, line_addressed=trace.line_addressed)

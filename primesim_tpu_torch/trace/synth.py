@@ -33,7 +33,9 @@ from .format import (
     EV_LOCK,
     EV_ST,
     EV_UNLOCK,
+    N_FIELDS,
     Trace,
+    from_arrays,
     from_event_lists,
 )
 
@@ -161,26 +163,44 @@ def fft_like(
     Phase p: each core loads/stores its own `points_per_core` elements
     (stride grows with phase), then reads the block of its butterfly partner
     (c XOR 2^p) — cross-tile communication whose distance doubles each phase.
+
+    Built with whole-array numpy (thousands of cores take seconds, not
+    minutes), byte for byte the JAX package's per-event loop: every core
+    and phase draws its INS batch sizes in the same order from one
+    generator, and one vectorized draw gives the same numbers as the loop's
+    scalar draws.
     """
     rng = _rng(seed)
     block = points_per_core * 8  # 8-byte points
-    per_core_evs: list[list] = [[] for _ in range(n_cores)]
+    c = np.arange(n_cores, dtype=np.int64)
+    i = np.arange(points_per_core, dtype=np.int64)
+    rd = np.arange(0, points_per_core, max(1, line // 8), dtype=np.int64)
+    bits = max(1, (n_cores - 1).bit_length())
+    addrs = []
     for p in range(n_phases):
-        stride = 8 << p
-        for c in range(n_cores):
-            base = (1 + c) * (block * 8)
-            evs = []
-            for i in range(points_per_core):
-                a = base + (i * stride) % block
-                evs.append((EV_LD, 8, a))
-                evs.append((EV_ST, 8, a))
-            partner = c ^ (1 << (p % max(1, (n_cores - 1).bit_length())))
-            partner %= n_cores
-            pbase = (1 + partner) * (block * 8)
-            for i in range(0, points_per_core, max(1, line // 8)):
-                evs.append((EV_LD, 8, pbase + i * 8))
-            per_core_evs[c].extend(_interleave(rng, evs, ins_per_mem))
-    return from_event_lists(per_core_evs)
+        own = (1 + c)[:, None] * (block * 8) + (i * (8 << p)) % block
+        partner = (c ^ (1 << (p % bits))) % n_cores
+        addrs.append(np.repeat(own, 2, axis=1))  # LD, ST of each point
+        addrs.append((1 + partner)[:, None] * (block * 8) + rd * 8)
+    n_ev = 2 * points_per_core + len(rd)  # memory events per core and phase
+    addr = np.concatenate(addrs, axis=1)  # [C, n_phases * n_ev]
+    typ = np.tile(
+        np.r_[np.tile([EV_LD, EV_ST], points_per_core), np.full(len(rd), EV_LD)],
+        n_phases,
+    )
+    mem = np.zeros((n_cores, n_phases * n_ev, N_FIELDS), np.int64)
+    mem[:, :, 0] = typ
+    mem[:, :, 1] = 8
+    mem[:, :, 2] = addr
+    if ins_per_mem > 0:
+        # one INS batch before every memory event, drawn phase by phase,
+        # core by core, event by event
+        k = rng.integers(1, 2 * ins_per_mem + 1, size=(n_phases, n_cores, n_ev))
+        ins = np.zeros_like(mem)
+        ins[:, :, 0] = EV_INS
+        ins[:, :, 1] = k.transpose(1, 0, 2).reshape(n_cores, -1)
+        mem = np.stack([ins, mem], axis=2).reshape(n_cores, -1, N_FIELDS)
+    return from_arrays(mem)
 
 
 def readers_writer(

@@ -24,6 +24,7 @@ from primesim_tpu.sim.validate import (
     I,
     effective_l1_state,
     engine_l1_to_golden,
+    epoch_views,
     l1_views,
     llc_views,
     sharers_view,
@@ -87,8 +88,12 @@ def assert_golden_equal(cfg, trace, te):
     np.testing.assert_array_equal(st.ptr, g.ptr, err_msg="golden ptr")
     tag, state, lru, _ = l1_views(cfg, st)
     llc_tag, llc_owner, llc_lru = llc_views(cfg, st)
+    l1_eph, llc_eph = (
+        epoch_views(cfg, st) if cfg.sharer_group > 1 else (None, None)
+    )
     eff = effective_l1_state(
-        cfg, tag, state, llc_tag, llc_owner, sharers_view(cfg, st)
+        cfg, tag, state, llc_tag, llc_owner, sharers_view(cfg, st),
+        l1_eph=l1_eph, llc_eph=llc_eph,
     )
     np.testing.assert_array_equal(eff, g.l1_state, err_msg="golden l1_state")
     valid = g.l1_state != I

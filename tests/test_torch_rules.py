@@ -4,13 +4,18 @@ support, its traces and reports are the JAX package's own, and its
 committed reference fixtures still match the JAX engine.
 
 The fixtures are the rung-1 run in full (`rung1_fft_small.json`) and
-digests (`stats/digest.py`) of two full-width runs that chip_smoke.py
+digests (`stats/digest.py`) of four full-width runs that chip_smoke.py
 holds the card to: the 1024-core headline machine (`headline.json`) and
 the shipped rung-3 machine (`rung3_headline.json`), both on the folded
-headline trace. Regenerate them all (after a deliberate change of the
-simulated model; the two full-width JAX runs take a few minutes on a
-CPU) with:
-    PYTHONPATH=. python tests/test_torch_rules.py --write-fixture
+headline trace, and the shipped rung-4 (4096 cores, chunked full map)
+and rung-5 (16384 cores, coarse sharer vector) machines at full geometry
+on folded fft_like traces of their own widths (`rung4_full.json`,
+`rung5_full.json`). Regenerate them (after a deliberate change of the
+simulated model) with:
+    PYTHONPATH=. python tests/test_torch_rules.py --write-fixture [name ...]
+naming the full-width fixtures to rewrite, or none for all of them and
+the rung-1 run. The JAX runs take a few minutes each on a CPU, and the
+two large ones tens of GB of host memory.
 """
 
 import ast
@@ -39,7 +44,7 @@ from primesim_tpu_torch.trace.format import fold_ins as t_fold
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(primesim_tpu_torch.__file__)
 FIXTURE = os.path.join(PKG, "fixtures", "rung1_fft_small.json")
-FULL_WIDTH = ("headline", "rung3_headline")
+FULL_WIDTH = ("headline", "rung3_headline", "rung4_full", "rung5_full")
 RUNG1 = os.path.join(REPO, "configs", "rung1_64core_fft.json")
 
 
@@ -107,8 +112,6 @@ def test_engine_without_a_card_or_a_device_raises(monkeypatch):
         ("faults_enabled", dict(faults_enabled=True)),
         ("prefetcher", dict(prefetcher="stride")),
         ("coherence", dict(coherence="moesi")),
-        ("sharer_group", dict(sharer_group=2)),
-        ("sharer_chunk_words", dict(sharer_chunk_words=1)),
         ("noc.topology", dict(noc=JNoc(mesh_x=2, mesh_y=2, topology="torus"))),
     ],
 )
@@ -118,6 +121,29 @@ def test_unsupported_fields_raise(field, kw):
     with pytest.raises(PortUnsupportedError) as e:
         Engine(cfg, tr, device="cpu")
     assert e.value.field == field
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [dict(sharer_group=2), dict(sharer_group=8), dict(sharer_chunk_words=1),
+     dict(sharer_group=2, sharer_chunk_words=1)],
+    ids=["sharer_group=2", "sharer_group=8", "sharer_chunk_words=1", "both"],
+)
+def test_coarse_and_chunked_directories_are_accepted(kw):
+    """The coarse sharer vector and the chunked full map run in the port,
+    to the JAX engine's cycles and counters."""
+    from primesim_tpu.sim.engine import Engine as JEngine
+
+    j = small_test_config(8, n_banks=4, quantum=300, **kw)
+    _, tr = _tiny()
+    te = Engine(TCfg.from_json(j.to_json()), tr, chunk_steps=32, device="cpu")
+    te.run()
+    te.verify_invariants()
+    je = JEngine(j, tr, chunk_steps=32)
+    je.run()
+    np.testing.assert_array_equal(te.cycles, je.cycles)
+    for k, v in je.counters.items():
+        np.testing.assert_array_equal(te.counters[k], v, err_msg=k)
 
 
 def test_step_impl_and_pallas_reduce_are_accepted():
@@ -148,6 +174,51 @@ def test_synth_traces_are_byte_identical(gen):
         assert j.events.tobytes() == t.events.tobytes()
         assert j.lengths.tobytes() == t.lengths.tobytes()
         assert j_fold(j).events.tobytes() == t_fold(t).events.tobytes()
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [dict(n_cores=1), dict(n_cores=3, n_phases=5, points_per_core=7, ins_per_mem=0, line=32),
+     dict(n_cores=100, n_phases=3, points_per_core=9, ins_per_mem=1, line=8, seed=3),
+     dict(n_cores=256, n_phases=8, points_per_core=16, ins_per_mem=8, seed=42)],
+    ids=["1core", "no_ins", "100cores", "256cores_8phases"],
+)
+def test_fft_like_and_its_fold_are_byte_identical(kw):
+    """The port builds fft_like and folds traces with whole-array numpy;
+    the JAX package loops event by event. Odd core counts, no INS, short
+    lines and eight phases give the same bytes."""
+    j, t = j_synth.fft_like(**kw), t_synth.fft_like(**kw)
+    assert j.events.tobytes() == t.events.tobytes()
+    assert j.lengths.tobytes() == t.lengths.tobytes()
+    jf, tf = j_fold(j), t_fold(t)
+    assert jf.events.tobytes() == tf.events.tobytes()
+    assert jf.lengths.tobytes() == tf.lengths.tobytes()
+
+
+def test_fold_keeps_a_last_batch_like_the_jax_package():
+    from primesim_tpu.trace.format import EV_BARRIER, EV_INS, EV_LD, EV_ST
+    from primesim_tpu.trace.format import Trace as JTrace
+    from primesim_tpu.trace.format import from_event_lists as j_events
+    from primesim_tpu_torch.trace.format import Trace as TTrace
+
+    def both(evs):
+        j = j_events(evs)
+        return [fold(cls(j.events, j.lengths, line_addressed=True))
+                for fold, cls in ((j_fold, JTrace), (t_fold, TTrace))]
+
+    jf, tf = both([
+        [(EV_INS, 5, 0), (EV_LD, 4, 64), (EV_INS, 3, 0)],  # a batch before END
+        [],
+        [(EV_INS, 2**30, 0), (EV_INS, 2**29, 0), (EV_ST, 4, 0, 7)],
+        [(EV_BARRIER, 1, 0), (EV_INS, 1, 0), (EV_INS, 2, 0)],
+    ])
+    assert tf.events.tobytes() == jf.events.tobytes()
+    assert tf.lengths.tobytes() == jf.lengths.tobytes() and tf.line_addressed
+    # a batch whose fold overflows int32 is refused by both
+    j = j_events([[(EV_INS, 2**30, 0), (EV_INS, 2**30, 0), (EV_LD, 4, 0)]])
+    for fold, cls in ((j_fold, JTrace), (t_fold, TTrace)):
+        with pytest.raises(ValueError, match="must be >= 0"):
+            fold(cls(j.events, j.lengths))
 
 
 def _report_body(path):
@@ -261,19 +332,80 @@ def digest_of_jax_engine(eng) -> dict:
     )
 
 
-@pytest.mark.slow  # two 1024-core JAX runs of 1536 and 2560 steps
+@pytest.mark.slow  # 1024-, 4096- and 16384-core JAX runs
 @pytest.mark.parametrize("name", FULL_WIDTH)
 def test_full_width_digests_match_the_jax_engine(name):
     fx, eng = _full_width(name)
     assert digest_of_jax_engine(eng) == fx["digest"]
 
 
-def write_fixtures():
+def _folded_fft(n_cores, n_phases, points_per_core):
+    return {
+        "generator": "fft_like",
+        "args": {"n_cores": n_cores, "n_phases": n_phases,
+                 "points_per_core": points_per_core, "ins_per_mem": 8,
+                 "seed": 42},
+        "fold": True,
+    }
+
+
+# bench.py's headline machine
+HEADLINE = {
+    "n_cores": 1024, "n_banks": 1024,
+    "l1": {"size": 32768, "ways": 4, "line": 64, "latency": 2},
+    "llc": {"size": 262144, "ways": 8, "line": 64, "latency": 10},
+    "noc": {"mesh_x": 32, "mesh_y": 32, "link_lat": 1, "router_lat": 1},
+    "dram_lat": 100, "quantum": 1000, "local_run_len": 8,
+}
+# (machine, trace) of each full-width fixture: bench.py's headline machine
+# and the shipped rung-3 machine on bench.py's headline trace; rungs 4 and
+# 5 as shipped, on traces of their widths (rung 5's eight phases reach
+# partners 64 and 128 cores away, across its 64-core sharer groups)
+FULL_WIDTH_SPECS = {
+    "headline": (HEADLINE, _folded_fft(1024, 4, 256)),
+    "rung3_headline": ("configs/rung3_1024core_o3.json", _folded_fft(1024, 4, 256)),
+    "rung4_full": ("configs/rung4_4096core_biglittle.json", _folded_fft(4096, 4, 128)),
+    "rung5_full": ("configs/rung5_16384core_wafer.json", _folded_fft(16384, 8, 32)),
+}
+
+
+@pytest.mark.parametrize("name", FULL_WIDTH)
+def test_full_width_fixture_names_its_machine_and_trace(name):
+    """Each full-width fixture records the machine (a shipped config file
+    by path, unchanged) and the trace spec that FULL_WIDTH_SPECS gives,
+    chunk_steps 512, and a digest of every field `run_digest` makes."""
+    with open(os.path.join(PKG, "fixtures", f"{name}.json")) as f:
+        fx = json.load(f)
+    machine, trace = FULL_WIDTH_SPECS[name]
+    assert fx["config"] == machine and fx["trace"] == trace
+    assert fx["chunk_steps"] == 512
+    if isinstance(machine, str):
+        with open(os.path.join(REPO, machine)) as f:
+            text = f.read()
+        cfg = TCfg.from_json(text)
+        assert cfg.to_json() == JCfg.from_json(text).to_json()
+    else:
+        cfg = TCfg.from_dict(machine)
+    assert trace["args"]["n_cores"] == cfg.n_cores
+    assert trace["generator"] in t_synth.GENERATORS
+    assert set(fx["digest"]) == {
+        "steps", "instructions", "max_core_cycles", "cycles_sha256",
+        "counters_sha256", "counter_sums", "link_free_sha256",
+        "dram_free_sha256",
+    }
+    assert fx["digest"]["steps"] % fx["chunk_steps"] == 0
+    assert fx["digest"]["instructions"] == fx["digest"]["counter_sums"]["instructions"]
+
+
+def write_fixtures(names=()):
     import jax
 
     jax.config.update("jax_platforms", "cpu")
     from primesim_tpu.sim.engine import Engine as JEngine
 
+    if names:
+        _write_full_width(names)
+        return
     spec = {
         "config": "configs/rung1_64core_fft.json",
         "trace": {
@@ -292,36 +424,27 @@ def write_fixtures():
         json.dump(spec, f)
         f.write("\n")
     print(f"wrote {FIXTURE}: {eng.steps_run} steps")
+    _write_full_width(FULL_WIDTH)
 
-    # bench.py's headline machine and trace, and the shipped rung-3
-    # machine on the same trace
-    trace = {
-        "generator": "fft_like",
-        "args": {"n_cores": 1024, "n_phases": 4, "points_per_core": 256,
-                 "ins_per_mem": 8, "seed": 42},
-        "fold": True,
-    }
-    headline = {
-        "n_cores": 1024, "n_banks": 1024,
-        "l1": {"size": 32768, "ways": 4, "line": 64, "latency": 2},
-        "llc": {"size": 262144, "ways": 8, "line": 64, "latency": 10},
-        "noc": {"mesh_x": 32, "mesh_y": 32, "link_lat": 1, "router_lat": 1},
-        "dram_lat": 100, "quantum": 1000, "local_run_len": 8,
-    }
-    configs = {"headline": headline,
-               "rung3_headline": "configs/rung3_1024core_o3.json"}
-    for name in FULL_WIDTH:
+
+def _write_full_width(names):
+    import time
+
+    for name in names:
+        machine, trace = FULL_WIDTH_SPECS[name]
         path = os.path.join(PKG, "fixtures", f"{name}.json")
         with open(path, "w") as f:
-            json.dump({"config": configs[name], "trace": trace,
-                       "chunk_steps": 512, "digest": None}, f)
+            json.dump({"config": machine, "trace": trace, "chunk_steps": 512,
+                       "digest": None}, f)
+        t0 = time.perf_counter()
         fx, eng = _full_width(name)
         fx["digest"] = digest_of_jax_engine(eng)
         with open(path, "w") as f:
             json.dump(fx, f, indent=1)
             f.write("\n")
-        print(f"wrote {path}: {eng.steps_run} steps")
+        print(f"wrote {path}: {eng.steps_run} steps, "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
-if __name__ == "__main__" and sys.argv[1:] == ["--write-fixture"]:
-    write_fixtures()
+if __name__ == "__main__" and sys.argv[1:2] == ["--write-fixture"]:
+    write_fixtures(sys.argv[2:])
