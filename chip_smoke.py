@@ -27,7 +27,14 @@ the final line:
                 4's 4096 cores (128 words) and in its group mode at rung
                 5's 16384 cores and 256 groups, with rows whose requester's
                 group is flagged and rows whose victim owner lies outside
-                the victim's flagged groups;
+                the victim's flagged groups; the machine zoo's modes:
+                commit_step under MOESI at the headline's shapes (the
+                phase fails unless some GETS-probe winner's row already
+                holds sharer words with bit 31), sharer_reductions in its
+                torus mode at the IPU profile's shapes (1472 cores, 46
+                words, 32x46 torus), its ring mode at 40 cores on a 5x3
+                grid (odd sizes, padding bits) and its group mode on a
+                16x16 torus (256 cores, 4-core groups);
                 router_cascade at rung 3's shapes (1024 cores, 62 hops,
                 4096 links) with and without the barrier-arrival leg, and
                 at 64 cores with 2, 126 and 254 hops (1, 4 and 8 chunks of
@@ -47,7 +54,10 @@ the final line:
                 chunk, each on a folded fft_like(256, 8 phases, 16
                 points) trace, run to completion on the card and on the
                 CPU: equal in every field, the step kernels launched once
-                per step.
+                per step. Likewise two 256-core zoo machines on a 16x16
+                grid: a ring with the stride prefetcher on
+                stream(256, 128 ops) and a torus under MOESI on
+                readers_writer(256, 8 rounds).
 5. capture   -- the first 512 steps (one chunk) of the headline machine
                 and of rung 3 on the card, each equal to the port's CPU run
                 of them in per-core cycles, all 26 counters and every state
@@ -98,6 +108,23 @@ the final line:
                 likewise against fixtures/rung5_full.json. Neither large
                 path is repeated on the CPU (the reduced phase holds their
                 modes there); each engine is freed before the next.
+   zoo_smoke -- the machine zoo's shipped 16-core torus/MOESI/stride
+                machine (configs/zoo_smoke_16core_torus_moesi.json) on
+                CI's folded fft_like(16, 2 phases, 16 points, 4 INS per
+                memory op, seed 42) trace, likewise against
+                fixtures/zoo_smoke.json, and equal to the port's CPU run
+                in every field.
+   ipu       -- the shipped configs/zoo_ipu_1472tile_bsp.json (1472 cores,
+                64 banks, 32x46 torus, 512 KiB L1s, quantum 50000, stride
+                prefetcher) at full geometry on a folded
+                barrier_phases(1472, 32 phases, 32 lines, 2 INS per
+                memory op, seed 42) trace, against fixtures/ipu_full.json:
+                the step kernels once per step, router_cascade never; the
+                phase fails unless barrier waits and prefetch hits are
+                both nonzero (the first card path with sync events).
+   headline_moesi -- the headline machine under MOESI on the headline
+                trace, against fixtures/headline_moesi.json; the phase
+                fails if its probes equal the MESI headline's.
 8. profile   -- first, in the process's first torch.profiler session (no
                 session precedes the main paths' timing), 10 wrapper calls
                 per kernel on the inputs phase 5 timed, each on fresh
@@ -111,7 +138,8 @@ the final line:
                 it), and each
                 hand-written kernel's mean device time per launch (the
                 profiler adds host overhead, so the window is not a speed
-                figure). Rungs 4 and 5 get the same window; then, of the
+                figure). Rungs 4 and 5, the IPU profile and the MOESI
+                headline get the same window; then, of the
                 next 64 steps, the inputs of the step whose
                 sharer_reductions has the most invalidating or evicting
                 rows are staged, each kernel is held to its plain version
@@ -150,6 +178,15 @@ KERNEL_META = {
                        "primesim_tpu/kernels/router_kernels.py:103"),
 }
 STEP_KERNELS = ("probe_classify", "commit_step", "sharer_reductions")
+# each kernel's launch-argument modes, every one held to its plain version
+# in the kernels phase
+KERNEL_MODES = {
+    "probe_classify": ["full map", "coarse (logG > 0: group bits, epoch guard)"],
+    "commit_step": ["MESI", "MOESI (moesi = 1)", "group words (logG > 0)"],
+    "sharer_reductions": ["full map", "group (logG > 0)",
+                          "mesh, torus, ring (topology = 0, 1, 2)"],
+    "router_cascade": ["2 legs", "3 legs (has_sync)"],
+}
 # argument positions of what a kernel updates in place: commit_step's l1,
 # dirm and counters, router_cascade's link_free_out
 INPLACE = {"commit_step": (0, 1, 9), "router_cascade": (12,)}
@@ -157,10 +194,15 @@ RUNG3_STAGED = ("router_cascade",)  # staged from rung 3, the rest from the head
 CHECK_STEPS = 512  # steps of each main path that the CPU run repeats
 PROF_REPS = 10  # profiled launches of each kernel alone
 CAPTURE = {"headline": (1, 300), "rung3": (1, 500)}
-# the full-geometry large-core paths: (path, fixture); their profile
-# window covers steps 256-319 and their kernels are staged at the busiest
-# of steps 320-383
+# the full-geometry large-core paths and the zoo's main paths: (path,
+# fixture); the profile window of each but zoo_smoke covers steps 256-319
+# and their kernels are staged at the busiest of steps 320-383 (a "mode"
+# line: rung 4's 128-word full map, rung 5's group mode, the IPU's torus
+# mode, the headline's MOESI commit)
 LARGE = (("rung4", "rung4_full"), ("rung5", "rung5_full"))
+ZOO = (("zoo_smoke", "zoo_smoke"), ("ipu", "ipu_full"),
+       ("headline_moesi", "headline_moesi"))
+MODE_PATHS = ("rung4", "rung5", "ipu", "headline_moesi")
 
 
 def emit(obj) -> None:
@@ -237,6 +279,8 @@ def main() -> int:
         fail("rung 3's fixture names another trace than the headline's")
     large = {path: fixture(name) for path, name in LARGE}
     cfg4, cfg5 = large["rung4"][1], large["rung5"][1]
+    zoo = {path: fixture(name) for path, name in ZOO}
+    cfg_ipu, cfg_hm = zoo["ipu"][1], zoo["headline_moesi"][1]
     traces_s = time.perf_counter() - t0
     C, S1, W1 = cfg.n_cores, cfg.l1.sets, cfg.l1.ways
     W2, NW = cfg.llc.ways, cfg.n_sharer_words
@@ -318,7 +362,9 @@ def main() -> int:
         pool of random rows (the last row among them) that the pointers
         and home slots name; the home slots come from 256 of them, so
         rows are shared. Returns the live group-bit copies whose
-        fill-time epoch differs from their entry's (0 on a full map)."""
+        fill-time epoch differs from their entry's (0 on a full map) and
+        the GETS-probe winners whose row's old sharer words hold bit 31
+        (MOESI keeps those bits)."""
         C, S1, W1 = mcfg.n_cores, mcfg.l1.sets, mcfg.l1.ways
         W2, NW = mcfg.llc.ways, mcfg.n_sharer_words
         MW, DW, FS = llc_meta_width(mcfg), dirm_width(mcfg), W1 * S1
@@ -388,12 +434,19 @@ def main() -> int:
             cu(rng.integers(-(2**31), 2**31, (26, C), dtype=np.int64)),
             cu(rng.integers(0, 2**30, (26, C))), *patch,
         ], mcfg=mcfg)
+        old_bit31 = (pc_out[3] < 0).any(1).cpu().numpy()
+        probe_bit31 = int((
+            (lanes[:, step_kernels.CL_WINNER] != 0) & (lanes[:, step_kernels.CL_LLC_HIT] != 0)
+            & (lanes[:, step_kernels.CL_GETS_PROBE] != 0) & old_bit31).sum())
         del dirm, pc_out
         torch.cuda.empty_cache()
-        return mismatched
+        return mismatched, probe_bit31
 
     step_kernels_random(cfg)
-    epoch_mismatches = step_kernels_random(cfg5)  # 64-core groups, epochs
+    epoch_mismatches = step_kernels_random(cfg5)[0]  # 64-core groups, epochs
+    moesi_probe_bit31 = step_kernels_random(cfg_hm)[1]  # the MOESI commit
+    if not moesi_probe_bit31:
+        fail("kernels: no MOESI GETS-probe winner's row holds sharer bit 31")
 
     def sharer_args(mcfg):
         n = mcfg.n_cores
@@ -440,6 +493,20 @@ def main() -> int:
                   "owner_outside_flagged_groups": int(out_rows.sum())}
     del ga
 
+    # the topology modes: the IPU's 32x46 torus (1472 cores, 46 words), a
+    # ring of odd sizes (40 cores on 5x3: padding bits, tiles shared), and
+    # the group mode's tables and corrections on a 16x16 torus
+    compare("sharer_reductions", sharer_args(cfg_ipu), mcfg=cfg_ipu)
+    ring40 = MachineConfig.from_dict({**spec, "n_cores": 40, "noc": {
+        **spec["noc"], "mesh_x": 5, "mesh_y": 3, "topology": "ring"}})
+    compare("sharer_reductions", sharer_args(ring40), mcfg=ring40)
+    spec5 = json.loads(cfg5.to_json())
+    torus_g4 = MachineConfig.from_dict({
+        **spec5, "n_cores": 256, "n_banks": 256, "sharer_group": 4,
+        "noc": {**spec5["noc"], "mesh_x": 16, "mesh_y": 16, "topology": "torus"}})
+    compare("sharer_reductions", sharer_args(torus_g4),
+            {"tables": group_tables(torus_g4, dev)}, mcfg=torus_g4)
+
     def router_args(n, H, NL, has_sync):
         """Random routes of random lengths, -1-padded; lanes masked per
         leg (so masked hops with pth >= 0); a third of the hops on eight
@@ -482,7 +549,13 @@ def main() -> int:
         "sharer_cores": [C, 40, 1100, cfg4.n_cores],
         "coarse": {"C": cfg5.n_cores, "G": cfg5.sharer_group,
                    "NW": cfg5.n_sharer_words, "DW": dirm_width(cfg5),
-                   "epoch_mismatched_copies": epoch_mismatches, **group_rows}},
+                   "epoch_mismatched_copies": epoch_mismatches, **group_rows},
+        "zoo": {"commit_moesi_C": cfg_hm.n_cores,
+                "moesi_gets_probe_rows_with_bit31": moesi_probe_bit31,
+                "torus": {"C": cfg_ipu.n_cores, "NW": cfg_ipu.n_sharer_words,
+                          "grid": [cfg_ipu.noc.mesh_x, cfg_ipu.noc.mesh_y]},
+                "ring": {"C": 40, "grid": [5, 3]},
+                "torus_group": {"C": 256, "G": 4, "grid": [16, 16]}}},
         "traces_s": traces_s, "max_abs_err": max_err})
 
     # ---- 4. rung 1: card == CPU == JAX fixture
@@ -529,19 +602,24 @@ def main() -> int:
     # cores, card == CPU to completion
     small_tr = fold_ins(synth.fft_like(256, n_phases=8, points_per_core=16,
                                        ins_per_mem=8, seed=42))
+    stream_tr = fold_ins(synth.stream(256, n_mem_ops=128, seed=42))
+    rw_tr = fold_ins(synth.readers_writer(256, n_rounds=8, seed=42))
     reduced = {}
-    for name, big, kw in (("rung5_G4", cfg5, {"sharer_group": 4}),
-                          ("rung4_K2", cfg4, {"sharer_chunk_words": 2})):
+    for name, big, kw, noc, rtr in (
+            ("rung5_G4", cfg5, {"sharer_group": 4}, {}, small_tr),
+            ("rung4_K2", cfg4, {"sharer_chunk_words": 2}, {}, small_tr),
+            ("ring_stride", cfg_ipu, {}, {"topology": "ring"}, stream_tr),
+            ("torus_moesi", cfg_hm, {}, {"topology": "torus"}, rw_tr)):
         spec = json.loads(big.to_json())
         mcfg = MachineConfig.from_dict({
             **spec, **kw, "n_cores": 256, "n_banks": 256,
-            "noc": {**spec["noc"], "mesh_x": 16, "mesh_y": 16}})
-        gpu = Engine(mcfg, small_tr, chunk_steps=128, device=dev)
+            "noc": {**spec["noc"], "mesh_x": 16, "mesh_y": 16, **noc}})
+        gpu = Engine(mcfg, rtr, chunk_steps=128, device=dev)
         reset_launches()
         gpu.run()
         n_launch = dict(build.LAUNCHES)
         t0 = time.perf_counter()
-        cpu = Engine(mcfg, small_tr, chunk_steps=128, device="cpu")
+        cpu = Engine(mcfg, rtr, chunk_steps=128, device="cpu")
         cpu.run()
         cpu_s = time.perf_counter() - t0
         for k, n in n_launch.items():
@@ -549,10 +627,15 @@ def main() -> int:
                 fail(f"reduced {name}: {k} launched {n} times in {gpu.steps_run} steps")
         same_run(f"reduced {name}", gpu, cpu)
         gpu.verify_invariants()
+        sums = {k: int(gpu.counters[k].sum())
+                for k in ("invalidations", "probes", "prefetch_hits")}
+        if name == "ring_stride" and not sums["prefetch_hits"]:
+            fail("reduced ring_stride: the stride prefetcher covered no miss")
         reduced[name] = {"steps": gpu.steps_run, "sharer_words": mcfg.n_sharer_words,
                          "sharer_group": mcfg.sharer_group,
                          "sharer_chunk_words": mcfg.sharer_chunk_words,
-                         "invalidations": int(gpu.counters["invalidations"].sum()),
+                         "topology": mcfg.noc.topology, "coherence": mcfg.coherence,
+                         "prefetcher": mcfg.prefetcher, **sums,
                          "cpu_s": cpu_s, "launches": n_launch}
         del gpu, cpu
     emit({"phase": "reduced", "card_equals_cpu": True, "machines": reduced})
@@ -772,8 +855,12 @@ def main() -> int:
         else:
             # per word read: mask, popcount, sum; per set bit: find and
             # clear it, the target's tile, its hop count and the hop sum,
-            # and for the invalidation set the latency and its max
-            ops = 5 * NW * (n_inv + n_vic) + 16 * inv_bits + 12 * back_bits
+            # and for the invalidation set the latency and its max; the
+            # torus's and the ring's hop count take 4 more (the shorter
+            # way around each ring)
+            hop_extra = 0 if mcfg.noc.topology == "mesh" else 4
+            ops = (5 * NW * (n_inv + n_vic) + (16 + hop_extra) * inv_bits
+                   + (12 + hop_extra) * back_bits)
         info["ops"] = ops
         return max((b / HBM_BYTES_PER_S * 1e3, "bytes"),
                    (ops / INT_OPS_PER_S * 1e3, "operations")), info, b
@@ -822,8 +909,9 @@ def main() -> int:
     launches = {}
     main_paths = [("headline", cfg, hfx, trace, STEP_KERNELS),
                   ("rung3", cfg3, r3fx, trace3, tuple(wrappers))]
-    main_paths += [(path, large[path][1], large[path][0], large[path][2], STEP_KERNELS)
-                   for path, _ in LARGE]
+    main_paths += [(path, fxs[path][1], fxs[path][0], fxs[path][2], STEP_KERNELS)
+                   for fxs, paths in ((large, LARGE), (zoo, ZOO)) for path, _ in paths]
+    sums_of = {}
     for path, pcfg, fx, ptrace, ran in main_paths:
         held = torch.cuda.memory_allocated()  # the timed step's inputs, kept for phase 8
         eng = Engine(pcfg, ptrace, chunk_steps=fx["chunk_steps"], device=dev)
@@ -840,7 +928,7 @@ def main() -> int:
                          eng.state.link_free.cpu().numpy(),
                          eng.state.dram_free.cpu().numpy())
         ins = got["instructions"]
-        sums = got["counter_sums"]
+        sums = sums_of[path] = got["counter_sums"]
         emit({"phase": path, "steps": eng.steps_run, "wall_s": wall,
               "simulated_mips": ins / wall / 1e6, "peak_memory_bytes": peak,
               "launches": launches[path], "instructions": ins,
@@ -848,6 +936,7 @@ def main() -> int:
               "noc_msgs": sums["noc_msgs"],
               "noc_contention_cycles": sums["noc_contention_cycles"],
               "dram_queue_cycles": sums["dram_queue_cycles"],
+              **{k: sums[k] for k in ("probes", "barrier_waits", "prefetch_hits")},
               "digest": {k: v for k, v in got.items() if k.endswith("sha256")},
               "equals_jax_digest": got == fx["digest"], "gpu": smi_line})
         for k, n in launches[path].items():
@@ -860,9 +949,19 @@ def main() -> int:
                 fail(f"{path}: {k} {got[k]} != the JAX package's {want}")
         if not eng.done():
             fail(f"{path}: not every core reached END")
+        if path == "ipu" and not (sums["barrier_waits"] and sums["prefetch_hits"]):
+            fail(f"ipu: {sums['barrier_waits']} barrier waits and "
+                 f"{sums['prefetch_hits']} prefetch hits: both must be nonzero")
+        if path == "headline_moesi" and sums["probes"] == sums_of["headline"]["probes"]:
+            fail("headline_moesi: as many probes as the MESI headline")
+        if path == "zoo_smoke":
+            cpu = Engine(pcfg, ptrace, chunk_steps=fx["chunk_steps"], device="cpu")
+            cpu.run()
+            same_run(path, eng, cpu)
+            del cpu
         t0 = time.perf_counter()
         eng.verify_invariants()
-        if path in large:
+        if path in MODE_PATHS:
             emit({"phase": f"{path} invariants", "seconds": time.perf_counter() - t0})
         del eng
         torch.cuda.empty_cache()
@@ -950,14 +1049,14 @@ def main() -> int:
         return best["step"], best["got"]
 
     kernel_us, modes = {}, {}
-    for path, pcfg, ptrace, ran in (
-            ("headline", cfg, trace, STEP_KERNELS), ("rung3", cfg3, trace3, tuple(wrappers)),
-            *((p, large[p][1], large[p][2], STEP_KERNELS) for p, _ in LARGE)):
+    by_path = {p: (pc, pt, r) for p, pc, _, pt, r in main_paths}
+    for path in ("headline", "rung3", *MODE_PATHS):
+        pcfg, ptrace, ran = by_path[path]
         prof_eng = Engine(pcfg, ptrace, chunk_steps=64, device=dev)
         prof_eng.run_steps(256)  # mid-run state, as the main path meets it
         torch.cuda.synchronize()
         dev_ev, window_s, top_ops = device_events(lambda: prof_eng.run_steps(64), by_op=True)
-        mode_in = stage_busiest_step(prof_eng) if path in large else None
+        mode_in = stage_busiest_step(prof_eng) if path in MODE_PATHS else None
         del prof_eng
         torch.cuda.empty_cache()
         busy_us, end = 0.0, None
@@ -1010,6 +1109,11 @@ def main() -> int:
               "kernels": modes[path], "max_abs_err": max_err,
               "event_floor_ms": event_floor_ms, "gpu": smi_line})
 
+    machine_of = {p: {"topology": by_path[p][0].noc.topology,
+                      "coherence": by_path[p][0].coherence,
+                      "sharer_group": by_path[p][0].sharer_group,
+                      "sharer_words": by_path[p][0].n_sharer_words}
+                  for p in modes}
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": KERNEL_META[k][0],
          "replaces": KERNEL_META[k][1],
@@ -1020,8 +1124,11 @@ def main() -> int:
          "profiler_us_per_launch": timing[k]["profiler_us"],
          "bound_ms": bounds[k][0],
          "bound_by": bounds[k][1], "library_ms": None,
-         "modes": {p: {f: m[k][f] for f in ("launches", "ms", "plain_ms",
-                                             "profiler_us_in_step", "bound_ms", "bound_by")}
+         "kernel_modes": KERNEL_MODES[k],
+         "modes": {p: {"machine": machine_of[p],
+                       **{f: m[k][f] for f in ("launches", "ms", "plain_ms",
+                                               "profiler_us_in_step", "bound_ms",
+                                               "bound_by")}}
                    for p, m in modes.items() if k in m}}
         for k in wrappers
     ]})

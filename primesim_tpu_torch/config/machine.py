@@ -647,21 +647,16 @@ class PortUnsupportedError(ValueError):
 
 def check_port_supported(cfg: MachineConfig) -> None:
     """Raise PortUnsupportedError for the first field outside what the
-    port simulates: the MESI directory on a mesh, full-map (dense or
-    chunked, `sharer_chunk_words`) or coarse (`sharer_group` > 1), with
-    or without NoC contention (the tile, link and router models) and the
-    DRAM controller queue, without prefetching or fault injection.
+    port simulates: every machine of the JAX package's one-device run
+    path except fault injection. That is MESI or MOESI on a mesh, torus
+    or ring NoC, a full-map (dense or chunked, `sharer_chunk_words`) or
+    coarse (`sharer_group` > 1) sharer vector, with or without NoC
+    contention (the tile, link and router models), the DRAM controller
+    queue and the stride prefetcher.
 
     `step_impl` and `pallas_reduce` are accepted and ignored: they choose
     between the JAX package's XLA and Pallas step bodies, while the port
     always runs its own kernels on a card (and their plain versions on
     the CPU)."""
-    checks = (
-        ("faults_enabled", cfg.faults_enabled, False),
-        ("prefetcher", cfg.prefetcher, "none"),
-        ("coherence", cfg.coherence, "mesi"),
-        ("noc.topology", cfg.noc.topology, "mesh"),
-    )
-    for name, value, supported in checks:
-        if value != supported:
-            raise PortUnsupportedError(name, value)
+    if cfg.faults_enabled:
+        raise PortUnsupportedError("faults_enabled", cfg.faults_enabled)

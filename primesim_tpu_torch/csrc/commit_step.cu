@@ -17,6 +17,13 @@
 // self and owner bits are the cores' groups, cid >> logG and
 // oclamp >> logG; the engine never joins there (same-group joiners'
 // bits would not commit independently), so the join branch is not taken.
+// Under MOESI (moesi = 1, the Pallas kernel's static `moesi` mode) a GETS
+// probe keeps the probed owner recorded (its line derives to Owned) and
+// the sharer word becomes the old word OR the requester OR the owner:
+// the winner's owner delta is oclamp - old and each word's delta
+// (shw | self | owner) - shw, an unsigned add that wraps like int32, so
+// the bits already set, bit 31 among them, stay as they were. MOESI runs
+// only on the full map (the wrapper checks sharer_group == 1).
 // Plain version: kernels/step_kernels.py.
 //
 // Bound on the H100: device-memory bytes. In place, the function moves
@@ -69,7 +76,7 @@ __global__ void __launch_bounds__(WARPS * 32) commit_step_kernel(
     const int* __restrict__ delta, const uint8_t* __restrict__ hm,
     const uint8_t* __restrict__ wm, const int* __restrict__ cm, int C,
     int S1, int W1, int W2, int NW, int MW, int DW, int NC, int rl,
-    int cm_ld, int logG) {
+    int cm_ld, int logG, int moesi) {
   const int c0 = blockIdx.x * WARPS;
   for (int t = threadIdx.x; t < NC * WARPS; t += blockDim.x) {
     const int c = c0 + t % WARPS;
@@ -173,8 +180,9 @@ __global__ void __launch_bounds__(WARPS * 32) commit_step_kernel(
   if (winner) {
     if (lane < 4) {
       const int col = lane < 2 ? 2 * uway + lane : (lane == 2 ? 2 * W2 : 3 * W2) + uway;
+      const int new_owner = (moesi && gets_probe) ? oclamp : (takes_own ? cid : -1);
       const int nv = lane == 0 ? line
-                   : lane == 1 ? (takes_own ? cid : -1)
+                   : lane == 1 ? new_owner
                    : lane == 2 ? step : new_eph;
       const int ov = lane == 0 ? o_tag : lane == 1 ? o_own : lane == 2 ? o_lru : o_eph;
       add_word(drow, col, wrap_sub(nv, ov));
@@ -185,7 +193,8 @@ __global__ void __launch_bounds__(WARPS * 32) commit_step_kernel(
     for (int n = lane; n < NW; n += 32) {
       const int self_word = n == self_w ? bit_word(self_b) : 0;
       const int owner_word = n == own_w ? bit_word(own_b) : 0;
-      const int nv = gets_probe ? (self_word | owner_word)
+      const int old_w = moesi ? shw[(size_t)c * NW + n] : 0;  // MESI: replaced
+      const int nv = gets_probe ? (old_w | self_word | owner_word)
                    : gets_shared ? (shw[(size_t)c * NW + n] | self_word) : 0;
       add_word(drow, MW + uway * NW + n, wrap_sub(nv, old_sh[n]));
     }
@@ -205,9 +214,9 @@ extern "C" int commit_step_launch(
     const int* lanes, const int* pc_lanes, const int* cid, const int* step,
     int* counters, const int* delta, const uint8_t* hm, const uint8_t* wm,
     const int* cm, int C, int S1, int W1, int W2, int NW, int MW, int DW,
-    int NC, int rl, int cm_ld, int logG, cudaStream_t stream) {
+    int NC, int rl, int cm_ld, int logG, int moesi, cudaStream_t stream) {
   commit_step_kernel<<<(C + WARPS - 1) / WARPS, WARPS * 32, 0, stream>>>(
       l1, dirm, tag_rows, shw, vshw, lanes, pc_lanes, cid, step, counters,
-      delta, hm, wm, cm, C, S1, W1, W2, NW, MW, DW, NC, rl, cm_ld, logG);
+      delta, hm, wm, cm, C, S1, W1, W2, NW, MW, DW, NC, rl, cm_ld, logG, moesi);
   return (int)cudaGetLastError();
 }

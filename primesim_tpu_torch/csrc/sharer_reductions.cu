@@ -3,11 +3,12 @@
 // Replaces the Pallas kernel primesim_tpu/kernels/reductions.py:
 // sharer_reductions (_reduce_kernel). For every core it takes the packed
 // sharer words of the accessed line (shw) and of the LLC victim (vic_shw)
-// as sets of target cores, computes each target tile's mesh hop count h
-// to the home tile, and reduces: inv_lat = max over recorded non-self
-// targets of 2*(h*link + (h+1)*router), inv_cnt and inv_hops (sums of 1
-// and 2h over them), back_cnt and back_hops over the victim's sharers
-// plus its owner (counted once when it is also a recorded sharer).
+// as sets of target cores, computes each target tile's hop count h to
+// the home tile under the NoC topology, and reduces: inv_lat = max over
+// recorded non-self targets of 2*(h*link + (h+1)*router), inv_cnt and
+// inv_hops (sums of 1 and 2h over them), back_cnt and back_hops over the
+// victim's sharers plus its owner (counted once when it is also a
+// recorded sharer).
 // Under the coarse sharer vector (logG > 0, each bit one group of 2^logG
 // cores) it computes instead what the JAX engine computes in XLA for that
 // case (primesim_tpu/sim/engine.py, the sharer_group > 1 branch of the
@@ -20,6 +21,14 @@
 // count and 2*its hops) when its group is flagged; back_cnt and
 // back_hops sum the victim's groups plus its owner (one count, 2*its
 // hops) when the owner's group bit is not set.
+// The hop count follows the Pallas kernel's static `topology` mode,
+// here the launch argument `topology`, the same for every thread: 0 the
+// mesh's |dx| + |dy|; 1 the torus, the shorter way around each axis's
+// ring, ring_dist(a, b, m) = min(|a - b|, m - |a - b|); 2 the rings, direct
+// along the row when home and target share it, else via the column-0
+// spine, ring_dist(ax, 0) + ring_dist(ay, by) + ring_dist(0, bx). The
+// group mode's tables already hold the topology's hops (group_tables);
+// its self and owner corrections take the same hop count.
 // Plain version: kernels/reductions.py.
 //
 // Bound on the H100: bytes, and in practice launch latency. The function
@@ -66,6 +75,11 @@ __device__ __forceinline__ uint32_t valid_bits(int w, int C) {
   return n >= 32 ? FULL : (n <= 0 ? 0u : (1u << n) - 1u);
 }
 
+__device__ __forceinline__ int ring_dist(int a, int b, int m) {
+  const int d = abs(a - b);
+  return min(d, m - d);
+}
+
 __global__ void __launch_bounds__(WARPS * 32) sharer_reductions_kernel(
     const int* __restrict__ shw, const int* __restrict__ vic_shw,
     const int* __restrict__ btile, const int* __restrict__ vic_owner,
@@ -76,7 +90,7 @@ __global__ void __launch_bounds__(WARPS * 32) sharer_reductions_kernel(
     int* __restrict__ back_cnt, int* __restrict__ back_hops,
     const int* __restrict__ memb, const int* __restrict__ max2hops,
     const int* __restrict__ sum2hops, int C, int NW, int n_tiles, int mesh_x,
-    int vo_ld, int logG, int n_grp) {
+    int mesh_y, int topology, int vo_ld, int logG, int n_grp) {
   const int c = blockIdx.x * WARPS + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (c >= C) return;  // the whole warp leaves together
@@ -98,7 +112,18 @@ __global__ void __launch_bounds__(WARPS * 32) sharer_reductions_kernel(
 
   auto hops_to = [&](int t) {  // hops from the home tile to core t's tile
     const int tt = t % n_tiles;
-    return (uint32_t)(abs(bx - tt % mesh_x) + abs(by - tt / mesh_x));
+    const int tx = tt % mesh_x, ty = tt / mesh_x;
+    int h;
+    if (topology == 1) {
+      h = ring_dist(bx, tx, mesh_x) + ring_dist(by, ty, mesh_y);
+    } else if (topology == 2) {
+      h = by == ty ? ring_dist(bx, tx, mesh_x)
+                   : ring_dist(bx, 0, mesh_x) + ring_dist(by, ty, mesh_y) +
+                         ring_dist(0, tx, mesh_x);
+    } else {
+      h = abs(bx - tx) + abs(by - ty);
+    }
+    return (uint32_t)h;
   };
 
   int mlat = 0;
@@ -205,12 +230,12 @@ extern "C" int sharer_reductions_launch(
     const int* cid, const int* link, const int* router, int* inv_lat,
     int* inv_cnt, int* inv_hops, int* back_cnt, int* back_hops,
     const int* memb, const int* max2hops, const int* sum2hops, int C, int NW,
-    int n_tiles, int mesh_x, int vo_ld, int logG, int n_grp,
-    cudaStream_t stream) {
+    int n_tiles, int mesh_x, int mesh_y, int topology, int vo_ld, int logG,
+    int n_grp, cudaStream_t stream) {
   const int blocks = (C + WARPS - 1) / WARPS;
   sharer_reductions_kernel<<<blocks, WARPS * 32, 0, stream>>>(
       shw, vic_shw, btile, vic_owner, inv_row, vic_valid, cid, link, router,
       inv_lat, inv_cnt, inv_hops, back_cnt, back_hops, memb, max2hops,
-      sum2hops, C, NW, n_tiles, mesh_x, vo_ld, logG, n_grp);
+      sum2hops, C, NW, n_tiles, mesh_x, mesh_y, topology, vo_ld, logG, n_grp);
   return (int)cudaGetLastError();
 }

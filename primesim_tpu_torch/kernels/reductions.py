@@ -14,7 +14,9 @@ Under the coarse sharer vector (`sharer_group` > 1) the same kernel runs
 a group mode: the JAX engine's group-table reductions (its XLA branch
 for that case, `sim/engine.py`), from the static per-(home tile, group)
 tables of `group_tables`. Its plain version is a transcription of that
-branch in torch. Mesh topology only (the port's `check_port_supported`).
+branch in torch. Both modes take the NoC topology's hop count (mesh,
+torus or ring: `noc.topology.coord_hops`), in the kernel through the
+launch argument `topology` (`TOPOLOGY_CODE`).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from . import build
 from .layouts import check_tensor
 
 _i32 = torch.int32
+TOPOLOGY_CODE = {"mesh": 0, "torus": 1, "ring": 2}  # the kernel's `topology`
 
 
 def sharer_reductions_plain(
@@ -43,7 +46,7 @@ def sharer_reductions_plain(
         )
     C = shw.shape[0]
     NW = cfg.n_sharer_words
-    mx = cfg.noc.mesh_x
+    mx, my = cfg.noc.mesh_x, cfg.noc.mesh_y
     t = torch.arange(NW * 32, dtype=torch.int32, device=shw.device)[None, :]
     word = (t[0] >> 5).long()
     bits = ((shw[:, word] >> (t & 31)) & 1) != 0  # [C, 32*NW]
@@ -51,7 +54,9 @@ def sharer_reductions_plain(
     tvalid = t < C
     tt = t % cfg.n_tiles
     bt = btile[:, None]
-    hops = topology.coord_hops(cfg.noc.topology, bt % mx, bt // mx, tt % mx, tt // mx)
+    hops = topology.coord_hops(
+        cfg.noc.topology, bt % mx, bt // mx, tt % mx, tt // mx, mx, my
+    )
     lat2 = 2 * (hops * link_lat + (hops + 1) * router_lat)
     hops2 = 2 * hops
     sh_b = bits & (t != cid[:, None]) & (inv_row[:, None] != 0) & tvalid
@@ -173,7 +178,8 @@ def sharer_reductions(
         "sharer_reductions",
         [shw, vic_shw, btile, vic_owner, inv_row, vic_valid, cid, link_lat,
          router_lat, *outs, memb, max2hops, sum2hops],
-        [C, NW, cfg.n_tiles, cfg.noc.mesh_x, vic_owner.stride(0),
+        [C, NW, cfg.n_tiles, cfg.noc.mesh_x, cfg.noc.mesh_y,
+         TOPOLOGY_CODE[cfg.noc.topology], vic_owner.stride(0),
          cfg.sharer_group.bit_length() - 1, n_grp],
         torch.cuda.current_stream(dev),
     )

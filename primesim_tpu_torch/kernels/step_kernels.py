@@ -25,8 +25,12 @@ G > 1) a core's sharer bit is its group's, g = cid >> log2(G): the probe
 then also reads the L1 epoch plane and keeps a group-bit S copy only
 while its fill-time epoch equals the directory entry's (the JAX
 package's epoch guard), and a line counts as shared whenever any group
-bit is set; the commit records group bits. W1, W2 and the local run
-length are at most 32 (one warp's lanes).
+bit is set; the commit records group bits. Under MOESI
+(`cfg.coherence`, the Pallas kernel's static `moesi`) the commit keeps
+the probed owner recorded on a GETS probe, and the row's sharer words
+become the old sharers OR the requester OR the owner (derived Owned);
+MOESI needs `sharer_group` == 1. W1, W2 and the local run length are at
+most 32 (one warp's lanes).
 """
 
 from __future__ import annotations
@@ -248,9 +252,15 @@ def commit_step_plain(
     self_word = torch.where(nw == (g >> 5)[:, None], 1 << (g & 31)[:, None], 0)
     owner_word = torch.where(nw == (og >> 5)[:, None], 1 << (og & 31)[:, None], 0)
     new_owner = torch.where(takes_own, cid, -1)
+    probe_word = self_word | owner_word
+    if cfg.coherence == "moesi":
+        # dirty sharing: a GETS probe leaves the owner recorded and the
+        # sharers accumulate (under MESI shw is 0 on a probe anyway)
+        new_owner = torch.where(gets_probe, oclamp, new_owner)
+        probe_word = shw | probe_word
     new_shw = torch.where(
         gets_probe[:, None],
-        self_word | owner_word,
+        probe_word,
         torch.where(gets_shared[:, None], shw | self_word, 0),
     )
     zero = torch.zeros_like(line)
@@ -354,6 +364,9 @@ def commit_step(
     outputs of this step; the row slot is column CL_SLOT of `lanes`."""
     rl = _check_widths("commit_step", cfg, hm)
     dev = _device("commit_step", l1)
+    moesi = cfg.coherence == "moesi"
+    if moesi and cfg.sharer_group != 1:
+        raise ValueError("commit_step: MOESI needs sharer_group == 1")
     if dev.type == "cpu":
         return commit_step_plain(
             cfg, l1, dirm, tag_rows, shw, vic_shw, lanes, pc_lanes, cid,
@@ -379,6 +392,7 @@ def commit_step(
         "commit_step",
         [l1, dirm, tag_rows, shw, vic_shw, lanes, pc_lanes, cid, step_no,
          counters, delta, *patch],
-        [C, S1, W1, W2, NW, MW, DW, NC, rl, cm_ld, cfg.sharer_group.bit_length() - 1],
+        [C, S1, W1, W2, NW, MW, DW, NC, rl, cm_ld, cfg.sharer_group.bit_length() - 1,
+         int(moesi)],
         torch.cuda.current_stream(dev),
     )

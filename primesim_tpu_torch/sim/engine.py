@@ -1,13 +1,14 @@
 """The simulation engine: one eager PyTorch step and its host driver.
 
 `step` is the JAX package's `sim/engine.py::step` for the configurations
-this port runs (`config.machine.check_port_supported`: MESI on a mesh
-with a full-map sharer vector, dense or chunked, or a coarse one
+this port runs (`config.machine.check_port_supported`: MESI or MOESI's
+derived Owned state on a mesh, torus or ring NoC (`noc.topology`), with
+a full-map sharer vector, dense or chunked, or a coarse one
 (`sharer_group` > 1: group bits, the epoch guard, no read joins, the
 group-table reductions of `_group_tables`), with or without NoC
-contention (tile, link or router model) and the DRAM controller queue,
-no prefetcher or faults), taking the Pallas branch wherever the JAX step
-has one. Its kernels are
+contention (tile, link or router model), the DRAM controller queue and
+the stride prefetcher; no faults), taking the Pallas branch wherever the
+JAX step has one. Its kernels are
 `kernels.step_kernels.probe_classify` (phase 1), `kernels.reductions.
 sharer_reductions` (phase 3), `kernels.router_kernels.router_cascade`
 (the router model's cascade) and `kernels.step_kernels.commit_step`
@@ -48,7 +49,7 @@ from ..kernels.step_kernels import (
     PL_VIC_OWNER,
     PL_VIC_TAG,
 )
-from ..kernels.layouts import first_min, first_true, take
+from ..kernels.layouts import first_min, first_true, popcount, take
 from ..noc import mesh, topology
 from ..ops.ranking import lane_order, segmented_rank
 from ..stats.counters import COUNTER_NAMES, zero_counters
@@ -63,7 +64,7 @@ from ..trace.format import (
     Trace,
     validate_sync,
 )
-from .state import E, I, M, MachineState, S, init_state, llc_meta_width
+from .state import E, I, M, O, MachineState, S, init_state, llc_meta_width
 
 INT32_MAX = 2**31 - 1
 _ACC_BITS = 30  # per-chunk counter increments must stay below 2^30
@@ -98,7 +99,7 @@ def _group_tables(cfg: MachineConfig):
     C = cfg.n_cores
     n_grp = cfg.n_sharer_groups
     nt = cfg.n_tiles
-    mx = cfg.noc.mesh_x
+    mx, my = cfg.noc.mesh_x, cfg.noc.mesh_y
     ids = np.arange(n_grp)[:, None] * G + np.arange(G)[None, :]  # [n_grp, G]
     valid = ids < C
     mt = (ids % nt).astype(np.int64)
@@ -110,7 +111,7 @@ def _group_tables(cfg: MachineConfig):
     for lo in range(0, nt, step):
         t = np.arange(lo, min(lo + step, nt))
         tx, ty = (t % mx)[:, None, None], (t // mx)[:, None, None]
-        h = topology.coord_hops(cfg.noc.topology, tx, ty, gx[None], gy[None])
+        h = topology.coord_hops(cfg.noc.topology, tx, ty, gx[None], gy[None], mx, my)
         max2hops[t] = np.where(valid[None], h, 0).max(2).astype(np.int32)
         sum2hops[t] = np.where(valid[None], 2 * h, 0).sum(2).astype(np.int32)
     return members, max2hops, sum2hops
@@ -125,7 +126,8 @@ def group_tables(cfg: MachineConfig, device: torch.device):
 
 
 def _one_way(cfg: MachineConfig, tile_a, tile_b, kn):
-    """One-way latency and hop count, with the state's latency knobs."""
+    """One-way latency and hop count under cfg's topology, with the
+    state's latency knobs."""
     h = topology.hops(cfg, tile_a, tile_b)
     return h * kn.link_lat + (h + 1) * kn.router_lat, h
 
@@ -195,6 +197,7 @@ def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True):
     FS = W1 * S1
     logB = B.bit_length() - 1
     coarse = cfg.sharer_group > 1
+    moesi = cfg.coherence == "moesi"
     g_c = arange_c >> (cfg.sharer_group.bit_length() - 1)  # sharer bit
     if rl:
         pline = pev[:, :, 2]
@@ -231,6 +234,22 @@ def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True):
                 pown == arange_c[:, None], plstate, torch.where(pbit, S, I)
             ),
         )
+        if moesi:
+            # derived Owned: this core owns the line at the home while
+            # other sharers are recorded, so a run's store must arbitrate
+            # and the effective E/M demotes to O. MOESI needs
+            # sharer_group == 1: pbit is the self bit, and the popcount of
+            # the matched way's words counts the sharers exactly.
+            pw_cols = MW + pmway[:, :, None] * NW + torch.arange(
+                NW, dtype=_i32, device=dev
+            )
+            ptot = popcount(pmrows.gather(2, pw_cols.long())).sum(2, dtype=_i32)
+            pothers = (ptot - pbit.to(_i32)) > 0
+            peff = torch.where(
+                pothers & pmhas & (pown == arange_c[:, None]) & (peff >= E),
+                O,
+                peff,
+            )
         phitcol = plway * S1 + ps
         etr, eargr, eprer = pev[:, :rl, 0], pev[:, :rl, 1], pev[:, :rl, 3]
         peffr = peff[:, :rl]
@@ -291,10 +310,20 @@ def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True):
     llc_hway = pc_lanes[:, PL_LLC_HWAY]
     owner = pc_lanes[:, PL_OWNER]
     other_sharers = pc_lanes[:, PL_OTHER_SH] != 0
+    if moesi:
+        # derived Owned: an E/M hit while the home still names this core
+        # owner with other sharers recorded reads locally, but its store
+        # arbitrates as an upgrade (the stored plane keeps E/M)
+        hit_state = torch.where(
+            hit_any & llc_has & (owner == arange_c) & other_sharers
+            & (hit_state >= E),
+            O,
+            hit_state,
+        )
 
     read_hit = is_mem & ~is_st_ev & hit_any
     write_hit = is_mem & is_st_ev & hit_any & ((hit_state == E) | (hit_state == M))
-    upg = is_mem & is_st_ev & hit_any & (hit_state == S)
+    upg = is_mem & is_st_ev & hit_any & ((hit_state == S) | (hit_state == O))
     gets = is_mem & ~is_st_ev & ~hit_any
     getm = is_mem & is_st_ev & ~hit_any
 
@@ -400,6 +429,34 @@ def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True):
         kn.link_lat, kn.router_lat, group_tables(cfg, dev) if coarse else None,
     )
 
+    # ---- stride prefetcher: a per-core stride detector over the winners
+    # and joins (retries re-observe their line and must not train). An
+    # LLC miss within prefetch_degree strides ahead of the last trained
+    # line on a confirmed stride (streak >= 2) is covered: it pays
+    # prefetch_lat instead of dram_lat and skips the controller queue,
+    # while dram_accesses still counts it. Training reads step-entry state.
+    if cfg.prefetcher == "stride":
+        pfl, pfs, pfk = st.pf_line, st.pf_stride, st.pf_streak
+        stride = line - pfl
+        # floor division, as JAX's // (descending streams divide negatives)
+        qd = torch.div(stride, torch.where(pfs == 0, 1, pfs), rounding_mode="floor")
+        pf_hit = (
+            llc_miss & (pfs != 0) & (pfk >= 2) & (stride - qd * pfs == 0)
+            & (qd >= 1) & (qd <= kn.prefetch_degree)
+        )
+        miss_dram = llc_miss & ~pf_hit
+        cadd("prefetch_hits", pf_hit)
+        pf_train = winner | join
+        pf_streak_n = torch.where(
+            pf_train, torch.where((stride == pfs) & (pfs != 0), pfk + 1, 1), pfk
+        )
+        pf_stride_n = torch.where(pf_train, stride, pfs)
+        pf_line_n = torch.where(pf_train, line, pfl)
+    else:
+        pf_hit = None
+        miss_dram = llc_miss
+        pf_line_n, pf_stride_n, pf_streak_n = st.pf_line, st.pf_stride, st.pf_streak
+
     # ---- memory-controller queue: LLC-miss winners queue at their home
     # bank's controller, waiting for max(dram_free[bank], the bank's
     # earliest nominal arrival this step) + rank * service. The lane order
@@ -409,7 +466,7 @@ def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True):
     if cfg.dram_queue:
         svc_d = torch.where(kn.dram_service > 0, kn.dram_service, kn.dram_lat)
         a_nom = cycles_c + epre * cpi + l1_lat + req_lat + llc_lat
-        dtgt = torch.where(llc_miss, bank, B)  # no prefetcher: every miss
+        dtgt = torch.where(miss_dram, bank, B)  # the misses left to DRAM
         dbase = _scatter_min(B, dtgt, a_nom)
         # non-miss lanes carry the masked segment: their ranks are garbage
         # that the selects below discard
@@ -419,7 +476,7 @@ def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True):
             a_nom,
             torch.maximum(st.dram_free[bank_l], dbase[bank_l]) + rd * svc_d,
         )
-        extra_dram = torch.where(llc_miss, dstart - a_nom, 0)
+        extra_dram = torch.where(miss_dram, dstart - a_nom, 0)
         dram_free_n = _scatter_drop(st.dram_free, dtgt, dstart + svc_d, "amax")
         cadd("dram_queue_cycles", extra_dram)
     else:
@@ -429,12 +486,15 @@ def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True):
     # latency composition (golden order): the service interval between
     # the request's arrival at the home bank and the reply's injection
     probe_any = gets_probe | write_probe
+    dram_term = torch.where(miss_dram, kn.dram_lat, 0)
+    if pf_hit is not None:  # covered misses pay the prefetch buffer's latency
+        dram_term = dram_term + torch.where(pf_hit, kn.prefetch_lat, 0)
     service = torch.where(
         winner,
         llc_lat
         + torch.where(probe_any, 2 * po_lat, 0)
         + torch.where(inv_row, inv_lat, 0)
-        + torch.where(llc_miss, kn.dram_lat, 0)
+        + dram_term
         + extra_dram,
         llc_lat,
     )
@@ -666,6 +726,9 @@ def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True):
         sync_flag=sync_flag,
         quantum_end=quantum_end,
         step=step_no + 1,
+        pf_line=pf_line_n,
+        pf_stride=pf_stride_n,
+        pf_streak=pf_streak_n,
     )
 
 

@@ -19,6 +19,8 @@ from ..stats.counters import COUNTER_NAMES
 
 # MESI encoding (shared with the JAX package and its golden model)
 I, S, E, M = 0, 1, 2, 3
+# MOESI's Owned: derived at classification time, never stored in an L1
+O = 4
 
 
 def llc_meta_width(cfg: MachineConfig) -> int:
@@ -85,7 +87,7 @@ class MachineState(NamedTuple):
     sync_flag: torch.Tensor  # [C]
     quantum_end: torch.Tensor  # []
     step: torch.Tensor  # []
-    pf_line: torch.Tensor  # [C] (prefetcher; zero here)
+    pf_line: torch.Tensor  # [C] stride prefetcher: last trained line
     pf_stride: torch.Tensor  # [C]
     pf_streak: torch.Tensor  # [C]
     counters: torch.Tensor  # [n_counters, C]

@@ -164,13 +164,24 @@ def check_invariants(cfg: MachineConfig, state, done_mask=None) -> None:
     B, S2, W2 = llc_tag.shape
     NW = cfg.n_sharer_words
 
-    # 1. directory exclusivity (MESI): an owned entry records no sharers
+    # 1. directory exclusivity (MESI): an owned entry records no sharers.
+    # Under MOESI dirty sharing is the Owned state's point, so it weakens
+    # to: an owned entry with sharers records the owner's own bit.
     sh3 = sharers.reshape(B * S2, W2, NW)
     owned = (llc_owner >= 0).reshape(B * S2, W2)
-    _require(
-        not (owned & (sh3 != 0).any(-1)).any(),
-        "invariant: owned LLC entry has non-empty sharer set",
-    )
+    if cfg.coherence == "moesi":
+        own2 = np.clip(llc_owner.reshape(B * S2, W2), 0, C - 1)
+        oword = np.take_along_axis(sh3, (own2 >> 5)[..., None], -1)[..., 0]
+        obit = (oword >> (own2 & 31).astype(np.uint32)) & 1
+        _require(
+            not (owned & (sh3 != 0).any(-1) & (obit == 0)).any(),
+            "invariant: moesi owned entry has sharers but no owner bit",
+        )
+    else:
+        _require(
+            not (owned & (sh3 != 0).any(-1)).any(),
+            "invariant: owned LLC entry has non-empty sharer set",
+        )
 
     # 2. owner / sharer-bit ranges
     _require(

@@ -4,18 +4,21 @@ support, its traces and reports are the JAX package's own, and its
 committed reference fixtures still match the JAX engine.
 
 The fixtures are the rung-1 run in full (`rung1_fft_small.json`) and
-digests (`stats/digest.py`) of four full-width runs that chip_smoke.py
+digests (`stats/digest.py`) of seven full-width runs that chip_smoke.py
 holds the card to: the 1024-core headline machine (`headline.json`) and
 the shipped rung-3 machine (`rung3_headline.json`), both on the folded
 headline trace, and the shipped rung-4 (4096 cores, chunked full map)
 and rung-5 (16384 cores, coarse sharer vector) machines at full geometry
 on folded fft_like traces of their own widths (`rung4_full.json`,
-`rung5_full.json`). Regenerate them (after a deliberate change of the
-simulated model) with:
+`rung5_full.json`); the machine zoo's shipped 16-core torus/MOESI/stride
+machine (`zoo_smoke.json`) and 1472-tile IPU profile (`ipu_full.json`,
+a bulk-synchronous barrier trace), and the headline machine under MOESI
+(`headline_moesi.json`). Regenerate them (after a deliberate change of
+the simulated model) with:
     PYTHONPATH=. python tests/test_torch_rules.py --write-fixture [name ...]
 naming the full-width fixtures to rewrite, or none for all of them and
-the rung-1 run. The JAX runs take a few minutes each on a CPU, and the
-two large ones tens of GB of host memory.
+the rung-1 run. The JAX runs take seconds to a few minutes each on a
+CPU, and the large ones several to tens of GB of host memory.
 """
 
 import ast
@@ -44,7 +47,9 @@ from primesim_tpu_torch.trace.format import fold_ins as t_fold
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(primesim_tpu_torch.__file__)
 FIXTURE = os.path.join(PKG, "fixtures", "rung1_fft_small.json")
-FULL_WIDTH = ("headline", "rung3_headline", "rung4_full", "rung5_full")
+FULL_WIDTH = ("headline", "rung3_headline", "rung4_full", "rung5_full",
+              "zoo_smoke", "ipu_full", "headline_moesi")
+SMALL_WIDTH = ("zoo_smoke",)  # its JAX run is quick enough for tier 1
 RUNG1 = os.path.join(REPO, "configs", "rung1_64core_fft.json")
 
 
@@ -110,9 +115,6 @@ def test_engine_without_a_card_or_a_device_raises(monkeypatch):
     "field,kw",
     [
         ("faults_enabled", dict(faults_enabled=True)),
-        ("prefetcher", dict(prefetcher="stride")),
-        ("coherence", dict(coherence="moesi")),
-        ("noc.topology", dict(noc=JNoc(mesh_x=2, mesh_y=2, topology="torus"))),
     ],
 )
 def test_unsupported_fields_raise(field, kw):
@@ -121,6 +123,29 @@ def test_unsupported_fields_raise(field, kw):
     with pytest.raises(PortUnsupportedError) as e:
         Engine(cfg, tr, device="cpu")
     assert e.value.field == field
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [dict(prefetcher="stride"), dict(coherence="moesi"),
+     dict(noc=JNoc(mesh_x=2, mesh_y=2, topology="torus"))],
+    ids=["prefetcher", "coherence", "noc.topology"],
+)
+def test_zoo_fields_are_accepted(kw):
+    """The machine zoo's selectors run in the port, to the JAX engine's
+    cycles and counters."""
+    from primesim_tpu.sim.engine import Engine as JEngine
+
+    j = small_test_config(8, n_banks=4, quantum=300, **kw)
+    _, tr = _tiny()
+    te = Engine(TCfg.from_json(j.to_json()), tr, chunk_steps=32, device="cpu")
+    te.run()
+    te.verify_invariants()
+    je = JEngine(j, tr, chunk_steps=32)
+    je.run()
+    np.testing.assert_array_equal(te.cycles, je.cycles)
+    for k, v in je.counters.items():
+        np.testing.assert_array_equal(te.counters[k], v, err_msg=k)
 
 
 @pytest.mark.parametrize(
@@ -332,21 +357,24 @@ def digest_of_jax_engine(eng) -> dict:
     )
 
 
-@pytest.mark.slow  # 1024-, 4096- and 16384-core JAX runs
-@pytest.mark.parametrize("name", FULL_WIDTH)
+@pytest.mark.parametrize(
+    "name",
+    [n if n in SMALL_WIDTH
+     else pytest.param(n, marks=pytest.mark.slow)  # 1024- to 16384-core JAX runs
+     for n in FULL_WIDTH],
+)
 def test_full_width_digests_match_the_jax_engine(name):
     fx, eng = _full_width(name)
     assert digest_of_jax_engine(eng) == fx["digest"]
 
 
-def _folded_fft(n_cores, n_phases, points_per_core):
-    return {
-        "generator": "fft_like",
-        "args": {"n_cores": n_cores, "n_phases": n_phases,
-                 "points_per_core": points_per_core, "ins_per_mem": 8,
-                 "seed": 42},
-        "fold": True,
-    }
+def _folded(generator, **args):
+    return {"generator": generator, "args": {**args, "seed": 42}, "fold": True}
+
+
+def _folded_fft(n_cores, n_phases, points_per_core, ins_per_mem=8):
+    return _folded("fft_like", n_cores=n_cores, n_phases=n_phases,
+                   points_per_core=points_per_core, ins_per_mem=ins_per_mem)
 
 
 # bench.py's headline machine
@@ -360,12 +388,21 @@ HEADLINE = {
 # (machine, trace) of each full-width fixture: bench.py's headline machine
 # and the shipped rung-3 machine on bench.py's headline trace; rungs 4 and
 # 5 as shipped, on traces of their widths (rung 5's eight phases reach
-# partners 64 and 128 cores away, across its 64-core sharer groups)
+# partners 64 and 128 cores away, across its 64-core sharer groups); the
+# machine zoo's two shipped configs, the CI smoke machine on CI's trace
+# and the 1472-tile IPU profile on a bulk-synchronous trace (its first
+# card path with barriers); the headline machine under MOESI
 FULL_WIDTH_SPECS = {
     "headline": (HEADLINE, _folded_fft(1024, 4, 256)),
     "rung3_headline": ("configs/rung3_1024core_o3.json", _folded_fft(1024, 4, 256)),
     "rung4_full": ("configs/rung4_4096core_biglittle.json", _folded_fft(4096, 4, 128)),
     "rung5_full": ("configs/rung5_16384core_wafer.json", _folded_fft(16384, 8, 32)),
+    "zoo_smoke": ("configs/zoo_smoke_16core_torus_moesi.json",
+                  _folded_fft(16, 2, 16, ins_per_mem=4)),
+    "ipu_full": ("configs/zoo_ipu_1472tile_bsp.json",
+                 _folded("barrier_phases", n_cores=1472, n_phases=32,
+                         work_per_phase=32, ins_per_mem=2)),
+    "headline_moesi": ({**HEADLINE, "coherence": "moesi"}, _folded_fft(1024, 4, 256)),
 }
 
 
