@@ -49,6 +49,9 @@ the final line:
                 points_per_core=32, seed=7): the card's run launches each
                 of its kernels once per step, equals the port's CPU run in
                 every state field and equals the committed JAX fixture.
+   cli_faults -- `python -m primesim_tpu_torch run` on rung 1 with a fault
+                schedule and --fault-seed 7, once on the card and once with
+                --device cpu: the same summary numbers and FAULTS section.
    reduced   -- the two large-core directory modes at 256 cores: rung 5's
                 machine with 4-core groups and rung 4's with a 2-word
                 chunk, each on a folded fft_like(256, 8 phases, 16
@@ -58,6 +61,21 @@ the final line:
                 grid: a ring with the stride prefetcher on
                 stream(256, 128 ops) and a torus under MOESI on
                 readers_writer(256, 8 rounds).
+   reduced_faults -- three fault machines at 256 cores on 16x16 grids, run
+                to completion on the card and on the CPU: equal in every
+                state field, the fault state included, the step kernels
+                launched once per step. A torus on barrier_phases(256, 8
+                phases, 16 lines) under the "drop" policy, DUE fail-stops
+                (flip_l1 1e-3) and two scheduled kills, the second
+                (TORUS_KILL) of a running core while others wait at a
+                barrier: fails unless that premise holds on the card, the
+                run completes and barrier waits grow after the kill. A
+                ring on lock_contention(256, 3 sections, 2 locks) with a
+                failed and a degraded row link and the kill of a lock
+                holder (RING_KILL): fails unless the core holds the slot
+                at the kill step and not after it. Rung 3's router machine
+                on fft_like(256, 4 phases, 32 points) with two failed
+                links and flip_llc 1e-3 (router_cascade once per step).
 5. capture   -- the first 512 steps (one chunk) of the headline machine
                 and of rung 3 on the card, each equal to the port's CPU run
                 of them in per-core cycles, all 26 counters and every state
@@ -125,6 +143,14 @@ the final line:
    headline_moesi -- the headline machine under MOESI on the headline
                 trace, against fixtures/headline_moesi.json; the phase
                 fails if its probes equal the MESI headline's.
+   headline_faults -- the headline machine under the committed fault
+                schedule (fixtures/headline_faults_schedule.json: two
+                failed and two degraded links, three scheduled kills, L1
+                and LLC flips and DUE fail-stops, seed 7) on the headline
+                trace, against fixtures/headline_faults.json; fails if a
+                fault counter sums to 0 or the whole-directory scrub ran on
+                no step or on more than one in 16. Prints the dead cores
+                and the scrub's steps.
 8. profile   -- first, in the process's first torch.profiler session (no
                 session precedes the main paths' timing), 10 wrapper calls
                 per kernel on the inputs phase 5 timed, each on fresh
@@ -145,6 +171,14 @@ the final line:
                 rows are staged, each kernel is held to its plain version
                 on them, timed alone by CUDA events as in phase 5 and
                 given a bound from them (one "mode" line per path).
+                The faulted headline gets a window too, and 64 of its
+                steps (256-319, the scheduled kill's scrub first) run
+                under CUDA's sync debug mode: the phase fails on any
+                synchronising call. Last, the ring mode of
+                sharer_reductions: the reduced ring machines (ring_stride,
+                ring_faults) are staged at their busiest step of a
+                64-step chunk (steps 0-63 and 256-319) and get "mode"
+                lines.
 
 Then the kernel summary line and, last, the result line
 {"ok": true, "device": {...}}.
@@ -157,7 +191,9 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 
 import numpy as np
 
@@ -203,9 +239,25 @@ LARGE = (("rung4", "rung4_full"), ("rung5", "rung5_full"))
 ZOO = (("zoo_smoke", "zoo_smoke"), ("ipu", "ipu_full"),
        ("headline_moesi", "headline_moesi"))
 MODE_PATHS = ("rung4", "rung5", "ipu", "headline_moesi")
+FAULT_COUNTERS = ("core_failstops", "noc_reroutes", "ecc_corrected", "ecc_due")
+# the reduced fault machines (256 cores, 16x16): (step, core) of the torus's
+# kill while 214 other cores wait at a barrier, and (step, core, lock slot)
+# of the ring's kill of a lock holder, both found from CPU dry runs of the
+# port (the phase checks both premises on the card)
+TORUS_KILL = (64, 138)
+RING_KILL = (256, 206, 0)
+# the reduced ring machines whose sharer_reductions (ring mode) is staged,
+# timed and bounded: (machine, first step of the staged chunk)
+RING_MODES = (("ring_stride", 0), ("ring_faults", 256))
+
+
+T0 = time.perf_counter()
 
 
 def emit(obj) -> None:
+    """One JSON line; a phase line gets the script's elapsed seconds."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": round(time.perf_counter() - T0, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -227,8 +279,10 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from primesim_tpu_torch import convert
     from primesim_tpu_torch.config.machine import MachineConfig
+    from primesim_tpu_torch.faults import inject
     from primesim_tpu_torch.kernels import build, reductions, router_kernels, step_kernels
-    from primesim_tpu_torch.sim.engine import Engine, group_tables
+    from primesim_tpu_torch.sim.engine import Engine, group_tables, run_chunk
+    from primesim_tpu_torch.trace.format import EV_BARRIER, EV_END
     from primesim_tpu_torch.sim.state import dirm_width, llc_meta_width
     from primesim_tpu_torch.stats.digest import run_digest
     from primesim_tpu_torch.trace import synth
@@ -281,6 +335,9 @@ def main() -> int:
     cfg4, cfg5 = large["rung4"][1], large["rung5"][1]
     zoo = {path: fixture(name) for path, name in ZOO}
     cfg_ipu, cfg_hm = zoo["ipu"][1], zoo["headline_moesi"][1]
+    hffx, cfg_hf, trace_hf = fixture("headline_faults")
+    if trace_hf.events.tobytes() != trace.events.tobytes():
+        fail("headline_faults' fixture names another trace than the headline's")
     traces_s = time.perf_counter() - t0
     C, S1, W1 = cfg.n_cores, cfg.l1.sets, cfg.l1.ways
     W2, NW = cfg.llc.ways, cfg.n_sharer_words
@@ -303,7 +360,7 @@ def main() -> int:
         gs, cs = convert.state_to_numpy(gpu.state), convert.state_to_numpy(cpu.state)
         for f in gs:
             same = (all(np.array_equal(gs[f][k], cs[f][k]) for k in gs[f])
-                    if f == "knobs" else np.array_equal(gs[f], cs[f]))
+                    if f in ("knobs", "faults") else np.array_equal(gs[f], cs[f]))
             if not same:
                 fail(f"{phase}: state field {f} differs between the card and the CPU")
         if gpu.steps_run != cpu.steps_run or not np.array_equal(gpu.cycles, cpu.cycles):
@@ -598,13 +655,44 @@ def main() -> int:
           "instructions": int(gc["instructions"].sum())})
     del runs, gpu, cpu
 
+    # ---- the CLI's chaos mode on rung 1, on the card and on the CPU: the
+    # same summary numbers and FAULTS report section
+    cli = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        sched = os.path.join(tmp, "faults.json")
+        with open(sched, "w") as f:
+            json.dump({"events": [{"step": 5, "kind": "core_failstop", "core": 3},
+                                  {"step": 2, "kind": "link_fail", "link": 4},
+                                  {"step": 2, "kind": "link_degrade", "link": 9, "extra": 4}],
+                       "flip_l1": 0.02, "flip_llc": 0.02, "due_rate": 0.5,
+                       "due_failstop": True}, f)
+        for d in ("cuda", "cpu"):
+            report = os.path.join(tmp, f"{d}.txt")
+            r = subprocess.run(
+                [sys.executable, "-m", "primesim_tpu_torch", "run", fx["config"],
+                 "--synth", "fft_like:n_phases=1,points_per_core=8,seed=3", "--fold",
+                 "--fault-schedule", sched, "--fault-seed", "7", "--device", d,
+                 "--report", report],
+                cwd=ROOT, capture_output=True, text=True, timeout=600)
+            if r.returncode != 0:
+                fail(f"cli_faults: run --device {d} exited {r.returncode}: {r.stderr[-500:]}")
+            detail = json.loads(r.stdout.strip().splitlines()[-1])["detail"]
+            with open(report) as f:
+                text = f.read()
+            cli[d] = ({k: detail[k] for k in ("instructions", "max_core_cycles", "noc_msgs")},
+                      text[text.index("FAULTS"):].split("\n\n")[0].splitlines())
+    if cli["cuda"] != cli["cpu"]:
+        fail(f"cli_faults: the card's run {cli['cuda']} != the CPU's {cli['cpu']}")
+    emit({"phase": "cli_faults", "summary": cli["cuda"][0], "faults_section": cli["cuda"][1],
+          "card_equals_cpu": True})
+
     # ---- reduced: the coarse vector and the chunked full map at 256
     # cores, card == CPU to completion
     small_tr = fold_ins(synth.fft_like(256, n_phases=8, points_per_core=16,
                                        ins_per_mem=8, seed=42))
     stream_tr = fold_ins(synth.stream(256, n_mem_ops=128, seed=42))
     rw_tr = fold_ins(synth.readers_writer(256, n_rounds=8, seed=42))
-    reduced = {}
+    reduced, reduced_runs = {}, {}
     for name, big, kw, noc, rtr in (
             ("rung5_G4", cfg5, {"sharer_group": 4}, {}, small_tr),
             ("rung4_K2", cfg4, {"sharer_chunk_words": 2}, {}, small_tr),
@@ -637,8 +725,100 @@ def main() -> int:
                          "topology": mcfg.noc.topology, "coherence": mcfg.coherence,
                          "prefetcher": mcfg.prefetcher, **sums,
                          "cpu_s": cpu_s, "launches": n_launch}
+        reduced_runs[name] = (mcfg, rtr, n_launch)
         del gpu, cpu
     emit({"phase": "reduced", "card_equals_cpu": True, "machines": reduced})
+
+    # ---- reduced fault machines at 256 cores, card == CPU to completion,
+    # the fault state included: a torus whose kills leave barrier waiters
+    # (relief, the drop scrub, DUE fail-stops), a ring whose kill takes a
+    # lock holder (the long-way detours), rung 3's router machine (the
+    # cascade and the latency order under detours)
+    def fault_machine(big, topology, events, **kw):
+        spec = json.loads(big.to_json())
+        return MachineConfig.from_dict({
+            **spec, "n_cores": 256, "n_banks": 256,
+            "noc": {**spec["noc"], "mesh_x": 16, "mesh_y": 16, "topology": topology},
+            "faults_enabled": True, "max_fault_events": 4, "fault_seed": 7,
+            "fault_events": events, **kw})
+
+    def state_np(eng, *fields):
+        return [getattr(eng.state, f).cpu().numpy() for f in fields]
+
+    rtk, rtc = TORUS_KILL
+    rgk, rgc, rgs = RING_KILL
+    fault_runs = {
+        "torus_faults": (fault_machine(
+            cfg, "torus", [[20, 1, 200, 0], [rtk, 1, rtc, 0]], fault_dead_policy="drop",
+            fault_due_failstop=True, fault_flip_l1=1e-3, fault_due_rate=0.05),
+            fold_ins(synth.barrier_phases(256, n_phases=8, work_per_phase=16, seed=42)), 32),
+        "ring_faults": (fault_machine(
+            cfg, "ring", [[0, 2, 68, 0], [0, 3, 161, 5], [rgk, 1, rgc, 0]]),
+            fold_ins(synth.lock_contention(256, n_critical=3, n_locks=2, seed=42)), 32),
+        "router_faults": (fault_machine(
+            cfg3, "mesh", [[0, 2, 68, 0], [0, 2, 402, 0]], fault_flip_llc=1e-3),
+            fold_ins(synth.fft_like(256, n_phases=4, points_per_core=32, ins_per_mem=8,
+                                    seed=42)), 128),
+    }
+    faulted = {}
+    for name, (mcfg, rtr, chunk) in fault_runs.items():
+        gpu = Engine(mcfg, rtr, chunk_steps=chunk, device=dev)
+        reset_launches()
+        info = {}
+        if name == "torus_faults":
+            gpu.run_steps(rtk)  # the state the kill step starts from
+            ptr, flag = state_np(gpu, "ptr", "sync_flag")
+            et = rtr.events[np.arange(256), np.minimum(ptr, rtr.max_len - 1), 0]
+            waiting = (et == EV_BARRIER) & (flag == 1)
+            if not waiting.any() or waiting[rtc] or et[rtc] == EV_END:
+                fail(f"reduced {name}: core {rtc} is not alive and running while "
+                     f"others wait at step {rtk}")
+            info["waiting_at_kill"] = int(waiting.sum())
+            info["barrier_waits_before_kill"] = int(gpu.counters["barrier_waits"].sum())
+        elif name == "ring_faults":
+            gpu.run_steps(rgk)
+            if int(gpu.state.lock_holder[rgs]) != rgc:
+                fail(f"reduced {name}: core {rgc} does not hold lock slot {rgs} at step {rgk}")
+            gpu.run_steps(gpu.chunk_steps)  # the kill step and the rest of its chunk
+            holder, dead = state_np(gpu, "lock_holder")[0], gpu.state.faults.core_dead.cpu()
+            if holder[rgs] == rgc or not int(dead[rgc]):
+                fail(f"reduced {name}: lock slot {rgs} still held by core {rgc} after its kill")
+            info["lock_slot_after_kill"] = int(holder[rgs])
+        gpu.run()
+        n_launch = dict(build.LAUNCHES)
+        t0 = time.perf_counter()
+        cpu = Engine(mcfg, rtr, chunk_steps=chunk, device="cpu")
+        cpu.run()
+        cpu_s = time.perf_counter() - t0
+        router = name == "router_faults"
+        for k, n in n_launch.items():
+            if n != (gpu.steps_run if k in STEP_KERNELS or router else 0):
+                fail(f"reduced {name}: {k} launched {n} times in {gpu.steps_run} steps")
+        same_run(f"reduced {name}", gpu, cpu)
+        if not gpu.done():
+            fail(f"reduced {name}: the run did not complete")
+        gpu.verify_invariants()
+        sums = {k: int(gpu.counters[k].sum()) for k in (
+            *FAULT_COUNTERS, "barrier_waits", "lock_acquires", "noc_contention_cycles",
+            "l1_writebacks")}
+        if name == "torus_faults" and not (
+                sums["barrier_waits"] > info["barrier_waits_before_kill"]
+                and sums["core_failstops"] >= 2):
+            fail(f"reduced {name}: no barrier wait after the kill, or fewer than 2 kills")
+        if name != "torus_faults" and not sums["noc_reroutes"]:
+            fail(f"reduced {name}: no message crossed a failed link")
+        if router and not (sums["ecc_corrected"] and sums["noc_contention_cycles"]):
+            fail(f"reduced {name}: no corrected LLC flip or no router contention")
+        faulted[name] = {
+            "steps": gpu.steps_run, "topology": mcfg.noc.topology,
+            "contention_model": mcfg.noc.contention_model if mcfg.noc.contention else None,
+            "dead_policy": mcfg.fault_dead_policy, "due_failstop": mcfg.fault_due_failstop,
+            "dead_cores": np.flatnonzero(gpu.state.faults.core_dead.cpu().numpy()).tolist(),
+            **sums, **info, "cpu_s": cpu_s, "launches": n_launch}
+        reduced_runs[name] = (mcfg, rtr, n_launch)
+        del gpu, cpu
+    emit({"phase": "reduced_faults", "card_equals_cpu": True, "fault_state_equal": True,
+          "machines": faulted})
 
     # ---- 5. capture: the first chunk of each main path, card == CPU, and
     # the kernel inputs it stages
@@ -911,16 +1091,29 @@ def main() -> int:
                   ("rung3", cfg3, r3fx, trace3, tuple(wrappers))]
     main_paths += [(path, fxs[path][1], fxs[path][0], fxs[path][2], STEP_KERNELS)
                    for fxs, paths in ((large, LARGE), (zoo, ZOO)) for path, _ in paths]
+    main_paths.append(("headline_faults", cfg_hf, hffx, trace_hf, STEP_KERNELS))
     sums_of = {}
+    real_scrub = inject.scrub_dead
+    scrubs = []
+
+    def counted_scrub(*args):  # host-side count of the steps that scrub
+        scrubs.append(1)
+        return real_scrub(*args)
+
     for path, pcfg, fx, ptrace, ran in main_paths:
         held = torch.cuda.memory_allocated()  # the timed step's inputs, kept for phase 8
         eng = Engine(pcfg, ptrace, chunk_steps=fx["chunk_steps"], device=dev)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
+        scrubs.clear()
+        inject.scrub_dead = counted_scrub
         t0 = time.perf_counter()
-        eng.run()
-        torch.cuda.synchronize()
+        try:
+            eng.run()
+            torch.cuda.synchronize()
+        finally:
+            inject.scrub_dead = real_scrub
         wall = time.perf_counter() - t0
         launches[path] = dict(build.LAUNCHES)
         peak = torch.cuda.max_memory_allocated() - held
@@ -929,7 +1122,11 @@ def main() -> int:
                          eng.state.dram_free.cpu().numpy())
         ins = got["instructions"]
         sums = sums_of[path] = got["counter_sums"]
-        emit({"phase": path, "steps": eng.steps_run, "wall_s": wall,
+        fault_info = {"faults": {
+            **{k: sums[k] for k in (*FAULT_COUNTERS, "l1_writebacks")},
+            "dead_cores": np.flatnonzero(eng.state.faults.core_dead.cpu().numpy()).tolist(),
+            "scrub_steps": len(scrubs)}} if pcfg.faults_enabled else {}
+        emit({"phase": path, "steps": eng.steps_run, "wall_s": wall, **fault_info,
               "simulated_mips": ins / wall / 1e6, "peak_memory_bytes": peak,
               "launches": launches[path], "instructions": ins,
               "max_core_cycles": got["max_core_cycles"],
@@ -942,8 +1139,12 @@ def main() -> int:
         for k, n in launches[path].items():
             if n != (eng.steps_run if k in ran else 0):
                 fail(f"{path}: {k} launched {n} times in {eng.steps_run} steps")
-        if ins != ptrace.total_instructions():
+        if not pcfg.faults_enabled and ins != ptrace.total_instructions():
             fail(f"{path}: {ins} instructions retired, trace has {ptrace.total_instructions()}")
+        if pcfg.faults_enabled and not all(sums[k] for k in FAULT_COUNTERS):
+            fail(f"{path}: a fault counter sums to 0: {fault_info}")
+        if pcfg.faults_enabled and not 0 < len(scrubs) < eng.steps_run // 16:
+            fail(f"{path}: the scrub ran on {len(scrubs)} of {eng.steps_run} steps")
         for k, want in fx["digest"].items():
             if got[k] != want:
                 fail(f"{path}: {k} {got[k]} != the JAX package's {want}")
@@ -1048,9 +1249,53 @@ def main() -> int:
             fail(f"stage: no step with every step kernel after step {cur['step']}")
         return best["step"], best["got"]
 
-    kernel_us, modes = {}, {}
+    kernel_us, modes, mode_cfg = {}, {}, {}
+
+    def mode_line(path, pcfg, staged, n_launch):
+        """The step kernels alone on a path's staged step: held to their
+        plain versions, timed by events, bounded; one "mode" line."""
+        staged_step, mode_in = staged
+        modes[path], mode_cfg[path] = {}, pcfg
+        for k in STEP_KERNELS:
+            args, kw = mode_in[k]
+            compare(k, args, kw, mcfg=pcfg)
+            bnd, info, nb = bound_of(k, args, kw, pcfg)
+            modes[path][k] = {
+                **time_alone(k, args, kw, pcfg),
+                "profiler_us_in_step": kernel_us.get(path, {}).get(k),
+                "launches": n_launch[k], "bound_ms": bnd[0], "bound_by": bnd[1],
+                "bytes": nb, "detail": info,
+            }
+        del mode_in, staged
+        torch.cuda.empty_cache()
+        emit({"phase": "mode", "path": path, "staged_step": staged_step,
+              "kernels": modes[path], "max_abs_err": max_err,
+              "event_floor_ms": event_floor_ms, "gpu": smi_line})
+
+    def sync_free_window():
+        """64 faulted headline steps from step 256 (the scheduled kill of
+        core 13 and its scrub first) through run_chunk under CUDA's sync
+        debug mode: the synchronising calls they make, and the scrubs."""
+        eng = Engine(cfg_hf, trace_hf, chunk_steps=64, device=dev)
+        eng.run_steps(256)
+        scrub_at = eng.scrub_offsets()
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                run_chunk(cfg_hf, 64, eng.events, eng.state, eng.has_sync, scrub_at=scrub_at)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        del eng
+        torch.cuda.empty_cache()
+        # the sync debug mode's own notice that it is a prototype is no sync
+        return ([str(w.message)[:200] for w in caught if "synchroniz" in str(w.message)
+                 and "prototype feature" not in str(w.message)], sorted(scrub_at))
+
     by_path = {p: (pc, pt, r) for p, pc, _, pt, r in main_paths}
-    for path in ("headline", "rung3", *MODE_PATHS):
+    for path in ("headline", "rung3", *MODE_PATHS, "headline_faults"):
         pcfg, ptrace, ran = by_path[path]
         prof_eng = Engine(pcfg, ptrace, chunk_steps=64, device=dev)
         prof_eng.run_steps(256)  # mid-run state, as the main path meets it
@@ -1088,32 +1333,30 @@ def main() -> int:
               "top_ops_device_us": top_ops,
               "kernel_us_per_launch": kernel_us[path],
               "gpu": smi_line})
-        if mode_in is None:
-            continue
-        # the large path's kernels alone on the staged step: held to their
-        # plain versions, timed by events, bounded
-        staged_step, mode_in = mode_in
-        modes[path] = {}
-        for k in STEP_KERNELS:
-            args, kw = mode_in[k]
-            compare(k, args, kw, mcfg=pcfg)
-            bnd, info, nb = bound_of(k, args, kw, pcfg)
-            modes[path][k] = {
-                **time_alone(k, args, kw, pcfg), "profiler_us_in_step": kernel_us[path][k],
-                "launches": launches[path][k], "bound_ms": bnd[0], "bound_by": bnd[1],
-                "bytes": nb, "detail": info,
-            }
-        del mode_in
-        torch.cuda.empty_cache()
-        emit({"phase": "mode", "path": path, "staged_step": staged_step,
-              "kernels": modes[path], "max_abs_err": max_err,
-              "event_floor_ms": event_floor_ms, "gpu": smi_line})
+        if mode_in is not None:
+            mode_line(path, pcfg, mode_in, launches[path])
 
-    machine_of = {p: {"topology": by_path[p][0].noc.topology,
-                      "coherence": by_path[p][0].coherence,
-                      "sharer_group": by_path[p][0].sharer_group,
-                      "sharer_words": by_path[p][0].n_sharer_words}
-                  for p in modes}
+    # the faulted step makes no host synchronisation, its scrub included
+    syncs, scrub_at = sync_free_window()
+    emit({"phase": "sync_check", "path": "headline_faults", "steps": [256, 319],
+          "scrub_offsets": scrub_at, "synchronising_calls": syncs})
+    if syncs or 0 not in scrub_at:
+        fail(f"sync_check: {len(syncs)} synchronising calls ({syncs[:3]}), "
+             f"scrub offsets {scrub_at}")
+
+    # the ring mode of sharer_reductions on the reduced ring machines, at
+    # the busiest step (by active rows) of a 64-step chunk
+    for path, start in RING_MODES:
+        mcfg, rtr, n_launch = reduced_runs[path]
+        eng = Engine(mcfg, rtr, chunk_steps=64, device=dev)
+        eng.run_steps(start)
+        staged = stage_busiest_step(eng)
+        del eng
+        mode_line(path, mcfg, staged, n_launch)
+
+    machine_of = {p: {"topology": c.noc.topology, "coherence": c.coherence,
+                      "sharer_group": c.sharer_group, "sharer_words": c.n_sharer_words}
+                  for p, c in mode_cfg.items()}
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": KERNEL_META[k][0],
          "replaces": KERNEL_META[k][1],

@@ -6,19 +6,23 @@
 Simulates a trace (a PTPU file or a named synthetic generator) on a JSON
 machine config, prints the one-line JSON summary of `primetpu run` and
 optionally writes the same text report. It runs on the card unless
-`--device cpu` is given.
+`--device cpu` is given. `--fault-schedule FILE [--fault-seed N]` arms
+fault injection as `primetpu run` does (DESIGN.md §12); a malformed
+schedule or config exits 2 with one `{"error": {type, location, detail}}`
+JSON line on stderr.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 import time
 
-from .config.machine import MachineConfig
+from .config.machine import ConfigError, FaultConfigError, MachineConfig
 from .trace import synth
-from .trace.format import Trace, fold_ins
+from .trace.format import Trace, TraceError, fold_ins
 
 
 def _parse_synth(spec: str, n_cores: int, fold: bool) -> Trace:
@@ -45,6 +49,23 @@ def _parse_synth(spec: str, n_cores: int, fold: bool) -> Trace:
     return fold_ins(tr) if fold else tr
 
 
+def _apply_faults(ns, cfg: MachineConfig) -> MachineConfig:
+    """--fault-schedule installs a schedule (and --fault-seed its seed, 0
+    by default); a bare --fault-seed needs a config that arms faults."""
+    if ns.fault_schedule:
+        from .faults.schedule import load_schedule
+
+        return load_schedule(ns.fault_schedule).apply(cfg, seed=ns.fault_seed or 0)
+    if ns.fault_seed is not None:
+        if not cfg.faults_enabled:
+            raise SystemExit(
+                "--fault-seed without --fault-schedule needs a config with "
+                "faults_enabled (the seed only feeds an armed fault model)"
+            )
+        return dataclasses.replace(cfg, fault_seed=ns.fault_seed)
+    return cfg
+
+
 def cmd_run(ns) -> int:
     from .kernels import build
     from .sim.engine import Engine, resolve_device
@@ -53,7 +74,7 @@ def cmd_run(ns) -> int:
     if not ns.config.endswith(".json"):
         raise SystemExit("run: the port loads JSON machine configs only")
     with open(ns.config) as f:
-        cfg = MachineConfig.from_json(f.read())
+        cfg = _apply_faults(ns, MachineConfig.from_json(f.read()))
     if ns.trace:
         tr = Trace.load(ns.trace)
         tr = fold_ins(tr) if ns.fold else tr
@@ -115,6 +136,15 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--max-steps", type=int, default=None)
     r.add_argument("--report", help="write the text report to this path")
     r.add_argument(
+        "--fault-schedule", metavar="FILE",
+        help="JSON fault schedule (events, flip and DUE rates, policies); "
+             "arms the deterministic fault model (DESIGN.md §12)",
+    )
+    r.add_argument(
+        "--fault-seed", type=int, default=None, metavar="N",
+        help="seed of the counter-based fault PRNG (default 0)",
+    )
+    r.add_argument(
         "--device", choices=("cuda", "cpu"), default=None,
         help="default: cuda (an error when there is no card)",
     )
@@ -124,4 +154,15 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     ns = build_parser().parse_args(argv)
-    return ns.fn(ns)
+    try:
+        return ns.fn(ns)
+    except (TraceError, ConfigError, FaultConfigError) as e:
+        # typed errors exit 2 with ONE structured JSON line on stderr, as
+        # `primetpu` prints them
+        locate = getattr(e, "location", None)
+        print(json.dumps({"error": {
+            "type": type(e).__name__,
+            "location": dict(locate()) if callable(locate) else {},
+            "detail": str(e),
+        }}), file=sys.stderr)
+        return 2

@@ -3,7 +3,7 @@
 A copy of the JAX package's `config/machine.py`: the same typed
 dataclasses, validation and JSON loading, so every shipped config file
 loads unchanged into either package. The port adds `check_port_supported`,
-which names the first field the PyTorch engine cannot simulate yet.
+the engine's one place to refuse a model it does not run (none today).
 
 All latencies are integer cycles. Geometry fields used in mask arithmetic
 (bank count, cache sets, line size) must be powers of two; the core count
@@ -633,30 +633,17 @@ def small_test_config(n_cores: int = 4, **kw) -> MachineConfig:
     return MachineConfig(**defaults)
 
 
-class PortUnsupportedError(ValueError):
-    """A config field selects a model the PyTorch port does not run yet.
-    `field` names the field, `value` its rejected value."""
-
-    def __init__(self, field: str, value):
-        self.field = field
-        self.value = value
-        super().__init__(
-            f"primesim_tpu_torch does not support {field}={value!r} yet"
-        )
-
-
 def check_port_supported(cfg: MachineConfig) -> None:
-    """Raise PortUnsupportedError for the first field outside what the
-    port simulates: every machine of the JAX package's one-device run
-    path except fault injection. That is MESI or MOESI on a mesh, torus
-    or ring NoC, a full-map (dense or chunked, `sharer_chunk_words`) or
-    coarse (`sharer_group` > 1) sharer vector, with or without NoC
-    contention (the tile, link and router models), the DRAM controller
-    queue and the stride prefetcher.
+    """Accept `cfg` if the port simulates it, which today is every config:
+    the port runs every machine of the JAX package's one-device run path,
+    MESI or MOESI on a mesh, torus or ring NoC, a full-map (dense or
+    chunked, `sharer_chunk_words`) or coarse (`sharer_group` > 1) sharer
+    vector, with or without NoC contention (the tile, link and router
+    models), the DRAM controller queue, the stride prefetcher and fault
+    injection. `Engine` calls it first, so a model the port does not run
+    is refused in this one place.
 
     `step_impl` and `pallas_reduce` are accepted and ignored: they choose
     between the JAX package's XLA and Pallas step bodies, while the port
     always runs its own kernels on a card (and their plain versions on
     the CPU)."""
-    if cfg.faults_enabled:
-        raise PortUnsupportedError("faults_enabled", cfg.faults_enabled)

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
 from ..config.machine import MachineConfig
@@ -104,3 +105,16 @@ def path_links(cfg: MachineConfig, a: torch.Tensor, b: torch.Tensor) -> torch.Te
         l1,
         torch.where(j < n2[:, None], l2, torch.where(k < n3[:, None], l3, -1)),
     )
+
+
+def detour_hops_table(cfg: MachineConfig) -> np.ndarray:
+    """Extra hops to detour around each FAILED directed link: a ring has no
+    orthogonal sidestep, so the fallback is the long way around the same
+    ring, (m - 1) hops replacing 1. Row-ring links (dirs 0/1) pay
+    mesh_x - 2, spine links (dirs 2/3) mesh_y - 2 (config validation
+    requires both sides >= 3 for ring link faults)."""
+    mx, my = cfg.noc.mesh_x, cfg.noc.mesh_y
+    tbl = np.empty((cfg.n_tiles, 4), np.int32)
+    tbl[:, 0:2] = mx - 2
+    tbl[:, 2:4] = my - 2
+    return tbl.reshape(-1)

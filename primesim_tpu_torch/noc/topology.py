@@ -6,11 +6,15 @@ all three share the mesh's link numbering (tile*4 + dir), so
 `mesh.n_links` and every contention scatter shape are the same for each.
 The hop counts work on Python ints, numpy arrays and int32 torch tensors
 alike; `path_links` takes torch tensors and equals `route_links`, the
-scalar reference walk, link for link. The fault model's detour tables
-are not ported yet (faults are `check_port_supported`'s last refusal).
+scalar reference walk, link for link. `detour_hops_table` gives the
+extra hops a route pays around each failed link, and `detour_stats` is
+the scalar fault penalty of one leg that `faults.inject.
+leg_fault_penalty` must equal.
 """
 
 from __future__ import annotations
+
+import numpy as np
 
 from ..config.machine import MachineConfig
 from . import mesh as _mesh
@@ -75,3 +79,35 @@ def path_links(cfg: MachineConfig, a, b):
     if cfg.noc.topology == "ring":
         return _ring.path_links(cfg, a, b)
     return _mesh.path_links(cfg, a, b)
+
+
+def detour_hops_table(cfg: MachineConfig) -> np.ndarray:
+    """[n_links] extra hops a route pays to detour around each directed
+    link when FAILED. Mesh and torus pay the orthogonal sidestep (+2
+    everywhere); the ring pays the long way around the affected ring."""
+    if cfg.noc.topology == "ring":
+        return _ring.detour_hops_table(cfg)
+    return np.full(cfg.n_tiles * 4, 2, np.int32)
+
+
+def detour_stats(
+    cfg: MachineConfig, a: int, b: int, link_dead, link_extra,
+    link_lat: int, router_lat: int,
+) -> tuple[int, int, int]:
+    """Scalar fault penalty of the one-way leg a -> b under cfg's
+    topology: (extra cycles, extra hops, rerouted flag). Each dead link on
+    the route adds its detour hops at (link + router) cycles each; each
+    live degraded link adds its extra cycles."""
+    tbl = detour_hops_table(cfg)
+    dead_hops = 0
+    extra = 0
+    for l in route_links(cfg, a, b):
+        if link_dead[l]:
+            dead_hops += int(tbl[l])
+        else:
+            extra += int(link_extra[l])
+    return (
+        dead_hops * (link_lat + router_lat) + extra,
+        dead_hops,
+        int(dead_hops > 0),
+    )

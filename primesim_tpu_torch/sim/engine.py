@@ -1,14 +1,15 @@
 """The simulation engine: one eager PyTorch step and its host driver.
 
-`step` is the JAX package's `sim/engine.py::step` for the configurations
-this port runs (`config.machine.check_port_supported`: MESI or MOESI's
-derived Owned state on a mesh, torus or ring NoC (`noc.topology`), with
-a full-map sharer vector, dense or chunked, or a coarse one
-(`sharer_group` > 1: group bits, the epoch guard, no read joins, the
-group-table reductions of `_group_tables`), with or without NoC
-contention (tile, link or router model), the DRAM controller queue and
-the stride prefetcher; no faults), taking the Pallas branch wherever the
-JAX step has one. Its kernels are
+`step` is the JAX package's `sim/engine.py::step` for every
+configuration of its one-device run path: MESI or MOESI's derived Owned
+state on a mesh, torus or ring NoC (`noc.topology`), with a full-map
+sharer vector, dense or chunked, or a coarse one (`sharer_group` > 1:
+group bits, the epoch guard, no read joins, the group-table reductions
+of `_group_tables`), with or without NoC contention (tile, link or router
+model), the DRAM controller queue, the stride prefetcher and fault
+injection (`faults/`: phase -1's scheduled events, ECC draws and dead-core
+scrub, the dead-core masks, link detours, barrier relief), taking the
+Pallas branch wherever the JAX step has one. Its kernels are
 `kernels.step_kernels.probe_classify` (phase 1), `kernels.reductions.
 sharer_reductions` (phase 3), `kernels.router_kernels.router_cascade`
 (the router model's cascade) and `kernels.step_kernels.commit_step`
@@ -16,16 +17,21 @@ sharer_reductions` (phase 3), `kernels.router_kernels.router_cascade`
 updates the L1, the directory and the counters in place, and the cascade
 reads the link clocks at the live hops and scatter-maxes its departures
 itself; torch keeps the router's `base` scatter-min and the sort-based
-FIFO ranks (`ops.ranking`).
+FIFO ranks (`ops.ranking`). Faults stay outside the kernels: the scrub
+rewrites `dirm` in place before the probe and the local runs read it.
 The step issues no host synchronisation: every scalar it needs stays on
-the device.
+the device, and the host tells it whether to run the scrub.
 
 The results are the JAX engine's, bit for bit: the same per-core
 cycles, counters and state fields (tests/test_torch_engine.py).
 
 `Engine` is the host driver. After each chunk of `chunk_steps` steps it
 drains the int32 step counters into int64 host counters and rebases the
-clocks by whole quanta, with one host synchronisation per chunk.
+clocks by whole quanta, with one host synchronisation per chunk. Dead
+cores count as done and do not bound the rebase. It knows the step
+number on the host and, from the fault schedule and seed, the steps on
+which a core can die (`faults.inject.kill_possible`): the scrub runs on
+those steps only.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ import numpy as np
 import torch
 
 from ..config.machine import MachineConfig, check_port_supported
+from ..faults import inject
 from ..kernels import reductions, router_kernels, step_kernels
 from ..kernels.step_kernels import (
     PL_HIT_ANY,
@@ -151,12 +158,16 @@ def _scatter_drop(base, idx, src, reduce: str):
     return ext[: base.shape[0]]
 
 
-def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True):
+def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True,
+         scrub: bool = True):
     """Advance every core by one step. `events` is the [C, T, 4] int32
     line-granular trace on the state's device. Updates `st.l1`, `st.dirm`
     and `st.counters` IN PLACE (`commit_step`: the L1 plane writes, the
-    directory deltas and the counter fold) and returns the new state,
-    which holds those same tensors."""
+    directory deltas and the counter fold; under faults the dead-core
+    scrub of `dirm`) and returns the new state, which holds those same
+    tensors. `scrub=False` skips the scrub on a step where the caller
+    knows no core can die (`faults.inject.kill_possible`); it is exact
+    only there."""
     C, B = cfg.n_cores, cfg.n_banks
     S1, W1 = cfg.l1.sets, cfg.l1.ways
     S2, W2 = cfg.llc.sets, cfg.llc.ways
@@ -184,7 +195,40 @@ def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True):
         et0 = pev[:, 0, 0]
     else:
         et0 = events[rows_c, st.ptr.clamp(max=T - 1).long(), 0]
+
+    # ---- phase -1: fault injection (DESIGN.md §12). Only cores that have
+    # not reached END absorb faults. The scrub rewrites the directory in
+    # place, before the local runs and the probe read it.
+    if cfg.faults_enabled:
+        fsf = st.faults
+        alive0 = (et0 != EV_END) & (fsf.core_dead == 0)
+        kill_sched, link_dead_n, link_extra_n = inject.fire_events(cfg, fsf, st.step)
+        ecc_corr, ecc_due, l1_due = inject.ecc_step(cfg, fsf, st.step)
+        kill_new = kill_sched
+        if cfg.fault_due_failstop:  # an L1 DUE is fatal to its core
+            kill_new = kill_new | l1_due.to(_i32)
+        kill_now = kill_new * alive0.to(_i32)
+        cadd("core_failstops", kill_now)
+        cadd("ecc_corrected", torch.where(alive0, ecc_corr, 0))
+        cadd("ecc_due", torch.where(alive0, ecc_due, 0))
+        lock_holder_f = st.lock_holder
+        if scrub:
+            lock_holder_f, wb_dead = inject.scrub_dead(
+                cfg, st.dirm, st.lock_holder, kill_now
+            )
+            if cfg.fault_dead_policy == "writeback":
+                cadd("l1_writebacks", wb_dead)
+        fsf = fsf._replace(
+            core_dead=fsf.core_dead | kill_now,
+            link_dead=link_dead_n,
+            link_extra=link_extra_n,
+        )
+        st = st._replace(lock_holder=lock_holder_f, faults=fsf)
+        deadb = fsf.core_dead != 0  # dead cores leave every mask
+
     countable0 = (et0 != EV_END) & ~((et0 == EV_BARRIER) & (st.sync_flag != 0))
+    if cfg.faults_enabled:  # a dead core neither bumps nor bounds the quantum
+        countable0 = countable0 & ~deadb
     any_countable = countable0.any()
     any_active = (countable0 & (st.cycles < st.quantum_end)).any()
     min_nd = torch.where(countable0, st.cycles, INT32_MAX).amin()
@@ -259,6 +303,8 @@ def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True):
         hit_k = r_hit_k | w_hit_k
         local_k = (is_ins_k | hit_k).to(_i32)
         pref = local_k.cummin(1).values != 0  # every earlier candidate local
+        if cfg.faults_enabled:
+            pref = pref & ~deadb[:, None]  # dead cores retire nothing
         cost_k = torch.where(
             is_ins_k, eargr * cpi[:, None], eprer * cpi[:, None] + l1_lat
         )
@@ -299,6 +345,8 @@ def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True):
     not_done = et != EV_END
     frozen = (et == EV_BARRIER) & (st.sync_flag != 0)
     active = not_done & ~frozen & (cycles_c < quantum_end)
+    if cfg.faults_enabled:
+        active = active & ~deadb
     is_ins = active & (et == EV_INS)
     is_st_ev = et == EV_ST
     is_mem = active & ((et == EV_LD) | is_st_ev)
@@ -350,6 +398,13 @@ def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True):
     btile = bank % n_tiles
     req_lat, req_hops = _one_way(cfg, ctile, btile, kn)
     rep_lat, rep_hops = _one_way(cfg, btile, ctile, kn)
+    if cfg.faults_enabled:
+        # the request/reply legs' detour and degrade extras. The nominal
+        # legs go through the contention and router blocks unchanged; the
+        # extras join the composed latencies after them.
+        fx_req, fh_req, rr_req = inject.leg_fault_penalty(cfg, st.faults, kn, ctile, btile)
+        fx_rep, fh_rep, rr_rep = inject.leg_fault_penalty(cfg, st.faults, kn, btile, ctile)
+        flt_rt = fx_req + fx_rep  # round-trip fault extra of home transactions
     bid = torch.where(et == EV_BARRIER, eaddr, 0)
     htile = bid % n_tiles
 
@@ -412,6 +467,14 @@ def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True):
     has_owner = llc_hit & (owner >= 0) & (owner != arange_c)
     oclamp = owner.clamp(min=0)
     po_lat, po_hops = _one_way(cfg, btile, oclamp % n_tiles, kn)
+    if cfg.faults_enabled:
+        # the probe leg keeps its symmetric round trip (2 * po_lat): the
+        # forward leg's penalty is charged both ways
+        fx_po, fh_po, rr_po = inject.leg_fault_penalty(
+            cfg, st.faults, kn, btile, oclamp % n_tiles
+        )
+        po_lat = po_lat + fx_po
+        po_hops = po_hops + fh_po
     gets_w = gets & winner
     write_w = (getm | upg) & winner
     gets_probe = gets_w & llc_hit & has_owner
@@ -556,6 +619,12 @@ def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True):
     else:
         lat = l1_lat + req_lat + service + rep_lat + extra_home
         lat_join = l1_lat + req_lat + llc_lat + rep_lat + extra_home
+    if cfg.faults_enabled:
+        # after the router block, before the O3 shift (which is not linear)
+        lat = lat + flt_rt
+        lat_join = lat_join + flt_rt
+        req_hops = req_hops + fh_req
+        rep_hops = rep_hops + fh_rep
     ov = cfg.core.o3_overlap_256
     if ov:
         lat = lat - ((lat * ov) >> 8)
@@ -593,6 +662,11 @@ def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True):
         + torch.where(inv_row, inv_hops, 0)
         + back_hops,
     )
+    if cfg.faults_enabled:  # one-way legs whose route crossed a dead link
+        cadd(
+            "noc_reroutes",
+            torch.where(wj, rr_req + rr_rep, 0) + torch.where(probe_any, 2 * rr_po, 0),
+        )
 
     # ---- phase 4.A: local updates (array writes deferred to commit_step)
     hit = read_hit | write_hit
@@ -638,6 +712,8 @@ def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True):
         lslot = line & (L - 1)
         # the router's round trip already holds each lane's injection time
         lat_rt = raw_rt if router else req_lat + llc_lat + rep_lat + extra_home
+        if cfg.faults_enabled:  # the memory path's core <-> home legs
+            lat_rt = lat_rt + flt_rt
         rt_hops = req_hops + rep_hops
         cycles = cycles + torch.where(is_unlock, epre * cpi + lat_rt, 0)
         ptr = ptr + is_unlock.to(_i32)
@@ -667,6 +743,8 @@ def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True):
         cadd("lock_spins", spin)
         cadd("noc_msgs", torch.where(is_lock, 2, 0))
         cadd("noc_hops", torch.where(is_lock, rt_hops, 0))
+        if cfg.faults_enabled:
+            cadd("noc_reroutes", torch.where(is_unlock | is_lock, rr_req + rr_rep, 0))
         lock_holder = _scatter_drop(
             lock_holder, torch.where(lgrant, lslot, L), arange_c, "set"
         )
@@ -676,11 +754,24 @@ def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True):
         barr_lat, barr_hops = _one_way(cfg, ctile, htile, kn)
         wake_lat, wake_hops = _one_way(cfg, htile, ctile, kn)
         barr_charge = raw_arr if router else barr_lat + extra_bar
+        if cfg.faults_enabled:  # arrival and wake-up legs detour too
+            fx_arr, fh_arr, rr_arr = inject.leg_fault_penalty(
+                cfg, st.faults, kn, ctile, htile
+            )
+            fx_wk, fh_wk, rr_wk = inject.leg_fault_penalty(
+                cfg, st.faults, kn, htile, ctile
+            )
+            barr_charge = barr_charge + fx_arr
+            barr_hops = barr_hops + fh_arr
+            wake_lat = wake_lat + fx_wk
+            wake_hops = wake_hops + fh_wk
         cycles = cycles + torch.where(is_barrier, epre * cpi + barr_charge, 0)
         cadd("instructions", torch.where(is_barrier, epre, 0))
         cadd("barrier_waits", is_barrier)
         cadd("noc_msgs", is_barrier)
         cadd("noc_hops", torch.where(is_barrier, barr_hops, 0))
+        if cfg.faults_enabled:
+            cadd("noc_reroutes", torch.where(is_barrier, rr_arr, 0))
         sync_flag = torch.where(is_barrier, 1, sync_flag)
         bslot = torch.where(is_barrier, bid, BS)
         barrier_count = _scatter_drop(
@@ -690,11 +781,25 @@ def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True):
 
         bid_l = bid.long()
         wait_m = (et == EV_BARRIER) & (sync_flag == 1)
-        released = wait_m & (barrier_count[bid_l] >= earg)
+        if cfg.faults_enabled:
+            # fail-stop barrier relief: a dead core never arrives, so the
+            # waiters do not wait for it; a dead core already counted in
+            # its slot (it arrived, then died) still counts as arrived
+            dead_counted = _scatter_drop(
+                torch.zeros_like(barrier_count),
+                torch.where(wait_m & deadb, bid, BS),
+                torch.ones((), dtype=_i32, device=dev), "add",
+            )
+            missing = deadb.sum(dtype=_i32) - dead_counted[bid_l]
+            released = wait_m & (barrier_count[bid_l] + missing >= earg)
+        else:
+            released = wait_m & (barrier_count[bid_l] >= earg)
         cycles = torch.where(released, barrier_time[bid_l] + wake_lat, cycles)
         cadd("instructions", released)
         cadd("noc_msgs", released)
         cadd("noc_hops", torch.where(released, wake_hops, 0))
+        if cfg.faults_enabled:
+            cadd("noc_reroutes", torch.where(released, rr_wk, 0))
         sync_flag = torch.where(released, 0, sync_flag)
         ptr = ptr + released.to(_i32)
         nrel = _scatter_drop(
@@ -729,13 +834,18 @@ def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True):
         pf_line=pf_line_n,
         pf_stride=pf_stride_n,
         pf_streak=pf_streak_n,
+        faults=st.faults,  # post-injection (phase -1 rebound st)
     )
 
 
-def run_chunk(cfg, n_steps: int, events, st: MachineState, has_sync=True):
-    """`n_steps` steps, enqueued back to back."""
-    for _ in range(n_steps):
-        st = step(cfg, events, st, has_sync=has_sync)
+def run_chunk(cfg, n_steps: int, events, st: MachineState, has_sync=True,
+              scrub_at=None):
+    """`n_steps` steps, enqueued back to back. Under faults the dead-core
+    scrub runs on the steps whose offsets `scrub_at` holds (the host's
+    `kill_possible` steps), or on every step if it is None."""
+    for i in range(n_steps):
+        st = step(cfg, events, st, has_sync=has_sync,
+                  scrub=scrub_at is None or i in scrub_at)
     return st
 
 
@@ -782,22 +892,48 @@ class Engine:
         self.state = init_state(cfg, self.device)
         if cfg.sharer_group > 1:  # built and uploaded here, before any step
             group_tables(cfg, self.events.device)
+        if cfg.faults_enabled:
+            inject.detour_table(cfg, self.state.faults.link_dead.device)
         self.chunk_steps = chunk_steps
         self.cycle_base = 0
         self.host_counters = zero_counters(cfg.n_cores)
         self.steps_run = 0
+        self._stepped = None  # the state the last chunk left (see scrub_offsets)
 
     def _not_done(self, st: MachineState):
+        """[C] bool on the device: cores neither at END nor dead."""
         T = self.events.shape[1]
         rows = torch.arange(self.cfg.n_cores, device=self.device)
-        return self.events[rows, st.ptr.clamp(max=T - 1).long(), 0] != EV_END
+        nd = self.events[rows, st.ptr.clamp(max=T - 1).long(), 0] != EV_END
+        if self.cfg.faults_enabled:
+            # a fail-stopped core never reaches END: it is done by decree,
+            # and its frozen clock must not pin the rebase delta at 0
+            nd = nd & (st.faults.core_dead == 0)
+        return nd
+
+    def scrub_offsets(self) -> set[int] | None:
+        """Offsets in the next chunk of the steps on which a core can die
+        (None without faults). The host counts steps itself from the
+        state's step number, read (with the schedule, seed and
+        thresholds) only when the state is not the one the last chunk
+        left, e.g. a state carried in from elsewhere."""
+        if not self.cfg.faults_enabled:
+            return None
+        if self.state is not self._stepped:
+            fs = self.state.faults
+            self._host_step = int(self.state.step)
+            self._fs_host = {k: getattr(fs, k).cpu().numpy() for k in
+                             ("seed", "ev_step", "ev_kind", "flip_l1", "due_rate")}
+        steps = np.arange(self._host_step, self._host_step + self.chunk_steps)
+        return set(np.flatnonzero(inject.kill_possible(self.cfg, self._fs_host, steps)).tolist())
 
     def _chunk(self) -> bool:
         """One chunk, then the drain and the rebase by whole quanta (the JAX
         package's `_drain_and_rebase`), with ONE host transfer for the
         counters, the rebase delta and the done flag. Returns done."""
         st = run_chunk(
-            self.cfg, self.chunk_steps, self.events, self.state, self.has_sync
+            self.cfg, self.chunk_steps, self.events, self.state, self.has_sync,
+            scrub_at=self.scrub_offsets(),
         )
         nd = self._not_done(st)
         Q = st.knobs.quantum
@@ -833,6 +969,9 @@ class Engine:
             self.host_counters[k] += cnt[i].astype(np.int64)
         self.cycle_base += int(host[-2])
         self.steps_run += self.chunk_steps
+        if self.cfg.faults_enabled:
+            self._host_step += self.chunk_steps
+            self._stepped = self.state
         return bool(host[-1])
 
     def run(self, max_steps: int = 10_000_000) -> None:
@@ -856,7 +995,9 @@ class Engine:
             done = self._chunk()
 
     def done_mask(self) -> np.ndarray:
-        """[C] bool: cores whose trace pointer sits on END."""
+        """[C] bool: cores whose trace pointer sits on END, and fail-stopped
+        cores (they never reach END: completion means everyone else
+        finished)."""
         return ~self._not_done(self.state).cpu().numpy()
 
     def done(self) -> bool:
@@ -872,7 +1013,7 @@ class Engine:
 
         host = self.state._replace(
             **{f: getattr(self.state, f).cpu() for f in self.state._fields
-               if f != "knobs"}
+               if f not in ("knobs", "faults")}
         )
         check_invariants(self.cfg, host, done_mask=self.done_mask())
 

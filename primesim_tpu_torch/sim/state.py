@@ -4,8 +4,9 @@ The same fields and the same layouts as the JAX package's
 `sim/state.py`, so that states compare field by field and cross between
 the packages (`convert.py`): the five-plane L1 `[C, 5*W1*S1]` and the
 fused directory rows `dirm [B*S2, dirm_width]` whose metadata prefix is
-padded to a 128-column multiple before the packed sharer words. This
-slice has no fault-injection state.
+padded to a 128-column multiple before the packed sharer words, and the
+fault-injection state `faults` (faults/schedule.py::FaultState), always
+present and read by the step only under `cfg.faults_enabled`.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from typing import NamedTuple
 import torch
 
 from ..config.machine import MachineConfig
+from ..faults.schedule import FaultState, fault_state_from_config
 from ..stats.counters import COUNTER_NAMES
 
 # MESI encoding (shared with the JAX package and its golden model)
@@ -92,6 +94,7 @@ class MachineState(NamedTuple):
     pf_streak: torch.Tensor  # [C]
     counters: torch.Tensor  # [n_counters, C]
     knobs: TimingKnobs
+    faults: FaultState
 
 
 def init_state(cfg: MachineConfig, device) -> MachineState:
@@ -132,4 +135,5 @@ def init_state(cfg: MachineConfig, device) -> MachineState:
         pf_streak=zeros(C),
         counters=zeros(len(COUNTER_NAMES), C),
         knobs=knobs_from_config(cfg, device),
+        faults=fault_state_from_config(cfg, device),
     )

@@ -152,6 +152,12 @@ def check_invariants(cfg: MachineConfig, state, done_mask=None) -> None:
     clocks legitimately go negative once rebases (which track only LIVE
     cores) outrun them — the true clock is `cycles + cycle_base`. Without
     the mask the clock invariant is skipped.
+
+    Fault-aware through that mask: `Engine.done_mask` folds fail-stopped
+    cores in, so a dead core's frozen clock is not checked. The MESI
+    checks need no masking: the fail-stop scrub (faults.inject.scrub_dead)
+    removes a dead core from every directory entry, so its stale L1 state
+    derives to I here, like an invalidated copy.
     """
     def _require(cond, msg):
         if not cond:

@@ -193,7 +193,10 @@ def test_convert_round_trip_at_g4():
     back = convert.state_to_numpy(tst)
     assert set(back) == set(arrays)
     for f, a in arrays.items():
-        if f != "knobs":
+        if isinstance(a, dict):  # the knobs and the fault state
+            for k, v in a.items():
+                np.testing.assert_array_equal(back[f][k], v, err_msg=f"{f}.{k}")
+        else:
             np.testing.assert_array_equal(back[f], a, err_msg=f)
     FS = cfg.l1.ways * cfg.l1.sets
     W2 = cfg.llc.ways

@@ -48,10 +48,11 @@ def port_trace(tr):
 
 def jax_arrays(st):
     """A JAX MachineState as the numpy mapping convert.state_from_numpy
-    takes (the fault state, which the port does not model, left out)."""
-    out = {f: np.asarray(getattr(st, f)) for f in st._fields
-           if f not in ("knobs", "faults")}
-    out["knobs"] = {k: np.asarray(v) for k, v in st.knobs._asdict().items()}
+    takes: the timing knobs and the fault state as nested mappings."""
+    nested = ("knobs", "faults")
+    out = {f: np.asarray(getattr(st, f)) for f in st._fields if f not in nested}
+    for n in nested:
+        out[n] = {k: np.asarray(v) for k, v in getattr(st, n)._asdict().items()}
     return out
 
 
@@ -60,9 +61,10 @@ def assert_states_equal(jst, tst, where=""):
     j = jax_arrays(jst)
     assert set(t) == set(j)
     for f in j:
-        if f == "knobs":
+        if isinstance(j[f], dict):  # the knobs and the fault state
+            assert set(t[f]) == set(j[f])
             for k in j[f]:
-                np.testing.assert_array_equal(t[f][k], j[f][k], err_msg=f"{where} knobs.{k}")
+                np.testing.assert_array_equal(t[f][k], j[f][k], err_msg=f"{where} {f}.{k}")
         else:
             np.testing.assert_array_equal(t[f], j[f], err_msg=f"{where} state field {f}")
 

@@ -39,7 +39,6 @@ from primesim_tpu.config.machine import small_test_config
 from primesim_tpu.trace import synth as j_synth
 from primesim_tpu.trace.format import fold_ins as j_fold
 from primesim_tpu_torch.config.machine import MachineConfig as TCfg
-from primesim_tpu_torch.config.machine import PortUnsupportedError
 from primesim_tpu_torch.sim.engine import Engine
 from primesim_tpu_torch.trace import synth as t_synth
 from primesim_tpu_torch.trace.format import fold_ins as t_fold
@@ -48,7 +47,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(primesim_tpu_torch.__file__)
 FIXTURE = os.path.join(PKG, "fixtures", "rung1_fft_small.json")
 FULL_WIDTH = ("headline", "rung3_headline", "rung4_full", "rung5_full",
-              "zoo_smoke", "ipu_full", "headline_moesi")
+              "zoo_smoke", "ipu_full", "headline_moesi", "headline_faults")
 SMALL_WIDTH = ("zoo_smoke",)  # its JAX run is quick enough for tier 1
 RUNG1 = os.path.join(REPO, "configs", "rung1_64core_fft.json")
 
@@ -112,17 +111,28 @@ def test_engine_without_a_card_or_a_device_raises(monkeypatch):
 
 
 @pytest.mark.parametrize(
-    "field,kw",
-    [
-        ("faults_enabled", dict(faults_enabled=True)),
-    ],
+    "kw",
+    [dict(faults_enabled=True, max_fault_events=2, fault_seed=3,
+          fault_events=((0, 2, 0, 0), (3, 1, 2, 0)), fault_flip_l1=0.5,
+          fault_flip_llc=0.5, fault_due_rate=0.5)],
+    ids=["faults_enabled"],
 )
-def test_unsupported_fields_raise(field, kw):
-    cfg = TCfg.from_json(small_test_config(8, n_banks=4, **kw).to_json())
+def test_fault_fields_are_accepted(kw):
+    """An armed fault model (a failed link, a fail-stop, ECC draws) runs in
+    the port, to the JAX engine's cycles and counters."""
+    from primesim_tpu.sim.engine import Engine as JEngine
+
+    j = small_test_config(8, n_banks=4, quantum=300, **kw)
     _, tr = _tiny()
-    with pytest.raises(PortUnsupportedError) as e:
-        Engine(cfg, tr, device="cpu")
-    assert e.value.field == field
+    te = Engine(TCfg.from_json(j.to_json()), tr, chunk_steps=32, device="cpu")
+    te.run()
+    te.verify_invariants()
+    je = JEngine(j, tr, chunk_steps=32)
+    je.run()
+    np.testing.assert_array_equal(te.cycles, je.cycles)
+    for k, v in je.counters.items():
+        np.testing.assert_array_equal(te.counters[k], v, err_msg=k)
+    assert te.counters["core_failstops"].sum() == 1 and te.counters["ecc_corrected"].any()
 
 
 @pytest.mark.parametrize(
@@ -274,6 +284,71 @@ def test_cli_writes_the_jax_report(tmp_path):
     assert len(_report_body(t_rep)) > 20
 
 
+def _faults_section(path):
+    with open(path) as f:
+        text = f.read()
+    return text[text.index("FAULTS"):].split("\n\n")[0]
+
+
+def test_cli_fault_schedule_matches_primetpu_run(tmp_path, capsys):
+    """`run --fault-schedule F --fault-seed 7`: the port's summary line and
+    its FAULTS report section equal `primetpu run`'s on the same inputs,
+    field for field (the engine's name, the host's wall time and the MIPS
+    made from it excepted)."""
+    from primesim_tpu.cli import main as jax_main
+
+    sched = tmp_path / "faults.json"
+    sched.write_text(json.dumps({
+        "events": [{"step": 5, "kind": "core_failstop", "core": 3},
+                   {"step": 2, "kind": "link_fail", "link": 4},
+                   {"step": 2, "kind": "link_degrade", "link": 9, "extra": 4}],
+        "flip_l1": 0.02, "flip_llc": 0.02, "due_rate": 0.5, "due_failstop": True,
+    }))
+    spec = "fft_like:n_phases=1,points_per_core=8,seed=3"
+    args = ["run", RUNG1, "--synth", spec, "--fold", "--fault-schedule", str(sched),
+            "--fault-seed", "7"]
+    j_rep, t_rep = tmp_path / "jax.txt", tmp_path / "torch.txt"
+    assert jax_main(args + ["--engine", "jax", "--report", str(j_rep)]) == 0
+    j_sum = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    r = subprocess.run(
+        [sys.executable, "-m", "primesim_tpu_torch", *args, "--device", "cpu",
+         "--report", str(t_rep)],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+    )
+    assert r.returncode == 0, r.stderr
+    t_sum = json.loads(r.stdout.strip().splitlines()[-1])
+    for k in ("metric", "unit"):
+        assert t_sum[k] == j_sum[k]
+    jd, td = j_sum["detail"], t_sum["detail"]
+    for k in ("n_cores", "instructions", "max_core_cycles", "noc_msgs"):
+        assert td[k] == jd[k], k
+    assert _faults_section(t_rep) == _faults_section(j_rep)
+    assert "dead cores" in _faults_section(t_rep)
+    assert _report_body(t_rep) == _report_body(j_rep)
+
+
+def test_cli_fault_errors_match_primetpu_run(tmp_path, capsys):
+    """A bad schedule exits 2 with primetpu's one JSON error line; a bare
+    --fault-seed on an unarmed config is refused as primetpu refuses it."""
+    from primesim_tpu.cli import main as jax_main
+    from primesim_tpu_torch.cli import main
+
+    sched = tmp_path / "bad.json"
+    sched.write_text(json.dumps({"events": [{"step": 1, "kind": "meteor"}]}))
+    args = ["run", RUNG1, "--synth", "stream:n_mem_ops=4", "--fault-schedule", str(sched)]
+    assert jax_main(args) == 2
+    j_err = capsys.readouterr().err.strip().splitlines()[-1]
+    assert main(args + ["--device", "cpu"]) == 2
+    assert capsys.readouterr().err.strip().splitlines()[-1] == j_err
+    assert json.loads(j_err)["error"]["type"] == "FaultConfigError"
+    bare = ["run", RUNG1, "--synth", "stream:n_mem_ops=4", "--fault-seed", "7"]
+    with pytest.raises(SystemExit) as je:
+        jax_main(bare)
+    with pytest.raises(SystemExit) as te:
+        main(bare + ["--device", "cpu"])
+    assert str(te.value) == str(je.value) and "fault-seed" in str(te.value)
+
+
 def test_cli_without_a_card_refuses(monkeypatch):
     from primesim_tpu_torch.cli import main
 
@@ -391,7 +466,19 @@ HEADLINE = {
 # partners 64 and 128 cores away, across its 64-core sharer groups); the
 # machine zoo's two shipped configs, the CI smoke machine on CI's trace
 # and the 1472-tile IPU profile on a bulk-synchronous trace (its first
-# card path with barriers); the headline machine under MOESI
+# card path with barriers); the headline machine under MOESI; the headline
+# machine under a fault schedule (two failed links at tile 528, two
+# degraded links, three scheduled fail-stops, L1 and LLC flips with DUEs
+# that kill their cores, dead owners written back) and fault seed 7
+HEADLINE_FAULTS = {
+    **HEADLINE,
+    "faults_enabled": True, "max_fault_events": 8, "fault_seed": 7,
+    "fault_events": [[32, 2, 2112, 0], [32, 2, 2114, 0], [32, 3, 2048, 6],
+                     [32, 3, 0, 6], [256, 1, 13, 0], [640, 1, 517, 0],
+                     [1024, 1, 1000, 0]],
+    "fault_flip_l1": 1e-4, "fault_flip_llc": 1e-4, "fault_due_rate": 0.05,
+    "fault_due_failstop": True, "fault_dead_policy": "writeback",
+}
 FULL_WIDTH_SPECS = {
     "headline": (HEADLINE, _folded_fft(1024, 4, 256)),
     "rung3_headline": ("configs/rung3_1024core_o3.json", _folded_fft(1024, 4, 256)),
@@ -403,6 +490,7 @@ FULL_WIDTH_SPECS = {
                  _folded("barrier_phases", n_cores=1472, n_phases=32,
                          work_per_phase=32, ins_per_mem=2)),
     "headline_moesi": ({**HEADLINE, "coherence": "moesi"}, _folded_fft(1024, 4, 256)),
+    "headline_faults": (HEADLINE_FAULTS, _folded_fft(1024, 4, 256)),
 }
 
 
