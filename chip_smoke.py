@@ -52,6 +52,10 @@ the final line:
    cli_faults -- `python -m primesim_tpu_torch run` on rung 1 with a fault
                 schedule and --fault-seed 7, once on the card and once with
                 --device cpu: the same summary numbers and FAULTS section.
+   cli_xml   -- `run configs/example_prime.xml --synth fft_like:n_phases=2
+                --fold --debug-invariants` (the reference-schema XML config,
+                the invariants after every chunk), once on the card and once
+                with --device cpu: the same summary but for the wall time.
    reduced   -- the two large-core directory modes at 256 cores: rung 5's
                 machine with 4-core groups and rung 4's with a 2-word
                 chunk, each on a folded fft_like(256, 8 phases, 16
@@ -151,6 +155,31 @@ the final line:
                 fault counter sums to 0 or the whole-directory scrub ran on
                 no step or on more than one in 16. Prints the dead cores
                 and the scrub's steps.
+   rung2     -- the shipped configs/rung2_256core_parsec.json (256 cores,
+                16x16 mesh) on a folded fft_like(256, 4 phases, 128 points,
+                seed 42) trace, likewise against fixtures/rung2_full.json.
+   multiprog_rung3 -- rung 3's shipped machine on four 256-core programs
+                multiplexed into its 1024 cores (fixtures/multiprog_rung3.json:
+                an FFT, barrier_phases, lock_contention and readers_writer),
+                the programs written as PTPU files by the port's synth verb
+                and loaded through the CLI's loader. With the flight recorder
+                attached, it runs to step 1024, is checkpointed and freed; a
+                fresh engine loads the checkpoint and runs to the end. Fails
+                unless the digest equals the JAX package's, every kernel
+                launched once per step and router_cascade every time with
+                its barrier-arrival leg, locks and barriers both ran, the
+                invariants hold, and the recorder holds one sample and one
+                chunk span per chunk whose instruction deltas sum to the
+                digest's. Prints the checkpoint's bytes and save and load
+                seconds.
+   cli_multiprog -- the same four PTPU files through `python -m
+                primesim_tpu_torch run configs/rung3_1024core_o3.json
+                --trace ... (4) --fold --chunk-steps 512 --obs full
+                --metrics-out --trace-out --report --per-core-limit 16` on
+                the card: the summary's instructions, max_core_cycles and
+                noc_msgs equal the digest's, one metrics line per chunk, a
+                trace that loads, a TIMELINE section; prints the mean
+                dispatch/drain/rebase split of a chunk.
 8. profile   -- first, in the process's first torch.profiler session (no
                 session precedes the main paths' timing), 10 wrapper calls
                 per kernel on the inputs phase 5 timed, each on fresh
@@ -178,7 +207,13 @@ the final line:
                 sharer_reductions: the reduced ring machines (ring_stride,
                 ring_faults) are staged at their busiest step of a
                 64-step chunk (steps 0-63 and 256-319) and get "mode"
-                lines.
+                lines. The multiprogrammed path gets a window too; then,
+                of its first 512 steps, router_cascade's inputs at the step
+                whose barrier-arrival leg has the most live hops are staged,
+                held to the plain version, timed and bounded (a "mode" line
+                of the three legs). Last, one chunk of that path with a
+                Recorder attached, under the sync debug mode: it must make
+                exactly one synchronising call (its one transfer).
 
 Then the kernel summary line and, last, the result line
 {"ok": true, "device": {...}}.
@@ -189,11 +224,13 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
 import time
 import warnings
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -249,6 +286,90 @@ RING_KILL = (256, 206, 0)
 # the reduced ring machines whose sharer_reductions (ring mode) is staged,
 # timed and bounded: (machine, first step of the staged chunk)
 RING_MODES = (("ring_stride", 0), ("ring_faults", 256))
+MP_CUT = 1024  # the multiprogrammed path's checkpoint step
+# steps of the multiprogrammed path searched for router_cascade's busiest
+# barrier-arrival step (the staged "mode" of its three legs)
+MP_STAGE_STEPS = 512
+
+
+# operators the profiler drops before it builds its operator tree
+PROFILER_SKIPS = frozenset((
+    "[memory]", "[OutOfMemory]", "profiler::_record_function_enter",
+    "profiler::_record_function_enter_new", "profiler::_record_function_exit",
+    "aten::is_leaf", "aten::output_nr", "aten::_version"))
+
+
+def ops_by_shape(cpu_ev, gpu_ev, demangle) -> list:
+    """[name, input shapes, self device µs, calls] of every operator with
+    device time, by name and input shapes, from the profiler's raw events:
+    what `key_averages(group_by_input_shape=True)` gives without the
+    profiler's parse into an EventList, which takes tens of seconds a
+    window. As that parse does: a kernel counts to the operator whose
+    correlation id it links to, a runtime call sits on its operator's
+    thread, operators nest by time per thread, and an only child of its
+    parent's name merges into the parent with its kernels."""
+    gpu_us: dict[int, float] = {}
+    for e in gpu_ev:
+        c = e.linked_correlation_id()
+        if c > 0:
+            gpu_us[c] = gpu_us.get(c, 0.0) + (e.end_ns() - e.start_ns()) / 1e3
+    evs = [e for e in cpu_ev if e.name() not in PROFILER_SKIPS and not e.is_async()
+           and e.start_thread_id() == e.end_thread_id()]
+    front = {e.correlation_id(): e.start_thread_id() for e in evs
+             if e.linked_correlation_id() == 0}
+    node = []  # [name, shapes, thread, start, end, µs, parent, children]
+    for e in evs:
+        c = e.linked_correlation_id()
+        node.append([demangle(e.name()), str(e.shapes()),
+                     front.get(c, e.start_thread_id()) if c > 0 else e.start_thread_id(),
+                     e.start_ns(), e.end_ns(),
+                     gpu_us.get(e.correlation_id(), 0.0) if c == 0 else 0.0, None, []])
+    order = sorted(range(len(node)), key=lambda i: (node[i][2], node[i][3], -node[i][4]))
+    stack: list[int] = []
+    for i in order:
+        while stack and (node[stack[-1]][2] != node[i][2] or node[i][3] >= node[stack[-1]][4]
+                         or node[i][4] > node[stack[-1]][4]):
+            stack.pop()
+        if stack:
+            node[i][6] = stack[-1]
+            node[stack[-1]][7].append(i)
+        stack.append(i)
+    merged = set()
+    for i in order:  # parents first: a chain of only children folds to its top
+        p = node[i][6]
+        if p is not None and node[p][0] == node[i][0] and len(node[p][7]) == 1:
+            node[p][5] = node[i][5]  # the kernels lift up
+            node[p][7] = node[i][7]
+            for ch in node[i][7]:
+                node[ch][6] = p
+            merged.add(i)
+    groups: dict[tuple, list] = {}
+    for i, n in enumerate(node):
+        if i not in merged:
+            g = groups.setdefault((n[0], n[1]), [0.0, 0])
+            g[0] += n[5]
+            g[1] += 1
+    return sorted(([n, sh[:100], us, c] for (n, sh), (us, c) in groups.items() if us > 0),
+                  key=lambda o: -o[2])
+
+
+def cli_side_by_side(args: list[str]) -> dict:
+    """`python -m primesim_tpu_torch <args> --device D` on the card and on
+    the CPU at once, "{device}" in an argument replaced by D: {device:
+    (returncode, stdout, stderr)}. A run still going on the way out (a
+    timeout) is killed."""
+    procs = {d: subprocess.Popen(
+        [sys.executable, "-m", "primesim_tpu_torch",
+         *[a.replace("{device}", d) for a in args], "--device", d], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for d in ("cuda", "cpu")}
+    try:
+        outs = {d: r.communicate(timeout=600) for d, r in procs.items()}
+        return {d: (procs[d].returncode, *outs[d]) for d in procs}
+    finally:
+        for r in procs.values():
+            if r.poll() is None:
+                r.kill()
+                r.wait()
 
 
 T0 = time.perf_counter()
@@ -277,6 +398,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    from primesim_tpu_torch import cli as tcli
     from primesim_tpu_torch import convert
     from primesim_tpu_torch.config.machine import MachineConfig
     from primesim_tpu_torch.faults import inject
@@ -286,7 +408,8 @@ def main() -> int:
     from primesim_tpu_torch.sim.state import dirm_width, llc_meta_width
     from primesim_tpu_torch.stats.digest import run_digest
     from primesim_tpu_torch.trace import synth
-    from primesim_tpu_torch.trace.format import fold_ins
+    from primesim_tpu_torch.obs import Recorder
+    from primesim_tpu_torch.trace.format import fold_ins, multiplex
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -304,8 +427,13 @@ def main() -> int:
         if isinstance(spec, str):
             with open(os.path.join(ROOT, spec)) as f:
                 spec = json.load(f)
-        tr = synth.GENERATORS[fx["trace"]["generator"]](**fx["trace"]["args"])
-        return fx, MachineConfig.from_dict(spec), fold_ins(tr) if fx["trace"].get("fold") else tr
+        mcfg, ts = MachineConfig.from_dict(spec), fx["trace"]
+        if "multiplex" in ts:  # programs multiplexed into one machine
+            tr = multiplex([synth.GENERATORS[p["generator"]](**p["args"])
+                            for p in ts["multiplex"]], line_bits=mcfg.line_bits)
+        else:
+            tr = synth.GENERATORS[ts["generator"]](**ts["args"])
+        return fx, mcfg, fold_ins(tr) if ts.get("fold") else tr
 
     # ---- 1. device
     smi = subprocess.run(
@@ -338,6 +466,8 @@ def main() -> int:
     hffx, cfg_hf, trace_hf = fixture("headline_faults")
     if trace_hf.events.tobytes() != trace.events.tobytes():
         fail("headline_faults' fixture names another trace than the headline's")
+    mpfx, cfg_mp, trace_mp = fixture("multiprog_rung3")
+    r2fx, cfg2, trace2 = fixture("rung2_full")
     traces_s = time.perf_counter() - t0
     C, S1, W1 = cfg.n_cores, cfg.l1.sets, cfg.l1.ways
     W2, NW = cfg.llc.ways, cfg.n_sharer_words
@@ -666,18 +796,15 @@ def main() -> int:
                                   {"step": 2, "kind": "link_degrade", "link": 9, "extra": 4}],
                        "flip_l1": 0.02, "flip_llc": 0.02, "due_rate": 0.5,
                        "due_failstop": True}, f)
-        for d in ("cuda", "cpu"):
-            report = os.path.join(tmp, f"{d}.txt")
-            r = subprocess.run(
-                [sys.executable, "-m", "primesim_tpu_torch", "run", fx["config"],
-                 "--synth", "fft_like:n_phases=1,points_per_core=8,seed=3", "--fold",
-                 "--fault-schedule", sched, "--fault-seed", "7", "--device", d,
-                 "--report", report],
-                cwd=ROOT, capture_output=True, text=True, timeout=600)
-            if r.returncode != 0:
-                fail(f"cli_faults: run --device {d} exited {r.returncode}: {r.stderr[-500:]}")
-            detail = json.loads(r.stdout.strip().splitlines()[-1])["detail"]
-            with open(report) as f:
+        runs = cli_side_by_side(
+            ["run", fx["config"], "--synth", "fft_like:n_phases=1,points_per_core=8,seed=3",
+             "--fold", "--fault-schedule", sched, "--fault-seed", "7",
+             "--report", os.path.join(tmp, "{device}.txt")])
+        for d, (rc, out, err) in runs.items():
+            if rc != 0:
+                fail(f"cli_faults: run --device {d} exited {rc}: {err[-500:]}")
+            detail = json.loads(out.strip().splitlines()[-1])["detail"]
+            with open(os.path.join(tmp, f"{d}.txt")) as f:
                 text = f.read()
             cli[d] = ({k: detail[k] for k in ("instructions", "max_core_cycles", "noc_msgs")},
                       text[text.index("FAULTS"):].split("\n\n")[0].splitlines())
@@ -685,6 +812,20 @@ def main() -> int:
         fail(f"cli_faults: the card's run {cli['cuda']} != the CPU's {cli['cpu']}")
     emit({"phase": "cli_faults", "summary": cli["cuda"][0], "faults_section": cli["cuda"][1],
           "card_equals_cpu": True})
+
+    # ---- the CLI on the reference-schema XML config with --debug-invariants,
+    # on the card and on the CPU: the same summary but for the host's clock
+    xml = {}
+    runs = cli_side_by_side(["run", "configs/example_prime.xml", "--synth", "fft_like:n_phases=2",
+                             "--fold", "--debug-invariants"])
+    for d, (rc, out, err) in runs.items():
+        if rc != 0:
+            fail(f"cli_xml: run --device {d} exited {rc}: {err[-500:]}")
+        xml[d] = json.loads(out.strip().splitlines()[-1])["detail"]
+        xml[d] = {k: v for k, v in xml[d].items() if k not in ("wall_s", "device")}
+    if xml["cuda"] != xml["cpu"]:
+        fail(f"cli_xml: the card's summary {xml['cuda']} != the CPU's {xml['cpu']}")
+    emit({"phase": "cli_xml", "summary": xml["cuda"], "card_equals_cpu": True})
 
     # ---- reduced: the coarse vector and the chunked full map at 256
     # cores, card == CPU to completion
@@ -905,12 +1046,12 @@ def main() -> int:
         return float(np.median(times))
 
     def device_events(fn, by_op=False):
-        """(device events of fn() as sorted (start, end, name), fn's wall
-        seconds, and with `by_op` the 16 torch operators, by input shapes,
-        whose own kernels took the most device time) under
-        torch.profiler. A random fill, which the simulator never makes,
-        marks where fn begins: the trace may still hold kernels that ran
-        before the profile did."""
+        """(device events of fn() as sorted (start, end, name) in µs, fn's
+        wall seconds, and with `by_op` the 16 torch operators, by input
+        shapes, whose own kernels took the most device time) under
+        torch.profiler, read from its raw events (`ops_by_shape`). A random
+        fill, which the simulator never makes, marks where fn begins: the
+        trace may still hold kernels that ran before the profile did."""
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                      record_shapes=by_op) as prof:
             time.sleep(0.2)  # let the tracer settle before the marker
@@ -920,20 +1061,18 @@ def main() -> int:
             fn()
             torch.cuda.synchronize()
             wall_s = time.perf_counter() - t0
-        evs = list(prof.events())
-        begin = min(e.time_range.start for e in evs
-                    if e.device_type == DeviceType.CPU and e.name == "aten::randn")
+        raw = prof.profiler.kineto_results.events()
+        demangle = torch._C._demangle
+        cpu_ev = [e for e in raw if e.device_type() == DeviceType.CPU]
+        gpu_ev = [e for e in raw if e.device_type() == DeviceType.CUDA]
+        begin = min(e.start_ns() for e in cpu_ev if e.name() == "aten::randn")
         dev_ev = sorted(
-            (e.time_range.start, e.time_range.end, e.name) for e in evs
-            if e.device_type == DeviceType.CUDA and e.time_range.start >= begin
+            ((e.start_ns() - begin) / 1e3, (e.end_ns() - begin) / 1e3, demangle(e.name()))
+            for e in gpu_ev if e.start_ns() >= begin
         )
         if dev_ev and "normal" in dev_ev[0][2]:
             dev_ev = dev_ev[1:]  # the marker's own kernel
-        ops = sorted(
-            ([e.key, str(e.input_shapes)[:100], e.self_device_time_total, e.count]
-             for e in prof.key_averages(group_by_input_shape=True)
-             if e.device_type == DeviceType.CPU and e.self_device_time_total > 0),
-            key=lambda o: -o[2])[:16] if by_op else None
+        ops = ops_by_shape(cpu_ev, gpu_ev, demangle)[:16] if by_op else None
         return dev_ev, wall_s, ops
 
     def time_alone(k, args, kw, mcfg=None):
@@ -1055,23 +1194,30 @@ def main() -> int:
 
     a_h = {k: staged[k][300] for k in STEP_KERNELS}
     step_bounds = {k: bound_of(k, *a_h[k], cfg) for k in STEP_KERNELS}
-    a, kw = staged["router_cascade"][CAPTURE["rung3"][-1]]  # lf base pth ok r t0 service hops x3 link router out
-    legs = 3 if kw["has_sync"] else 2
-    n_ok = int(a[3].sum())
-    live_by_leg = [int(x) for x in a[3].view(C, legs, -1).sum((0, 2))]
-    cas_bytes = (a[3].numel()  # every hop's mask byte
-                 + 4 * 4 * n_ok  # route, link clock, base and rank of the live hops
-                 + 8 * n_ok  # read-modify-write of each live hop's departure
-                 + 4 * C * (2 + legs) + 8  # t0, service, each leg's hops, two latencies
-                 + 4 * C * (legs - 1))  # the reply (and arrival) leg's end out
-    # floor 4, offset 2, running max 1, departure 4 per live hop; the
-    # masked hops' SENT offsets and running max, 2 each
-    cas_ops = 11 * n_ok + 2 * (a[3].numel() - n_ok)
+    def cascade_bound(a, kw):
+        """((ms, "bytes" or "operations"), detail, bytes) of router_cascade
+        on staged inputs: the live hops' route, clock, base, rank and
+        departure, every hop's mask byte, the per-core words."""
+        # lf base pth ok r t0 service hops x3 link router out
+        n, legs = a[3].shape[0], 3 if kw["has_sync"] else 2
+        n_ok = int(a[3].sum())
+        b = (a[3].numel()  # every hop's mask byte
+             + 4 * 4 * n_ok  # route, link clock, base and rank of the live hops
+             + 8 * n_ok  # read-modify-write of each live hop's departure
+             + 4 * n * (2 + legs) + 8  # t0, service, each leg's hops, two latencies
+             + 4 * n * (legs - 1))  # the reply (and arrival) leg's end out
+        # floor 4, offset 2, running max 1, departure 4 per live hop; the
+        # masked hops' SENT offsets and running max, 2 each
+        ops = 11 * n_ok + 2 * (a[3].numel() - n_ok)
+        info = {"legs": legs, "live": n_ok, "all": a[3].numel(), "ops": ops,
+                "live_by_leg": [int(x) for x in a[3].view(n, legs, -1).sum((0, 2))]}
+        return max((b / HBM_BYTES_PER_S * 1e3, "bytes"),
+                   (ops / INT_OPS_PER_S * 1e3, "operations")), info, b
+
+    a, kw = staged["router_cascade"][CAPTURE["rung3"][-1]]
+    cas_bound, cas_info, cas_bytes = cascade_bound(a, kw)
     bounds = {k: step_bounds[k][0] for k in STEP_KERNELS}
-    bounds["router_cascade"] = max(
-        (cas_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
-        (cas_ops / INT_OPS_PER_S * 1e3, "operations"),
-    )
+    bounds["router_cascade"] = cas_bound
     capture_line = {"phase": "capture", "steps": CAPTURE, "timed_step": timed_step,
           "card_equals_cpu_steps": CHECK_STEPS, "cpu_s": check_s,
           "max_abs_err": max_err, "timing_ms": timing,
@@ -1080,8 +1226,7 @@ def main() -> int:
                     "router_cascade": cas_bytes},
           "commit": step_bounds["commit_step"][1],
           "sharer_rows": step_bounds["sharer_reductions"][1],
-          "router_hops": {"legs": legs, "live": n_ok, "live_by_leg": live_by_leg,
-                          "all": a[3].numel()},
+          "router_hops": {k: cas_info[k] for k in ("legs", "live", "live_by_leg", "all")},
           "gpu": smi_line}
     del staged  # the other staged steps, before the main paths' peaks
 
@@ -1092,6 +1237,7 @@ def main() -> int:
     main_paths += [(path, fxs[path][1], fxs[path][0], fxs[path][2], STEP_KERNELS)
                    for fxs, paths in ((large, LARGE), (zoo, ZOO)) for path, _ in paths]
     main_paths.append(("headline_faults", cfg_hf, hffx, trace_hf, STEP_KERNELS))
+    main_paths.append(("rung2", cfg2, r2fx, trace2, STEP_KERNELS))
     sums_of = {}
     real_scrub = inject.scrub_dead
     scrubs = []
@@ -1166,6 +1312,151 @@ def main() -> int:
             emit({"phase": f"{path} invariants", "seconds": time.perf_counter() - t0})
         del eng
         torch.cuda.empty_cache()
+
+    # ---- multiprog_rung3: four 256-core programs (an FFT, barriers, locks,
+    # a reader-writer), written as PTPU files by the port's synth verb and
+    # multiplexed into rung 3 by the CLI's loader; run with the flight
+    # recorder to step MP_CUT, checkpointed, freed, resumed in a fresh
+    # engine and run to the end. Then the same programs through the CLI.
+    mp_dir = tempfile.mkdtemp(prefix="chip_smoke_mp_")
+    try:
+        mp_paths = []
+        for i, prog in enumerate(mpfx["trace"]["multiplex"]):
+            args = dict(prog["args"])
+            n = args.pop("n_cores")
+            mp_paths.append(os.path.join(mp_dir, f"prog{i}.ptpu"))
+            spec = prog["generator"] + ":" + ",".join(f"{k}={v}" for k, v in args.items())
+            if tcli.main(["synth", spec, "--cores", str(n), "--out", mp_paths[-1]]) != 0:
+                fail(f"multiprog_rung3: synth {spec} failed")
+        mp_tr = tcli._load_trace(
+            SimpleNamespace(trace=mp_paths, synth=None, fold=mpfx["trace"]["fold"]),
+            cfg_mp.n_cores, line_bits=cfg_mp.line_bits)
+        if mp_tr.events.tobytes() != trace_mp.events.tobytes():
+            fail("multiprog_rung3: the CLI's multiplexed trace is not the fixture's")
+        rec = Recorder("full")
+        held = torch.cuda.memory_allocated()
+        eng = Engine(cfg_mp, mp_tr, chunk_steps=mpfx["chunk_steps"], device=dev)
+        if not eng.has_sync:
+            fail("multiprog_rung3: the trace has no sync events")
+        rec.attach(eng)
+        real_cascade, with_sync = router_kernels.router_cascade, [0]
+
+        def cascade_counted(*args, **kw):  # host-side count of three-leg calls
+            with_sync[0] += bool(kw.get("has_sync"))
+            return real_cascade(*args, **kw)
+
+        ck = os.path.join(mp_dir, "mid.npz")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        router_kernels.router_cascade = cascade_counted
+        try:
+            t0 = time.perf_counter()
+            eng.run_steps(MP_CUT)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            eng.save_checkpoint(ck)
+            save_s = time.perf_counter() - t0
+            del eng
+            torch.cuda.empty_cache()
+            eng = Engine(cfg_mp, mp_tr, chunk_steps=mpfx["chunk_steps"], device=dev)
+            t0 = time.perf_counter()
+            eng.load_checkpoint(ck)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            if eng.steps_run != MP_CUT:
+                fail(f"multiprog_rung3: resumed at step {eng.steps_run}, not {MP_CUT}")
+            rec.attach(eng)
+            t0 = time.perf_counter()
+            eng.run_chunked()
+            torch.cuda.synchronize()
+            rest_s = time.perf_counter() - t0
+        finally:
+            router_kernels.router_cascade = real_cascade
+        launches["multiprog_rung3"] = dict(build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() - held
+        got = run_digest(eng.steps_run, eng.cycles, eng.counters,
+                         eng.state.link_free.cpu().numpy(), eng.state.dram_free.cpu().numpy())
+        sums = got["counter_sums"]
+        samples = rec.store.samples()
+        spans = [e for e in rec.trace.events if e["ph"] == "B" and e["name"] == "chunk"]
+        n_chunks = eng.steps_run // eng.chunk_steps
+        mean_phases = {k: float(np.mean([x["phases"][k] for x in samples]))
+                       for k in ("dispatch", "drain", "rebase")}
+        emit({"phase": "multiprog_rung3", "steps": eng.steps_run, "checkpoint_step": MP_CUT,
+              "wall_s": first_s + rest_s, "wall_s_before_after": [first_s, rest_s],
+              "simulated_mips": got["instructions"] / (first_s + rest_s) / 1e6,
+              "checkpoint_bytes": os.path.getsize(ck), "save_s": save_s, "load_s": load_s,
+              "peak_memory_bytes": peak, "launches": launches["multiprog_rung3"],
+              "router_cascade_with_sync": with_sync[0], "instructions": got["instructions"],
+              "max_core_cycles": got["max_core_cycles"],
+              **{k: sums[k] for k in ("noc_msgs", "lock_acquires", "barrier_waits",
+                                      "noc_contention_cycles", "dram_queue_cycles")},
+              "recorder": {"chunks": len(samples), "spans": len(spans),
+                           "mean_phase_s": mean_phases},
+              "digest": {k: v for k, v in got.items() if k.endswith("sha256")},
+              "equals_jax_digest": got == mpfx["digest"], "gpu": smi_line})
+        for k, n in launches["multiprog_rung3"].items():
+            if n != eng.steps_run:
+                fail(f"multiprog_rung3: {k} launched {n} times in {eng.steps_run} steps")
+        if with_sync[0] != eng.steps_run:
+            fail(f"multiprog_rung3: router_cascade ran {with_sync[0]} of "
+                 f"{eng.steps_run} steps with the barrier-arrival leg")
+        for k, want in mpfx["digest"].items():
+            if got[k] != want:
+                fail(f"multiprog_rung3: {k} {got[k]} != the JAX package's {want}")
+        if not (sums["lock_acquires"] and sums["barrier_waits"]):
+            fail("multiprog_rung3: no lock acquired or no barrier waited")
+        if not eng.done():
+            fail("multiprog_rung3: not every core reached END")
+        if len(samples) != n_chunks or len(spans) != n_chunks:
+            fail(f"multiprog_rung3: {len(samples)} samples and {len(spans)} chunk spans "
+                 f"for {n_chunks} chunks")
+        if sum(x["deltas"]["instructions"] for x in samples) != got["instructions"]:
+            fail("multiprog_rung3: the recorder's instruction deltas miss the total")
+        eng.verify_invariants()
+        del eng
+        torch.cuda.empty_cache()
+
+        # the same programs through `python -m primesim_tpu_torch run`
+        out = {k: os.path.join(mp_dir, f) for k, f in (
+            ("metrics", "m.jsonl"), ("trace", "t.json"), ("report", "r.txt"))}
+        cmd = [sys.executable, "-m", "primesim_tpu_torch", "run", mpfx["config"],
+               *[a for p in mp_paths for a in ("--trace", p)], "--fold",
+               "--chunk-steps", str(mpfx["chunk_steps"]), "--obs", "full",
+               "--metrics-out", out["metrics"], "--trace-out", out["trace"],
+               "--report", out["report"], "--per-core-limit", "16"]
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        if r.returncode != 0:
+            fail(f"cli_multiprog: exited {r.returncode}: {r.stderr[-500:]}")
+        detail = json.loads(r.stdout.strip().splitlines()[-1])["detail"]
+        with open(out["metrics"]) as f:
+            lines = [json.loads(ln) for ln in f]
+        with open(out["trace"]) as f:
+            n_events = len(json.load(f)["traceEvents"])
+        with open(out["report"]) as f:
+            has_timeline = "TIMELINE" in f.read()
+        want = {"instructions": mpfx["digest"]["instructions"],
+                "max_core_cycles": mpfx["digest"]["max_core_cycles"],
+                "noc_msgs": mpfx["digest"]["counter_sums"]["noc_msgs"]}
+        split = {k: float(np.mean([x["phases"][k] for x in lines]))
+                 for k in ("dispatch", "drain", "rebase")}
+        emit({"phase": "cli_multiprog", "summary": {k: detail[k] for k in want},
+              "steps": detail["steps"], "wall_s": detail["wall_s"], "command_s": cli_s,
+              "timeline": detail.get("timeline"), "metrics_lines": len(lines),
+              "trace_events": n_events, "report_has_timeline": has_timeline,
+              "mean_phase_s_per_chunk": split,
+              "chunk_wall_s": [x["wall_s"] for x in lines], "gpu": smi_line})
+        if {k: detail[k] for k in want} != want:
+            fail(f"cli_multiprog: summary {detail} != the JAX digest's {want}")
+        if len(lines) != detail["steps"] // mpfx["chunk_steps"] or not has_timeline:
+            fail(f"cli_multiprog: {len(lines)} metrics lines for {detail['steps']} steps, "
+                 f"TIMELINE {has_timeline}")
+    finally:
+        shutil.rmtree(mp_dir, ignore_errors=True)
 
     # ---- 8. profile. First the profiler's device time per launch of the
     # calls phase 5 timed, in the process's first profiler session (none
@@ -1294,8 +1585,59 @@ def main() -> int:
         return ([str(w.message)[:200] for w in caught if "synchroniz" in str(w.message)
                  and "prototype feature" not in str(w.message)], sorted(scrub_at))
 
+    def stage_busiest_arrivals(pcfg, ptrace):
+        """Run up to MP_STAGE_STEPS steps of a sync path and keep
+        router_cascade's inputs at the step whose barrier-arrival leg has
+        the most live hops (each argument cloned when a step beats the
+        best so far: the link clocks it updates in place are its inputs).
+        Returns (step, args, kw)."""
+        eng = Engine(pcfg, ptrace, chunk_steps=64, device=dev)
+        best, calls = {"hops": 0}, [0]
+        real = wrappers["router_cascade"]
+
+        def rec(*args, **kw):
+            if kw.get("has_sync"):
+                ok = args[3]
+                live = int(ok.reshape(ok.shape[0], 3, -1)[:, 2].sum())  # a sync: staging only
+                if live > best["hops"]:
+                    best.update(hops=live, step=calls[0], args=[
+                        x.clone() if torch.is_tensor(x) else x for x in args], kw=dict(kw))
+            calls[0] += 1
+            return real(*args, **kw)
+
+        router_kernels.router_cascade = rec
+        try:
+            while eng.steps_run < MP_STAGE_STEPS and not eng.done():
+                eng.run_steps(64)
+        finally:
+            router_kernels.router_cascade = real
+        del eng
+        torch.cuda.empty_cache()
+        if not best["hops"]:
+            fail(f"stage: no barrier arrival in {MP_STAGE_STEPS} steps")
+        return best["step"], best["args"], best["kw"]
+
+    def cascade_mode_line(path, pcfg, ptrace, n_launch):
+        """router_cascade's three legs on the path's busiest arrival step:
+        held to the plain version, timed by events, bounded; a "mode"
+        line."""
+        step_no, args, kw = stage_busiest_arrivals(pcfg, ptrace)
+        compare("router_cascade", args, kw)
+        bnd, info, nb = cascade_bound(args, kw)
+        modes[path], mode_cfg[path] = {"router_cascade": {
+            **time_alone("router_cascade", args, kw),
+            "profiler_us_in_step": kernel_us.get(path, {}).get("router_cascade"),
+            "launches": n_launch["router_cascade"], "bound_ms": bnd[0], "bound_by": bnd[1],
+            "bytes": nb, "detail": info}}, pcfg
+        del args
+        torch.cuda.empty_cache()
+        emit({"phase": "mode", "path": path, "staged_step": step_no,
+              "kernels": modes[path], "max_abs_err": max_err,
+              "event_floor_ms": event_floor_ms, "gpu": smi_line})
+
     by_path = {p: (pc, pt, r) for p, pc, _, pt, r in main_paths}
-    for path in ("headline", "rung3", *MODE_PATHS, "headline_faults"):
+    by_path["multiprog_rung3"] = (cfg_mp, trace_mp, tuple(wrappers))
+    for path in ("headline", "rung3", *MODE_PATHS, "headline_faults", "multiprog_rung3"):
         pcfg, ptrace, ran = by_path[path]
         prof_eng = Engine(pcfg, ptrace, chunk_steps=64, device=dev)
         prof_eng.run_steps(256)  # mid-run state, as the main path meets it
@@ -1335,6 +1677,8 @@ def main() -> int:
               "gpu": smi_line})
         if mode_in is not None:
             mode_line(path, pcfg, mode_in, launches[path])
+        if path == "multiprog_rung3":
+            cascade_mode_line(path, pcfg, ptrace, launches[path])
 
     # the faulted step makes no host synchronisation, its scrub included
     syncs, scrub_at = sync_free_window()
@@ -1343,6 +1687,29 @@ def main() -> int:
     if syncs or 0 not in scrub_at:
         fail(f"sync_check: {len(syncs)} synchronising calls ({syncs[:3]}), "
              f"scrub offsets {scrub_at}")
+
+    # one recorded chunk of the multiprogrammed path (locks, barriers, the
+    # three-leg cascade) makes exactly one synchronising call: its transfer
+    eng = Engine(cfg_mp, trace_mp, chunk_steps=64, device=dev)
+    eng.run_steps(256)
+    Recorder("full").attach(eng)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            eng._chunk()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [str(w.message)[:200] for w in caught if "synchroniz" in str(w.message)
+             and "prototype feature" not in str(w.message)]
+    chunks = len(eng.obs.store)
+    del eng
+    torch.cuda.empty_cache()
+    emit({"phase": "sync_check", "path": "multiprog_rung3", "steps": [256, 319],
+          "recorder": "full", "recorded_chunks": chunks, "synchronising_calls": syncs})
+    if len(syncs) != 1 or chunks != 1:
+        fail(f"sync_check: a recorded chunk made {len(syncs)} synchronising calls ({syncs[:3]})")
 
     # the ring mode of sharer_reductions on the reduced ring machines, at
     # the busiest step (by active rows) of a 64-step chunk

@@ -1,0 +1,159 @@
+"""Per-chunk metric time-series: bounded ring buffer + fixed-bucket histogram.
+
+A copy of the JAX package's `obs/metrics.py`. Deliberately free of numpy
+and torch, so the report renderer can import it without touching the
+device runtime.
+"""
+
+from __future__ import annotations
+
+import json
+from collections import deque
+
+
+class MetricStore:
+    """Bounded ring buffer of per-chunk samples.
+
+    Each sample is a plain dict::
+
+        {"seq": int, "t": float, "label": str, "steps": int,
+         "wall_s": float, "deltas": {counter: int, ...},
+         "phases": {phase: float, ...}}   # phases optional
+
+    ``seq`` is a global monotonically increasing chunk index (it keeps
+    counting even after the ring starts dropping, so the slowest-chunk
+    index in a summary refers to the real chunk number of the run).
+    """
+
+    def __init__(self, capacity: int = 4096):
+        if capacity < 1:
+            raise ValueError(f"MetricStore capacity must be >= 1, got {capacity}")
+        self.capacity = int(capacity)
+        self._ring: deque = deque(maxlen=self.capacity)
+        self.seq = 0
+        self.dropped = 0
+
+    def record(self, t, label, steps, wall_s, deltas, phases=None):
+        if len(self._ring) == self._ring.maxlen:
+            self.dropped += 1
+        sample = {
+            "seq": self.seq,
+            "t": float(t),
+            "label": str(label),
+            "steps": int(steps),
+            "wall_s": float(wall_s),
+            "deltas": {k: int(v) for k, v in deltas.items()},
+        }
+        if phases:
+            sample["phases"] = {k: float(v) for k, v in phases.items()}
+        self._ring.append(sample)
+        self.seq += 1
+        return sample
+
+    def samples(self):
+        return list(self._ring)
+
+    def __len__(self):
+        return len(self._ring)
+
+    def summary(self):
+        """Aggregate view for the report TIMELINE section.
+
+        MIPS here is *simulated instructions retired per wall second*
+        for a chunk: deltas["instructions"] / wall_s / 1e6 — the same
+        definition the end-of-run report uses, just per chunk.
+        """
+        if not self._ring:
+            return None
+        peak = mean_num = mean_den = 0.0
+        peak_seq = slowest_seq = -1
+        slowest_wall = -1.0
+        total_steps = total_ins = 0
+        labels: dict = {}
+        for s in self._ring:
+            ins = s["deltas"].get("instructions", 0)
+            wall = s["wall_s"]
+            total_steps += s["steps"]
+            total_ins += ins
+            lab = labels.setdefault(
+                s["label"],
+                {"chunks": 0, "steps": 0, "wall_s": 0.0, "instructions": 0},
+            )
+            lab["chunks"] += 1
+            lab["steps"] += s["steps"]
+            lab["wall_s"] += wall
+            lab["instructions"] += ins
+            if wall > 0:
+                mips = ins / wall / 1e6
+                if mips > peak:
+                    peak, peak_seq = mips, s["seq"]
+                mean_num += ins
+                mean_den += wall
+            if wall > slowest_wall:
+                slowest_wall, slowest_seq = wall, s["seq"]
+        return {
+            "labels": labels,
+            "chunks": self.seq,
+            "retained": len(self._ring),
+            "dropped": self.dropped,
+            "total_steps": total_steps,
+            "total_instructions": total_ins,
+            "peak_chunk_mips": peak,
+            "peak_chunk_seq": peak_seq,
+            "mean_chunk_mips": (mean_num / mean_den / 1e6) if mean_den > 0 else 0.0,
+            "slowest_chunk_seq": slowest_seq,
+            "slowest_chunk_wall_s": slowest_wall,
+        }
+
+    def dump_jsonl(self, path):
+        with open(path, "w") as f:
+            for s in self._ring:
+                f.write(json.dumps(s, sort_keys=True) + "\n")
+        return len(self._ring)
+
+
+# Default bucket bounds (seconds) shared by the serve latency and fsync
+# histograms: roughly log-spaced from 1 ms to ~2 min, fine enough near
+# the fsync floor and wide enough for multi-chunk job latencies.
+DEFAULT_BOUNDS_S = (
+    0.001, 0.005, 0.01, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0, 120.0,
+)
+
+
+class Histogram:
+    """Fixed-bound cumulative histogram, Prometheus-shaped.
+
+    ``counts[i]`` is the number of observations <= bounds[i] (cumulative,
+    as Prometheus expects); observations above the last bound only land
+    in the implicit +Inf bucket (``count``).
+    """
+
+    def __init__(self, bounds=DEFAULT_BOUNDS_S):
+        self.bounds = tuple(float(b) for b in bounds)
+        if any(b2 <= b1 for b1, b2 in zip(self.bounds, self.bounds[1:])):
+            raise ValueError("histogram bounds must be strictly increasing")
+        self._bucket_counts = [0] * len(self.bounds)
+        self.count = 0
+        self.sum = 0.0
+
+    def observe(self, v):
+        v = float(v)
+        self.count += 1
+        self.sum += v
+        for i, b in enumerate(self.bounds):
+            if v <= b:
+                self._bucket_counts[i] += 1
+                break
+
+    def snapshot(self):
+        cum = []
+        running = 0
+        for c in self._bucket_counts:
+            running += c
+            cum.append(running)
+        return {
+            "bounds": list(self.bounds),
+            "cumulative": cum,
+            "count": self.count,
+            "sum": self.sum,
+        }

@@ -1,0 +1,160 @@
+"""The Recorder: one telemetry sink per run (a copy of the JAX package's
+`obs/recorder.py`; its supervisor, serve, pool, chaos and replication
+event methods come unchanged for the slices that will call them).
+
+The engines don't know about files or trace formats — they carry a
+plain ``obs`` attribute (None by default) and, when it is set, hand the
+Recorder one call per committed chunk with the wall time, phase
+timings, and their cumulative host counters. The Recorder turns the
+cumulative counters into per-chunk DELTAS (keyed per engine label, so a
+fleet's buckets and a solo engine never cross wires), feeds the ring
+buffer, and — at level ``full`` — mirrors each chunk as a span in the
+Chrome trace.
+
+Levels:
+
+- ``off``   — no Recorder is constructed at all; every engine-side
+  telemetry branch is a single ``is not None`` check that fails. The
+  fused `run()` paths never see a Recorder either way; `--obs off`
+  therefore cannot perturb results (bit-exact by construction).
+- ``basic`` — metric time-series only (ring buffer + JSONL dump).
+- ``full``  — basic + flight recorder (Chrome trace JSON).
+"""
+
+from __future__ import annotations
+
+import time
+
+from .metrics import MetricStore
+from .trace import TraceWriter
+
+LEVELS = ("off", "basic", "full")
+
+
+class Recorder:
+    def __init__(self, level: str, capacity: int = 4096,
+                 trace_path=None, metrics_path=None):
+        if level not in LEVELS:
+            raise ValueError(
+                f"obs level must be one of {'|'.join(LEVELS)}, got {level!r}"
+            )
+        self.level = level
+        self.enabled = level != "off"
+        self.tracing = level == "full"
+        self.trace_path = trace_path
+        self.metrics_path = metrics_path
+        self.store = MetricStore(capacity=capacity) if self.enabled else None
+        self.trace = TraceWriter() if self.tracing else None
+        self._prev_totals: dict[str, dict] = {}
+        self._finalized = None
+
+    # ---- engine side -----------------------------------------------------
+
+    def attach(self, engine, label=None) -> None:
+        """Point an engine's ``obs`` attribute at this recorder. Safe on
+        Engine, FleetEngine, and StreamEngine alike."""
+        if label is not None:
+            engine.obs_label = label
+        engine.obs = self
+
+    def chunk_committed(self, label, steps, wall_s, host_counters,
+                        phases=None) -> None:
+        """One committed chunk from an engine loop.
+
+        ``host_counters`` is the engine's CUMULATIVE counter dict —
+        values may be int64 scalars per core ([C]) or per element+core
+        ([B, C]); we total them and diff against the previous totals for
+        this label.
+        """
+        totals = {k: int(v.sum()) for k, v in host_counters.items()}
+        prev = self._prev_totals.get(label)
+        if prev is None:
+            deltas = totals
+        else:
+            deltas = {k: v - prev.get(k, 0) for k, v in totals.items()}
+        self._prev_totals[label] = totals
+        self.store.record(time.time(), label, steps, wall_s, deltas,
+                          phases=phases)
+        if self.trace is not None:
+            args = {"steps": int(steps),
+                    "instructions": deltas.get("instructions", 0)}
+            if phases:
+                args.update({f"{k}_ms": round(v * 1e3, 3)
+                             for k, v in phases.items()})
+            self.trace.complete(label, "chunk", wall_s, args)
+
+    # ---- supervisor / serve side ----------------------------------------
+
+    def supervisor_event(self, kind, msg) -> None:
+        if self.trace is not None:
+            self.trace.instant("supervisor", kind, {"msg": str(msg)})
+
+    def serve_event(self, kind, args=None) -> None:
+        if self.trace is not None:
+            self.trace.instant("scheduler", kind, args)
+
+    def fsync_event(self, wall_s) -> None:
+        if self.trace is not None:
+            self.trace.complete("journal", "fsync", wall_s)
+
+    def prefix_event(self, kind, **args) -> None:
+        """Warm-cache / prefix-fork instant (hit, miss, store, corrupt
+        fallback) on the ``prefix`` track — the TIMELINE's evidence that
+        a campaign skipped (or paid for) its shared prefix."""
+        if self.trace is not None:
+            self.trace.instant(
+                "prefix", kind, {k: str(v) for k, v in args.items()}
+            )
+
+    def chaos_event(self, site, action, **args) -> None:
+        """Injected-fault instant on the ``chaos`` track — every fault a
+        FaultPlan fires lands here, so a chaotic run's TIMELINE shows
+        exactly what broke, where, and in what order."""
+        if self.trace is not None:
+            self.trace.instant(
+                "chaos", f"{site}:{action}",
+                {k: str(v) for k, v in args.items()}
+            )
+
+    def pool_event(self, kind, **args) -> None:
+        """Elastic-pool instant (lease, heartbeat, expire, redispatch,
+        hedge, ack, duplicate, poison) on the ``pool`` track — the
+        TIMELINE's evidence of every lease-protocol decision, and what
+        the chaos tests assert redispatch visibility against."""
+        if self.trace is not None:
+            self.trace.instant(
+                "pool", kind, {k: str(v) for k, v in args.items()}
+            )
+
+    def repl_event(self, kind, **args) -> None:
+        """Replication instant (epoch, resync, fenced, quorum-lost) on
+        the ``repl`` track — the TIMELINE's evidence of every fencing
+        and catch-up decision the primary's sink made."""
+        if self.trace is not None:
+            self.trace.instant(
+                "repl", kind, {k: str(v) for k, v in args.items()}
+            )
+
+    # ---- output ----------------------------------------------------------
+
+    def timeline_summary(self):
+        """MetricStore summary for the report's TIMELINE section (None
+        when nothing was recorded)."""
+        if self.store is None:
+            return None
+        return self.store.summary()
+
+    def finalize(self):
+        """Write the configured output files. Idempotent — the CLI calls
+        this on both the normal and the Preempted exit path."""
+        if self._finalized is not None:
+            return self._finalized
+        written = {}
+        if self.metrics_path and self.store is not None:
+            written["metrics"] = (self.metrics_path,
+                                  self.store.dump_jsonl(self.metrics_path))
+        if self.trace_path and self.trace is not None:
+            written["trace"] = (self.trace_path,
+                                self.trace.write(self.trace_path))
+        self._finalized = written
+        return written

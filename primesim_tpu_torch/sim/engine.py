@@ -37,6 +37,7 @@ those steps only.
 from __future__ import annotations
 
 import functools
+import time
 
 import numpy as np
 import torch
@@ -851,8 +852,12 @@ def run_chunk(cfg, n_steps: int, events, st: MachineState, has_sync=True,
 
 class Engine:
     """Host runner with the JAX `Engine`'s interface and semantics for a
-    single device: `run`, `run_steps`, `cycles`, `counters`, `steps_run`,
-    `state`, `verify_invariants` and `done`."""
+    single device: `run`, `run_chunked`, `run_steps`, `cycles`,
+    `counters`, `steps_run`, `state`, `verify_invariants`, `done`, the
+    telemetry sink `obs` (an `obs.Recorder` or None) with its `obs_label`,
+    and `save_checkpoint`/`load_checkpoint` (`sim/checkpoint.py`: the JAX
+    package's file format, so a snapshot of either engine resumes in the
+    other)."""
 
     def __init__(
         self, cfg: MachineConfig, trace: Trace, chunk_steps: int = 256,
@@ -899,6 +904,9 @@ class Engine:
         self.host_counters = zero_counters(cfg.n_cores)
         self.steps_run = 0
         self._stepped = None  # the state the last chunk left (see scrub_offsets)
+        # telemetry sink (obs.Recorder): None records nothing
+        self.obs = None
+        self.obs_label = "engine"
 
     def _not_done(self, st: MachineState):
         """[C] bool on the device: cores neither at END nor dead."""
@@ -930,11 +938,21 @@ class Engine:
     def _chunk(self) -> bool:
         """One chunk, then the drain and the rebase by whole quanta (the JAX
         package's `_drain_and_rebase`), with ONE host transfer for the
-        counters, the rebase delta and the done flag. Returns done."""
+        counters, the rebase delta and the done flag. Returns done.
+
+        The recorder `obs`, when set, gets the host's seconds in the JAX
+        package's three phase names, cut where the port's chunk allows:
+        "dispatch" is the Python enqueue of the chunk's launches (the
+        device runs behind it), "drain" runs from there through the
+        device-side rebase's enqueue to the end of the one `.cpu()`, so it
+        holds the device's tail, and "rebase" is the host's folding of the
+        transferred counters, delta and flag."""
+        t0 = time.perf_counter()
         st = run_chunk(
             self.cfg, self.chunk_steps, self.events, self.state, self.has_sync,
             scrub_at=self.scrub_offsets(),
         )
+        t1 = time.perf_counter()
         nd = self._not_done(st)
         Q = st.knobs.quantum
         m = torch.where(nd, st.cycles, INT32_MAX).amin()
@@ -964,6 +982,7 @@ class Engine:
         host = torch.cat(
             [st.counters.flatten(), delta.view(1), (~nd.any()).to(_i32).view(1)]
         ).cpu().numpy()
+        t2 = time.perf_counter()
         cnt = host[:-2].reshape(len(COUNTER_NAMES), -1)
         for i, k in enumerate(COUNTER_NAMES):
             self.host_counters[k] += cnt[i].astype(np.int64)
@@ -972,27 +991,41 @@ class Engine:
         if self.cfg.faults_enabled:
             self._host_step += self.chunk_steps
             self._stepped = self.state
+        if self.obs is not None:
+            t3 = time.perf_counter()
+            self.obs.chunk_committed(
+                self.obs_label, self.chunk_steps, t3 - t0, self.host_counters,
+                phases={"dispatch": t1 - t0, "drain": t2 - t1, "rebase": t3 - t2},
+            )
         return bool(host[-1])
 
-    def run(self, max_steps: int = 10_000_000) -> None:
+    def run(self, max_steps: int = 10_000_000, debug_invariants: bool = False) -> None:
         """Run to completion; `max_steps` is a deadlock guard rounded up to
-        whole chunks."""
-        max_chunks = -(-max_steps // self.chunk_steps)
-        done = self.done()
-        k = 0
-        while k < max_chunks and not done:
-            done = self._chunk()
-            k += 1
-        if not done:
+        whole chunks. `debug_invariants` checks the DESIGN.md §5 machine
+        invariants after every chunk."""
+        if not self.run_steps(max_steps, debug_invariants):
             raise RuntimeError("engine: max_steps exceeded (deadlock?)")
 
-    def run_steps(self, n_steps: int) -> None:
+    def run_chunked(
+        self, max_steps: int = 10_000_000, debug_invariants: bool = False
+    ) -> None:
+        """The JAX package's host-loop name for `run` (there `run` is one
+        fused device loop; here both are this host loop). `max_steps`
+        counts from step 0, as in the JAX package."""
+        self.run(max_steps - self.steps_run, debug_invariants)
+
+    def run_steps(self, n_steps: int, debug_invariants: bool = False) -> bool:
         """Advance `n_steps` (rounded up to whole chunks) without the
-        completion check."""
+        completion check: run_steps(A) -> save_checkpoint -> (later)
+        load_checkpoint -> run() is bit-exact with an uninterrupted run.
+        Returns done."""
         target = self.steps_run + n_steps
         done = self.done()
         while self.steps_run < target and not done:
             done = self._chunk()
+            if debug_invariants:
+                self.verify_invariants()
+        return done
 
     def done_mask(self) -> np.ndarray:
         """[C] bool: cores whose trace pointer sits on END, and fail-stopped
@@ -1017,16 +1050,30 @@ class Engine:
         )
         check_invariants(self.cfg, host, done_mask=self.done_mask())
 
-    @property
-    def cycles(self) -> np.ndarray:
-        return self.state.cycles.cpu().numpy().astype(np.int64) + self.cycle_base
+    def save_checkpoint(self, path: str) -> None:
+        from .checkpoint import save_checkpoint
 
-    @property
-    def counters(self) -> dict[str, np.ndarray]:
+        save_checkpoint(path, self)
+
+    def load_checkpoint(self, path: str) -> None:
+        from .checkpoint import load_checkpoint
+
+        load_checkpoint(path, self)
+
+    def _drain(self) -> None:
+        """Fold the device counters into the host's int64 totals."""
         cnt = self.state.counters.cpu().numpy()
         for i, k in enumerate(COUNTER_NAMES):
             self.host_counters[k] += cnt[i].astype(np.int64)
         self.state = self.state._replace(
             counters=torch.zeros_like(self.state.counters)
         )
+
+    @property
+    def cycles(self) -> np.ndarray:
+        return self.state.cycles.cpu().numpy().astype(np.int64) + self.cycle_base
+
+    @property
+    def counters(self) -> dict[str, np.ndarray]:
+        self._drain()
         return self.host_counters

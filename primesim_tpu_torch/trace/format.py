@@ -1,5 +1,5 @@
 """Trace event format and binary trace files (a numpy copy of the JAX
-package's `trace/format.py`, without the multiprogram `multiplex`).
+package's `trace/format.py`).
 
 TPU-native replacement for the reference's Pin-frontend event stream
 (SURVEY.md §2 #1, §3.2/3.3: per-BBL instruction-count batching + per-access
@@ -468,3 +468,87 @@ def fold_ins(trace: Trace) -> Trace:
     r = np.broadcast_to(rows[:, None], emit.shape)
     packed[r[emit], (np.cumsum(emit, axis=1) - 1)[emit]] = out[emit]
     return from_arrays(packed, n, line_addressed=trace.line_addressed)
+
+
+def multiplex(
+    traces: list[Trace],
+    prog_bits: int | None = None,
+    line_bits: int = 6,
+) -> Trace:
+    """Combine several programs' traces into ONE machine's trace — the
+    reference's MULTIPROGRAMMED mode (SURVEY.md §2 parallelism table:
+    "several trace streams multiplexed into the core axis"; PriME runs
+    multiple Pin processes against one shared uncore). Program k's cores
+    become cores [sum(C_0..k-1), sum(C_0..k)); its address space is kept
+    disjoint by setting the top `prog_bits` of every memory/lock address
+    (default: just enough bits for the program count), and its barrier
+    ids are offset past the earlier programs' — so programs share the
+    LLC/NoC/DRAM (and contend there) but never false-share lines or sync
+    objects (lock identities fold the program id into their low LINE
+    bits because the engines' lock-slot hash uses
+    `line & (lock_slots-1)`; for byte-addressed traces `line_bits` names
+    the machine's line-offset width so the fold lands in line-index
+    bits — pass the target config's `cfg.line_bits`. Requires
+    prog_bits <= log2(lock_slots), true for any realistic program
+    count).
+
+    All traces must use the same addressing (byte, or line with equal
+    line_bits). Raises if any program's addresses overflow its window.
+    The combined trace is materialized in host RAM (mmapped inputs are
+    densified) — multiprogram streaming is not supported.
+    """
+    if not traces:
+        raise ValueError("multiplex: need at least one trace")
+    la = traces[0].line_addressed
+    lb = traces[0].line_bits
+    if any(t.line_addressed != la or t.line_bits != lb for t in traces):
+        raise ValueError("multiplex: traces mix addressing modes")
+    n = len(traces)
+    if prog_bits is None:
+        prog_bits = max(1, (n - 1).bit_length())
+    if n > (1 << prog_bits):
+        raise ValueError(f"multiplex: {n} programs need more than "
+                         f"prog_bits={prog_bits}")
+    shift = 31 - prog_bits
+    max_len = max(t.max_len for t in traces)
+    rows, lengths = [], []
+    bid_base = 0
+    for k, t in enumerate(traces):
+        ev = np.zeros((t.n_cores, max_len, N_FIELDS), np.int32)
+        ev[:, :, 0] = EV_END  # tail padding; real rows overwritten next
+        ev[:, : t.max_len] = t.events
+        ty = ev[:, :, 0]
+        mem = (ty == EV_LD) | (ty == EV_ST) | (ty == EV_LOCK) | (
+            ty == EV_UNLOCK
+        )
+        if (ev[:, :, 2][mem] >> shift).any():
+            raise ValueError(
+                f"multiplex: program {k}'s addresses exceed its "
+                f"2^{shift}-entry window (lower prog_bits or shrink the "
+                "working set)"
+            )
+        ev[:, :, 2] = np.where(mem, ev[:, :, 2] | (k << shift), ev[:, :, 2])
+        # lock identities additionally fold the program id into the LOW
+        # address bits: both engines hash the lock-table slot from
+        # `line & (lock_slots - 1)`, so a high-bit tag alone would let
+        # two programs' same-addressed mutexes serialize on one slot.
+        # Clearing the low prog_bits costs only legal conservative
+        # aliasing WITHIN a program (lock_slots is a hash table already).
+        lk = (ty == EV_LOCK) | (ty == EV_UNLOCK)
+        lo = 0 if la else line_bits  # fold into LINE-index bits
+        lk_mask = ((1 << prog_bits) - 1) << lo
+        ev[:, :, 2] = np.where(
+            lk, (ev[:, :, 2] & ~lk_mask) | (k << lo), ev[:, :, 2]
+        )
+        bar = ty == EV_BARRIER
+        n_bids = int(ev[:, :, 2][bar].max()) + 1 if bar.any() else 0
+        ev[:, :, 2] = np.where(bar, ev[:, :, 2] + bid_base, ev[:, :, 2])
+        bid_base += n_bids
+        rows.append(ev)
+        lengths.append(np.asarray(t.lengths))
+    return Trace(
+        np.concatenate(rows, axis=0),
+        np.concatenate(lengths),
+        line_addressed=la,
+        line_bits=lb,
+    )

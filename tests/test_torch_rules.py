@@ -4,7 +4,7 @@ support, its traces and reports are the JAX package's own, and its
 committed reference fixtures still match the JAX engine.
 
 The fixtures are the rung-1 run in full (`rung1_fft_small.json`) and
-digests (`stats/digest.py`) of seven full-width runs that chip_smoke.py
+digests (`stats/digest.py`) of ten full-width runs that chip_smoke.py
 holds the card to: the 1024-core headline machine (`headline.json`) and
 the shipped rung-3 machine (`rung3_headline.json`), both on the folded
 headline trace, and the shipped rung-4 (4096 cores, chunked full map)
@@ -13,7 +13,11 @@ on folded fft_like traces of their own widths (`rung4_full.json`,
 `rung5_full.json`); the machine zoo's shipped 16-core torus/MOESI/stride
 machine (`zoo_smoke.json`) and 1472-tile IPU profile (`ipu_full.json`,
 a bulk-synchronous barrier trace), and the headline machine under MOESI
-(`headline_moesi.json`). Regenerate them (after a deliberate change of
+(`headline_moesi.json`), the headline machine under a fault schedule
+(`headline_faults.json`), the shipped rung-3 machine on four 256-core
+programs multiplexed into its 1024 cores (`multiprog_rung3.json`: an FFT,
+barriers, locks, a reader-writer) and the shipped rung-2 machine
+(`rung2_full.json`). Regenerate them (after a deliberate change of
 the simulated model) with:
     PYTHONPATH=. python tests/test_torch_rules.py --write-fixture [name ...]
 naming the full-width fixtures to rewrite, or none for all of them and
@@ -47,8 +51,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(primesim_tpu_torch.__file__)
 FIXTURE = os.path.join(PKG, "fixtures", "rung1_fft_small.json")
 FULL_WIDTH = ("headline", "rung3_headline", "rung4_full", "rung5_full",
-              "zoo_smoke", "ipu_full", "headline_moesi", "headline_faults")
-SMALL_WIDTH = ("zoo_smoke",)  # its JAX run is quick enough for tier 1
+              "zoo_smoke", "ipu_full", "headline_moesi", "headline_faults",
+              "multiprog_rung3", "rung2_full")
+SMALL_WIDTH = ("zoo_smoke", "rung2_full")  # JAX runs quick enough for tier 1
 RUNG1 = os.path.join(REPO, "configs", "rung1_64core_fft.json")
 
 
@@ -78,6 +83,16 @@ def test_import_leaves_jax_and_the_jax_package_out():
         timeout=120,
     )
     assert r.returncode == 0, r.stderr
+
+
+def test_the_rules_cover_every_module_of_the_port():
+    """The import and AST rules walk the whole package: the telemetry,
+    checkpoint and XML modules are among the modules they check."""
+    rel = {os.path.relpath(p, PKG) for p in _modules()}
+    for m in ("obs/__init__.py", "obs/metrics.py", "obs/recorder.py", "obs/trace.py",
+              "sim/checkpoint.py", "config/xml_compat.py", "cli.py"):
+        assert m in rel, m
+    assert not any(r.startswith("obs/prom") for r in rel)
 
 
 def test_no_module_of_the_port_imports_jax():
@@ -415,12 +430,25 @@ def _full_width(name):
     if isinstance(spec, str):
         with open(os.path.join(REPO, spec)) as f:
             spec = json.load(f)
-    tr = j_synth.GENERATORS[fx["trace"]["generator"]](**fx["trace"]["args"])
-    if fx["trace"].get("fold"):
-        tr = j_fold(tr)
-    eng = JEngine(JCfg.from_dict(spec), tr, chunk_steps=fx["chunk_steps"])
+    cfg = JCfg.from_dict(spec)
+    tr = jax_trace(fx["trace"], cfg.line_bits)
+    eng = JEngine(cfg, tr, chunk_steps=fx["chunk_steps"])
     eng.run()
     return fx, eng
+
+
+def jax_trace(spec, line_bits):
+    """The JAX package's trace of a fixture's trace spec: one generator's,
+    or the programs of {"multiplex": [spec, ...]} multiplexed into one
+    machine; folded after that when the spec says so."""
+    from primesim_tpu.trace.format import multiplex
+
+    if "multiplex" in spec:
+        tr = multiplex([j_synth.GENERATORS[p["generator"]](**p["args"])
+                        for p in spec["multiplex"]], line_bits=line_bits)
+    else:
+        tr = j_synth.GENERATORS[spec["generator"]](**spec["args"])
+    return j_fold(tr) if spec.get("fold") else tr
 
 
 def digest_of_jax_engine(eng) -> dict:
@@ -479,6 +507,24 @@ HEADLINE_FAULTS = {
     "fault_flip_l1": 1e-4, "fault_flip_llc": 1e-4, "fault_due_rate": 0.05,
     "fault_due_failstop": True, "fault_dead_policy": "writeback",
 }
+# four 256-core programs multiplexed into rung 3's 1024 cores (the
+# reference's multiprogrammed mode): an FFT, a barrier program, a lock
+# program and a reader-writer program; their locks and barriers go
+# through the router (router_cascade's barrier-arrival leg)
+MULTIPROG = {
+    "multiplex": [
+        {"generator": "fft_like", "args": {
+            "n_cores": 256, "n_phases": 4, "points_per_core": 256,
+            "ins_per_mem": 8, "seed": 42}},
+        {"generator": "barrier_phases", "args": {
+            "n_cores": 256, "n_phases": 4, "work_per_phase": 16, "seed": 42}},
+        {"generator": "lock_contention", "args": {
+            "n_cores": 256, "n_critical": 4, "n_locks": 8, "seed": 42}},
+        {"generator": "readers_writer", "args": {
+            "n_cores": 256, "n_rounds": 16, "seed": 42}},
+    ],
+    "fold": True,
+}
 FULL_WIDTH_SPECS = {
     "headline": (HEADLINE, _folded_fft(1024, 4, 256)),
     "rung3_headline": ("configs/rung3_1024core_o3.json", _folded_fft(1024, 4, 256)),
@@ -491,6 +537,9 @@ FULL_WIDTH_SPECS = {
                          work_per_phase=32, ins_per_mem=2)),
     "headline_moesi": ({**HEADLINE, "coherence": "moesi"}, _folded_fft(1024, 4, 256)),
     "headline_faults": (HEADLINE_FAULTS, _folded_fft(1024, 4, 256)),
+    "multiprog_rung3": ("configs/rung3_1024core_o3.json", MULTIPROG),
+    "rung2_full": ("configs/rung2_256core_parsec.json",
+                   _folded("fft_like", n_cores=256, n_phases=4, points_per_core=128)),
 }
 
 
@@ -511,8 +560,9 @@ def test_full_width_fixture_names_its_machine_and_trace(name):
         assert cfg.to_json() == JCfg.from_json(text).to_json()
     else:
         cfg = TCfg.from_dict(machine)
-    assert trace["args"]["n_cores"] == cfg.n_cores
-    assert trace["generator"] in t_synth.GENERATORS
+    programs = trace.get("multiplex", [trace])
+    assert sum(p["args"]["n_cores"] for p in programs) == cfg.n_cores
+    assert all(p["generator"] in t_synth.GENERATORS for p in programs)
     assert set(fx["digest"]) == {
         "steps", "instructions", "max_core_cycles", "cycles_sha256",
         "counters_sha256", "counter_sums", "link_free_sha256",
