@@ -80,11 +80,11 @@ the final line:
                 at the kill step and not after it. Rung 3's router machine
                 on fft_like(256, 4 phases, 32 points) with two failed
                 links and flip_llc 1e-3 (router_cascade once per step).
-5. capture   -- the first 512 steps (one chunk) of the headline machine
+5. capture   -- the first 320 steps (one chunk) of the headline machine
                 and of rung 3 on the card, each equal to the port's CPU run
                 of them in per-core cycles, all 26 counters and every state
                 field. Meanwhile the kernel inputs staged at steps 1 and 300
-                (headline) and 1 and 500 (rung 3's router_cascade) are kept;
+                (the headline's, and rung 3's router_cascade) are kept;
                 each kernel equals its plain version on them. Each kernel
                 is then timed alone on the later step's inputs, as the
                 engine passes them (every wrapper launches its kernel and
@@ -214,8 +214,48 @@ the final line:
                 of the three legs). Last, one chunk of that path with a
                 Recorder attached, under the sync debug mode: it must make
                 exactly one synchronising call (its one transfer).
+3b. kernels_batched -- each kernel with a leading batch axis, one launch for
+                B elements, against its batched plain version, exactly,
+                on random inputs as in phase 3, each element with its own
+                inputs, step number and link and router latencies
+                (FLEET_LATS): the three step kernels at the headline's
+                shapes with B = 8 (element B-1's last core homes at the
+                directory's last row; element 1 commits nothing; element
+                1 has no invalidating or evicting row), router_cascade at
+                rung 3's with B = 4, two legs and three (element 2 has no
+                live hop). Printed after phase 3.
+9. fleet_headline -- sim/fleet.py's FleetEngine on the headline machine,
+                B = 8, chunk_steps 512: seven elements on the headline
+                trace with their own timing overrides, one on a two-phase
+                trace of seed 43 that finishes chunks early and freezes
+                (fixtures/fleet_headline.json names them), run to
+                completion with the launch counts set to 0 just before:
+                each step kernel launched once per fleet step for the
+                whole batch, every element's digest equal to the
+                committed JAX one, element 0's equal to the solo
+                headline's, the short element finished first. Prints the
+                aggregate MIPS and the fleet's peak device memory.
+   fleet_rung3 -- the shipped rung 3, B = 4 (fixtures/fleet_rung3.json),
+                run to step 1024, checkpointed, freed, resumed in a fresh
+                fleet and run to the end; all four kernels once per fleet
+                step; digests as above (element 0: rung3_headline.json).
+   cli_sweep -- `python -m primesim_tpu_torch sweep` on rung 1 with three
+                --vary sets, one a duplicate, on the card and with
+                --device cpu side by side: the same lines but for wall
+                seconds and MIPS, the same dedup warning. Printed before
+                phase 8.
+   fleet_scaling -- after phase 8: the headline fleet's first B = 1, 4, 8
+                elements, 512 steps from step 0 in chunks of 64 (aggregate
+                MIPS), then a profiled 64-step window (events and busy
+                time a step); fleet_profile: the rung-3 fleet's window of
+                steps 256-319. Recorded, not gated.
+   fleet_kernels -- each batched kernel alone (CUDA events, its plain
+                version, a bound from the inputs) on the step after the
+                B = 8 window (step kernels) and after the rung-3 fleet's
+                window (router_cascade, B = 4), held to its plain version.
 
-Then the kernel summary line and, last, the result line
+Then the kernel summary line (each kernel's batched figures under
+"batched") and, last, the result line
 {"ok": true, "device": {...}}.
 """
 
@@ -263,10 +303,24 @@ KERNEL_MODES = {
 # argument positions of what a kernel updates in place: commit_step's l1,
 # dirm and counters, router_cascade's link_free_out
 INPLACE = {"commit_step": (0, 1, 9), "router_cascade": (12,)}
+# argument position of the core ids, which a batch of elements shares
+SHARED_ARG = {"probe_classify": 4, "commit_step": 7, "sharer_reductions": 6}
+# (link, router) latency of each element in the batched kernels phase:
+# eight for the headline's shapes, the first four at rung 3's
+FLEET_LATS = [(1, 1), (2, 2), (3, 1), (1, 3), (4, 2), (2, 5), (5, 1), (3, 3)]
+FLEET_RUNG3_B = 4
+# the fleet paths: the fleet step whose batched kernel inputs are staged
+# and timed (the first step after each profiled window), rung 3's
+# checkpoint step, and the steps of each fleet_scaling run
+FLEET_STAGE = {"fleet_headline": 576, "fleet_rung3": 320}
+FLEET_CUT = 1024
+FLEET_SCALE_STEPS = 512
 RUNG3_STAGED = ("router_cascade",)  # staged from rung 3, the rest from the headline
-CHECK_STEPS = 512  # steps of each main path that the CPU run repeats
+# steps of each main path that the CPU run repeats: one chunk holding the
+# staged steps 1 and 300
+CHECK_STEPS = 320
 PROF_REPS = 10  # profiled launches of each kernel alone
-CAPTURE = {"headline": (1, 300), "rung3": (1, 500)}
+CAPTURE = {"headline": (1, 300), "rung3": (1, 300)}
 # the full-geometry large-core paths and the zoo's main paths: (path,
 # fixture); the profile window of each but zoo_smoke covers steps 256-319
 # and their kernels are staged at the busiest of steps 320-383 (a "mode"
@@ -404,6 +458,7 @@ def main() -> int:
     from primesim_tpu_torch.faults import inject
     from primesim_tpu_torch.kernels import build, reductions, router_kernels, step_kernels
     from primesim_tpu_torch.sim.engine import Engine, group_tables, run_chunk
+    from primesim_tpu_torch.sim.fleet import FleetEngine
     from primesim_tpu_torch.trace.format import EV_BARRIER, EV_END
     from primesim_tpu_torch.sim.state import dirm_width, llc_meta_width
     from primesim_tpu_torch.stats.digest import run_digest
@@ -510,6 +565,14 @@ def main() -> int:
         return [a.clone() if i in INPLACE.get(name, ()) else a
                 for i, a in enumerate(args)]
 
+    def solo_args(name, args):
+        """A wrapper's arguments from a solo engine's batch-first step (a
+        batch of one) in the solo shapes, as views: the leading element
+        axis dropped from all but the shared core ids. The wrappers take
+        both shapes; the staging, timing and bounds below read solo ones."""
+        return [x[0] if torch.is_tensor(x) and i != SHARED_ARG.get(name) else x
+                for i, x in enumerate(args)]
+
     def outputs(fn, name, args, kw=None, mcfg=None):
         """fn on fresh clones: what it returns, then the tensors it
         updates in place."""
@@ -517,9 +580,12 @@ def main() -> int:
         out = call(fn, name, a, kw, mcfg)
         return list(out or ()) + [a[i] for i in INPLACE.get(name, ())]
 
-    def compare(name, args, kw=None, mcfg=None):
+    def compare(name, args, kw=None, mcfg=None, errs=None):
         """The kernel (through its wrapper) against the plain version on
-        the same card tensors; returns the kernel's outputs."""
+        the same card tensors; returns the kernel's outputs. The largest
+        difference goes to `errs` (the solo record `max_err` unless a
+        batched phase names its own)."""
+        errs = max_err if errs is None else errs
         got = outputs(wrappers[name], name, args, kw, mcfg)
         want = outputs(plains[name], name, args, kw, mcfg)
         torch.cuda.synchronize()
@@ -529,7 +595,7 @@ def main() -> int:
                 fail(f"{name}: the kernel and its plain version return different outputs")
             if g is not None and not torch.equal(g, w):
                 err = max(err, int((g.to(torch.int64) - w.to(torch.int64)).abs().max()))
-        max_err[name] = max(max_err[name], err)
+        errs[name] = max(errs[name], err)
         if err != 0:
             fail(f"{name}: kernel differs from its plain version by {err}")
         return got
@@ -543,91 +609,114 @@ def main() -> int:
     def words(shape):  # random 32-bit words, about half with bit 31 set
         return rng.integers(0, 2**32, shape, dtype=np.uint64).astype(np.uint32).view(np.int32)
 
-    def step_kernels_random(mcfg):
-        """probe_classify, then commit_step on its outputs, on random
-        inputs at mcfg's shapes: the full-size directory, zero but for a
-        pool of random rows (the last row among them) that the pointers
-        and home slots name; the home slots come from 256 of them, so
-        rows are shared. Returns the live group-bit copies whose
-        fill-time epoch differs from their entry's (0 on a full map) and
-        the GETS-probe winners whose row's old sharer words hold bit 31
-        (MOESI keeps those bits)."""
+    def probe_np(mcfg, g):
+        """Random probe inputs at mcfg's shapes, as numpy, from generator
+        `g`: a pool of random directory rows (the last row among them)
+        that the pointers and home slots name, the home slots from 256 of
+        them, so rows are shared. Also the live group-bit copies whose
+        fill-time epoch differs from their entry's (0 on a full map)."""
         C, S1, W1 = mcfg.n_cores, mcfg.l1.sets, mcfg.l1.ways
         W2, NW = mcfg.llc.ways, mcfg.n_sharer_words
         MW, DW, FS = llc_meta_width(mcfg), dirm_width(mcfg), W1 * S1
         NS, rl = mcfg.n_banks * mcfg.llc.sets, mcfg.local_run_len
         n_lines = 6
-        pool = np.append(rng.choice(NS - 1, 8191, replace=False), NS - 1)
-        prow = rng.integers(0, len(pool), (C, W1))
-        ptr = pool[prow] * W2 + rng.integers(0, W2, (C, W1))
-        slot = pool[rng.integers(len(pool) - 256, len(pool), C)]
-        line = rng.integers(0, n_lines, C)
+        pool = np.append(g.choice(NS - 1, min(8191, NS - 1), replace=False), NS - 1)
+        prow = g.integers(0, len(pool), (C, W1))
+        ptr = pool[prow] * W2 + g.integers(0, W2, (C, W1))
+        slot = pool[g.integers(len(pool) - 256, len(pool), C)]
+        line = g.integers(0, n_lines, C)
         cols = np.arange(W1)[None, :] * S1 + (line & (S1 - 1))[:, None]
         l1 = np.concatenate([
-            rng.integers(-1, n_lines, (C, FS)), rng.integers(0, 4, (C, FS)),
-            rng.integers(0, 4, (C, FS)), rng.integers(0, NS * W2, (C, FS)),
-            rng.integers(0, 3, (C, FS)),
+            g.integers(-1, n_lines, (C, FS)), g.integers(0, 4, (C, FS)),
+            g.integers(0, 4, (C, FS)), g.integers(0, NS * W2, (C, FS)),
+            g.integers(0, 3, (C, FS)),
         ], axis=1)
         l1[np.arange(C)[:, None], 3 * FS + cols] = ptr
         rows = np.zeros((len(pool), DW), np.int64)
-        rows[:, 0 : 2 * W2 : 2] = rng.integers(-1, n_lines, (len(pool), W2))
-        rows[:, 1 : 2 * W2 : 2] = rng.integers(-1, C, (len(pool), W2))
-        rows[:, 2 * W2 : 4 * W2] = rng.integers(0, 3, (len(pool), 2 * W2))
-        rows[:, MW:] = words((len(pool), W2 * NW))
+        rows[:, 0 : 2 * W2 : 2] = g.integers(-1, n_lines, (len(pool), W2))
+        rows[:, 1 : 2 * W2 : 2] = g.integers(-1, C, (len(pool), W2))
+        rows[:, 2 * W2 : 4 * W2] = g.integers(0, 3, (len(pool), 2 * W2))
+        rows[:, MW:] = g.integers(0, 2**32, (len(pool), W2 * NW),
+                                  dtype=np.uint64).astype(np.uint32).view(np.int32)
         at = {r: i for i, r in enumerate(pool)}
-        cc, ww = np.nonzero(rng.random((C, W1)) < 0.5)  # live copies, a third owned
+        cc, ww = np.nonzero(g.random((C, W1)) < 0.5)  # live copies, a third owned
         for c, w in zip(cc, ww):
             i, pway = at[ptr[c, w] // W2], ptr[c, w] % W2
             rows[i, 2 * pway] = l1[c, cols[c, w]]
-            if rng.random() < 0.3:
+            if g.random() < 0.3:
                 rows[i, 2 * pway + 1] = c
         mismatched = 0
         if mcfg.sharer_group > 1:  # group-bit copies whose epoch moved on
             i = np.vectorize(at.get)(ptr // W2)
             pway = ptr % W2
-            g = (np.arange(C) >> (mcfg.sharer_group.bit_length() - 1))[:, None]
-            word = rows[i, MW + pway * NW + (g >> 5)] & 0xFFFFFFFF
+            gr = (np.arange(C) >> (mcfg.sharer_group.bit_length() - 1))[:, None]
+            word = rows[i, MW + pway * NW + (gr >> 5)] & 0xFFFFFFFF
             rc = np.arange(C)[:, None]
             mismatched = int((
                 (l1[rc, FS + cols] != 0) & (rows[i, 2 * pway] == l1[rc, cols])
-                & (rows[i, 2 * pway + 1] != rc) & (((word >> (g & 31)) & 1) != 0)
+                & (rows[i, 2 * pway + 1] != rc) & (((word >> (gr & 31)) & 1) != 0)
                 & (rows[i, 3 * W2 + pway] != l1[rc, 4 * FS + cols])
             ).sum())
-            if not mismatched:
-                fail("kernels: no group-bit copy meets a changed epoch")
+        run_cols = np.where(g.random((C, rl)) < 0.5,
+                            g.integers(0, W1, (C, rl)) * S1 + (line & (S1 - 1))[:, None],
+                            g.integers(0, FS, (C, rl)))
+        hm, wm = g.random((C, rl)) < 0.5, g.random((C, rl)) < 0.5
+        return dict(l1=l1, pool=pool, rows=rows, slot=slot, line=line,
+                    run_cols=run_cols, hm=hm, wm=wm, mismatched=mismatched)
+
+    def commit_np(mcfg, g, p, pc_lanes):
+        """Random commit lanes for a probe's inputs `p` and output lanes,
+        then a random L1, counters and counter deltas (the full int32
+        range: the fold must wrap)."""
+        C, W1, FS = mcfg.n_cores, mcfg.l1.ways, mcfg.l1.ways * mcfg.l1.sets
+        flags = g.integers(0, 2, (C, 18))
+        lanes = np.stack([
+            p["line"], g.integers(0, W1, C), g.integers(0, W1, C), *flags[:, 3:9].T,
+            g.integers(0, 4, C), p["slot"], pc_lanes[:, step_kernels.PL_LLC_HWAY],
+            pc_lanes[:, step_kernels.PL_LLC_VWAY], *flags[:, 13:17].T,
+            g.integers(0, C, C),
+        ], axis=1)
+        l1 = g.integers(-5, 50, (C, 5 * FS))
+        counters = g.integers(-(2**31), 2**31, (26, C), dtype=np.int64)
+        return lanes, l1, counters, g.integers(0, 2**30, (26, C))
+
+    def probe_bit31(lanes, shw):
+        """GETS-probe winners whose row's old sharer words hold bit 31
+        (MOESI keeps those bits)."""
+        old_bit31 = (shw < 0).any(-1).cpu().numpy()
+        return int((
+            (lanes[..., step_kernels.CL_WINNER] != 0) & (lanes[..., step_kernels.CL_LLC_HIT] != 0)
+            & (lanes[..., step_kernels.CL_GETS_PROBE] != 0) & old_bit31).sum())
+
+    def step_kernels_random(mcfg):
+        """probe_classify, then commit_step on its outputs, on random
+        inputs at mcfg's shapes (`probe_np`, `commit_np`): the full-size
+        directory, zero but for the pool. Returns the live group-bit
+        copies whose fill-time epoch differs from their entry's (0 on a
+        full map) and the GETS-probe winners whose row's old sharer words
+        hold bit 31."""
+        NS, DW = mcfg.n_banks * mcfg.llc.sets, dirm_width(mcfg)
+        p = probe_np(mcfg, rng)
+        if mcfg.sharer_group > 1 and not p["mismatched"]:
+            fail("kernels: no group-bit copy meets a changed epoch")
         dirm = torch.zeros(NS, DW, dtype=torch.int32, device=dev)
-        dirm[torch.from_numpy(pool).to(dev)] = cu(rows)
-        run_cols = np.where(rng.random((C, rl)) < 0.5,
-                            rng.integers(0, W1, (C, rl)) * S1 + (line & (S1 - 1))[:, None],
-                            rng.integers(0, FS, (C, rl)))
-        patch = [torch.from_numpy(rng.random((C, rl)) < 0.5).to(dev),
-                 torch.from_numpy(rng.random((C, rl)) < 0.5).to(dev), cu(run_cols)]
-        cid = cu(np.arange(C))
+        dirm[torch.from_numpy(p["pool"]).to(dev)] = cu(p["rows"])
+        patch = [torch.from_numpy(p["hm"]).to(dev), torch.from_numpy(p["wm"]).to(dev),
+                 cu(p["run_cols"])]
+        cid = cu(np.arange(mcfg.n_cores))
         step_no = torch.tensor(777, dtype=torch.int32, device=dev)
         pc_out = compare("probe_classify", [
-            cu(l1), dirm, cu(slot), cu(line), cid, step_no, *patch,
+            cu(p["l1"]), dirm, cu(p["slot"]), cu(p["line"]), cid, step_no, *patch,
         ], mcfg=mcfg)
-        pc_lanes = pc_out[5].cpu().numpy()
-        flags = rng.integers(0, 2, (C, 18))
-        lanes = np.stack([
-            line, rng.integers(0, W1, C), rng.integers(0, W1, C), *flags[:, 3:9].T,
-            rng.integers(0, 4, C), slot, pc_lanes[:, step_kernels.PL_LLC_HWAY],
-            pc_lanes[:, step_kernels.PL_LLC_VWAY], *flags[:, 13:17].T,
-            rng.integers(0, C, C),
-        ], axis=1)
+        lanes, l1, counters, delta = commit_np(mcfg, rng, p, pc_out[5].cpu().numpy())
         compare("commit_step", [
-            cu(rng.integers(-5, 50, (C, 5 * FS))), dirm, pc_out[0], pc_out[3],
-            pc_out[4], cu(lanes), pc_out[5], cid, step_no,
-            cu(rng.integers(-(2**31), 2**31, (26, C), dtype=np.int64)),
-            cu(rng.integers(0, 2**30, (26, C))), *patch,
+            cu(l1), dirm, pc_out[0], pc_out[3], pc_out[4], cu(lanes), pc_out[5], cid,
+            step_no, cu(counters), cu(delta), *patch,
         ], mcfg=mcfg)
-        old_bit31 = (pc_out[3] < 0).any(1).cpu().numpy()
-        probe_bit31 = int((
-            (lanes[:, step_kernels.CL_WINNER] != 0) & (lanes[:, step_kernels.CL_LLC_HIT] != 0)
-            & (lanes[:, step_kernels.CL_GETS_PROBE] != 0) & old_bit31).sum())
+        bit31 = probe_bit31(lanes, pc_out[3])
         del dirm, pc_out
         torch.cuda.empty_cache()
-        return mismatched, probe_bit31
+        return p["mismatched"], bit31
 
     step_kernels_random(cfg)
     epoch_mismatches = step_kernels_random(cfg5)[0]  # 64-core groups, epochs
@@ -744,6 +833,63 @@ def main() -> int:
                 "ring": {"C": 40, "grid": [5, 3]},
                 "torus_group": {"C": 256, "G": 4, "grid": [16, 16]}}},
         "traces_s": traces_s, "max_abs_err": max_err})
+
+    # ---- 3b. the kernels batched: one launch for B elements of one
+    # geometry, each with its own inputs and latency knobs, against the
+    # batched plain versions; element B-1's last core homes at the last
+    # directory row, and one element has no active row
+    rng_b = np.random.default_rng(2029)
+    max_err_b = {k: 0 for k in wrappers}
+    FB = len(FLEET_LATS)
+
+    def lat_pair(n):  # each element's own link and router latency, [n] each
+        lat = np.asarray(FLEET_LATS[:n], np.int32)
+        return cu(lat[:, 0]), cu(lat[:, 1])
+
+    NSh = cfg.n_banks * cfg.llc.sets
+    ps = [probe_np(cfg, rng_b) for _ in range(FB)]
+    ps[-1]["slot"][-1] = NSh - 1
+    dirm_b = torch.zeros(FB, NSh, DW, dtype=torch.int32, device=dev)
+    for b, p in enumerate(ps):
+        dirm_b[b, torch.from_numpy(p["pool"]).to(dev)] = cu(p["rows"])
+
+    def stacked(key):
+        return cu(np.stack([p[key] for p in ps]))
+
+    patch_b = [torch.from_numpy(np.stack([p[k] for p in ps])).to(dev) for k in ("hm", "wm")]
+    patch_b.append(stacked("run_cols"))
+    cid_h = cu(np.arange(C))
+    steps_b = cu(rng_b.integers(0, 5000, FB))
+    pc_b = compare("probe_classify", [stacked("l1"), dirm_b, stacked("slot"), stacked("line"),
+                                      cid_h, steps_b, *patch_b], errs=max_err_b)
+    cm = [commit_np(cfg, rng_b, p, pc_b[5][b].cpu().numpy()) for b, p in enumerate(ps)]
+    lanes_b = np.stack([c[0] for c in cm])
+    lanes_b[1, :, [step_kernels.CL_WINNER, step_kernels.CL_JOIN]] = 0  # nothing commits
+    compare("commit_step", [
+        cu(np.stack([c[1] for c in cm])), dirm_b, pc_b[0], pc_b[3], pc_b[4], cu(lanes_b),
+        pc_b[5], cid_h, steps_b, cu(np.stack([c[2] for c in cm])),
+        cu(np.stack([c[3] for c in cm])), *patch_b], errs=max_err_b)
+    del dirm_b, pc_b, ps, cm
+    torch.cuda.empty_cache()
+    sh_b = [sharer_args(cfg) for _ in range(FB)]
+    sh_b = [torch.stack([a[i] for a in sh_b]) for i in range(6)] + [cid_h, *lat_pair(FB)]
+    sh_b[4][1], sh_b[5][1] = False, False  # an element with no active row
+    compare("sharer_reductions", sh_b, errs=max_err_b)
+    del sh_b
+    router_b = {}
+    for has_sync in (False, True):
+        ra = [router_args(C, H3, 4 * cfg3.n_tiles, has_sync) for _ in range(FLEET_RUNG3_B)]
+        ra = [torch.stack([a[i] for a in ra]) if ra[0][i] is not None else None
+              for i in range(13)]
+        ra[10], ra[11] = lat_pair(FLEET_RUNG3_B)
+        ra[3][2] = False  # an element with no live hop
+        compare("router_cascade", ra, {"has_sync": has_sync}, errs=max_err_b)
+        router_b[3 if has_sync else 2] = int(ra[3].sum())
+    emit({"phase": "kernels_batched", "inputs": "random", "B": {
+        "probe_classify": FB, "commit_step": FB, "sharer_reductions": FB,
+        "router_cascade": FLEET_RUNG3_B},
+        "latencies": FLEET_LATS, "shapes": {"C": C, "NS": NSh, "DW": DW, "H": H3},
+        "router_live_hops": router_b, "max_abs_err": max_err_b})
 
     # ---- 4. rung 1: card == CPU == JAX fixture
     with open(os.path.join(ROOT, "primesim_tpu_torch", "fixtures",
@@ -971,7 +1117,7 @@ def main() -> int:
 
         def rec(*args, **kw):
             if calls[0] in steps:
-                a = args[1:] if name in STEP_KERNELS else args
+                a = solo_args(name, args[1:] if name in STEP_KERNELS else args)
                 staged[name][calls[0]] = (
                     [x.clone() if torch.is_tensor(x) else x for x in a], kw)
             calls[0] += 1
@@ -1006,6 +1152,15 @@ def main() -> int:
 
     captured = {k: staged[k][timed_step[k]] for k in wrappers}
 
+    def dirm_rows(a):
+        """The directory rows commit_step may change (its lanes' slots) as
+        rows of the directory viewed [B*NS, DW] (a solo [NS, DW] is B = 1)."""
+        lanes, NS = a[5], a[1].shape[-2]
+        slot = lanes[..., step_kernels.CL_SLOT].long()
+        if lanes.dim() == 3:  # batched: element b's rows start at b*NS
+            slot = slot + torch.arange(lanes.shape[0], device=dev)[:, None] * NS
+        return torch.unique(slot.flatten())
+
     def timed_call(k, args, kw, mcfg=None):
         """(launch, prep): one wrapper call on a step's staged inputs, and
         what restores the tensors it updates in place beforehand (outside
@@ -1015,9 +1170,12 @@ def main() -> int:
         work = fresh(k, args)
         pairs = []
         for i in INPLACE.get(k, ()):
-            rows = (torch.unique(args[5][:, step_kernels.CL_SLOT]).long()
-                    if (k, i) == ("commit_step", 1) else None)
-            pairs.append((work[i], rows, args[i] if rows is None else args[i][rows]))
+            if (k, i) == ("commit_step", 1):
+                rows = dirm_rows(args)
+                flat = work[i].view(-1, work[i].shape[-1])
+                pairs.append((flat, rows, flat[rows].clone()))
+            else:
+                pairs.append((work[i], None, args[i]))
 
         def prep():
             for w, rows, src in pairs:
@@ -1090,10 +1248,12 @@ def main() -> int:
     def nbytes(*ts):
         return sum(t.numel() * t.element_size() for t in ts if torch.is_tensor(t))
 
+
     # the bytes each function needs on a step's inputs, as the main path
     # stages them: every word it reads, once, and every output word, once
     def probe_bound(a, mcfg):  # l1 dirm slot line cid step hm wm cm
-        C, W1, W2, NW = mcfg.n_cores, mcfg.l1.ways, mcfg.llc.ways, mcfg.n_sharer_words
+        # C counts the lanes of every element: B*C for a batch
+        C, W1, W2, NW = a[2].numel(), mcfg.l1.ways, mcfg.llc.ways, mcfg.n_sharer_words
         coarse = mcfg.sharer_group > 1
         b = (4 * C * (4 * W1  # tag, state, LRU, pointer: the accessed set's ways
                       + 3 * W1  # tag, owner, own sharer word at each way's pointer
@@ -1109,15 +1269,16 @@ def main() -> int:
         directory words come from the probe's lanes), the counters in and
         out with the delta, the lanes and the probe outputs it reads."""
         # l1 dirm tag shw vic_shw lanes pc cid step counters delta hm wm cm
-        C, NW = mcfg.n_cores, mcfg.n_sharer_words
+        C, NW = a[5][..., 0].numel(), mcfg.n_sharer_words  # lanes of every element
         new_l1, new_dirm, _ = outputs(wrappers["commit_step"], "commit_step", a, mcfg=mcfg)
-        rows = torch.unique(a[5][:, step_kernels.CL_SLOT]).long()  # all it may change
+        rows = dirm_rows(a)  # all it may change
+        DW = a[1].shape[-1]
         l1_words = int((new_l1 != a[0]).sum())
-        dirm_words = int((new_dirm[rows] != a[1][rows]).sum())
+        dirm_words = int((new_dirm.view(-1, DW)[rows] != a[1].view(-1, DW)[rows]).sum())
         del new_l1, new_dirm
-        win = a[5][:, step_kernels.CL_WINNER] != 0
+        win = a[5][..., step_kernels.CL_WINNER] != 0
         n_win = int(win.sum())
-        n_join = int(((a[5][:, step_kernels.CL_JOIN] != 0) & ~win).sum())
+        n_join = int(((a[5][..., step_kernels.CL_JOIN] != 0) & ~win).sum())
         b = (4 * (l1_words + dirm_words)
              + 3 * nbytes(a[9])  # counters in and out, delta in
              + nbytes(a[2], a[5], *a[7:9], *a[11:])  # tag rows, lanes, cid, step, patch
@@ -1128,7 +1289,7 @@ def main() -> int:
 
     def set_bits(words, rows, n_bits):
         """[rows, 32*NW] bool: the set bits below n_bits of the rows' words."""
-        t = torch.arange(32 * words.shape[1], device=dev)
+        t = torch.arange(32 * words.shape[-1], device=dev)
         bits = ((words[rows][:, t >> 5] >> (t & 31)) & 1) != 0
         return bits & (t < n_bits)
 
@@ -1139,7 +1300,7 @@ def main() -> int:
         and the home tile's max and summed hops, each distinct word
         once)."""
         # shw vic_shw btile vic_owner inv_row vic_valid cid link router
-        C, NW = mcfg.n_cores, mcfg.n_sharer_words
+        C, NW = mcfg.n_cores, mcfg.n_sharer_words  # C: each element's cores
         irow, vv = a[4], a[5]  # bool
         n_inv, n_vic = int(irow.sum()), int(vv.sum())
         active_rows = int((irow | vv).sum())
@@ -1151,7 +1312,7 @@ def main() -> int:
         b = (nbytes(a[4], a[5], a[7], a[8])  # both flag bytes of every row, two latencies
              + 4 * 3 * active_rows  # btile, vic_owner, cid of the active rows
              + 4 * NW * (n_inv + n_vic)  # the sharer words of those rows
-             + 4 * 5 * C)  # the five outputs
+             + 4 * 5 * irow.numel())  # the five outputs
         info = {"active": active_rows, "invalidating": n_inv, "evicting": n_vic,
                 "invalidation_bits": inv_bits, "back_invalidation_bits": back_bits}
         if coarse:
@@ -1199,18 +1360,19 @@ def main() -> int:
         on staged inputs: the live hops' route, clock, base, rank and
         departure, every hop's mask byte, the per-core words."""
         # lf base pth ok r t0 service hops x3 link router out
-        n, legs = a[3].shape[0], 3 if kw["has_sync"] else 2
-        n_ok = int(a[3].sum())
-        b = (a[3].numel()  # every hop's mask byte
+        ok = a[3].reshape(-1, a[3].shape[-1])  # the lanes of every element
+        n, legs = ok.shape[0], 3 if kw["has_sync"] else 2
+        n_ok = int(ok.sum())
+        b = (ok.numel()  # every hop's mask byte
              + 4 * 4 * n_ok  # route, link clock, base and rank of the live hops
              + 8 * n_ok  # read-modify-write of each live hop's departure
-             + 4 * n * (2 + legs) + 8  # t0, service, each leg's hops, two latencies
+             + 4 * n * (2 + legs) + nbytes(a[10], a[11])  # t0, service, hops, latencies
              + 4 * n * (legs - 1))  # the reply (and arrival) leg's end out
         # floor 4, offset 2, running max 1, departure 4 per live hop; the
         # masked hops' SENT offsets and running max, 2 each
-        ops = 11 * n_ok + 2 * (a[3].numel() - n_ok)
-        info = {"legs": legs, "live": n_ok, "all": a[3].numel(), "ops": ops,
-                "live_by_leg": [int(x) for x in a[3].view(n, legs, -1).sum((0, 2))]}
+        ops = 11 * n_ok + 2 * (ok.numel() - n_ok)
+        info = {"legs": legs, "live": n_ok, "all": ok.numel(), "ops": ops,
+                "live_by_leg": [int(x) for x in ok.view(n, legs, -1).sum((0, 2))]}
         return max((b / HBM_BYTES_PER_S * 1e3, "bytes"),
                    (ops / INT_OPS_PER_S * 1e3, "operations")), info, b
 
@@ -1458,6 +1620,145 @@ def main() -> int:
     finally:
         shutil.rmtree(mp_dir, ignore_errors=True)
 
+    # ---- 9. the fleet (FleetEngine): B elements of one geometry through
+    # one set of launches a step. fleet_headline: the headline machine,
+    # B = 8 with its own overrides per element, one element on a shorter
+    # trace that freezes early; fleet_rung3: rung 3, B = 4, checkpointed
+    # at FLEET_CUT and resumed in a fresh fleet. Each element's digest
+    # against the committed JAX one, element 0 against the solo path's.
+    def fleet_fixture(name):
+        with open(os.path.join(ROOT, "primesim_tpu_torch", "fixtures", f"{name}.json")) as f:
+            ffx = json.load(f)
+        spec = ffx["config"]
+        if isinstance(spec, str):
+            with open(os.path.join(ROOT, spec)) as f:
+                spec = json.load(f)
+        made = {json.dumps(hfx["trace"], sort_keys=True): trace}  # the headline trace, made once
+        trs = []
+        for e in ffx["elements"]:
+            key = json.dumps(e["trace"], sort_keys=True)
+            if key not in made:
+                ts = e["trace"]
+                tr = synth.GENERATORS[ts["generator"]](**ts["args"])
+                made[key] = fold_ins(tr) if ts.get("fold") else tr
+            trs.append(made[key])
+        return ffx, MachineConfig.from_dict(spec), trs, [e["overrides"] for e in ffx["elements"]]
+
+    def stage_batched(names, step, store):
+        """Wrap the kernels `names` so that the `step`-th call of each
+        keeps clones of its (batched) arguments in `store`; returns the
+        undo."""
+        for k in names:
+            real, calls = wrappers[k], [0]
+
+            def rec(*args, _k=k, _real=real, _calls=calls, **kw):
+                if _calls[0] == step:
+                    a = args[1:] if _k in STEP_KERNELS else args
+                    store[_k] = ([x.clone() if torch.is_tensor(x) else x for x in a], kw)
+                _calls[0] += 1
+                return _real(*args, **kw)
+            setattr(mods[k], k, rec)
+        return lambda: [setattr(mods[k], k, wrappers[k]) for k in names]
+
+    fleet_staged, fleet_launches, fleet_lines = {}, {}, {}
+    for path, fname, solo_fx, ran, cut in (
+            ("fleet_headline", "fleet_headline", hfx, STEP_KERNELS, None),
+            ("fleet_rung3", "fleet_rung3", r3fx, tuple(wrappers), FLEET_CUT)):
+        ffx, fcfg, ftrs, fovs = fleet_fixture(fname)
+        ck = os.path.join(tempfile.gettempdir(), f"chip_smoke_{os.getpid()}_{path}.npz")
+        held = torch.cuda.memory_allocated()
+        fl = FleetEngine(fcfg, ftrs, fovs, chunk_steps=ffx["chunk_steps"], device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        ck_info = {}
+        t0 = time.perf_counter()
+        try:
+            if cut is None:
+                fl.run()
+            else:
+                fl.run_steps(cut)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                fl.save_checkpoint(ck)
+                t2 = time.perf_counter()
+                del fl
+                torch.cuda.empty_cache()
+                fl = FleetEngine(fcfg, ftrs, fovs, chunk_steps=ffx["chunk_steps"], device=dev)
+                fl.load_checkpoint(ck)
+                torch.cuda.synchronize()
+                t3 = time.perf_counter()
+                if list(fl.steps_run) != [cut] * fl.n_elements:
+                    fail(f"{path}: resumed at steps {list(fl.steps_run)}, not {cut}")
+                ck_info = {"checkpoint_step": cut, "checkpoint_bytes": os.path.getsize(ck),
+                           "save_s": t2 - t1, "load_s": t3 - t2}
+                fl.run()
+            torch.cuda.synchronize()
+        finally:
+            if os.path.exists(ck):
+                os.unlink(ck)
+        wall = time.perf_counter() - t0 - ck_info.get("save_s", 0) - ck_info.get("load_s", 0)
+        fleet_launches[path] = dict(build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() - held
+        steps = int(fl.steps_run.max())
+        cnt, cyc = fl.counters, fl.cycles
+        got = [run_digest(fl.steps_run[i], cyc[i], {k: v[i] for k, v in cnt.items()},
+                          fl.state.link_free[i].cpu().numpy(), fl.state.dram_free[i].cpu().numpy())
+               for i in range(fl.n_elements)]
+        ins = sum(g["instructions"] for g in got)
+        same = [g == e["digest"] for g, e in zip(got, ffx["elements"])]
+        fleet_lines[path] = {
+            "phase": path, "B": fl.n_elements, "steps": steps,
+            "steps_by_element": fl.steps_run.tolist(), "wall_s": wall,
+            "aggregate_mips": ins / wall / 1e6, "instructions": ins,
+            "launches": fleet_launches[path],
+            "launches_per_step": {k: n / steps for k, n in fleet_launches[path].items()},
+            "peak_memory_bytes": peak, **ck_info,
+            "max_core_cycles": [g["max_core_cycles"] for g in got],
+            "equals_jax_digest": same, "element0_equals_solo": got[0] == solo_fx["digest"],
+            "gpu": smi_line}
+        emit(fleet_lines[path])
+        del fl
+        torch.cuda.empty_cache()
+        for k, n in fleet_launches[path].items():
+            if n != (steps if k in ran else 0):
+                fail(f"{path}: {k} launched {n} times in {steps} fleet steps")
+        for i, (g, e) in enumerate(zip(got, ffx["elements"])):
+            for k, want in e["digest"].items():
+                if g[k] != want:
+                    fail(f"{path}: element {i} {k} {g[k]} != the JAX package's {want}")
+        if got[0] != solo_fx["digest"]:
+            fail(f"{path}: element 0 differs from the solo path's digest")
+        if path == "fleet_headline" and not max(fl_s := [g["steps"] for g in got]) > fl_s[-1]:
+            fail(f"{path}: the short element finished with the others ({fl_s})")
+
+    # ---- cli_sweep: `sweep` on rung 1 with three --vary sets, one a
+    # duplicate, on the card and on the CPU side by side: the same lines
+    # but for wall seconds and MIPS, the same dedup warning
+    res = cli_side_by_side(["sweep", "configs/rung1_64core_fft.json", "--synth",
+                            "fft_like:n_phases=2", "--fold", "--vary", "llc_lat=20",
+                            "--vary", "link_lat=2,router_lat=3", "--vary", "llc_lat=20"])
+
+    def sweep_lines(out):
+        lines = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+        for ln in lines:
+            if ln.get("unit") == "MIPS":
+                ln.pop("value")
+            ln["detail"].pop("wall_s", None)
+        return lines
+
+    swl = {d: sweep_lines(r[1]) for d, r in res.items()}
+    warn = {d: [ln for ln in r[2].splitlines() if "WARNING" in ln] for d, r in res.items()}
+    emit({"phase": "cli_sweep", "returncodes": {d: r[0] for d, r in res.items()},
+          "lines": len(swl["cuda"]), "card_equals_cpu": swl["cuda"] == swl["cpu"],
+          "dedup_warning": warn["cuda"],
+          "max_core_cycles": [ln["detail"].get("max_core_cycles") for ln in swl["cuda"]]})
+    if any(r[0] != 0 for r in res.values()):
+        fail(f"cli_sweep: exit codes {[r[0] for r in res.values()]}: {res['cuda'][2][-500:]}")
+    if swl["cuda"] != swl["cpu"] or len(swl["cuda"]) != 4 or warn["cuda"] != warn["cpu"] \
+            or not warn["cuda"]:
+        fail(f"cli_sweep: card {swl['cuda']} != CPU {swl['cpu']} (warnings {warn})")
+
     # ---- 8. profile. First the profiler's device time per launch of the
     # calls phase 5 timed, in the process's first profiler session (none
     # precedes the main paths' timing), each on inputs of its own (fresh
@@ -1504,28 +1805,30 @@ def main() -> int:
         def grab(memo, x):
             if not torch.is_tensor(x):
                 return x
-            if id(x) not in memo:
-                memo[id(x)] = (x, x.clone())  # the original keeps its id
-            return memo[id(x)][1]
+            key = (x.untyped_storage().data_ptr(), x.storage_offset(), x.shape)
+            if key not in memo:  # the views of one batch of one share a key
+                memo[key] = (x, x.clone())  # the original keeps its storage
+            return memo[key][1]
 
         def recorder(name):
             real = wrappers[name]
 
             def rec(mcfg, *args, **kw):
+                a = solo_args(name, args)
                 if name == "probe_classify":
-                    cur.update(step=cur["step"] + 1, probe=(args, kw), take=False)
+                    cur.update(step=cur["step"] + 1, probe=(a, kw), take=False)
                 elif name == "sharer_reductions":
-                    rows = int((args[4] | args[5]).sum())  # a sync: staging only
+                    rows = int((a[4] | a[5]).sum())  # a sync: staging only
                     if rows > best["rows"]:
                         memo = {}
                         best.clear()
                         best.update(rows=rows, step=cur["step"], memo=memo, got={
-                            k: ([grab(memo, x) for x in a], kw_)
-                            for k, (a, kw_) in (("probe_classify", cur["probe"]),
-                                                (name, (args, kw)))})
+                            k: ([grab(memo, x) for x in a_], kw_)
+                            for k, (a_, kw_) in (("probe_classify", cur["probe"]),
+                                                 (name, (a, kw)))})
                         cur["take"] = True
                 elif cur["take"]:  # commit_step of the step just kept
-                    best["got"][name] = ([grab(best["memo"], x) for x in args], kw)
+                    best["got"][name] = ([grab(best["memo"], x) for x in a], kw)
                 return real(mcfg, *args, **kw)
             return rec
 
@@ -1597,11 +1900,12 @@ def main() -> int:
 
         def rec(*args, **kw):
             if kw.get("has_sync"):
-                ok = args[3]
+                a = solo_args("router_cascade", args)
+                ok = a[3]
                 live = int(ok.reshape(ok.shape[0], 3, -1)[:, 2].sum())  # a sync: staging only
                 if live > best["hops"]:
                     best.update(hops=live, step=calls[0], args=[
-                        x.clone() if torch.is_tensor(x) else x for x in args], kw=dict(kw))
+                        x.clone() if torch.is_tensor(x) else x for x in a], kw=dict(kw))
             calls[0] += 1
             return real(*args, **kw)
 
@@ -1721,6 +2025,93 @@ def main() -> int:
         del eng
         mode_line(path, mcfg, staged, n_launch)
 
+    # ---- fleet_scaling: the headline fleet's first B elements, B = 1, 4
+    # and 8, from step 0 for FLEET_SCALE_STEPS steps in chunks of 64
+    # (aggregate MIPS over that wall), then a profiled 64-step window
+    # (device events and busy time a step); and a window of the rung-3
+    # fleet (B = 4) from step 256. Recorded, not gated. The step after each
+    # window (B = 8; rung 3) stages the batched kernels' inputs, and each
+    # kernel is timed alone on them (fleet_kernels).
+    ffx, fcfg, ftrs, fovs = fleet_fixture("fleet_headline")
+    scaling = {}
+
+    def fleet_window(fl, n_steps=64):
+        dev_ev, window_s, top_ops = device_events(lambda: fl.run_steps(n_steps))
+        busy_us, end = 0.0, None
+        for a0, b0, _ in dev_ev:  # union of device intervals
+            if end is None or a0 > end:
+                busy_us += b0 - a0
+                end = b0
+            elif b0 > end:
+                busy_us += b0 - end
+                end = b0
+        return {"window_steps": n_steps, "window_s": window_s,
+                "device_events_per_step": len(dev_ev) / n_steps,
+                "device_busy_ms_per_step": busy_us / 1e3 / n_steps,
+                "device_busy_share_of_window": busy_us * 1e-6 / window_s if dev_ev else None}
+
+    for B in (1, 4, 8):
+        fl = FleetEngine(fcfg, ftrs[:B], fovs[:B], chunk_steps=64, device=dev)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        fl.run_steps(FLEET_SCALE_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ins = int(fl.counters["instructions"].sum())
+        scaling[B] = {"steps": FLEET_SCALE_STEPS, "wall_s": wall,
+                      "aggregate_mips": ins / wall / 1e6, "instructions": ins,
+                      "launches_per_step": {k: n / FLEET_SCALE_STEPS
+                                            for k, n in build.LAUNCHES.items()},
+                      **fleet_window(fl)}
+        if B == 8:  # the step after the window: the batched step kernels' inputs
+            undo = stage_batched(STEP_KERNELS, 0, fleet_staged)
+            try:
+                fl.run_steps(64)
+            finally:
+                undo()
+        del fl
+        torch.cuda.empty_cache()
+    emit({"phase": "fleet_scaling", "path": "fleet_headline", "by_B": scaling, "gpu": smi_line})
+    ffx, fcfg, ftrs, fovs = fleet_fixture("fleet_rung3")
+    fl = FleetEngine(fcfg, ftrs, fovs, chunk_steps=64, device=dev)
+    fl.run_steps(256)
+    torch.cuda.synchronize()
+    emit({"phase": "fleet_profile", "path": "fleet_rung3", "B": fl.n_elements,
+          "steps": [256, 319], **fleet_window(fl), "gpu": smi_line})
+    undo = stage_batched(("router_cascade",), 0, fleet_staged)  # step 320
+    try:
+        fl.run_steps(64)
+    finally:
+        undo()
+    del fl
+    torch.cuda.empty_cache()
+    if set(fleet_staged) != set(wrappers):
+        fail(f"fleet: staged inputs of {sorted(fleet_staged)} only")
+
+    # each batched kernel alone on the staged step's inputs (a fleet of B)
+    fleet_timing = {}
+    for k in wrappers:
+        args, kw = fleet_staged[k]
+        fcfg = cfg3 if k == "router_cascade" else cfg
+        compare(k, args, kw, mcfg=fcfg, errs=max_err_b)
+        if k == "router_cascade":
+            bnd, info, nb = cascade_bound(args, kw)
+        else:
+            bnd, info, nb = bound_of(k, args, kw, fcfg)
+        fpath = "fleet_rung3" if k == "router_cascade" else "fleet_headline"
+        fleet_timing[k] = {"B": fleet_lines[fpath]["B"], "path": fpath,
+                           "staged_step": FLEET_STAGE[fpath], "chunk_steps": 64,
+                           "launches": fleet_launches[fpath][k],
+                           **time_alone(k, args, kw, fcfg),
+                           "bound_ms": bnd[0], "bound_by": bnd[1], "bytes": nb,
+                           "max_abs_err": max_err_b[k]}
+    del fleet_staged
+    torch.cuda.empty_cache()
+    emit({"phase": "fleet_kernels", "kernels": fleet_timing,
+          "event_floor_ms": event_floor_ms, "gpu": smi_line})
+
+
     machine_of = {p: {"topology": c.noc.topology, "coherence": c.coherence,
                       "sharer_group": c.sharer_group, "sharer_words": c.n_sharer_words}
                   for p, c in mode_cfg.items()}
@@ -1728,13 +2119,15 @@ def main() -> int:
         {"name": k, "route": "cuda", "source": KERNEL_META[k][0],
          "replaces": KERNEL_META[k][1],
          "launches": launches["rung3" if k in RUNG3_STAGED else "headline"][k],
-         "launches_by_path": {p: launches[p][k] for p in launches},
+         "launches_by_path": {**{p: launches[p][k] for p in launches},
+                              **{p: fleet_launches[p][k] for p in fleet_launches}},
          "max_abs_err": max_err[k], "ms": timing[k]["ms"],
          "plain_ms": timing[k]["plain_ms"],
          "profiler_us_per_launch": timing[k]["profiler_us"],
          "bound_ms": bounds[k][0],
          "bound_by": bounds[k][1], "library_ms": None,
          "kernel_modes": KERNEL_MODES[k],
+         "batched": fleet_timing[k],
          "modes": {p: {"machine": machine_of[p],
                        **{f: m[k][f] for f in ("launches", "ms", "plain_ms",
                                                "profiler_us_in_step", "bound_ms",

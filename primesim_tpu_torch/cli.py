@@ -6,6 +6,8 @@
     python -m primesim_tpu_torch synth lock_contention:n_critical=32 \\
         --cores 64 --out lc.ptpu
     python -m primesim_tpu_torch info configs/example_prime.xml
+    python -m primesim_tpu_torch sweep configs/rung1_64core_fft.json \
+        --synth fft_like:n_phases=2 --fold --vary llc_lat=20 --vary link_lat=2
 
 `run` simulates a trace (PTPU files or a named synthetic generator) on a
 JSON or reference-schema XML machine config, prints the one-line JSON
@@ -16,10 +18,16 @@ machine invariants after every chunk; `--obs basic|full` records a
 per-chunk metric series (`--metrics-out`) and a Chrome trace of the chunks
 (`--trace-out`); `--xprof DIR` writes a torch.profiler trace of the run.
 `--fault-schedule FILE [--fault-seed N]` arms fault injection (DESIGN.md
-§12). A run is on the card unless `--device cpu` is given. `synth` writes
+§12). `sweep` fans one config into a fleet (`sim/fleet.py`): one element
+per `--vary K=V[,K=V...]` timing-override set and/or per trace, all run
+as ONE batch on the card, and prints `primetpu sweep`'s lines: one
+`simulated_MIPS` line per element (quarantined elements and
+deduplicated twins included) and a `fleet_aggregate_MIPS` line. A run
+or sweep is on the card unless `--device cpu` is given. `synth` writes
 a generator's trace as a PTPU file, `info` prints a config as JSON: both
 as `primetpu` does. A malformed schedule, trace or config exits 2 with
-one `{"error": {type, location, detail}}` JSON line on stderr.
+one `{"error": {type, location, detail}}` JSON line on stderr, as does
+a malformed `--vary` spec.
 """
 
 from __future__ import annotations
@@ -221,6 +229,274 @@ def cmd_run(ns) -> int:
     return 0
 
 
+class VarySpecError(ValueError):
+    """A malformed --vary spec (bad shape, unknown key, non-integer
+    value): `main` exits 2 with the structured {"error": ...} JSON, as
+    `primetpu sweep` does."""
+
+    def __init__(self, msg: str, pair: str | None = None):
+        super().__init__(msg)
+        self.pair = pair
+
+    def location(self) -> dict:
+        return {"pair": self.pair} if self.pair is not None else {}
+
+
+def _parse_vary(spec: str) -> dict:
+    """Parse one --vary spec 'k=v[,k=v...]' into a timing-override dict
+    (keys validated against sim.fleet.KNOB_KEYS here AND by the
+    FleetEngine: here so the error names the offending pair)."""
+    from .sim.fleet import KNOB_KEYS
+
+    ov = {}
+    for pair in spec.split(","):
+        k, eq, v = pair.partition("=")
+        if not eq or not k:
+            raise VarySpecError(
+                f"bad --vary arg {pair!r} (want key=value; valid keys: "
+                f"{', '.join(KNOB_KEYS)})",
+                pair=pair,
+            )
+        if k not in KNOB_KEYS:
+            raise VarySpecError(
+                f"bad --vary arg {pair!r}: unknown key {k!r} (valid keys: "
+                f"{', '.join(KNOB_KEYS)})",
+                pair=pair,
+            )
+        try:
+            ov[k] = int(v)
+        except ValueError:
+            raise VarySpecError(
+                f"bad --vary arg {pair!r}: value must be an integer "
+                f"(valid keys: {', '.join(KNOB_KEYS)})",
+                pair=pair,
+            ) from None
+    return ov
+
+
+def _error_obj(exc: BaseException) -> dict:
+    """{"error": {type, location, detail}} of an exception, its own
+    `location()` included when it has one."""
+    locate = getattr(exc, "location", None)
+    return {"error": {
+        "type": type(exc).__name__,
+        "location": dict(locate()) if callable(locate) else {},
+        "detail": str(exc),
+    }}
+
+
+def _element_line(cfg, i, ov, counters, cycles, j, wall, **extra) -> dict:
+    """One element's `simulated_MIPS` line, from fleet position j."""
+    ins = int(counters["instructions"][j].sum())
+    return {
+        "metric": "simulated_MIPS",
+        "value": round(ins / wall / 1e6, 3),
+        "unit": "MIPS",
+        "detail": {
+            "engine": "fleet",
+            "fleet_index": i,
+            "n_cores": cfg.n_cores,
+            "instructions": ins,
+            "max_core_cycles": int(cycles[j].max()),
+            "overrides": ov,
+            "wall_s": round(wall, 3),
+            "noc_msgs": int(counters["noc_msgs"][j].sum()),
+            **extra,
+        },
+    }
+
+
+def cmd_sweep(ns) -> int:
+    """Fan a config + timing overrides and/or traces into ONE fleet run
+    (sim.fleet.FleetEngine): the batch retires one event per core per
+    element per step, through one set of kernel launches a step. Emits
+    one JSON summary line per element (ordered by caller index) plus a
+    fleet_aggregate_MIPS line.
+
+    Fault isolation is the default: an element whose trace file is
+    unreadable or malformed, or whose overrides are invalid, is
+    QUARANTINED (reported in its own JSON line, with the TraceError's
+    core/offset when available) while the rest of the batch runs;
+    `--strict` makes any bad element fatal instead."""
+    import numpy as np
+
+    from .kernels import build
+    from .sim.engine import resolve_device
+    from .sim.fleet import FleetEngine
+    from .sim.prefix import dedup_plan
+    from .sim.supervisor import build_fleet_isolated
+    from .stats.report import write_report
+
+    cfg = _apply_faults(ns, _apply_step_impl(ns, _load_config(ns.config)))
+
+    # per-element SOURCES: callables for file loads (so an unreadable file
+    # quarantines one element, not the sweep), eager traces for synth specs
+    def _loader(path):
+        def load():
+            t = Trace.load(path)
+            return fold_ins(t) if ns.fold else t
+
+        return load
+
+    sources: list = [_loader(p) for p in (ns.trace or [])]
+    for spec in ns.synth or []:
+        sources.append(_parse_synth(spec, cfg.n_cores, ns.fold))
+    if not sources:
+        raise SystemExit("sweep: need --trace FILE and/or --synth SPEC")
+    ovs = [_parse_vary(s) for s in (ns.vary or [])]
+    A, V = len(sources), len(ovs)
+    # fan rule: equal lengths pair up; a single trace (or single --vary)
+    # replicates across the other axis; anything else is ambiguous
+    if V == 0:
+        ovs = [{}] * A
+    elif A == 1 and V > 1:
+        sources = sources * V
+    elif V == 1 and A > 1:
+        ovs = ovs * A
+    elif A != V:
+        raise SystemExit(
+            f"sweep: {A} traces vs {V} --vary sets — lengths must match, "
+            "or one side must be a single entry to replicate"
+        )
+    rec = _build_recorder(ns)
+    device = resolve_device(ns.device)
+    if device.type == "cuda":
+        for k in build.KERNELS:  # build and load before the clock starts
+            build.library(k)
+    if ns.strict:
+        traces = [s() if callable(s) else s for s in sources]
+        fleet = FleetEngine(cfg, traces, ovs, chunk_steps=ns.chunk_steps, device=device)
+        quarantined: list = []
+    else:
+        fleet, quarantined = build_fleet_isolated(
+            cfg, sources, ovs, chunk_steps=ns.chunk_steps, device=device
+        )
+    for i, err in quarantined:
+        detail = {
+            "engine": "fleet",
+            "fleet_index": i,
+            "status": "quarantined",
+            "overrides": ovs[i],
+            **_error_obj(err),
+        }
+        if isinstance(err, TraceError):
+            detail.update(err.location())
+        print(json.dumps({"metric": "quarantined", "value": None, "unit": None,
+                          "detail": detail}))
+    if fleet is None:
+        print("sweep: every element was quarantined", file=sys.stderr)
+        return 1
+
+    # identical-element dedup: two elements with equal (trace, effective
+    # config) would simulate the same run twice; keep the first and fan
+    # its lines out to the twins afterwards
+    dup_of_caller: dict[int, int] = {}
+    if fleet.n_elements > 1:
+        keep, dup_of = dedup_plan(fleet.elem_cfgs, fleet.traces)
+        if dup_of:
+            ids = fleet.element_ids
+            dup_of_caller = {ids[j]: ids[k] for j, k in dup_of.items()}
+            print(
+                "sweep: WARNING: deduplicated "
+                f"{len(dup_of)} identical element(s) — "
+                + ", ".join(f"{ids[j]} duplicates {ids[k]}" for j, k in sorted(dup_of.items()))
+                + " (simulated once, reports fanned out)",
+                file=sys.stderr,
+            )
+            kept_ids = [ids[j] for j in keep]
+            fleet = FleetEngine(
+                cfg, [fleet.traces[j] for j in keep],
+                [fleet.element_overrides[j] for j in keep],
+                chunk_steps=ns.chunk_steps, device=device,
+            )
+            fleet.element_ids = kept_ids
+    fleet.block_until_ready()
+    if rec is not None:
+        rec.attach(fleet)
+    stalled: list[int] = []
+    t0 = time.perf_counter()
+    try:
+        if rec is not None:
+            # chunked dispatch so every chunk lands in the metric ring
+            fleet.run_steps(ns.max_steps or 10_000_000)
+            if not fleet.done():
+                bad = np.flatnonzero(~fleet.done_mask()).tolist()
+                raise RuntimeError(
+                    f"fleet: max_steps exceeded on element(s) {bad} (deadlock?)"
+                )
+        else:
+            fleet.run(max_steps=ns.max_steps or 10_000_000)
+    except RuntimeError as e:
+        # stalled elements are isolated, as quarantine is: reported, and
+        # the finished elements' results kept
+        stalled = [fleet.element_ids[j] for j in np.flatnonzero(~fleet.done_mask())]
+        print(f"sweep: {e} — isolating", file=sys.stderr)
+    wall = time.perf_counter() - t0
+
+    counters = fleet.counters
+    cycles = fleet.cycles
+    if ns.report_dir:
+        os.makedirs(ns.report_dir, exist_ok=True)
+
+    def report(i, j, title):
+        if ns.report_dir:
+            path = os.path.join(ns.report_dir, f"element_{i}.txt")
+            write_report(
+                path, fleet.elem_cfgs[j], {k: v[j] for k, v in counters.items()},
+                cycles[j], wall_s=wall, per_core_limit=ns.per_core_limit, title=title,
+            )
+            print(f"report written to {path}", file=sys.stderr)
+
+    total_ins = 0
+    for j, i in enumerate(fleet.element_ids):  # caller-side index
+        line = _element_line(cfg, i, ovs[i], counters, cycles, j, wall,
+                             **({"status": "stalled"} if i in stalled else {}))
+        total_ins += line["detail"]["instructions"]
+        print(json.dumps(line))
+        report(i, j, f"primesim_tpu fleet element {i}")
+    # the deduplicated twins: identical inputs give identical results,
+    # copied from the element that simulated; they add nothing to the
+    # aggregate (no instructions were retired on their behalf)
+    for i, twin in sorted(dup_of_caller.items()):
+        jt = fleet.element_ids.index(twin)
+        extra = {"dedup_of": twin, **({"status": "stalled"} if twin in stalled else {})}
+        print(json.dumps(_element_line(cfg, i, ovs[i], counters, cycles, jt, wall, **extra)))
+        report(i, jt, f"primesim_tpu fleet element {i} (dedup of {twin})")
+    agg = {
+        "engine": "fleet",
+        "n_elements": fleet.n_elements,
+        "n_cores": cfg.n_cores,
+        "instructions": total_ins,
+        "wall_s": round(wall, 3),
+    }
+    if dup_of_caller:
+        agg["deduplicated"] = sorted(dup_of_caller)
+    if quarantined:
+        agg["quarantined"] = [i for i, _ in quarantined]
+    if stalled:
+        agg["stalled"] = stalled
+    print(json.dumps({"metric": "fleet_aggregate_MIPS",
+                      "value": round(total_ins / wall / 1e6, 3),
+                      "unit": "MIPS", "detail": agg}))
+    if rec is not None:
+        tl = rec.timeline_summary()
+        if tl:
+            print(json.dumps({"metric": "obs_timeline", "value": tl["chunks"],
+                              "unit": "chunks", "detail": tl}))
+        _finalize_obs(rec)
+    if quarantined or stalled:
+        # partial success is its own exit code: the healthy elements'
+        # results are real
+        print(
+            f"sweep: partial — {len(quarantined)} quarantined, "
+            f"{len(stalled)} stalled of "
+            f"{fleet.n_elements + len(quarantined)} elements",
+            file=sys.stderr,
+        )
+        return 3
+    return 0
+
+
 def cmd_synth(ns) -> int:
     tr = _parse_synth(ns.spec, ns.cores, ns.fold)
     tr.save(ns.out)
@@ -235,6 +511,44 @@ def cmd_synth(ns) -> int:
 def cmd_info(ns) -> int:
     print(_load_config(ns.config).to_json())
     return 0
+
+
+def _add_shared_flags(sp) -> None:
+    """run's and sweep's fault, telemetry and device flags."""
+    sp.add_argument(
+        "--fault-schedule", metavar="FILE",
+        help="JSON fault schedule (events, flip and DUE rates, policies); "
+             "arms the deterministic fault model (DESIGN.md §12)",
+    )
+    sp.add_argument(
+        "--fault-seed", type=int, default=None, metavar="N",
+        help="seed of the counter-based fault PRNG (default 0)",
+    )
+    sp.add_argument(
+        "--obs", choices=("off", "basic", "full"), default="off",
+        help="telemetry level: off (default), basic (per-chunk metric "
+             "time-series, chunked dispatch), full (basic + flight-recorder "
+             "timeline)",
+    )
+    sp.add_argument(
+        "--metrics-out", metavar="FILE",
+        help="dump the per-chunk metric series as JSONL at exit "
+             "(needs --obs basic|full)",
+    )
+    sp.add_argument(
+        "--trace-out", metavar="FILE",
+        help="write the Chrome trace-event timeline at exit — load it "
+             "in Perfetto / chrome://tracing (needs --obs full)",
+    )
+    sp.add_argument(
+        "--obs-capacity", type=int, default=4096, metavar="N",
+        help="metric ring-buffer size in chunks; older samples drop "
+             "first (default 4096)",
+    )
+    sp.add_argument(
+        "--device", choices=("cuda", "cpu"), default=None,
+        help="default: cuda (an error when there is no card)",
+    )
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -274,41 +588,52 @@ def build_parser() -> argparse.ArgumentParser:
         help="write a torch.profiler trace of the run to DIR/trace.json "
              "(Chrome trace format)",
     )
-    r.add_argument(
-        "--fault-schedule", metavar="FILE",
-        help="JSON fault schedule (events, flip and DUE rates, policies); "
-             "arms the deterministic fault model (DESIGN.md §12)",
-    )
-    r.add_argument(
-        "--fault-seed", type=int, default=None, metavar="N",
-        help="seed of the counter-based fault PRNG (default 0)",
-    )
-    r.add_argument(
-        "--obs", choices=("off", "basic", "full"), default="off",
-        help="telemetry level: off (default), basic (per-chunk metric "
-             "time-series, chunked dispatch), full (basic + flight-recorder "
-             "timeline)",
-    )
-    r.add_argument(
-        "--metrics-out", metavar="FILE",
-        help="dump the per-chunk metric series as JSONL at exit "
-             "(needs --obs basic|full)",
-    )
-    r.add_argument(
-        "--trace-out", metavar="FILE",
-        help="write the Chrome trace-event timeline at exit — load it "
-             "in Perfetto / chrome://tracing (needs --obs full)",
-    )
-    r.add_argument(
-        "--obs-capacity", type=int, default=4096, metavar="N",
-        help="metric ring-buffer size in chunks; older samples drop "
-             "first (default 4096)",
-    )
-    r.add_argument(
-        "--device", choices=("cuda", "cpu"), default=None,
-        help="default: cuda (an error when there is no card)",
-    )
+    _add_shared_flags(r)
     r.set_defaults(fn=cmd_run)
+
+    w = sub.add_parser(
+        "sweep",
+        help="fan timing overrides and/or traces into ONE batched fleet "
+             "run (one set of kernel launches a step; one line per element)",
+    )
+    w.add_argument("config", help="machine config (.json or reference-schema .xml)")
+    w.add_argument(
+        "--trace", action="append",
+        help="PTPU trace file (repeat for per-element traces)",
+    )
+    w.add_argument(
+        "--synth", action="append",
+        help="synthetic workload spec name[:k=v,...] (repeatable)",
+    )
+    w.add_argument(
+        "--vary", action="append", metavar="K=V[,K=V...]",
+        help="one fleet element's timing overrides (repeatable; keys: "
+             "quantum, cpi, l1_lat, llc_lat, link_lat, router_lat, "
+             "dram_lat, dram_service, contention_lat, prefetch_degree, "
+             "prefetch_lat, fault_seed)",
+    )
+    w.add_argument(
+        "--fold", action="store_true", help="fold INS batches into pre fields"
+    )
+    w.add_argument(
+        "--step-impl", choices=("xla", "pallas"), default=None,
+        help="the JAX package's step implementation: recorded in every "
+             "element's config; the port runs its own kernels",
+    )
+    w.add_argument("--chunk-steps", type=int, default=256)
+    w.add_argument("--max-steps", type=int, default=None)
+    w.add_argument(
+        "--report-dir", help="write per-element text reports to this directory"
+    )
+    w.add_argument("--per-core-limit", type=int, default=64)
+    w.add_argument(
+        "--strict", action="store_true",
+        help="disable fleet fault isolation: any malformed element "
+             "(unreadable trace, bad overrides) aborts the whole sweep "
+             "instead of being quarantined into its own JSON line",
+    )
+    _add_shared_flags(w)
+    w.set_defaults(fn=cmd_sweep)
 
     s = sub.add_parser("synth", help="generate a synthetic PTPU trace file")
     s.add_argument("spec", help="generator spec name[:k=v,...]")
@@ -327,13 +652,8 @@ def main(argv=None) -> int:
     ns = build_parser().parse_args(argv)
     try:
         return ns.fn(ns)
-    except (TraceError, ConfigError, FaultConfigError) as e:
+    except (TraceError, ConfigError, FaultConfigError, VarySpecError) as e:
         # typed errors exit 2 with ONE structured JSON line on stderr, as
         # `primetpu` prints them
-        locate = getattr(e, "location", None)
-        print(json.dumps({"error": {
-            "type": type(e).__name__,
-            "location": dict(locate()) if callable(locate) else {},
-            "detail": str(e),
-        }}), file=sys.stderr)
+        print(json.dumps(_error_obj(e)), file=sys.stderr)
         return 2

@@ -7,7 +7,8 @@ one per field, and the timing knobs and the fault state as mappings under
 `state_to_numpy` is the inverse. The layouts are the same in both
 packages, so a state taken mid-run from one continues bit-exactly in the
 other. The fault state's uint32 values (seed, thresholds) become the
-port's int64 and come back as int64 of the same value.
+port's int64 and come back as int64 of the same value. A fleet's batched
+state carries the same way, every array with its leading element axis.
 """
 
 from __future__ import annotations
@@ -23,18 +24,20 @@ _NESTED = {"knobs": TimingKnobs, "faults": FaultState}
 _FIELDS = tuple(f for f in MachineState._fields if f not in _NESTED)
 
 
-def state_from_numpy(cfg: MachineConfig, arrays, device) -> MachineState:
+def state_from_numpy(cfg: MachineConfig, arrays, device, batch: int | None = None) -> MachineState:
     """`arrays` maps every MachineState field to an array, and "knobs" and
     "faults" to mappings of their fields; shapes must match the
-    config's."""
+    config's, with a leading element axis of `batch` for a batched (fleet)
+    state."""
     ref = init_state(cfg, "meta")  # shapes and dtypes only, nothing allocated
+    lead = () if batch is None else (batch,)
 
     def tensor(name, a, like):
         np_dtype = torch.empty((), dtype=like.dtype).numpy().dtype
         t = torch.from_numpy(np.array(a, dtype=np_dtype, copy=True))
-        if t.shape != like.shape:
+        if t.shape != (*lead, *like.shape):
             raise ValueError(
-                f"{name}: shape {tuple(t.shape)} != {tuple(like.shape)}"
+                f"{name}: shape {tuple(t.shape)} != {(*lead, *like.shape)}"
             )
         return t.to(device)
 

@@ -39,6 +39,12 @@
 // are disjoint); lanes 0-3 add the winner's pair, LRU and epoch words and
 // lane n < NW (in strides of 32) sharer word n. The block folds the
 // counters of its 8 cores, each of the NC rows as 8 contiguous words.
+// Batch: one launch serves B simulations of one geometry (the fleet's).
+// Warp g is core c = g % C of element b = g / C: its L1 row, lanes and
+// probe outputs sit at g, its directory at dirm + b*NS*DW (a 64-bit
+// offset), so every atomicAdd stays inside its element's directory, its
+// counters at counters[b][k][c] and its step number at step[b]; the core
+// ids cid[C] are shared. A solo call is B = 1.
 
 #include "common.cuh"
 
@@ -74,20 +80,22 @@ __global__ void __launch_bounds__(WARPS * 32) commit_step_kernel(
     const int* __restrict__ pc_lanes, const int* __restrict__ cid_v,
     const int* __restrict__ step_p, int* __restrict__ counters,
     const int* __restrict__ delta, const uint8_t* __restrict__ hm,
-    const uint8_t* __restrict__ wm, const int* __restrict__ cm, int C,
-    int S1, int W1, int W2, int NW, int MW, int DW, int NC, int rl,
-    int cm_ld, int logG, int moesi) {
-  const int c0 = blockIdx.x * WARPS;
+    const uint8_t* __restrict__ wm, const int* __restrict__ cm, int B,
+    int C, int NS, int S1, int W1, int W2, int NW, int MW, int DW, int NC,
+    int rl, int cm_ld, int logG, int moesi) {
+  const int c0 = blockIdx.x * WARPS;  // warps run over B*C
   for (int t = threadIdx.x; t < NC * WARPS; t += blockDim.x) {
-    const int c = c0 + t % WARPS;
-    if (c < C) {
-      const size_t i = (size_t)(t / WARPS) * C + c;
+    const int g = c0 + t % WARPS;
+    if (g < B * C) {
+      const int gb = g / C;
+      const size_t i = ((size_t)gb * NC + t / WARPS) * C + (g - gb * C);
       counters[i] = wrap_add(counters[i], delta[i]);
     }
   }
   const int lane = threadIdx.x & 31;
   const int c = c0 + (threadIdx.x >> 5);
-  if (c >= C) return;  // the whole warp
+  if (c >= B * C) return;  // the whole warp
+  const int b = c / C;  // the element
 
   const int lv = lane < COMMIT_LANES ? lanes[(size_t)c * COMMIT_LANES + lane] : 0;
   const int pv = lane < PROBE_LANES ? pc_lanes[(size_t)c * PROBE_LANES + lane] : 0;
@@ -98,8 +106,8 @@ __global__ void __launch_bounds__(WARPS * 32) commit_step_kernel(
     wk = wm[(size_t)c * rl + lane];
     ck = cm[(size_t)c * cm_ld + lane];
   }
-  const int cid = cid_v[c];
-  const int step = *step_p;
+  const int cid = cid_v[c - b * C];
+  const int step = step_p[b];
   auto cl = [&](int k) { return __shfl_sync(FULL, lv, k); };
   auto pl = [&](int k) { return __shfl_sync(FULL, pv, k); };
 
@@ -174,7 +182,7 @@ __global__ void __launch_bounds__(WARPS * 32) commit_step_kernel(
 
   // ---- directory deltas, added to row `slot`
   if (!wj) return;
-  int* drow = dirm + (size_t)slot * DW;
+  int* drow = dirm + ((size_t)b * NS + slot) * DW;
   const int grp = cid >> logG;  // the core's sharer bit: itself or its group
   const int self_w = grp >> 5, self_b = grp & 31;
   if (winner) {
@@ -213,10 +221,12 @@ extern "C" int commit_step_launch(
     int* l1, int* dirm, const int* tag_rows, const int* shw, const int* vshw,
     const int* lanes, const int* pc_lanes, const int* cid, const int* step,
     int* counters, const int* delta, const uint8_t* hm, const uint8_t* wm,
-    const int* cm, int C, int S1, int W1, int W2, int NW, int MW, int DW,
-    int NC, int rl, int cm_ld, int logG, int moesi, cudaStream_t stream) {
-  commit_step_kernel<<<(C + WARPS - 1) / WARPS, WARPS * 32, 0, stream>>>(
+    const int* cm, int B, int C, int NS, int S1, int W1, int W2, int NW,
+    int MW, int DW, int NC, int rl, int cm_ld, int logG, int moesi,
+    cudaStream_t stream) {
+  commit_step_kernel<<<(B * C + WARPS - 1) / WARPS, WARPS * 32, 0, stream>>>(
       l1, dirm, tag_rows, shw, vshw, lanes, pc_lanes, cid, step, counters,
-      delta, hm, wm, cm, C, S1, W1, W2, NW, MW, DW, NC, rl, cm_ld, logG, moesi);
+      delta, hm, wm, cm, B, C, NS, S1, W1, W2, NW, MW, DW, NC, rl, cm_ld,
+      logG, moesi);
   return (int)cudaGetLastError();
 }

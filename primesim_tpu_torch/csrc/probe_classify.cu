@@ -41,6 +41,11 @@
 // launch argument logG, the same for every thread: its two extra words
 // per way (the L1 epoch in round 2, the entry's epoch in round 3) ride
 // the existing rounds, and the full-map path loads nothing more.
+// Batch: one launch serves B simulations of one geometry (the fleet's).
+// Warp g is core c = g % C of element b = g / C: its L1 row, lanes and
+// outputs sit at g (the batch is [B, C]-major), its directory at
+// dirm + b*NS*DW (a 64-bit offset), its step number at step[b]; the core
+// ids cid[C] are shared. A solo call is B = 1.
 
 #include <climits>
 
@@ -62,16 +67,18 @@ __global__ void __launch_bounds__(WARPS * 32) probe_classify_kernel(
     const int* __restrict__ cm, int* __restrict__ tag_out,
     int* __restrict__ lru_out, int* __restrict__ weff_out,
     int* __restrict__ shw_out, int* __restrict__ vshw_out,
-    int* __restrict__ lanes_out, int C, int S1, int W1, int W2, int NW,
-    int MW, int DW, int rl, int cm_ld, int logG) {
+    int* __restrict__ lanes_out, int B, int C, int NS, int S1, int W1,
+    int W2, int NW, int MW, int DW, int rl, int cm_ld, int logG) {
   const int lane = threadIdx.x & 31;
-  const int c = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (c >= C) return;  // the whole warp
+  const int c = blockIdx.x * WARPS + (threadIdx.x >> 5);  // over B*C
+  if (c >= B * C) return;  // the whole warp
+  const int b = c / C;  // the element
   const int FS = W1 * S1;
   const int line = line_v[c];
-  const int cid = cid_v[c];
+  const int cid = cid_v[c - b * C];
+  dirm += (size_t)b * NS * DW;  // the element's directory
   const int* mr = dirm + (size_t)slot_v[c] * DW;
-  const int step = *step_p;
+  const int step = step_p[b];
   const int l1s = line & (S1 - 1);
   const bool coarse = logG > 0;  // uniform across the launch
   const int grp = cid >> logG;  // the core's sharer bit: itself or its group
@@ -189,11 +196,13 @@ extern "C" int probe_classify_launch(
     const int* l1, const int* dirm, const int* slot, const int* line,
     const int* cid, const int* step, const uint8_t* hm, const uint8_t* wm,
     const int* cm, int* tag_out, int* lru_out, int* weff_out, int* shw_out,
-    int* vshw_out, int* lanes_out, int C, int S1, int W1, int W2, int NW,
-    int MW, int DW, int rl, int cm_ld, int logG, cudaStream_t stream) {
-  probe_classify_kernel<<<(C + WARPS - 1) / WARPS, WARPS * 32, 0, stream>>>(
+    int* vshw_out, int* lanes_out, int B, int C, int NS, int S1, int W1,
+    int W2, int NW, int MW, int DW, int rl, int cm_ld, int logG,
+    cudaStream_t stream) {
+  probe_classify_kernel<<<(B * C + WARPS - 1) / WARPS, WARPS * 32, 0,
+                          stream>>>(
       l1, dirm, slot, line, cid, step, hm, wm, cm, tag_out, lru_out,
-      weff_out, shw_out, vshw_out, lanes_out, C, S1, W1, W2, NW, MW, DW, rl,
-      cm_ld, logG);
+      weff_out, shw_out, vshw_out, lanes_out, B, C, NS, S1, W1, W2, NW, MW,
+      DW, rl, cm_ld, logG);
   return (int)cudaGetLastError();
 }

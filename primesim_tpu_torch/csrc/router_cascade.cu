@@ -43,6 +43,12 @@
 // 0-d device tensors, so a step never waits for the host. Adds and
 // products go through uint32_t (common.cuh): int32 wraps in JAX, while
 // signed overflow is undefined in C++.
+// Batch: one launch serves B simulations of one geometry (the fleet's).
+// Warp g is core c = g % C of element b = g / C: its hop rows and lanes
+// sit at g, its link clocks, bases and departures in row b of the
+// [B, NL] link_free, base and link_free_out (a departure's atomicMax
+// never leaves its element's row), its latencies at link[b] and
+// router[b]. A solo call is B = 1.
 
 #include <climits>
 
@@ -102,10 +108,14 @@ __global__ void __launch_bounds__(WARPS * 32) router_cascade_kernel(
     const int* __restrict__ rep_hops, const int* __restrict__ arr_hops,
     const int* __restrict__ link_p, const int* __restrict__ router_p,
     int* __restrict__ t_rep_end, int* __restrict__ t_arr_end,
-    int* link_free_out, int C, int H, int legs) {
-  const int core = blockIdx.x * WARPS + (threadIdx.x >> 5);
+    int* link_free_out, int B, int C, int NL, int H, int legs) {
+  const int core = blockIdx.x * WARPS + (threadIdx.x >> 5);  // over B*C
   const int lane = threadIdx.x & 31;
-  if (core >= C) return;  // the whole warp leaves together
+  if (core >= B * C) return;  // the whole warp leaves together
+  const int b = core / C;  // the element: its row of the link tables
+  link_free += (size_t)b * NL;
+  base += (size_t)b * NL;
+  link_free_out += (size_t)b * NL;
   const size_t row = (size_t)core * legs * H;
 
   // round 1: every hop's mask byte, and the lanes
@@ -117,7 +127,7 @@ __global__ void __launch_bounds__(WARPS * 32) router_cascade_kernel(
       const int k = j * 32 + lane;
       if (l < legs && k < H && ok[row + l * H + k]) live |= 1u << (l * CH + j);
     }
-  const int L = *link_p, R = *router_p, c = wrap_add(L, R);
+  const int L = link_p[b], R = router_p[b], c = wrap_add(L, R);
   const int t_start = t0[core], svc = service[core];
   const int nh_req = req_hops[core], nh_rep = rep_hops[core];
   const int nh_arr = legs == 3 ? arr_hops[core] : 0;
@@ -172,14 +182,14 @@ extern "C" int router_cascade_launch(
     const int* r, const int* t0, const int* service, const int* req_hops,
     const int* rep_hops, const int* arr_hops, const int* link,
     const int* router, int* t_rep_end, int* t_arr_end, int* link_free_out,
-    int C, int H, int legs, cudaStream_t stream) {
-  const int blocks = (C + WARPS - 1) / WARPS;
+    int B, int C, int NL, int H, int legs, cudaStream_t stream) {
+  const int blocks = (B * C + WARPS - 1) / WARPS;
 #define PSIM_CASCADE(CH)                                                    \
   case CH:                                                                  \
     router_cascade_kernel<CH><<<blocks, WARPS * 32, 0, stream>>>(           \
         link_free, base, pth, ok, r, t0, service, req_hops, rep_hops,       \
-        arr_hops, link, router, t_rep_end, t_arr_end, link_free_out, C, H,  \
-        legs);                                                              \
+        arr_hops, link, router, t_rep_end, t_arr_end, link_free_out, B, C,  \
+        NL, H, legs);                                                       \
     break;
   switch ((H + 31) / 32) {
     PSIM_CASCADE(1)

@@ -59,6 +59,11 @@
 // builds. The requester's and the owner's group bits are tested by the
 // lane that holds their word and OR-reduced. Which mode runs is the
 // launch argument logG, the same for every thread.
+// Batch: one launch serves B simulations of one geometry (the fleet's).
+// Warp g is core c = g % C of element b = g / C: its rows, flags, lanes
+// and outputs sit at g, its link and router latencies at link[b] and
+// router[b] (the fleet's elements may differ in both); the core ids
+// cid[C] and the group tables are shared. A solo call is B = 1.
 
 #include "common.cuh"
 
@@ -89,11 +94,12 @@ __global__ void __launch_bounds__(WARPS * 32) sharer_reductions_kernel(
     int* __restrict__ inv_cnt, int* __restrict__ inv_hops,
     int* __restrict__ back_cnt, int* __restrict__ back_hops,
     const int* __restrict__ memb, const int* __restrict__ max2hops,
-    const int* __restrict__ sum2hops, int C, int NW, int n_tiles, int mesh_x,
-    int mesh_y, int topology, int vo_ld, int logG, int n_grp) {
-  const int c = blockIdx.x * WARPS + (threadIdx.x >> 5);
+    const int* __restrict__ sum2hops, int B, int C, int NW, int n_tiles,
+    int mesh_x, int mesh_y, int topology, int vo_ld, int logG, int n_grp) {
+  const int c = blockIdx.x * WARPS + (threadIdx.x >> 5);  // over B*C
   const int lane = threadIdx.x & 31;
-  if (c >= C) return;  // the whole warp leaves together
+  if (c >= B * C) return;  // the whole warp leaves together
+  const int b = c / C;  // the element
   const bool irow = inv_row[c] != 0;
   const bool vv = vic_valid[c] != 0;
   if (!irow && !vv) {
@@ -105,8 +111,8 @@ __global__ void __launch_bounds__(WARPS * 32) sharer_reductions_kernel(
   }
   const int bt = btile[c];
   const int bx = floor_mod(bt, mesh_x), by = floor_div(bt, mesh_x);
-  const uint32_t link = (uint32_t)*link_p, router = (uint32_t)*router_p;
-  const int self = cid_v[c], vo = vic_owner[(size_t)c * vo_ld];
+  const uint32_t link = (uint32_t)link_p[b], router = (uint32_t)router_p[b];
+  const int self = cid_v[c - b * C], vo = vic_owner[(size_t)c * vo_ld];
   const int* sw = shw + (size_t)c * NW;
   const int* vw = vic_shw + (size_t)c * NW;
 
@@ -229,13 +235,14 @@ extern "C" int sharer_reductions_launch(
     const int* vic_owner, const uint8_t* inv_row, const uint8_t* vic_valid,
     const int* cid, const int* link, const int* router, int* inv_lat,
     int* inv_cnt, int* inv_hops, int* back_cnt, int* back_hops,
-    const int* memb, const int* max2hops, const int* sum2hops, int C, int NW,
-    int n_tiles, int mesh_x, int mesh_y, int topology, int vo_ld, int logG,
-    int n_grp, cudaStream_t stream) {
-  const int blocks = (C + WARPS - 1) / WARPS;
+    const int* memb, const int* max2hops, const int* sum2hops, int B, int C,
+    int NW, int n_tiles, int mesh_x, int mesh_y, int topology, int vo_ld,
+    int logG, int n_grp, cudaStream_t stream) {
+  const int blocks = (B * C + WARPS - 1) / WARPS;
   sharer_reductions_kernel<<<blocks, WARPS * 32, 0, stream>>>(
       shw, vic_shw, btile, vic_owner, inv_row, vic_valid, cid, link, router,
       inv_lat, inv_cnt, inv_hops, back_cnt, back_hops, memb, max2hops,
-      sum2hops, C, NW, n_tiles, mesh_x, mesh_y, topology, vo_ld, logG, n_grp);
+      sum2hops, B, C, NW, n_tiles, mesh_x, mesh_y, topology, vo_ld, logG,
+      n_grp);
   return (int)cudaGetLastError();
 }

@@ -17,6 +17,11 @@ differ from the JAX package, neither in result:
   candidate step where nobody dies (the core had already ended or died)
   the scrub is the identity, as the JAX false branch is.
 
+Each function takes a batched fault state (every field with a leading
+element axis: the fleet's, one entry per simulation, whose seeds may
+differ) as well as a solo one; every draw, scatter and gather stays
+inside its element.
+
 The kernels never see a fault (the JAX package's fault-lane contract,
 `kernels/step_kernels.py`): the scrub rewrites `dirm` before the probe
 and the local runs read it, dead cores leave the lane predicates, and the
@@ -44,20 +49,22 @@ _i32 = torch.int32
 
 
 def _max_drop(base, idx, src):
-    """base.at[idx].max(src, mode="drop") with idx == len(base) as the
-    dropped lane: the table has one sentinel slot, sliced off."""
-    ext = torch.cat([base, base.new_zeros(1)])
-    ext.scatter_reduce_(0, idx.long(), src, "amax")
-    return ext[:-1]
+    """base.at[..., idx].max(src, mode="drop") along the last axis, with
+    idx == base.shape[-1] as the dropped lane: each row has one sentinel
+    slot, sliced off."""
+    ext = torch.cat([base, base.new_zeros((*base.shape[:-1], 1))], -1)
+    ext.scatter_reduce_(-1, idx.long(), src, "amax")
+    return ext[..., :-1]
 
 
 def fire_events(cfg: MachineConfig, fs, step_no):
-    """Apply this step's scheduled events: (kill_sched [C] int32 0/1,
-    link_dead [NL], link_extra [NL]). Duplicate events max together;
-    padding rows (ev_step == -1) never fire."""
+    """Apply this step's scheduled events: (kill_sched [..., C] int32 0/1,
+    link_dead [..., NL], link_extra [..., NL]). Duplicate events max
+    together; padding rows (ev_step == -1) never fire. `step_no` is the
+    state's step, [B] for a batch."""
     C = cfg.n_cores
     NL = cfg.n_tiles * 4
-    fire = fs.ev_step == step_no
+    fire = fs.ev_step == step_no[..., None]
     ones = torch.ones_like(fs.ev_a)
     kill_t = fire & (fs.ev_kind == FAULT_CORE_FAILSTOP)
     kill_sched = _max_drop(
@@ -76,23 +83,27 @@ def ecc_step(cfg: MachineConfig, fs, step_no):
     One flip draw per L1 (site = core id) and per LLC bank (site = C +
     bank), and a salted second draw classifying each flip as single-bit
     (corrected: counted, no architectural effect) or double-bit
-    (detected-uncorrectable), all four in one [2, C + B] hash. Returns
-    (corrected [C], due [C], l1_due [C] bool): LLC-bank draws count at core
+    (detected-uncorrectable), all four in one [..., 2, C + B] hash with
+    each element's own seed and step. Returns (corrected [..., C], due
+    [..., C], l1_due [..., C] bool): LLC-bank draws count at core
     bank % C (an add with duplicate targets when B > C); only an L1 DUE
     can escalate to a fail-stop of its core."""
     C, B = cfg.n_cores, cfg.n_banks
     dev = fs.core_dead.device
+    lead = fs.seed.shape
     site = torch.arange(C + B, dtype=torch.int64, device=dev)
     salt = torch.arange(2, dtype=torch.int64, device=dev)[:, None] * DUE_SALT
-    h = site_hash(fs.seed, step_no, site, salt)  # [flip draw, DUE draw]
-    thr = torch.cat([fs.flip_l1.expand(C), fs.flip_llc.expand(B)])
-    flip = h[0] < thr
-    due = flip & (h[1] < fs.due_rate)
-    both = torch.stack([flip & ~due, due]).to(_i32)  # [corrected, due]
-    per_core = both[:, :C].clone()
+    # [..., flip draw / DUE draw, site]
+    h = site_hash(fs.seed[..., None, None], step_no[..., None, None], site, salt)
+    thr = torch.cat([fs.flip_l1[..., None].expand(*lead, C),
+                     fs.flip_llc[..., None].expand(*lead, B)], -1)
+    flip = h[..., 0, :] < thr
+    due = flip & (h[..., 1, :] < fs.due_rate[..., None])
+    both = torch.stack([flip & ~due, due], -2).to(_i32)  # [corrected, due]
+    per_core = both[..., :C].clone()
     bank_core = torch.arange(B, dtype=torch.int64, device=dev) % C
-    per_core.index_add_(1, bank_core, both[:, C:])
-    return per_core[0], per_core[1], due[:C]
+    per_core.index_add_(per_core.dim() - 1, bank_core, both[..., C:])
+    return per_core[..., 0, :], per_core[..., 1, :], due[..., :C]
 
 
 def kill_possible(cfg: MachineConfig, fs_host: dict, steps) -> np.ndarray:
@@ -118,9 +129,10 @@ def kill_possible(cfg: MachineConfig, fs_host: dict, steps) -> np.ndarray:
 
 
 def scrub_dead(cfg: MachineConfig, dirm, lock_holder, kill_now):
-    """Remove this step's freshly killed cores (`kill_now` [C] 0/1) from
-    the coherence fabric, IN PLACE on `dirm`; returns (lock_holder,
-    wb [C]).
+    """Remove this step's freshly killed cores (`kill_now` [..., C] 0/1)
+    from the coherence fabric, IN PLACE on `dirm` ([B, NS, DW] batched,
+    each element's cores from its own directory, or solo [NS, DW]);
+    returns (lock_holder, wb [..., C]).
 
     - Sharer bits: every sharer word drops the killed cores' bits (fail-
       stop requires sharer_group == 1, so bit == core id).
@@ -131,36 +143,43 @@ def scrub_dead(cfg: MachineConfig, dirm, lock_holder, kill_now):
     - Locks: slots held by a killed core are released.
 
     An empty kill set changes nothing and returns wb = 0."""
+    if dirm.dim() == 2:
+        lh, wb = scrub_dead(cfg, dirm[None], lock_holder[None], kill_now[None])
+        return lh[0], wb[0]
     C = cfg.n_cores
     W2 = cfg.llc.ways
     NW = cfg.n_sharer_words
     MW = llc_meta_width(cfg)
-    R = dirm.shape[0]
+    Bn, R = dirm.shape[:2]
     dev = dirm.device
     arange_c = torch.arange(C, dtype=_i32, device=dev)
     kill_b = kill_now != 0
+
+    def killed(core):  # kill_b[b, core[b, ...]] for ids in [0, C)
+        return kill_b.gather(1, core.reshape(Bn, -1).long()).view(core.shape)
+
     # killed-core bits packed as words (distinct bits: the sum is the OR)
-    bits = torch.zeros(NW * 32, dtype=_i32, device=dev)
-    bits[:C] = torch.where(kill_b, 1 << (arange_c & 31), 0)
-    killw = bits.view(NW, 32).sum(1, dtype=_i32)
-    sh = dirm[:, MW:]
-    sh.bitwise_and_(~killw.repeat(W2))
-    meta = dirm[:, : 2 * W2].view(R, W2, 2)
+    bits = torch.zeros(Bn, NW * 32, dtype=_i32, device=dev)
+    bits[:, :C] = torch.where(kill_b, 1 << (arange_c & 31), 0)
+    killw = bits.view(Bn, NW, 32).sum(-1, dtype=_i32)
+    sh = dirm[..., MW:]
+    sh.bitwise_and_(~killw.repeat(1, W2)[:, None, :])
+    meta = dirm[..., : 2 * W2].view(Bn, R, W2, 2)
     tag, own = meta[..., 0], meta[..., 1]
-    downer = (own >= 0) & kill_b[own.clamp(0, C - 1).long()]
+    downer = (own >= 0) & killed(own.clamp(0, C - 1))
     if cfg.fault_dead_policy == "drop":
         tag.masked_fill_(downer, -1)
-        sh.view(R, W2, NW).masked_fill_(downer[..., None], 0)
-        wb = torch.zeros(C, dtype=_i32, device=dev)
+        sh.view(Bn, R, W2, NW).masked_fill_(downer[..., None], 0)
+        wb = torch.zeros(Bn, C, dtype=_i32, device=dev)
     else:
         # masked lanes add 0 at a spread of cores, not all at one slot
         spread = torch.arange(R * W2, device=dev).view(R, W2) % C
-        wb = torch.zeros(C, dtype=_i32, device=dev).index_add_(
-            0, torch.where(downer, own.long(), spread).flatten(),
-            downer.flatten().to(_i32),
+        wb = torch.zeros(Bn, C, dtype=_i32, device=dev).scatter_add_(
+            1, torch.where(downer, own.long(), spread).view(Bn, -1),
+            downer.view(Bn, -1).to(_i32),
         )
     own.masked_fill_(downer, -1)
-    held_dead = (lock_holder >= 0) & kill_b[lock_holder.clamp(0, C - 1).long()]
+    held_dead = (lock_holder >= 0) & killed(lock_holder.clamp(0, C - 1))
     return torch.where(held_dead, -1, lock_holder), wb
 
 
@@ -173,18 +192,26 @@ def detour_table(cfg: MachineConfig, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(topology.detour_hops_table(cfg)).to(device)
 
 
+def _at_hops(tab, idx):
+    """tab[..., idx] per element: tab [..., N] (an element's table each
+    row), idx [..., C, H] (shared or per element)."""
+    idx = idx.expand(*tab.shape[:-1], *idx.shape[-2:])
+    return tab.gather(-1, idx.reshape(*tab.shape[:-1], -1)).view(idx.shape)
+
+
 def leg_fault_penalty(cfg: MachineConfig, fs, kn, atile, btile):
     """Fault penalty of the one-way legs atile -> btile: (extra cycles,
     extra hops, rerouted 0/1) per lane, the vectorized twin of
     `noc.topology.detour_stats`. Each dead link on the route detours at
     the topology's extra-hop cost, paying (link + router) per extra hop;
-    each live degraded link adds its extra cycles."""
-    p = topology.path_links(cfg, atile, btile)  # [C, H]
+    each live degraded link adds its extra cycles. Batched, each element
+    reads its own link masks and latency knobs ([B] each)."""
+    p = topology.path_links(cfg, atile, btile)  # [..., C, H]
     ok = p >= 0
     pc = torch.where(ok, p, 0).long()
-    dead = torch.where(ok, fs.link_dead[pc], 0)
+    dead = torch.where(ok, _at_hops(fs.link_dead, pc), 0)
     dh = detour_table(cfg, fs.link_dead.device)[pc] * dead
-    extra = torch.where(ok & (dead == 0), fs.link_extra[pc], 0)
-    d = dh.sum(1, dtype=_i32)
-    lat = d * (kn.link_lat + kn.router_lat) + extra.sum(1, dtype=_i32)
-    return lat, d, (dead.sum(1, dtype=_i32) > 0).to(_i32)
+    extra = torch.where(ok & (dead == 0), _at_hops(fs.link_extra, pc), 0)
+    d = dh.sum(-1, dtype=_i32)
+    lat = d * (kn.link_lat + kn.router_lat)[..., None] + extra.sum(-1, dtype=_i32)
+    return lat, d, (dead.sum(-1, dtype=_i32) > 0).to(_i32)

@@ -11,6 +11,11 @@ The kernels take the engine's own layouts verbatim (JAX package
 - Lane vectors are [C] int32, one entry per core; step scalars are 0-d
   int32 device tensors that the kernels read through a pointer, so a step
   never waits for the host.
+- Batched, every per-element tensor gains a leading element axis B (the
+  fleet's: B independent simulations of one geometry): lanes [B, C],
+  step scalars and latency knobs [B], the L1 [B, C, 5*W1*S1] and the
+  directory [B, NS, DW]. The kernels take the batch and launch once for
+  all of it; the wrappers also take the solo shapes, as a batch of one.
 
 The helpers below are the plain versions of the device functions in
 `csrc/common.cuh`: first-occurrence argmax/argmin (the JAX package's
@@ -59,6 +64,16 @@ def take(mat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """mat[..., idx] along the last dim, one index per row: [..., W] and
     [...] int -> [...]."""
     return mat.gather(-1, idx.long().unsqueeze(-1)).squeeze(-1)
+
+
+def unsqueeze_all(*ts):
+    """Each tensor with a leading axis of 1 (a view); None passes."""
+    return [t.unsqueeze(0) if torch.is_tensor(t) else t for t in ts]
+
+
+def squeeze_all(ts):
+    """Inverse of `unsqueeze_all` on a sequence of outputs."""
+    return tuple(t[0] if torch.is_tensor(t) else t for t in ts)
 
 
 def check_tensor(name, x, shape, device, dtype=torch.int32) -> None:

@@ -24,6 +24,11 @@ floors read `link_free`, never a clock another core's departure has
 already raised. `ok_all` must imply 0 <= `pth_all` < len(link_free), as
 the engine's mask does (lane mask and pth >= 0). All arithmetic is int32
 and wraps, as in JAX.
+
+Batched, one launch serves the B simulations of a fleet: `link_free`,
+`base` and `link_free_out` are [B, NL] (each element's own link clocks),
+the hop rows [B, C, legs*H], the lanes [B, C] and the latencies [B].
+Solo shapes are a batch of one.
 """
 
 from __future__ import annotations
@@ -31,7 +36,7 @@ from __future__ import annotations
 import torch
 
 from . import build
-from .layouts import check_tensor
+from .layouts import check_tensor, squeeze_all, unsqueeze_all
 
 #: masked-hop wait floor, below any real one and still representable
 #: after the - k*c offsets of every hop
@@ -48,22 +53,34 @@ def router_cascade_plain(
     rep_hops, arr_hops, link_lat, router_lat, link_free_out, *,
     has_sync: bool,
 ):
-    """Plain torch version: returns (t_rep_end [C], t_arr_end [C] or
-    None), int32, and scatter-maxes the live departures into
-    `link_free_out` in place."""
+    """Plain torch version: returns (t_rep_end [B, C], t_arr_end [B, C]
+    or None), int32 (without the B for solo inputs), and scatter-maxes
+    the live departures into `link_free_out` in place."""
+    if link_free.dim() == 1:
+        return squeeze_all(router_cascade_plain(
+            *unsqueeze_all(link_free, base, pth_all, ok_all, r_all, t0, service,
+                           req_hops, rep_hops, arr_hops, link_lat, router_lat,
+                           link_free_out),
+            has_sync=has_sync,
+        ))
     legs = 3 if has_sync else 2
-    H = pth_all.shape[1] // legs
-    L, R = link_lat, router_lat
+    Bn, NL = link_free.shape
+    H = pth_all.shape[-1] // legs
+    L, R = link_lat[:, None, None], router_lat[:, None, None]
     c = L + R
-    hidx = torch.arange(H, dtype=_i32, device=pth_all.device)[None, :]
+    hidx = torch.arange(H, dtype=_i32, device=pth_all.device)
     pc = torch.where(pth_all >= 0, pth_all, 0).long()
-    F = torch.where(ok_all, torch.maximum(link_free[pc], base[pc]) + r_all * L, SENT)
+
+    def at_hops(tab):  # tab[b, pc[b, ...]]
+        return tab.gather(1, pc.view(Bn, -1)).view(pc.shape)
+
+    F = torch.where(ok_all, torch.maximum(at_hops(link_free), at_hops(base)) + r_all * L, SENT)
 
     def leg(k, t_start, nh):
-        cum = (F[:, k * H : (k + 1) * H] - hidx * c).cummax(1).values
-        t1 = t_start + R
-        t_end = torch.maximum(t1, cum[:, -1]) + nh * c
-        return t_end, torch.maximum(t1[:, None], cum) + hidx * c + L
+        cum = (F[..., k * H : (k + 1) * H] - hidx * c).cummax(-1).values
+        t1 = t_start + R[..., 0]
+        t_end = torch.maximum(t1, cum[..., -1]) + nh * c[..., 0]
+        return t_end, torch.maximum(t1[..., None], cum) + hidx * c + L
 
     t_req_end, d_req = leg(0, t0, req_hops)
     t_rep_end, d_rep = leg(1, t_req_end + service, rep_hops)
@@ -72,8 +89,12 @@ def router_cascade_plain(
     if has_sync:
         t_arr_end, d_arr = leg(2, t0, arr_hops)
         deps.append(d_arr)
-    departs = torch.cat(deps, 1)
-    link_free_out.scatter_reduce_(0, pc[ok_all], departs[ok_all], "amax")
+    departs = torch.cat(deps, -1)
+    # each element's departures go to its own row of link_free_out
+    row = torch.arange(Bn, device=pc.device)[:, None, None] * NL
+    link_free_out.view(-1).scatter_reduce_(
+        0, (pc + row)[ok_all], departs[ok_all], "amax"
+    )
     return t_rep_end, t_arr_end
 
 
@@ -84,12 +105,13 @@ def router_cascade(
 ):
     """The kernel on CUDA tensors, its plain version on CPU tensors.
     Returns (t_rep_end, t_arr_end or None) and updates `link_free_out`
-    IN PLACE. `link_free`, `base` and `link_free_out` are int32 [NL],
-    `pth_all`/`r_all` int32 and `ok_all` bool [C, legs*H], the lanes
-    int32 [C]; `link_lat`/`router_lat` are 0-d tensors on the same device,
-    and `arr_hops` is read only when `has_sync` (pass None otherwise)."""
+    IN PLACE. Batched: `link_free`, `base` and `link_free_out` are int32
+    [B, NL], `pth_all`/`r_all` int32 and `ok_all` bool [B, C, legs*H], the
+    lanes int32 [B, C]; `link_lat`/`router_lat` are [B] tensors on the
+    same device, and `arr_hops` is read only when `has_sync` (pass None
+    otherwise). Solo shapes (no B, 0-d latencies) are a batch of one."""
     legs = 3 if has_sync else 2
-    C, LH = pth_all.shape
+    LH = pth_all.shape[-1]
     if LH % legs:
         raise ValueError(f"router_cascade: {LH} hop columns are not {legs} legs")
     if LH // legs > MAX_HOPS:
@@ -105,27 +127,35 @@ def router_cascade(
             rep_hops, arr_hops, link_lat, router_lat, link_free_out,
             has_sync=has_sync,
         )
-    NL = link_free.shape[0]
+    if link_free.dim() == 1:
+        return squeeze_all(router_cascade(
+            *unsqueeze_all(link_free, base, pth_all, ok_all, r_all, t0, service,
+                           req_hops, rep_hops, arr_hops, link_lat, router_lat,
+                           link_free_out),
+            has_sync=has_sync,
+        ))
+    Bn, NL = link_free.shape
+    C = pth_all.shape[1]
     for name, x in (("link_free", link_free), ("base", base),
                     ("link_free_out", link_free_out)):
-        check_tensor(name, x, (NL,), dev)
-    check_tensor("pth_all", pth_all, (C, LH), dev)
-    check_tensor("r_all", r_all, (C, LH), dev)
-    check_tensor("ok_all", ok_all, (C, LH), dev, torch.bool)  # read as bytes
+        check_tensor(name, x, (Bn, NL), dev)
+    check_tensor("pth_all", pth_all, (Bn, C, LH), dev)
+    check_tensor("r_all", r_all, (Bn, C, LH), dev)
+    check_tensor("ok_all", ok_all, (Bn, C, LH), dev, torch.bool)  # read as bytes
     lanes = [t0, service, req_hops, rep_hops] + ([arr_hops] if has_sync else [])
     for name, x in zip(("t0", "service", "req_hops", "rep_hops", "arr_hops"), lanes):
-        check_tensor(name, x, (C,), dev)
+        check_tensor(name, x, (Bn, C), dev)
     for name, x in (("link_lat", link_lat), ("router_lat", router_lat)):
-        check_tensor(name, x, (), dev)
-    t_rep = torch.empty(C, dtype=_i32, device=dev)
-    t_arr = torch.empty(C, dtype=_i32, device=dev) if has_sync else None
+        check_tensor(name, x, (Bn,), dev)
+    t_rep = torch.empty(Bn, C, dtype=_i32, device=dev)
+    t_arr = torch.empty(Bn, C, dtype=_i32, device=dev) if has_sync else None
     build.launch(
         "router_cascade",
         [link_free, base, pth_all, ok_all, r_all, *lanes[:4],
          arr_hops if has_sync else t0,  # never read without the arrival leg
          link_lat, router_lat, t_rep, t_arr if has_sync else t_rep,
          link_free_out],
-        [C, LH // legs, legs],
+        [Bn, C, NL, LH // legs, legs],
         torch.cuda.current_stream(dev),
     )
     return t_rep, t_arr

@@ -31,6 +31,12 @@ the probed owner recorded on a GETS probe, and the row's sharer words
 become the old sharers OR the requester OR the owner (derived Owned);
 MOESI needs `sharer_group` == 1. W1, W2 and the local run length are at
 most 32 (one warp's lanes).
+
+Both kernels take a batch of B simulations of one geometry in one launch
+(the fleet's): every per-element tensor has a leading element axis, the
+step number is [B], the core ids `cid` [C] are shared, and each element
+probes and commits only its own L1 rows and directory. The solo shapes
+are a batch of one (`layouts.unsqueeze_all`).
 """
 
 from __future__ import annotations
@@ -40,7 +46,15 @@ import torch
 from ..config.machine import MachineConfig
 from ..sim.state import I, M, S, dirm_width, llc_meta_width
 from . import build
-from .layouts import check_tensor, first_min, first_true, popcount, take
+from .layouts import (
+    check_tensor,
+    first_min,
+    first_true,
+    popcount,
+    squeeze_all,
+    take,
+    unsqueeze_all,
+)
 
 # probe_classify packed-lane indices (column k of the [C, PROBE_LANES]
 # output): the JAX package's eleven, then the home-row words commit_step
@@ -93,14 +107,26 @@ WARP = 32  # the kernels give a core's ways, LLC ways and run slots one lane eac
 _i32 = torch.int32
 
 
+def _take_way(rows, way):
+    """rows[b, c, way[b, c], :] of [B, C, W, N] rows: [B, C, N]."""
+    idx = way.long()[..., None, None].expand(*way.shape, 1, rows.shape[-1])
+    return rows.gather(2, idx)[:, :, 0]
+
+
 def probe_classify_plain(
     cfg: MachineConfig, l1, dirm, slot, line, cid, step_no,
     hm=None, wm=None, cm=None,
 ):
     """Plain torch version of phase 1: returns (tag_rows, lru_rows, weff)
-    [C, W1], (shw, vic_shw) [C, NW] and the lanes [C, PROBE_LANES].
-    Every pointer in the accessed set lies in [0, NS*W2)."""
-    C = l1.shape[0]
+    [B, C, W1], (shw, vic_shw) [B, C, NW] and the lanes
+    [B, C, PROBE_LANES] (without the leading B for solo inputs). Every
+    pointer in the accessed set lies in [0, NS*W2)."""
+    if l1.dim() == 2:
+        return squeeze_all(probe_classify_plain(
+            cfg, *unsqueeze_all(l1, dirm, slot, line), cid,
+            *unsqueeze_all(step_no, hm, wm, cm),
+        ))
+    Bn, C = l1.shape[:2]
     S1, W1, W2 = cfg.l1.sets, cfg.l1.ways, cfg.llc.ways
     NW, MW, DW = cfg.n_sharer_words, llc_meta_width(cfg), dirm_width(cfg)
     FS = W1 * S1
@@ -108,59 +134,65 @@ def probe_classify_plain(
     g = cid >> (cfg.sharer_group.bit_length() - 1)  # the core's sharer bit
     dev = l1.device
     l1s = line & (S1 - 1)
-    w1cols = torch.arange(W1, dtype=_i32, device=dev)[None, :] * S1 + l1s[:, None]
+    w1cols = torch.arange(W1, dtype=_i32, device=dev) * S1 + l1s[..., None]
     n_planes = 5 if coarse else 4  # the epoch plane only under Dir-G
     planes = l1.gather(
-        1, torch.cat([w1cols + p * FS for p in range(n_planes)], 1).long()
-    ).split(W1, 1)
+        2, torch.cat([w1cols + p * FS for p in range(n_planes)], -1).long()
+    ).split(W1, -1)
     tag_w, st_w, lru_w, ptr_w = planes[:4]
     if hm is not None:
         # the local run's deferred L1 writes, patched in: E->M at wm
         # columns, LRU stamps at hm columns
-        colm = cm[:, :, None] == w1cols[:, None, :]  # [C, rl, W1]
-        st_w = torch.where(((wm[:, :, None] != 0) & colm).any(1), M, st_w)
-        lru_w = torch.where(((hm[:, :, None] != 0) & colm).any(1), step_no, lru_w)
+        colm = cm[..., None] == w1cols[:, :, None, :]  # [B, C, rl, W1]
+        st_w = torch.where(((wm[..., None] != 0) & colm).any(2), M, st_w)
+        lru_w = torch.where(
+            ((hm[..., None] != 0) & colm).any(2), step_no[:, None, None], lru_w
+        )
 
     # pointer validation of every way against its directory entry, the
     # words (tag, owner, own sharer word) of row ptr // W2 at way ptr % W2;
     # under Dir-G the group bit also needs the entry's epoch unchanged
     pway = ptr_w % W2
     prow = (ptr_w // W2).long() * DW
-    flat = dirm.view(-1)
-    vtag = flat[prow + 2 * pway]
-    vown = flat[prow + 2 * pway + 1]
-    vsh = flat[prow + MW + pway * NW + (g[:, None] >> 5)]
+    flat = dirm.view(Bn, -1)
+
+    def word(idx):  # flat[b, idx[b, ...]]
+        return flat.gather(1, idx.reshape(Bn, -1)).view(idx.shape)
+
+    vtag = word(prow + 2 * pway)
+    vown = word(prow + 2 * pway + 1)
+    vsh = word(prow + MW + pway * NW + (g[:, None] >> 5))
     vbit = ((vsh >> (g[:, None] & 31)) & 1) != 0
     if coarse:
-        vbit = vbit & (flat[prow + 3 * W2 + pway] == planes[4])
+        vbit = vbit & (word(prow + 3 * W2 + pway) == planes[4])
     weff = torch.where(
         (st_w == I) | (vtag != tag_w),
         I,
         torch.where(vown == cid[:, None], st_w, torch.where(vbit, S, I)),
     ).to(_i32)
 
-    hit_any, hit_way = first_true((tag_w == line[:, None]) & (weff != I))
+    hit_any, hit_way = first_true((tag_w == line[..., None]) & (weff != I))
     hit_state = take(weff, hit_way)
 
     # LLC home-row parse
-    mrows = dirm[slot.long()]
-    ltag = mrows[:, 0 : 2 * W2 : 2]
-    lown = mrows[:, 1 : 2 * W2 : 2]
-    llru = mrows[:, 2 * W2 : 3 * W2]
-    leph = mrows[:, 3 * W2 : 4 * W2]
-    llc_has, llc_hway = first_true(ltag == line[:, None])
-    sh_rows = mrows[:, MW:].view(C, W2, NW)
-    rows = torch.arange(C, device=dev)[:, None]
-    nw_idx = torch.arange(NW, device=dev)
-    shw = sh_rows[rows, llc_hway.long()[:, None], nw_idx]
-    self_bit = (take(shw, g >> 5) >> (g & 31)) & 1
-    total = popcount(shw).sum(1, dtype=_i32)
+    ib = torch.arange(Bn, device=dev)[:, None]
+    mrows = dirm[ib, slot.long()]  # [B, C, DW]
+    ltag = mrows[..., 0 : 2 * W2 : 2]
+    lown = mrows[..., 1 : 2 * W2 : 2]
+    llru = mrows[..., 2 * W2 : 3 * W2]
+    leph = mrows[..., 3 * W2 : 4 * W2]
+    llc_has, llc_hway = first_true(ltag == line[..., None])
+    sh_rows = mrows[..., MW:].view(Bn, C, W2, NW)
+    shw = _take_way(sh_rows, llc_hway)
+    gb = g.expand(Bn, C)
+    self_bit = (take(shw, gb >> 5) >> (gb & 31)) & 1
+    total = popcount(shw).sum(-1, dtype=_i32)
     # a group bit may stand for other cores: under Dir-G any set bit shares
     other_sh = total > 0 if coarse else (total - self_bit) > 0
 
     # victim: first minimum of LRU over valid ways
     llc_vway = first_min(torch.where(ltag != -1, llru, -1))
-    vic_shw = sh_rows[rows, llc_vway.long()[:, None], nw_idx]
+    vic_shw = _take_way(sh_rows, llc_vway)
     lanes = torch.stack(
         [
             hit_any.to(_i32), hit_way, hit_state, llc_has.to(_i32), llc_hway,
@@ -169,18 +201,19 @@ def probe_classify_plain(
             take(ltag, llc_hway), take(llru, llc_hway), take(leph, llc_hway),
             take(llru, llc_vway), take(leph, llc_vway),
         ],
-        1,
+        -1,
     )
     return tag_w, lru_w, weff, shw, vic_shw, lanes
 
 
 def _write(blk, mask, col, val):
-    """blk[c, col[c]] = val[c] where mask[c]: one ordered plane write
-    (each row gets at most one column, so the scatter is deterministic)."""
-    col = torch.where(mask, col, 0).long()[:, None]
-    cur = blk.gather(1, col)
-    val = torch.as_tensor(val, dtype=_i32, device=blk.device).expand(cur.shape[0])
-    blk.scatter_(1, col, torch.where(mask[:, None], val[:, None], cur))
+    """blk[b, c, col[b, c]] = val[b, c] where mask[b, c]: one ordered plane
+    write (each row gets at most one column, so the scatter is
+    deterministic). `val` broadcasts against `mask`."""
+    col = torch.where(mask, col, 0).long()[..., None]
+    cur = blk.gather(2, col)
+    val = torch.as_tensor(val, dtype=_i32, device=blk.device).expand(mask.shape)
+    blk.scatter_(2, col, torch.where(mask[..., None], val[..., None], cur))
 
 
 def commit_step_plain(
@@ -191,13 +224,19 @@ def commit_step_plain(
     `l1`, `dirm` and `counters`. `pc_lanes`, `shw` and `vic_shw` are the
     probe's outputs for this `dirm`: the old home-row words at
     CL_LLC_HWAY and CL_LLC_VWAY."""
-    C = l1.shape[0]
+    if l1.dim() == 2:
+        return commit_step_plain(
+            cfg, *unsqueeze_all(l1, dirm, tag_rows, shw, vic_shw, lanes, pc_lanes),
+            cid, *unsqueeze_all(step_no, counters, delta, hm, wm, cm),
+        )
+    Bn = l1.shape[0]
     S1, W1, W2 = cfg.l1.sets, cfg.l1.ways, cfg.llc.ways
     NW, MW, DW = cfg.n_sharer_words, llc_meta_width(cfg), dirm_width(cfg)
     FS = W1 * S1
     dev = l1.device
-    lane = lanes.unbind(1)
-    pl = pc_lanes.unbind(1)
+    lane = lanes.unbind(-1)
+    pl = pc_lanes.unbind(-1)
+    stp = step_no[:, None]
     line, hit_way, l1_vway = lane[CL_LINE], lane[CL_HIT_WAY], lane[CL_L1_VWAY]
     st_val, slot = lane[CL_ST_VAL], lane[CL_SLOT]
     llc_hway, llc_vway, oclamp = lane[CL_LLC_HWAY], lane[CL_LLC_VWAY], lane[CL_OCLAMP]
@@ -220,7 +259,7 @@ def commit_step_plain(
     hit_col = hit_way * S1 + l1s
     upd_col = upd_way * S1 + l1s
     fill = (winner & ~upg) | join
-    any_tagm, t_way = first_true(tag_rows == line[:, None])
+    any_tagm, t_way = first_true(tag_rows == line[..., None])
     dup = fill & any_tagm & (t_way != upd_way)
     dup_col = t_way * S1 + l1s
     wj = winner | join
@@ -231,26 +270,27 @@ def commit_step_plain(
     fill_ptr = slot * W2 + torch.where(eph_home, llc_hway, llc_vway)
     _write(l1, dup, dup_col, -1)
     _write(l1, dup, dup_col + FS, I)
-    _write(l1, hit | wj, torch.where(hit, hit_col, upd_col) + 2 * FS, step_no)
+    _write(l1, hit | wj, torch.where(hit, hit_col, upd_col) + 2 * FS, stp)
     _write(l1, st_m, st_col + FS, st_val)
     _write(l1, wj, upd_col, line)
     _write(l1, wj, upd_col + 3 * FS, fill_ptr)
     _write(l1, wj, upd_col + 4 * FS, new_eph)
     if hm is not None:
-        for k in range(hm.shape[1]):
-            cmk = cm[:, k]
-            _write(l1, hm[:, k] != 0, cmk + 2 * FS, step_no)
-            sup = (wm[:, k] != 0) & ~(st_m & (st_col == cmk))
+        for k in range(hm.shape[-1]):
+            cmk = cm[..., k]
+            _write(l1, hm[..., k] != 0, cmk + 2 * FS, stp)
+            sup = (wm[..., k] != 0) & ~(st_m & (st_col == cmk))
             _write(l1, sup, cmk + FS, M)
 
     # directory: a winner's new pair, LRU, epoch and sharer words at the
     # updated way; a joiner's LRU (the join representative) and self bit
-    # at the hit way. Each lane adds its delta words to row `slot`.
-    nw = torch.arange(NW, dtype=_i32, device=dev)[None, :]
+    # at the hit way. Each lane adds its delta words to row `slot` of its
+    # own element's directory.
+    nw = torch.arange(NW, dtype=_i32, device=dev)
     logG = cfg.sharer_group.bit_length() - 1
     g, og = cid >> logG, oclamp >> logG  # sharer bits: the cores' groups
     self_word = torch.where(nw == (g >> 5)[:, None], 1 << (g & 31)[:, None], 0)
-    owner_word = torch.where(nw == (og >> 5)[:, None], 1 << (og & 31)[:, None], 0)
+    owner_word = torch.where(nw == (og >> 5)[..., None], 1 << (og & 31)[..., None], 0)
     new_owner = torch.where(takes_own, cid, -1)
     probe_word = self_word | owner_word
     if cfg.coherence == "moesi":
@@ -259,30 +299,32 @@ def commit_step_plain(
         new_owner = torch.where(gets_probe, oclamp, new_owner)
         probe_word = shw | probe_word
     new_shw = torch.where(
-        gets_probe[:, None],
+        gets_probe[..., None],
         probe_word,
-        torch.where(gets_shared[:, None], shw | self_word, 0),
+        torch.where(gets_shared[..., None], shw | self_word, 0),
     )
     zero = torch.zeros_like(line)
     win_d = torch.cat([
         torch.stack([
             line - old(PL_HOME_TAG, PL_VIC_TAG),
             new_owner - old(PL_OWNER, PL_VIC_OWNER),
-            step_no - old(PL_HOME_LRU, PL_VIC_LRU),
+            stp - old(PL_HOME_LRU, PL_VIC_LRU),
             new_eph - old(PL_HOME_EPOCH, PL_VIC_EPOCH),
-        ], 1),
-        new_shw - torch.where(llc_hit[:, None], shw, vic_shw),
-    ], 1)
-    jdelta = torch.where(jrep, step_no - pl[PL_HOME_LRU], 0)
+        ], -1),
+        new_shw - torch.where(llc_hit[..., None], shw, vic_shw),
+    ], -1)
+    jdelta = torch.where(jrep, stp - pl[PL_HOME_LRU], 0)
     join_d = torch.cat(
-        [torch.stack([zero, zero, jdelta, zero], 1), self_word & ~shw], 1
+        [torch.stack([zero, zero, jdelta, zero], -1), (self_word & ~shw)], -1
     )
-    way = torch.where(winner, torch.where(llc_hit, llc_hway, llc_vway), llc_hway)[:, None]
-    cols = torch.cat([2 * way, 2 * way + 1, 2 * W2 + way, 3 * W2 + way, MW + way * NW + nw], 1)
+    way = torch.where(winner, torch.where(llc_hit, llc_hway, llc_vway), llc_hway)[..., None]
+    cols = torch.cat(
+        [2 * way, 2 * way + 1, 2 * W2 + way, 3 * W2 + way, MW + way * NW + nw], -1
+    )
     # lanes neither winner nor joiner add zeros (the JAX package drops them)
-    vals = torch.where(winner[:, None], win_d, torch.where(join[:, None], join_d, 0))
-    dirm.view(-1).index_add_(
-        0, (slot.long()[:, None] * DW + cols).flatten(), vals.flatten()
+    vals = torch.where(winner[..., None], win_d, torch.where(join[..., None], join_d, 0))
+    dirm.view(Bn, -1).scatter_add_(
+        1, (slot.long()[..., None] * DW + cols).view(Bn, -1), vals.reshape(Bn, -1)
     )
     counters += delta
 
@@ -290,7 +332,7 @@ def commit_step_plain(
 def _check_widths(name: str, cfg: MachineConfig, hm) -> int:
     """The local run length; raise where a core's ways, LLC ways or run
     slots outnumber a warp's lanes."""
-    rl = 0 if hm is None else hm.shape[1]
+    rl = 0 if hm is None else hm.shape[-1]
     for what, n in (("l1.ways", cfg.l1.ways), ("llc.ways", cfg.llc.ways),
                     ("local run length", rl)):
         if n > WARP:
@@ -305,50 +347,63 @@ def _device(name: str, t) -> torch.device:
     return dev
 
 
-def _run_patch(hm, wm, cm, C, rl, dev, anchor):
+def _run_patch(hm, wm, cm, Bn, C, rl, dev, anchor):
     """The run patch as the kernels read it: `hm` and `wm` as bytes of
-    the bool tensors, `cm` through its row stride. Returns (pointers, cm
-    row stride); rl = 0 passes a dummy pointer the kernel never reads."""
+    the bool tensors, `cm` through its core stride (element b's row c at
+    (b*C + c) * stride). Returns (pointers, cm core stride); rl = 0
+    passes a dummy pointer the kernel never reads."""
     if not rl:
         return [anchor] * 3, 0
-    check_tensor("hm", hm, (C, rl), dev, torch.bool)
-    check_tensor("wm", wm, (C, rl), dev, torch.bool)
-    if (cm.dtype != _i32 or tuple(cm.shape) != (C, rl) or cm.device != dev
-            or cm.stride(1) != 1 or cm.stride(0) < rl):
+    check_tensor("hm", hm, (Bn, C, rl), dev, torch.bool)
+    check_tensor("wm", wm, (Bn, C, rl), dev, torch.bool)
+    if (cm.dtype != _i32 or tuple(cm.shape) != (Bn, C, rl) or cm.device != dev
+            or cm.stride(2) != 1 or cm.stride(1) < rl
+            or (Bn > 1 and cm.stride(0) != C * cm.stride(1))):
         raise ValueError(
-            f"cm must be int32 [{C}, {rl}] on {dev} with unit column stride, got "
-            f"{cm.dtype} {list(cm.shape)} strides {cm.stride()} on {cm.device}"
+            f"cm must be int32 [{Bn}, {C}, {rl}] on {dev} with unit column stride "
+            f"and element stride C * core stride, got {cm.dtype} {list(cm.shape)} "
+            f"strides {cm.stride()} on {cm.device}"
         )
-    return [hm, wm, cm], cm.stride(0)
+    return [hm, wm, cm], cm.stride(1)
 
 
 def probe_classify(
     cfg: MachineConfig, l1, dirm, slot, line, cid, step_no,
     hm=None, wm=None, cm=None,
 ):
-    """Phase 1 for every core: the CUDA kernel on CUDA tensors, the plain
-    version on CPU tensors. `step_no` is a 0-d int32 tensor; `hm`/`wm`
-    are bool and `cm` int32 [C, rl] (a column slice is fine)."""
+    """Phase 1 for every core of every element: the CUDA kernel on CUDA
+    tensors, the plain version on CPU tensors. Batched: `l1`
+    [B, C, 5*W1*S1], `dirm` [B, NS, DW], `slot`/`line` [B, C], `step_no`
+    [B], `hm`/`wm` bool and `cm` int32 [B, C, rl] (a column slice is
+    fine); `cid` [C] is shared. Solo shapes (no B) are a batch of one."""
     rl = _check_widths("probe_classify", cfg, hm)
     dev = _device("probe_classify", l1)
     if dev.type == "cpu":
         return probe_classify_plain(cfg, l1, dirm, slot, line, cid, step_no, hm, wm, cm)
-    C = cfg.n_cores
+    if l1.dim() == 2:
+        return squeeze_all(probe_classify(
+            cfg, *unsqueeze_all(l1, dirm, slot, line), cid,
+            *unsqueeze_all(step_no, hm, wm, cm),
+        ))
+    Bn, C = l1.shape[0], cfg.n_cores
     S1, W1, W2 = cfg.l1.sets, cfg.l1.ways, cfg.llc.ways
     NW, MW, DW = cfg.n_sharer_words, llc_meta_width(cfg), dirm_width(cfg)
-    check_tensor("l1", l1, (C, 5 * W1 * S1), dev)
-    check_tensor("dirm", dirm, (cfg.n_banks * cfg.llc.sets, DW), dev)
-    for name, x in (("slot", slot), ("line", line), ("cid", cid)):
-        check_tensor(name, x, (C,), dev)
-    check_tensor("step_no", step_no, (), dev)
-    patch, cm_ld = _run_patch(hm, wm, cm, C, rl, dev, line)
-    outs = [torch.empty(C, W1, dtype=_i32, device=dev) for _ in range(3)]
-    outs += [torch.empty(C, NW, dtype=_i32, device=dev) for _ in range(2)]
-    outs.append(torch.empty(C, PROBE_LANES, dtype=_i32, device=dev))
+    NS = cfg.n_banks * cfg.llc.sets
+    check_tensor("l1", l1, (Bn, C, 5 * W1 * S1), dev)
+    check_tensor("dirm", dirm, (Bn, NS, DW), dev)
+    for name, x in (("slot", slot), ("line", line)):
+        check_tensor(name, x, (Bn, C), dev)
+    check_tensor("cid", cid, (C,), dev)
+    check_tensor("step_no", step_no, (Bn,), dev)
+    patch, cm_ld = _run_patch(hm, wm, cm, Bn, C, rl, dev, line)
+    outs = [torch.empty(Bn, C, W1, dtype=_i32, device=dev) for _ in range(3)]
+    outs += [torch.empty(Bn, C, NW, dtype=_i32, device=dev) for _ in range(2)]
+    outs.append(torch.empty(Bn, C, PROBE_LANES, dtype=_i32, device=dev))
     build.launch(
         "probe_classify",
         [l1, dirm, slot, line, cid, step_no, *patch, *outs],
-        [C, S1, W1, W2, NW, MW, DW, rl, cm_ld, cfg.sharer_group.bit_length() - 1],
+        [Bn, C, NS, S1, W1, W2, NW, MW, DW, rl, cm_ld,
+         cfg.sharer_group.bit_length() - 1],
         torch.cuda.current_stream(dev),
     )
     return tuple(outs)
@@ -361,7 +416,9 @@ def commit_step(
     """Phase 4.A + counter fold, in place on `l1`, `dirm` and `counters`:
     the CUDA kernel on CUDA tensors, the plain version on CPU tensors.
     `tag_rows`, `shw`, `vic_shw` and `pc_lanes` are probe_classify's
-    outputs of this step; the row slot is column CL_SLOT of `lanes`."""
+    outputs of this step; the row slot is column CL_SLOT of `lanes`.
+    Batched as probe_classify, with `counters`/`delta` [B, NC, C]; solo
+    shapes are a batch of one."""
     rl = _check_widths("commit_step", cfg, hm)
     dev = _device("commit_step", l1)
     moesi = cfg.coherence == "moesi"
@@ -372,27 +429,33 @@ def commit_step(
             cfg, l1, dirm, tag_rows, shw, vic_shw, lanes, pc_lanes, cid,
             step_no, counters, delta, hm, wm, cm,
         )
-    C = cfg.n_cores
+    if l1.dim() == 2:
+        return commit_step(
+            cfg, *unsqueeze_all(l1, dirm, tag_rows, shw, vic_shw, lanes, pc_lanes),
+            cid, *unsqueeze_all(step_no, counters, delta, hm, wm, cm),
+        )
+    Bn, C = l1.shape[0], cfg.n_cores
     S1, W1, W2 = cfg.l1.sets, cfg.l1.ways, cfg.llc.ways
     NW, MW, DW = cfg.n_sharer_words, llc_meta_width(cfg), dirm_width(cfg)
-    NC = counters.shape[0]
-    check_tensor("l1", l1, (C, 5 * W1 * S1), dev)
-    check_tensor("dirm", dirm, (cfg.n_banks * cfg.llc.sets, DW), dev)
-    check_tensor("tag_rows", tag_rows, (C, W1), dev)
-    check_tensor("shw", shw, (C, NW), dev)
-    check_tensor("vic_shw", vic_shw, (C, NW), dev)
-    check_tensor("lanes", lanes, (C, COMMIT_LANES), dev)
-    check_tensor("pc_lanes", pc_lanes, (C, PROBE_LANES), dev)
+    NS = cfg.n_banks * cfg.llc.sets
+    NC = counters.shape[1]
+    check_tensor("l1", l1, (Bn, C, 5 * W1 * S1), dev)
+    check_tensor("dirm", dirm, (Bn, NS, DW), dev)
+    check_tensor("tag_rows", tag_rows, (Bn, C, W1), dev)
+    check_tensor("shw", shw, (Bn, C, NW), dev)
+    check_tensor("vic_shw", vic_shw, (Bn, C, NW), dev)
+    check_tensor("lanes", lanes, (Bn, C, COMMIT_LANES), dev)
+    check_tensor("pc_lanes", pc_lanes, (Bn, C, PROBE_LANES), dev)
     check_tensor("cid", cid, (C,), dev)
-    check_tensor("step_no", step_no, (), dev)
-    check_tensor("counters", counters, (NC, C), dev)
-    check_tensor("delta", delta, (NC, C), dev)
-    patch, cm_ld = _run_patch(hm, wm, cm, C, rl, dev, lanes)
+    check_tensor("step_no", step_no, (Bn,), dev)
+    check_tensor("counters", counters, (Bn, NC, C), dev)
+    check_tensor("delta", delta, (Bn, NC, C), dev)
+    patch, cm_ld = _run_patch(hm, wm, cm, Bn, C, rl, dev, lanes)
     build.launch(
         "commit_step",
         [l1, dirm, tag_rows, shw, vic_shw, lanes, pc_lanes, cid, step_no,
          counters, delta, *patch],
-        [C, S1, W1, W2, NW, MW, DW, NC, rl, cm_ld, cfg.sharer_group.bit_length() - 1,
-         int(moesi)],
+        [Bn, C, NS, S1, W1, W2, NW, MW, DW, NC, rl, cm_ld,
+         cfg.sharer_group.bit_length() - 1, int(moesi)],
         torch.cuda.current_stream(dev),
     )

@@ -71,12 +71,13 @@ def xy_links(a: int, b: int, mesh_x: int) -> tuple[int, ...]:
 
 
 def path_links(cfg: MachineConfig, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """The XY routes a[i] -> b[i] as directed link ids, [C, H] int32 and
-    -1-padded to the mesh diameter H = (mx-1) + (my-1) (at least 1)."""
+    """The XY routes a[i] -> b[i] as directed link ids, [..., C, H] int32
+    (an element axis of `a` or `b` carries through), -1-padded to the
+    mesh diameter H = (mx-1) + (my-1) (at least 1)."""
     mx, my = cfg.noc.mesh_x, cfg.noc.mesh_y
     H = max(1, (mx - 1) + (my - 1))
-    ax, ay = (a % mx)[:, None], (a // mx)[:, None]
-    bx, by = (b % mx)[:, None], (b // mx)[:, None]
+    ax, ay = (a % mx)[..., None], (a // mx)[..., None]
+    bx, by = (b % mx)[..., None], (b // mx)[..., None]
     i = torch.arange(H, dtype=torch.int32, device=a.device)[None, :]
     sx, nx = torch.sign(bx - ax), (bx - ax).abs()
     xlink = (ay * mx + ax + sx * i) * 4 + (sx <= 0).to(torch.int32)
@@ -88,10 +89,11 @@ def path_links(cfg: MachineConfig, a: torch.Tensor, b: torch.Tensor) -> torch.Te
 
 def concat_legs(legs):
     """Per-leg routes and their lane masks in the contention models'
-    [C, legs*H] layout: `legs` is a sequence of (path_links result
-    [C, H], lane mask [C]) pairs. Returns the concatenated routes and the
-    masks broadcast to them, so that every per-link operation runs once
-    over all legs."""
-    pths = [p for p, _ in legs]
-    masks = [m[:, None].expand(p.shape) for p, m in legs]
-    return torch.cat(pths, 1), torch.cat(masks, 1)
+    [..., C, legs*H] layout: `legs` is a sequence of (path_links result
+    [..., C, H], lane mask [..., C]) pairs. Returns the concatenated
+    routes and the masks broadcast to them, so that every per-link
+    operation runs once over all legs."""
+    shape = [(*m.shape, p.shape[-1]) for p, m in legs]
+    pths = [p.expand(s) for (p, _), s in zip(legs, shape)]
+    masks = [m[..., None].expand(s) for (_, m), s in zip(legs, shape)]
+    return torch.cat(pths, -1), torch.cat(masks, -1)

@@ -70,10 +70,11 @@ def route_links(a: int, b: int, mesh_x: int, mesh_y: int) -> tuple[int, ...]:
 
 
 def path_links(cfg: MachineConfig, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """The ring routes a[i] -> b[i] as directed link ids, [C, H] int32,
-    -1-padded to the diameter: three concatenated shorter-way legs (source
-    row to the spine, spine to the destination row, destination row),
-    only the first when the rows match."""
+    """The ring routes a[i] -> b[i] as directed link ids, [..., C, H]
+    int32 (an element axis of `a` or `b` carries through), -1-padded to
+    the diameter: three concatenated shorter-way legs (source row to the
+    spine, spine to the destination row, destination row), only the
+    first when the rows match."""
     mx, my = cfg.noc.mesh_x, cfg.noc.mesh_y
     H = path_width(mx, my)
     ax, ay = a % mx, a // mx
@@ -82,28 +83,28 @@ def path_links(cfg: MachineConfig, a: torch.Tensor, b: torch.Tensor) -> torch.Te
     i = torch.arange(H, dtype=torch.int32, device=a.device)[None, :]
 
     def dirn(pos, base):  # link direction: base (+) or base + 1 (-)
-        return base + (~pos).to(torch.int32)[:, None]
+        return base + (~pos).to(torch.int32)[..., None]
 
     # leg 1: row ay's ring, ax -> (bx when same row, else the spine at 0)
     pos1, s1, n1 = shorter_way(ax, torch.where(same, bx, 0), mx)
-    p1 = (ax[:, None] + s1[:, None] * i) % mx
-    l1 = (ay[:, None] * mx + p1) * 4 + dirn(pos1, 0)
+    p1 = (ax[..., None] + s1[..., None] * i) % mx
+    l1 = (ay[..., None] * mx + p1) * 4 + dirn(pos1, 0)
     # leg 2: the column-0 spine, ay -> by (none when same row)
     pos2, s2, n2 = shorter_way(ay, by, my)
     n2 = torch.where(same, 0, n2)
-    j = i - n1[:, None]
-    p2 = (ay[:, None] + s2[:, None] * j) % my
+    j = i - n1[..., None]
+    p2 = (ay[..., None] + s2[..., None] * j) % my
     l2 = (p2 * mx) * 4 + dirn(pos2, 2)
     # leg 3: row by's ring, 0 -> bx (none when same row)
     pos3, s3, n3 = shorter_way(torch.zeros_like(bx), bx, mx)
     n3 = torch.where(same, 0, n3)
-    k = j - n2[:, None]
-    p3 = (s3[:, None] * k) % mx
-    l3 = (by[:, None] * mx + p3) * 4 + dirn(pos3, 0)
+    k = j - n2[..., None]
+    p3 = (s3[..., None] * k) % mx
+    l3 = (by[..., None] * mx + p3) * 4 + dirn(pos3, 0)
     return torch.where(
-        i < n1[:, None],
+        i < n1[..., None],
         l1,
-        torch.where(j < n2[:, None], l2, torch.where(k < n3[:, None], l3, -1)),
+        torch.where(j < n2[..., None], l2, torch.where(k < n3[..., None], l3, -1)),
     )
 
 

@@ -73,7 +73,8 @@ def route_links(cfg: MachineConfig, a: int, b: int) -> tuple[int, ...]:
 
 
 def path_links(cfg: MachineConfig, a, b):
-    """Vectorized routes a -> b as directed link ids [C, H], -1-padded."""
+    """Vectorized routes a -> b as directed link ids [..., C, H],
+    -1-padded."""
     if cfg.noc.topology == "torus":
         return _torus.path_links(cfg, a, b)
     if cfg.noc.topology == "ring":

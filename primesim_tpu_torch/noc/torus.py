@@ -90,21 +90,22 @@ def shorter_way(a, b, m: int):
 
 
 def path_links(cfg: MachineConfig, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """The torus routes a[i] -> b[i] as directed link ids, [C, H] int32,
-    -1-padded to the diameter: the shorter-way x phase along the source
-    row, then the shorter-way y phase along the destination column."""
+    """The torus routes a[i] -> b[i] as directed link ids, [..., C, H]
+    int32 (an element axis of `a` or `b` carries through), -1-padded to
+    the diameter: the shorter-way x phase along the source row, then the
+    shorter-way y phase along the destination column."""
     mx, my = cfg.noc.mesh_x, cfg.noc.mesh_y
     H = path_width(mx, my)
     ax, ay = a % mx, a // mx
     bx, by = b % mx, b // mx
     i = torch.arange(H, dtype=torch.int32, device=a.device)[None, :]
     posx, sx, nx = shorter_way(ax, bx, mx)
-    px = (ax[:, None] + sx[:, None] * i) % mx
-    xlink = (ay[:, None] * mx + px) * 4 + (~posx).to(torch.int32)[:, None]
+    px = (ax[..., None] + sx[..., None] * i) % mx
+    xlink = (ay[..., None] * mx + px) * 4 + (~posx).to(torch.int32)[..., None]
     posy, sy, ny = shorter_way(ay, by, my)
-    j = i - nx[:, None]
-    py = (ay[:, None] + sy[:, None] * j) % my
-    ylink = (py * mx + bx[:, None]) * 4 + 2 + (~posy).to(torch.int32)[:, None]
+    j = i - nx[..., None]
+    py = (ay[..., None] + sy[..., None] * j) % my
+    ylink = (py * mx + bx[..., None]) * 4 + 2 + (~posy).to(torch.int32)[..., None]
     return torch.where(
-        i < nx[:, None], xlink, torch.where(j < ny[:, None], ylink, -1)
+        i < nx[..., None], xlink, torch.where(j < ny[..., None], ylink, -1)
     )

@@ -1,5 +1,6 @@
-"""Checkpoint / resume of one engine (SURVEY.md §5.4): the solo part of
-the JAX package's `sim/checkpoint.py`, in its file format.
+"""Checkpoint / resume of one engine or one fleet (SURVEY.md §5.4): the
+solo and fleet parts of the JAX package's `sim/checkpoint.py`, in its
+file format.
 
 A checkpoint is one `.npz`: every state field (nested knobs and fault
 state flattened to `state_<field>__<sub>` keys), the 64-bit counter and
@@ -9,8 +10,11 @@ The keys and dtypes are the JAX package's format 7, so a snapshot either
 engine writes resumes bit-exactly in the other: the port's int64 fault
 values (seed and thresholds, in [0, 2^32)) are written as the JAX
 state's uint32 and read back to int64, and the port writes no prefix-fork
-provenance (`prefix_steps` 0, an empty `prefix_cache_key`) and no
-attestation members.
+provenance (`prefix_steps` 0, an empty `prefix_cache_key`; in a fleet
+file zeros and a list of nulls) and no attestation members. A fleet
+snapshot holds the batched state (leading element axis), per-element
+cycle bases, step counts and config and trace fingerprints, and the
+[n_counters, B, C] host counters, under the `fleet` key.
 
 Durability (DESIGN.md §10): every save goes through `atomic_save_npz`: a
 writer-unique temp file, fsync, `os.replace`, a directory fsync; a
@@ -166,9 +170,10 @@ def _state_arrays(st) -> dict[str, np.ndarray]:
     return arrays
 
 
-def _state_from(z, cfg: MachineConfig, device):
+def _state_from(z, cfg: MachineConfig, device, batch: int | None = None):
     """The port's MachineState on `device` from a format-7 npz (inverse of
-    _state_arrays; uint32 values come back as int64)."""
+    _state_arrays; uint32 values come back as int64), batched when
+    `batch` gives the element count."""
     from .state import MachineState
 
     arrays = {}
@@ -181,7 +186,7 @@ def _state_from(z, cfg: MachineConfig, device):
             }
         else:
             arrays[k] = z[f"state_{k}"]
-    return state_from_numpy(cfg, arrays, device)
+    return state_from_numpy(cfg, arrays, device, batch)
 
 
 def trace_fingerprint(trace) -> str:
@@ -258,5 +263,70 @@ def load_checkpoint(path: str, engine) -> None:
     engine.steps_run = int(z["steps_run"])
     hc = z["host_counters"]
     engine.host_counters = {
+        k: hc[i].astype(np.int64) for i, k in enumerate(COUNTER_NAMES)
+    }
+
+
+def save_fleet_checkpoint(path: str, fleet) -> None:
+    """Snapshot a FleetEngine mid-run: the BATCHED state (leading axis =
+    fleet element), per-element 64-bit cycle bases and counter
+    accumulators, and per-element config/trace fingerprints. Any chunk
+    boundary is a consistent cut, exactly as for the solo engine."""
+    fleet._drain()
+    arrays = _state_arrays(fleet.state)
+    arrays["host_counters"] = np.stack(
+        [fleet.host_counters[k] for k in COUNTER_NAMES]
+    )  # [n_counters, B, C]
+    B = len(fleet.elem_cfgs)
+    atomic_save_npz(
+        path,
+        format=np.int64(_FORMAT),
+        fleet=np.int64(1),
+        cycle_base=np.asarray(fleet.cycle_base, np.int64),  # [B]
+        steps_run=np.asarray(fleet.steps_run, np.int64),  # [B]
+        prefix_steps=np.zeros(B, np.int64),
+        prefix_keys_json=np.frombuffer(json.dumps([None] * B).encode(), dtype=np.uint8),
+        configs_json=np.frombuffer(
+            json.dumps([json.loads(c.to_json()) for c in fleet.elem_cfgs]).encode(),
+            dtype=np.uint8,
+        ),
+        trace_shas=np.frombuffer(
+            ",".join(trace_fingerprint(t) for t in fleet.traces).encode(),
+            dtype=np.uint8,
+        ),
+        **arrays,
+    )
+
+
+def load_fleet_checkpoint(path: str, fleet) -> None:
+    """Restore a fleet snapshot (the port's or the JAX package's) into a
+    freshly built FleetEngine over the same per-element (config, trace)
+    list, order included (the batch axis is positional). Resuming is
+    bit-exact per element."""
+    z = load_verified_npz(path)
+    _require_format(z, path)
+    if "fleet" not in z:
+        raise ValueError(f"{path}: not a compatible fleet checkpoint")
+    cfgs = [
+        MachineConfig.from_dict(d)
+        for d in json.loads(bytes(z["configs_json"]).decode())
+    ]
+    if cfgs != list(fleet.elem_cfgs):
+        raise ValueError(f"{path}: checkpoint element configs do not match fleet")
+    shas = bytes(z["trace_shas"]).decode().split(",")
+    if shas != [trace_fingerprint(t) for t in fleet.traces]:
+        raise ValueError(f"{path}: checkpoint element traces do not match fleet")
+    if z["state_counters"].shape[1] != len(COUNTER_NAMES):
+        raise ValueError(
+            f"{path}: checkpoint has {z['state_counters'].shape[1]} counter "
+            f"rows but this build defines {len(COUNTER_NAMES)} — saved by an "
+            "incompatible version"
+        )
+    fleet.state = _state_from(z, fleet.cfg, fleet.device, batch=len(cfgs))
+    fleet._stepped = None  # live flags and step numbers re-read from it
+    fleet.cycle_base = z["cycle_base"].astype(np.int64)
+    fleet.steps_run = z["steps_run"].astype(np.int64)
+    hc = z["host_counters"]
+    fleet.host_counters = {
         k: hc[i].astype(np.int64) for i, k in enumerate(COUNTER_NAMES)
     }

@@ -25,9 +25,17 @@ the device, and the host tells it whether to run the scrub.
 The results are the JAX engine's, bit for bit: the same per-core
 cycles, counters and state fields (tests/test_torch_engine.py).
 
-`Engine` is the host driver. After each chunk of `chunk_steps` steps it
-drains the int32 step counters into int64 host counters and rebases the
-clocks by whole quanta, with one host synchronisation per chunk. Dead
+The step is batch-first: it advances B independent simulations of one
+geometry (a fleet, `sim/fleet.py`) through one set of launches, every
+state field with a leading element axis and the timing knobs per
+element. Every reduction, scatter and sort stays inside its element
+(per-element sentinel slots, row-wise sorts), and each kernel takes the
+batch in one launch. A solo state runs as a batch of one.
+
+`Engine` is the host driver of one simulation. After each chunk of
+`chunk_steps` steps it drains the int32 step counters into int64 host
+counters and rebases the clocks by whole quanta (`drain_rebase`, shared
+with the fleet), with one host synchronisation per chunk. Dead
 cores count as done and do not bound the rebase. It knows the step
 number on the host and, from the fault schedule and seed, the steps on
 which a core can die (`faults.inject.kill_possible`): the scrub runs on
@@ -72,7 +80,20 @@ from ..trace.format import (
     Trace,
     validate_sync,
 )
-from .state import E, I, M, O, MachineState, S, init_state, llc_meta_width
+from .state import (
+    E,
+    I,
+    M,
+    O,
+    MachineState,
+    S,
+    batch_state,
+    init_state,
+    leaves,
+    llc_meta_width,
+    map_state,
+    solo_state,
+)
 
 INT32_MAX = 2**31 - 1
 _ACC_BITS = 30  # per-chunk counter increments must stay below 2^30
@@ -140,47 +161,76 @@ def _one_way(cfg: MachineConfig, tile_a, tile_b, kn):
     return h * kn.link_lat + (h + 1) * kn.router_lat, h
 
 
+@functools.lru_cache(maxsize=16)
+def _iotas(C: int, Bn: int, device: torch.device):
+    """The step's index vectors, made once per shape and device: core ids
+    [C] int32 and int64, and element ids [B, 1] int64."""
+    cid = torch.arange(C, dtype=_i32, device=device)
+    return cid, cid.long(), torch.arange(Bn, device=device)[:, None]
+
+
 def _scatter_min(n: int, idx, src):
-    """jnp.full(n, INT32_MAX).at[idx].min(src, mode="drop") with idx == n
-    as the dropped lane: the table has one sentinel slot, sliced off."""
-    t = torch.full((n + 1,), INT32_MAX, dtype=_i32, device=src.device)
-    return t.scatter_reduce_(0, idx.long(), src, "amin")[:n]
+    """jnp.full(n, INT32_MAX).at[idx].min(src, mode="drop") per element:
+    [B, n] from idx, src [B, K], idx == n the dropped lane (each element's
+    table has its own sentinel slot, sliced off)."""
+    t = torch.full((idx.shape[0], n + 1), INT32_MAX, dtype=_i32, device=src.device)
+    return t.scatter_reduce_(1, idx.long(), src, "amin")[:, :n]
 
 
 def _scatter_drop(base, idx, src, reduce: str):
-    """base.at[idx].<reduce>(src, mode="drop") for idx == len(base)."""
-    ext = torch.cat([base, base.new_zeros(1)])
+    """base.at[idx].<reduce>(src, mode="drop") per element: base [B, n],
+    idx [B, K] with idx == n the dropped lane (a sentinel slot per
+    element); `src` broadcasts against idx."""
+    ext = torch.cat([base, base.new_zeros(base.shape[0], 1)], 1)
     if reduce == "set":
-        ext.index_put_((idx.long(),), src.expand(idx.shape).to(_i32))
+        ext.scatter_(1, idx.long(), src.expand(idx.shape).to(_i32))
     elif reduce == "add":
-        ext.index_add_(0, idx.long(), src.expand(idx.shape).to(_i32))
+        ext.scatter_add_(1, idx.long(), src.expand(idx.shape).to(_i32))
     else:
-        ext.scatter_reduce_(0, idx.long(), src, reduce)
-    return ext[: base.shape[0]]
+        ext.scatter_reduce_(1, idx.long(), src, reduce)
+    return ext[:, : base.shape[1]]
+
+
+def _unbatch(out: MachineState, bst: MachineState, st: MachineState) -> MachineState:
+    """`out`, a batch of one stepped from `bst = batch_state(st)`, as a
+    solo state: a field the step passed through unchanged, or updated in
+    place (the L1, the directory, the counters), is `st`'s own tensor."""
+    same = {id(b): x for b, x in zip(leaves(bst), leaves(st))}
+    return map_state(lambda x: same.get(id(x), x[0]), out)
 
 
 def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True,
-         scrub: bool = True):
-    """Advance every core by one step. `events` is the [C, T, 4] int32
-    line-granular trace on the state's device. Updates `st.l1`, `st.dirm`
-    and `st.counters` IN PLACE (`commit_step`: the L1 plane writes, the
-    directory deltas and the counter fold; under faults the dead-core
-    scrub of `dirm`) and returns the new state, which holds those same
-    tensors. `scrub=False` skips the scrub on a step where the caller
-    knows no core can die (`faults.inject.kill_possible`); it is exact
-    only there."""
+         scrub: bool = True, live=None):
+    """Advance every core of every element by one step. `events` is the
+    [B, C, T, 4] int32 line-granular trace of a batched state (`state.
+    batch_state`), or the [C, T, 4] trace of a solo one, which runs as a
+    batch of one. Updates `st.l1`, `st.dirm` and `st.counters` IN PLACE
+    (`commit_step`: the L1 plane writes, the directory deltas and the
+    counter fold; under faults the dead-core scrub of `dirm`) and returns
+    the new state, which holds those same tensors. `scrub=False` skips
+    the scrub on a step where the caller knows no core can die in any
+    element (`faults.inject.kill_possible`); it is exact only there.
+
+    `live` ([B] int32 0/1 on the device, or None for all 1) is added to
+    the step counter: an element whose cores have all ended or died steps
+    as a no-op but for that counter, so 0 freezes it whole (the JAX
+    fleet's select-masked `run`); its scheduled faults do not fire."""
+    if events.dim() == 3:
+        bst = batch_state(st)
+        return _unbatch(step(cfg, events[None], bst, has_sync, scrub, live), bst, st)
     C, B = cfg.n_cores, cfg.n_banks
+    Bn = events.shape[0]  # elements
     S1, W1 = cfg.l1.sets, cfg.l1.ways
     S2, W2 = cfg.llc.sets, cfg.llc.ways
     NW, MW = cfg.n_sharer_words, llc_meta_width(cfg)
     NS = B * S2  # directory rows
-    T = events.shape[1]
+    T = events.shape[2]
     n_tiles = cfg.n_tiles
     dev = events.device
-    arange_c = torch.arange(C, dtype=_i32, device=dev)
-    rows_c = arange_c.long()
-    kn = st.knobs
-    Q, cpi, l1_lat, llc_lat = kn.quantum, kn.cpi, kn.l1_lat, kn.llc_lat
+    arange_c, rows_c, ib = _iotas(C, Bn, dev)  # core ids, as long, elements [B, 1]
+    kn = st.knobs  # [B] per element; `kb` views them as [B, 1] against the lanes
+    kb = kn._replace(**{k: v[:, None] for k, v in kn._asdict().items() if k != "cpi"})
+    Q, cpi, l1_lat, llc_lat = kb.quantum, kn.cpi, kb.l1_lat, kb.llc_lat
     acc: dict[str, torch.Tensor] = {}  # counter deltas, folded by commit_step
 
     def cadd(name, amount):
@@ -191,11 +241,11 @@ def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True,
     rl = cfg.local_run_len
     if rl:
         ioff = torch.arange(rl + 1, dtype=_i32, device=dev)
-        pidx = (st.ptr[:, None] + ioff[None, :]).clamp(max=T - 1)
-        pev = events[rows_c[:, None], pidx.long()]  # [C, rl+1, 4]
-        et0 = pev[:, 0, 0]
+        pidx = (st.ptr[..., None] + ioff).clamp(max=T - 1)
+        pev = events[ib[..., None], rows_c[:, None], pidx.long()]  # [B, C, rl+1, 4]
+        et0 = pev[:, :, 0, 0]
     else:
-        et0 = events[rows_c, st.ptr.clamp(max=T - 1).long(), 0]
+        et0 = events[ib, rows_c, st.ptr.clamp(max=T - 1).long(), 0]
 
     # ---- phase -1: fault injection (DESIGN.md §12). Only cores that have
     # not reached END absorb faults. The scrub rewrites the directory in
@@ -203,8 +253,10 @@ def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True,
     if cfg.faults_enabled:
         fsf = st.faults
         alive0 = (et0 != EV_END) & (fsf.core_dead == 0)
-        kill_sched, link_dead_n, link_extra_n = inject.fire_events(cfg, fsf, st.step)
-        ecc_corr, ecc_due, l1_due = inject.ecc_step(cfg, fsf, st.step)
+        # a frozen element's faults do not fire: no schedule row has step -2
+        fstep = st.step if live is None else torch.where(live != 0, st.step, -2)
+        kill_sched, link_dead_n, link_extra_n = inject.fire_events(cfg, fsf, fstep)
+        ecc_corr, ecc_due, l1_due = inject.ecc_step(cfg, fsf, fstep)
         kill_new = kill_sched
         if cfg.fault_due_failstop:  # an L1 DUE is fatal to its core
             kill_new = kill_new | l1_due.to(_i32)
@@ -230,11 +282,13 @@ def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True,
     countable0 = (et0 != EV_END) & ~((et0 == EV_BARRIER) & (st.sync_flag != 0))
     if cfg.faults_enabled:  # a dead core neither bumps nor bounds the quantum
         countable0 = countable0 & ~deadb
-    any_countable = countable0.any()
-    any_active = (countable0 & (st.cycles < st.quantum_end)).any()
-    min_nd = torch.where(countable0, st.cycles, INT32_MAX).amin()
-    bumped = (min_nd // Q + 1) * Q
+    # per element: every reduction runs over its own cores
+    any_countable = countable0.any(-1)
+    any_active = (countable0 & (st.cycles < st.quantum_end[:, None])).any(-1)
+    min_nd = torch.where(countable0, st.cycles, INT32_MAX).amin(-1)
+    bumped = (min_nd // kn.quantum + 1) * kn.quantum
     quantum_end = torch.where(any_countable & ~any_active, bumped, st.quantum_end)
+    qe = quantum_end[:, None]
     step_no = st.step
 
     # ---- phase 0.5: closed-form local runs (DESIGN.md §3)
@@ -245,32 +299,31 @@ def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True,
     moesi = cfg.coherence == "moesi"
     g_c = arange_c >> (cfg.sharer_group.bit_length() - 1)  # sharer bit
     if rl:
-        pline = pev[:, :, 2]
+        pline = pev[..., 2]
         ps = pline & (S1 - 1)
         pcf = (
-            torch.arange(W1, dtype=_i32, device=dev)[None, None, :] * S1
-            + ps[:, :, None]
-        ).reshape(C, (rl + 1) * W1)
+            torch.arange(W1, dtype=_i32, device=dev) * S1 + ps[..., None]
+        ).reshape(Bn, C, (rl + 1) * W1)
         KW = (rl + 1) * W1
         # tag and state planes, and under Dir-G the fill-time epoch plane
         pl_cols = [pcf, pcf + FS] + ([pcf + 4 * FS] if coarse else [])
-        pts = st.l1.gather(1, torch.cat(pl_cols, 1).long())
-        ptagr = pts[:, :KW].reshape(C, rl + 1, W1)
-        pstater = pts[:, KW : 2 * KW].reshape(C, rl + 1, W1)
+        pts = st.l1.gather(2, torch.cat(pl_cols, -1).long())
+        ptagr = pts[..., :KW].reshape(Bn, C, rl + 1, W1)
+        pstater = pts[..., KW : 2 * KW].reshape(Bn, C, rl + 1, W1)
         pslot = (pline & (B - 1)) * S2 + ((pline >> logB) & (S2 - 1))
-        pmrows = st.dirm[pslot.long()]  # [C, rl+1, DW]
-        pmeta = pmrows[:, :, : 2 * W2].reshape(C, rl + 1, W2, 2)
-        pmhas, pmway = first_true(pmeta[..., 0] == pline[:, :, None])
+        pmrows = st.dirm[ib[..., None], pslot.long()]  # [B, C, rl+1, DW]
+        pmeta = pmrows[..., : 2 * W2].reshape(Bn, C, rl + 1, W2, 2)
+        pmhas, pmway = first_true(pmeta[..., 0] == pline[..., None])
         pown = take(pmeta[..., 1], pmway)
-        pshw = take(pmrows[:, :, MW:], pmway * NW + (g_c[:, None] >> 5))
+        pshw = take(pmrows[..., MW:], pmway * NW + (g_c[:, None] >> 5))
         pbit = ((pshw >> (g_c[:, None] & 31)) & 1) != 0
-        plhit, plway = first_true((ptagr == pline[:, :, None]) & (pstater != I))
+        plhit, plway = first_true((ptagr == pline[..., None]) & (pstater != I))
         plstate = take(pstater, plway)
         if coarse:
             # epoch guard: the group bit keeps this core's S copy only if
             # no sharer-clearing transition happened since its fill
-            pleph = take(pts[:, 2 * KW :].reshape(C, rl + 1, W1), plway)
-            pveph = take(pmrows[:, :, 3 * W2 : 4 * W2], pmway)
+            pleph = take(pts[..., 2 * KW :].reshape(Bn, C, rl + 1, W1), plway)
+            pveph = take(pmrows[..., 3 * W2 : 4 * W2], pmway)
             pbit = pbit & (pveph == pleph)
         peff = torch.where(
             ~(plhit & pmhas),
@@ -285,10 +338,10 @@ def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True,
             # and the effective E/M demotes to O. MOESI needs
             # sharer_group == 1: pbit is the self bit, and the popcount of
             # the matched way's words counts the sharers exactly.
-            pw_cols = MW + pmway[:, :, None] * NW + torch.arange(
+            pw_cols = MW + pmway[..., None] * NW + torch.arange(
                 NW, dtype=_i32, device=dev
             )
-            ptot = popcount(pmrows.gather(2, pw_cols.long())).sum(2, dtype=_i32)
+            ptot = popcount(pmrows.gather(3, pw_cols.long())).sum(-1, dtype=_i32)
             pothers = (ptot - pbit.to(_i32)) > 0
             peff = torch.where(
                 pothers & pmhas & (pown == arange_c[:, None]) & (peff >= E),
@@ -296,56 +349,56 @@ def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True,
                 peff,
             )
         phitcol = plway * S1 + ps
-        etr, eargr, eprer = pev[:, :rl, 0], pev[:, :rl, 1], pev[:, :rl, 3]
-        peffr = peff[:, :rl]
+        etr, eargr, eprer = pev[:, :, :rl, 0], pev[:, :, :rl, 1], pev[:, :, :rl, 3]
+        peffr = peff[..., :rl]
         is_ins_k = etr == EV_INS
         r_hit_k = (etr == EV_LD) & (peffr != I)
         w_hit_k = (etr == EV_ST) & ((peffr == E) | (peffr == M))
         hit_k = r_hit_k | w_hit_k
         local_k = (is_ins_k | hit_k).to(_i32)
-        pref = local_k.cummin(1).values != 0  # every earlier candidate local
+        pref = local_k.cummin(-1).values != 0  # every earlier candidate local
         if cfg.faults_enabled:
-            pref = pref & ~deadb[:, None]  # dead cores retire nothing
+            pref = pref & ~deadb[..., None]  # dead cores retire nothing
         cost_k = torch.where(
-            is_ins_k, eargr * cpi[:, None], eprer * cpi[:, None] + l1_lat
+            is_ins_k, eargr * cpi[..., None], eprer * cpi[..., None] + l1_lat[..., None]
         )
         cost_p = torch.where(pref, cost_k, 0)
-        clock_before = cycles_c[:, None] + cost_p.cumsum(1, dtype=_i32) - cost_p
-        retire_k = pref & (clock_before < quantum_end)
-        cycles_c = cycles_c + torch.where(retire_k, cost_k, 0).sum(1, dtype=_i32)
-        ptr_c = ptr_c + retire_k.sum(1, dtype=_i32)
-        cadd("l1_read_hits", (r_hit_k & retire_k).sum(1, dtype=_i32))
-        cadd("l1_write_hits", (w_hit_k & retire_k).sum(1, dtype=_i32))
+        clock_before = cycles_c[..., None] + cost_p.cumsum(-1, dtype=_i32) - cost_p
+        retire_k = pref & (clock_before < qe[..., None])
+        cycles_c = cycles_c + torch.where(retire_k, cost_k, 0).sum(-1, dtype=_i32)
+        ptr_c = ptr_c + retire_k.sum(-1, dtype=_i32)
+        cadd("l1_read_hits", (r_hit_k & retire_k).sum(-1, dtype=_i32))
+        cadd("l1_write_hits", (w_hit_k & retire_k).sum(-1, dtype=_i32))
         cadd(
             "instructions",
             torch.where(
                 retire_k, torch.where(is_ins_k, eargr, eprer + 1), 0
-            ).sum(1, dtype=_i32),
+            ).sum(-1, dtype=_i32),
         )
-        run_patch = (hit_k & retire_k, w_hit_k & retire_k, phitcol[:, :rl])
+        run_patch = (hit_k & retire_k, w_hit_k & retire_k, phitcol[..., :rl])
     else:
         run_patch = ()
 
     # ---- phase 0.9 + 1: the arbitration event and its L1 probe
     if rl:
         consumed = (ptr_c - st.ptr).long()
-        ev = pev[rows_c, consumed]  # [C, 4]
+        ev = pev[ib, rows_c, consumed]  # [B, C, 4]
     else:
-        ev = events[rows_c, ptr_c.clamp(max=T - 1).long()]
-    et, earg, eaddr, epre = ev.unbind(1)
+        ev = events[ib, rows_c, ptr_c.clamp(max=T - 1).long()]
+    et, earg, eaddr, epre = ev.unbind(-1)
     line = eaddr.contiguous()
     bank = line & (B - 1)
     slot = bank * S2 + ((line >> logB) & (S2 - 1))
     tag_rows, lru_rows, weff, shw, vic_shw, pc_lanes = step_kernels.probe_classify(
         cfg, st.l1, st.dirm, slot, line, arange_c, step_no, *run_patch
     )
-    hit_any = pc_lanes[:, PL_HIT_ANY] != 0
-    hit_way = pc_lanes[:, PL_HIT_WAY]
-    hit_state = pc_lanes[:, PL_HIT_STATE]
+    hit_any = pc_lanes[..., PL_HIT_ANY] != 0
+    hit_way = pc_lanes[..., PL_HIT_WAY]
+    hit_state = pc_lanes[..., PL_HIT_STATE]
 
     not_done = et != EV_END
     frozen = (et == EV_BARRIER) & (st.sync_flag != 0)
-    active = not_done & ~frozen & (cycles_c < quantum_end)
+    active = not_done & ~frozen & (cycles_c < qe)
     if cfg.faults_enabled:
         active = active & ~deadb
     is_ins = active & (et == EV_INS)
@@ -355,10 +408,10 @@ def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True,
     is_unlock = active & (et == EV_UNLOCK)
     is_barrier = active & (et == EV_BARRIER)
 
-    llc_has = pc_lanes[:, PL_LLC_HAS] != 0
-    llc_hway = pc_lanes[:, PL_LLC_HWAY]
-    owner = pc_lanes[:, PL_OWNER]
-    other_sharers = pc_lanes[:, PL_OTHER_SH] != 0
+    llc_has = pc_lanes[..., PL_LLC_HAS] != 0
+    llc_hway = pc_lanes[..., PL_LLC_HWAY]
+    owner = pc_lanes[..., PL_OWNER]
+    other_sharers = pc_lanes[..., PL_OTHER_SH] != 0
     if moesi:
         # derived Owned: an E/M hit while the home still names this core
         # owner with other sharers recorded reads locally, but its store
@@ -382,23 +435,23 @@ def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True,
     if coarse:
         join_elig = torch.zeros_like(join_elig)
     req = (gets & ~join_elig) | getm | upg
-    rel = cycles_c - (quantum_end - Q)  # in [0, Q) for active requesters
-    key = rel * C + arange_c  # orders by (cycles, core id)
+    rel = cycles_c - (qe - Q)  # in [0, Q) for active requesters
+    key = rel * C + arange_c  # orders by (cycles, core id) within an element
     slot_l = slot.long()
     table = _scatter_min(NS, torch.where(req, slot, NS), key)
-    slot_busy = table[slot_l] != INT32_MAX
+    slot_busy = table.gather(1, slot_l) != INT32_MAX
     join = join_elig & ~slot_busy
     demoted = join_elig & slot_busy
     table = torch.minimum(table, _scatter_min(NS, torch.where(demoted, slot, NS), key))
     req = req | demoted
-    winner = req & (table[slot_l] == key)
+    winner = req & (table.gather(1, slot_l) == key)
     cadd("retries", req & ~winner)
 
     # ---- phase 3: directory transition on step-start state
     ctile = arange_c % n_tiles
     btile = bank % n_tiles
-    req_lat, req_hops = _one_way(cfg, ctile, btile, kn)
-    rep_lat, rep_hops = _one_way(cfg, btile, ctile, kn)
+    req_lat, req_hops = _one_way(cfg, ctile, btile, kb)
+    rep_lat, rep_hops = _one_way(cfg, btile, ctile, kb)
     if cfg.faults_enabled:
         # the request/reply legs' detour and degrade extras. The nominal
         # legs go through the contention and router blocks unchanged; the
@@ -428,46 +481,47 @@ def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True,
             arr_p = topology.path_links(cfg, ctile, htile)
             legs.append((arr_p, is_barrier))
     if cfg.noc.contention and not router:
-        ccl = kn.contention_lat
+        ccl = kb.contention_lat
         one = torch.ones((), dtype=_i32, device=dev)
         if cfg.noc.contention_model == "link":
             NL = mesh.n_links(cfg)
             lpth, lmask = mesh.concat_legs(legs)
             lcnt = _scatter_drop(
-                torch.zeros(NL, dtype=_i32, device=dev),
-                torch.where(lmask & (lpth >= 0), lpth, NL).flatten(), one, "add",
+                torch.zeros(Bn, NL, dtype=_i32, device=dev),
+                torch.where(lmask & (lpth >= 0), lpth, NL).flatten(1), one, "add",
             )
 
             def path_worst(pth):
-                cts = lcnt[torch.where(pth >= 0, pth, 0).long()]
-                return torch.where(pth >= 0, cts - 1, 0).amax(1)
+                idx = torch.where(pth >= 0, pth, 0).long()
+                cts = lcnt.gather(1, idx.flatten(1)).view(idx.shape)
+                return torch.where(pth >= 0, cts - 1, 0).amax(-1)
 
             extra_home = ccl * torch.maximum(path_worst(req_p), path_worst(rep_p))
             extra_bar = ccl * path_worst(arr_p) if has_sync else None
         else:
             tcnt = _scatter_drop(
-                torch.zeros(n_tiles, dtype=_i32, device=dev),
+                torch.zeros(Bn, n_tiles, dtype=_i32, device=dev),
                 torch.where(home_txn, btile, n_tiles), one, "add",
             )
             if has_sync:
                 tcnt = _scatter_drop(
                     tcnt, torch.where(is_barrier, htile, n_tiles), one, "add"
                 )
-            extra_home = ccl * (tcnt[btile.long()] - 1)  # valid where home_txn
-            extra_bar = ccl * (tcnt[htile.long()] - 1)  # valid where is_barrier
+            extra_home = ccl * (tcnt.gather(1, btile.long()) - 1)  # valid where home_txn
+            extra_bar = ccl * (tcnt.gather(1, htile.long()) - 1)  # valid where is_barrier
         cadd(
             "noc_contention_cycles",
             torch.where(home_txn, extra_home, 0)
             + (torch.where(is_barrier, extra_bar, 0) if has_sync else 0),
         )
     else:
-        extra_home = extra_bar = torch.zeros(C, dtype=_i32, device=dev)
+        extra_home = extra_bar = torch.zeros(Bn, C, dtype=_i32, device=dev)
 
     llc_hit = llc_has & winner
     llc_miss = winner & ~llc_has
     has_owner = llc_hit & (owner >= 0) & (owner != arange_c)
     oclamp = owner.clamp(min=0)
-    po_lat, po_hops = _one_way(cfg, btile, oclamp % n_tiles, kn)
+    po_lat, po_hops = _one_way(cfg, btile, oclamp % n_tiles, kb)
     if cfg.faults_enabled:
         # the probe leg keeps its symmetric round trip (2 * po_lat): the
         # forward leg's penalty is charged both ways
@@ -483,9 +537,9 @@ def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True,
     gets_excl_hit = gets_w & llc_hit & ~has_owner & ~other_sharers
     write_probe = write_w & llc_hit & has_owner
 
-    vic_tag = pc_lanes[:, PL_VIC_TAG]
-    vic_owner = pc_lanes[:, PL_VIC_OWNER]
-    llc_vway = pc_lanes[:, PL_LLC_VWAY]
+    vic_tag = pc_lanes[..., PL_VIC_TAG]
+    vic_owner = pc_lanes[..., PL_VIC_OWNER]
+    llc_vway = pc_lanes[..., PL_LLC_VWAY]
     vic_valid = llc_miss & (vic_tag != -1)
     inv_row = write_w & llc_hit
     inv_lat, inv_count, inv_hops, back_count, back_hops = reductions.sharer_reductions(
@@ -506,7 +560,7 @@ def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True,
         qd = torch.div(stride, torch.where(pfs == 0, 1, pfs), rounding_mode="floor")
         pf_hit = (
             llc_miss & (pfs != 0) & (pfk >= 2) & (stride - qd * pfs == 0)
-            & (qd >= 1) & (qd <= kn.prefetch_degree)
+            & (qd >= 1) & (qd <= kb.prefetch_degree)
         )
         miss_dram = llc_miss & ~pf_hit
         cadd("prefetch_hits", pf_hit)
@@ -528,31 +582,32 @@ def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True,
     if cfg.dram_queue or router:
         ord_c = lane_order(key)
     if cfg.dram_queue:
-        svc_d = torch.where(kn.dram_service > 0, kn.dram_service, kn.dram_lat)
+        svc_d = torch.where(kb.dram_service > 0, kb.dram_service, kb.dram_lat)
         a_nom = cycles_c + epre * cpi + l1_lat + req_lat + llc_lat
         dtgt = torch.where(miss_dram, bank, B)  # the misses left to DRAM
         dbase = _scatter_min(B, dtgt, a_nom)
         # non-miss lanes carry the masked segment: their ranks are garbage
         # that the selects below discard
-        rd = segmented_rank(dtgt[:, None], n_seg=B, order=ord_c)[:, 0]
+        rd = segmented_rank(dtgt[..., None], n_seg=B, order=ord_c)[..., 0]
         bank_l = bank.long()
         dstart = torch.maximum(
             a_nom,
-            torch.maximum(st.dram_free[bank_l], dbase[bank_l]) + rd * svc_d,
+            torch.maximum(st.dram_free.gather(1, bank_l), dbase.gather(1, bank_l))
+            + rd * svc_d,
         )
         extra_dram = torch.where(miss_dram, dstart - a_nom, 0)
         dram_free_n = _scatter_drop(st.dram_free, dtgt, dstart + svc_d, "amax")
         cadd("dram_queue_cycles", extra_dram)
     else:
-        extra_dram = torch.zeros(C, dtype=_i32, device=dev)
+        extra_dram = torch.zeros(Bn, C, dtype=_i32, device=dev)
         dram_free_n = st.dram_free
 
     # latency composition (golden order): the service interval between
     # the request's arrival at the home bank and the reply's injection
     probe_any = gets_probe | write_probe
-    dram_term = torch.where(miss_dram, kn.dram_lat, 0)
+    dram_term = torch.where(miss_dram, kb.dram_lat, 0)
     if pf_hit is not None:  # covered misses pay the prefetch buffer's latency
-        dram_term = dram_term + torch.where(pf_hit, kn.prefetch_lat, 0)
+        dram_term = dram_term + torch.where(pf_hit, kb.prefetch_lat, 0)
     service = torch.where(
         winner,
         llc_lat
@@ -572,10 +627,10 @@ def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True,
         # cascade over the hops, with the link gathers and the departures'
         # scatter-max into link_free, is router_cascade.
         NL = mesh.n_links(cfg)
-        L_lat, R_lat = kn.link_lat, kn.router_lat
+        L_lat, R_lat = kb.link_lat, kb.router_lat
         c_hop = L_lat + R_lat
-        H = req_p.shape[1]
-        hidx = torch.arange(H, dtype=_i32, device=dev)[None, :]
+        H = req_p.shape[-1]
+        hidx = torch.arange(H, dtype=_i32, device=dev)
         first_lock = is_lock & (st.sync_flag == 0)
         mem_lane = winner | join
         pre_chg = mem_lane | is_unlock | first_lock | is_barrier
@@ -586,23 +641,24 @@ def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True,
         )
         # nominal (uncontended) arrival at each hop; the reply leg leaves
         # after llc.latency of service by definition
-        a_req = t0[:, None] + R_lat + hidx * c_hop
-        a_rep = a_req + (req_hops * c_hop + llc_lat + R_lat)[:, None]
+        a_req = t0[..., None] + R_lat[..., None] + hidx * c_hop[..., None]
+        a_rep = a_req + (req_hops * c_hop + llc_lat + R_lat)[..., None]
         pth_all, mask_all = mesh.concat_legs(legs)
-        a_all = torch.cat([a_req, a_rep] + ([a_req] if has_sync else []), 1)
+        a_all = torch.cat([a_req, a_rep] + ([a_req] if has_sync else []), -1)
         ok_all = mask_all & (pth_all >= 0)
         tgt_all = torch.where(ok_all, pth_all, NL)
-        base = _scatter_min(NL, tgt_all.flatten(), a_all.flatten())
+        # contiguous for the kernel: a batch's rows are cut from [B, NL + 1]
+        base = _scatter_min(NL, tgt_all.flatten(1), a_all.flatten(1)).contiguous()
         r_all = segmented_rank(tgt_all, n_seg=NL, order=ord_c)
         if has_sync:
-            arr_lat_a, arr_hops = _one_way(cfg, ctile, htile, kn)
+            arr_lat_a, arr_hops = _one_way(cfg, ctile, htile, kb)
         else:
             arr_hops = None
         # a copy: every floor must read the clocks before any departure
         link_free_n = st.link_free.clone()
         t_rep_end, t_arr_end = router_kernels.router_cascade(
             st.link_free, base, pth_all, ok_all, r_all, t0, service,
-            req_hops, rep_hops, arr_hops, L_lat, R_lat, link_free_n,
+            req_hops, rep_hops, arr_hops, kn.link_lat, kn.router_lat, link_free_n,
             has_sync=has_sync,
         )
         raw_rt = t_rep_end - t0  # valid on home_txn lanes
@@ -691,14 +747,14 @@ def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True,
     NSW = NS * W2
     jway = slot * W2 + llc_hway
     jtab = _scatter_min(NSW, torch.where(join, jway, NSW), key)
-    jrep = join & (jtab[jway.clamp(max=NSW - 1).long()] == key)
+    jrep = join & (jtab.gather(1, jway.clamp(max=NSW - 1).long()) == key)
     commit_lanes = torch.stack(
         [
             line, hit_way, l1_vway, hit, write_hit, upg_in_place, winner,
             join, llc_hit, torch.where(write_hit, M, grant), slot, llc_hway,
             llc_vway, jrep, takes_own, gets_probe, gets_shared, oclamp,
         ],
-        1,
+        -1,
     ).to(_i32)  # column order = step_kernels CL_* indices
 
     # ---- phase 2.7: synchronization events (unlocks -> lock grants ->
@@ -721,16 +777,17 @@ def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True,
         cadd("instructions", torch.where(is_unlock, epre + 1, 0))
         cadd("noc_msgs", torch.where(is_unlock, 2, 0))
         cadd("noc_hops", torch.where(is_unlock, rt_hops, 0))
-        held = lock_holder[lslot.long()] == arange_c
+        lslot_l = lslot.long()
+        held = lock_holder.gather(1, lslot_l) == arange_c
         lock_holder = _scatter_drop(
             lock_holder, torch.where(is_unlock & held, lslot, L),
             torch.full((), -1, dtype=_i32, device=dev), "set",
         )
 
-        lkey = (cycles_c - (quantum_end - Q)) * C + arange_c
+        lkey = (cycles_c - (qe - Q)) * C + arange_c
         ltable = _scatter_min(L, torch.where(is_lock, lslot, L), lkey)
-        lwin = is_lock & (ltable[lslot.long()] == lkey)
-        holder1 = lock_holder[lslot.long()]
+        lwin = is_lock & (ltable.gather(1, lslot_l) == lkey)
+        holder1 = lock_holder.gather(1, lslot_l)
         lgrant = is_lock & ((holder1 == arange_c) | ((holder1 == -1) & lwin))
         spin = is_lock & ~lgrant
         first = is_lock & (st.sync_flag == 0)  # pre charged on the first try
@@ -752,8 +809,8 @@ def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True,
         sync_flag = torch.where(lgrant, 0, torch.where(spin, 1, sync_flag))
         ptr = ptr + lgrant.to(_i32)
 
-        barr_lat, barr_hops = _one_way(cfg, ctile, htile, kn)
-        wake_lat, wake_hops = _one_way(cfg, htile, ctile, kn)
+        barr_lat, barr_hops = _one_way(cfg, ctile, htile, kb)
+        wake_lat, wake_hops = _one_way(cfg, htile, ctile, kb)
         barr_charge = raw_arr if router else barr_lat + extra_bar
         if cfg.faults_enabled:  # arrival and wake-up legs detour too
             fx_arr, fh_arr, rr_arr = inject.leg_fault_penalty(
@@ -791,11 +848,11 @@ def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True,
                 torch.where(wait_m & deadb, bid, BS),
                 torch.ones((), dtype=_i32, device=dev), "add",
             )
-            missing = deadb.sum(dtype=_i32) - dead_counted[bid_l]
-            released = wait_m & (barrier_count[bid_l] + missing >= earg)
+            missing = deadb.sum(-1, dtype=_i32)[:, None] - dead_counted.gather(1, bid_l)
+            released = wait_m & (barrier_count.gather(1, bid_l) + missing >= earg)
         else:
-            released = wait_m & (barrier_count[bid_l] >= earg)
-        cycles = torch.where(released, barrier_time[bid_l] + wake_lat, cycles)
+            released = wait_m & (barrier_count.gather(1, bid_l) >= earg)
+        cycles = torch.where(released, barrier_time.gather(1, bid_l) + wake_lat, cycles)
         cadd("instructions", released)
         cadd("noc_msgs", released)
         cadd("noc_hops", torch.where(released, wake_hops, 0))
@@ -814,8 +871,8 @@ def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True,
 
     # ---- end-of-step commit: every deferred L1 write, the directory
     # deltas and the counter fold in one kernel, in place
-    zero = torch.zeros(C, dtype=_i32, device=dev)
-    delta = torch.stack([acc.get(k, zero) for k in COUNTER_NAMES])
+    zero = torch.zeros(Bn, C, dtype=_i32, device=dev)
+    delta = torch.stack([acc.get(k, zero) for k in COUNTER_NAMES], 1)  # [B, NC, C]
     step_kernels.commit_step(
         cfg, st.l1, st.dirm, tag_rows, shw, vic_shw, commit_lanes, pc_lanes,
         arange_c, step_no, st.counters, delta, *run_patch,
@@ -831,7 +888,7 @@ def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True,
         barrier_time=barrier_time,
         sync_flag=sync_flag,
         quantum_end=quantum_end,
-        step=step_no + 1,
+        step=step_no + (1 if live is None else live),
         pf_line=pf_line_n,
         pf_stride=pf_stride_n,
         pf_streak=pf_streak_n,
@@ -840,14 +897,63 @@ def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True,
 
 
 def run_chunk(cfg, n_steps: int, events, st: MachineState, has_sync=True,
-              scrub_at=None):
-    """`n_steps` steps, enqueued back to back. Under faults the dead-core
-    scrub runs on the steps whose offsets `scrub_at` holds (the host's
-    `kill_possible` steps), or on every step if it is None."""
+              scrub_at=None, live=None):
+    """`n_steps` steps, enqueued back to back, of a batched state (or of
+    a solo one, as a batch of one). Under faults the dead-core scrub runs
+    on the steps whose offsets `scrub_at` holds (the host's
+    `kill_possible` steps), or on every step if it is None. `live` is
+    `step`'s, for every step of the chunk."""
+    solo = events.dim() == 3
+    bst0 = batch_state(st) if solo else st
+    if solo:
+        events = events[None]
+    bst = bst0
     for i in range(n_steps):
-        st = step(cfg, events, st, has_sync=has_sync,
-                  scrub=scrub_at is None or i in scrub_at)
-    return st
+        bst = step(cfg, events, bst, has_sync=has_sync,
+                   scrub=scrub_at is None or i in scrub_at, live=live)
+    return _unbatch(bst, bst0, st) if solo else bst
+
+
+def not_done(cfg: MachineConfig, events, st: MachineState):
+    """[B, C] bool on the device: the cores of each element neither at
+    END nor dead (a fail-stopped core never reaches END: it is done by
+    decree)."""
+    T = events.shape[2]
+    _, rows_c, ib = _iotas(cfg.n_cores, events.shape[0], events.device)
+    nd = events[ib, rows_c, st.ptr.clamp(max=T - 1).long(), 0] != EV_END
+    if cfg.faults_enabled:
+        nd = nd & (st.faults.core_dead == 0)
+    return nd
+
+
+def drain_rebase(cfg: MachineConfig, events, st: MachineState):
+    """The end of a chunk on the device, per element: the rebase by whole
+    quanta of the element's own quantum (the JAX package's
+    `_drain_and_rebase`) and zeroed step counters. Returns (the new
+    state, the [B, NC, C] counters it drained, the [B] rebase deltas, the
+    [B] bool "some core not done"), none of them read by the host yet,
+    so a caller makes one transfer for all three. Done and dead cores do
+    not bound the delta, and an element with no core left keeps 0."""
+    nd = not_done(cfg, events, st)
+    Q = st.knobs.quantum
+    m = torch.where(nd, st.cycles, INT32_MAX).amin(-1)
+    live = nd.any(-1)
+    delta = torch.where(live, (m // Q) * Q, 0).clamp(min=0)
+    d = delta[:, None]
+    router = cfg.noc.contention and cfg.noc.contention_model == "router"
+    new = st._replace(
+        cycles=st.cycles - d,
+        quantum_end=st.quantum_end - delta,
+        barrier_time=torch.where(st.barrier_count > 0, st.barrier_time - d, st.barrier_time),
+        # link and controller clocks are epoch-relative too, shifted only
+        # when their model is on (the fields stay zero otherwise); the
+        # clamp floor lies below every wait comparison, so it is exact and
+        # keeps long-idle clocks from wrapping
+        link_free=(st.link_free - d).clamp(min=-(1 << 30)) if router else st.link_free,
+        dram_free=(st.dram_free - d).clamp(min=-(1 << 30)) if cfg.dram_queue else st.dram_free,
+        counters=torch.zeros_like(st.counters),
+    )
+    return new, st.counters, delta, live
 
 
 class Engine:
@@ -910,14 +1016,7 @@ class Engine:
 
     def _not_done(self, st: MachineState):
         """[C] bool on the device: cores neither at END nor dead."""
-        T = self.events.shape[1]
-        rows = torch.arange(self.cfg.n_cores, device=self.device)
-        nd = self.events[rows, st.ptr.clamp(max=T - 1).long(), 0] != EV_END
-        if self.cfg.faults_enabled:
-            # a fail-stopped core never reaches END: it is done by decree,
-            # and its frozen clock must not pin the rebase delta at 0
-            nd = nd & (st.faults.core_dead == 0)
-        return nd
+        return not_done(self.cfg, self.events[None], batch_state(st))[0]
 
     def scrub_offsets(self) -> set[int] | None:
         """Offsets in the next chunk of the steps on which a core can die
@@ -953,34 +1052,10 @@ class Engine:
             scrub_at=self.scrub_offsets(),
         )
         t1 = time.perf_counter()
-        nd = self._not_done(st)
-        Q = st.knobs.quantum
-        m = torch.where(nd, st.cycles, INT32_MAX).amin()
-        delta = torch.where(nd.any(), (m // Q) * Q, 0)
-        cfg = self.cfg
-        router = cfg.noc.contention and cfg.noc.contention_model == "router"
-        self.state = st._replace(
-            cycles=st.cycles - delta,
-            quantum_end=st.quantum_end - delta,
-            barrier_time=torch.where(
-                st.barrier_count > 0, st.barrier_time - delta, st.barrier_time
-            ),
-            # link and controller clocks are epoch-relative too, shifted
-            # only when their model is on (the fields stay zero otherwise);
-            # the clamp floor lies below every wait comparison, so it is
-            # exact and keeps long-idle clocks from wrapping
-            link_free=(
-                (st.link_free - delta).clamp(min=-(1 << 30))
-                if router else st.link_free
-            ),
-            dram_free=(
-                (st.dram_free - delta).clamp(min=-(1 << 30))
-                if cfg.dram_queue else st.dram_free
-            ),
-            counters=torch.zeros_like(st.counters),
-        )
+        new, cnt, delta, live = drain_rebase(self.cfg, self.events[None], batch_state(st))
+        self.state = solo_state(new)
         host = torch.cat(
-            [st.counters.flatten(), delta.view(1), (~nd.any()).to(_i32).view(1)]
+            [cnt.flatten(), delta, (~live).to(_i32)]
         ).cpu().numpy()
         t2 = time.perf_counter()
         cnt = host[:-2].reshape(len(COUNTER_NAMES), -1)

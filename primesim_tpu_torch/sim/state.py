@@ -7,6 +7,13 @@ fused directory rows `dirm [B*S2, dirm_width]` whose metadata prefix is
 padded to a 128-column multiple before the packed sharer words, and the
 fault-injection state `faults` (faults/schedule.py::FaultState), always
 present and read by the step only under `cfg.faults_enabled`.
+
+The step (`sim/engine.py::step`) works on a BATCHED state: every field,
+nested knobs and fault state included, gains a leading element axis
+[B, ...], so `TimingKnobs` fields are [B] and `cpi` is [B, C]. A solo
+state is one element: `batch_state` and `solo_state` turn one into the
+other as views (no copy), `stack_states` builds a batch from solo
+states and `element_state` slices element i back out.
 """
 
 from __future__ import annotations
@@ -95,6 +102,48 @@ class MachineState(NamedTuple):
     counters: torch.Tensor  # [n_counters, C]
     knobs: TimingKnobs
     faults: FaultState
+
+
+def map_state(fn, st: MachineState) -> MachineState:
+    """`fn` applied to every tensor of the state, nested ones included."""
+    return MachineState(*(
+        type(v)(*(fn(x) for x in v)) if isinstance(v, tuple) else fn(v)
+        for v in st
+    ))
+
+
+def batch_state(st: MachineState) -> MachineState:
+    """A solo state as a batch of one (views)."""
+    return map_state(lambda x: x.unsqueeze(0), st)
+
+
+def solo_state(st: MachineState) -> MachineState:
+    """The one element of a batch of one as a solo state (views)."""
+    return element_state(st, 0)
+
+
+def element_state(st: MachineState, i: int) -> MachineState:
+    """Element i of a batched state, solo-shaped (views)."""
+    return map_state(lambda x: x[i], st)
+
+
+def leaves(st: MachineState) -> list:
+    """Every tensor of the state, nested ones included, in field order."""
+    return [x for v in st for x in (v if isinstance(v, tuple) else (v,))]
+
+
+def stack_states(states, n: int) -> MachineState:
+    """One batched state of `n` elements from an iterable of `n` solo
+    states, each copied into its slot as it comes: from a generator only
+    one solo state is alive at a time (eight headline directories are
+    6.4 GB; stacking a list of them would need twice that)."""
+    out = None
+    for i, st in enumerate(states):
+        if out is None:
+            out = map_state(lambda x: x.new_empty((n, *x.shape)), st)
+        for o, x in zip(leaves(out), leaves(st)):
+            o[i].copy_(x)
+    return out
 
 
 def init_state(cfg: MachineConfig, device) -> MachineState:

@@ -142,7 +142,7 @@ def test_the_engine_joins_only_under_a_full_map(G, monkeypatch):
     real = step_kernels.commit_step
 
     def spy(cfg, l1, dirm, tag_rows, shw, vic_shw, lanes, *rest):
-        joins.append(int((lanes[:, CL_JOIN] != 0).sum()))
+        joins.append(int((lanes[..., CL_JOIN] != 0).sum()))  # [B, C, lanes]
         return real(cfg, l1, dirm, tag_rows, shw, vic_shw, lanes, *rest)
 
     monkeypatch.setattr(step_kernels, "commit_step", spy)

@@ -17,7 +17,9 @@ a bulk-synchronous barrier trace), and the headline machine under MOESI
 (`headline_faults.json`), the shipped rung-3 machine on four 256-core
 programs multiplexed into its 1024 cores (`multiprog_rung3.json`: an FFT,
 barriers, locks, a reader-writer) and the shipped rung-2 machine
-(`rung2_full.json`). Regenerate them (after a deliberate change of
+(`rung2_full.json`); and two fleets, eight elements of the headline
+machine and four of rung 3, each element's digest under its own timing
+overrides (`fleet_headline.json`, `fleet_rung3.json`). Regenerate them (after a deliberate change of
 the simulated model) with:
     PYTHONPATH=. python tests/test_torch_rules.py --write-fixture [name ...]
 naming the full-width fixtures to rewrite, or none for all of them and
@@ -87,10 +89,11 @@ def test_import_leaves_jax_and_the_jax_package_out():
 
 def test_the_rules_cover_every_module_of_the_port():
     """The import and AST rules walk the whole package: the telemetry,
-    checkpoint and XML modules are among the modules they check."""
+    checkpoint, XML and fleet modules are among the modules they check."""
     rel = {os.path.relpath(p, PKG) for p in _modules()}
     for m in ("obs/__init__.py", "obs/metrics.py", "obs/recorder.py", "obs/trace.py",
-              "sim/checkpoint.py", "config/xml_compat.py", "cli.py"):
+              "sim/checkpoint.py", "config/xml_compat.py", "cli.py", "sim/fleet.py",
+              "sim/prefix.py", "sim/supervisor.py"):
         assert m in rel, m
     assert not any(r.startswith("obs/prom") for r in rel)
 
@@ -543,6 +546,112 @@ FULL_WIDTH_SPECS = {
 }
 
 
+# the two fleet fixtures: bench.py's headline machine, eight elements
+# (seven on the headline trace, each with its own timing overrides so
+# that every knob a kernel reads differs between some two elements, and
+# one on a two-phase trace of another seed that finishes chunks early and
+# freezes), and the shipped rung-3 machine, four elements on the headline
+# trace. Each element's digest is that of a solo JAX Engine run of
+# `apply_overrides(cfg, overrides)` at chunk_steps 512, which
+# tests/test_fleet.py shows equals the JAX FleetEngine's element: a JAX
+# fleet of eight 1024-core machines would hold some 8 x 7 GB of host
+# memory at once.
+FLEET = ("fleet_headline", "fleet_rung3")
+_HEADLINE_FFT = _folded_fft(1024, 4, 256)
+FLEET_SPECS = {
+    "fleet_headline": (HEADLINE, [
+        *((_HEADLINE_FFT, ov) for ov in (
+            {}, {"llc_lat": 20}, {"link_lat": 2, "router_lat": 2},
+            {"link_lat": 3, "llc_lat": 14}, {"dram_lat": 200, "l1_lat": 3},
+            {"quantum": 500}, {"cpi": 2})),
+        ({"generator": "fft_like", "args": {
+            "n_cores": 1024, "n_phases": 2, "points_per_core": 256,
+            "ins_per_mem": 8, "seed": 43}, "fold": True}, {"link_lat": 2}),
+    ]),
+    "fleet_rung3": ("configs/rung3_1024core_o3.json", [
+        (_HEADLINE_FFT, ov) for ov in (
+            {}, {"link_lat": 2, "router_lat": 2},
+            {"contention_lat": 3, "dram_service": 20},
+            {"quantum": 500, "llc_lat": 20})
+    ]),
+}
+FLEET_SOLO = {"fleet_headline": "headline", "fleet_rung3": "rung3_headline"}
+
+
+def _fleet_fixture(name):
+    with open(os.path.join(PKG, "fixtures", f"{name}.json")) as f:
+        return json.load(f)
+
+
+@pytest.mark.parametrize("name", FLEET)
+def test_fleet_fixture_names_its_machine_traces_and_overrides(name):
+    """Each fleet fixture records the machine, every element's trace spec
+    and overrides as FLEET_SPECS gives them, chunk_steps 512 and a
+    digest per element; element 0 is the solo full-width fixture's run,
+    and the elements differ."""
+    fx = _fleet_fixture(name)
+    machine, elements = FLEET_SPECS[name]
+    assert fx["config"] == machine and fx["chunk_steps"] == 512
+    assert [(e["trace"], e["overrides"]) for e in fx["elements"]] == [
+        (t, ov) for t, ov in elements]
+    with open(os.path.join(PKG, "fixtures", f"{FLEET_SOLO[name]}.json")) as f:
+        solo = json.load(f)
+    assert solo["config"] == machine and solo["trace"] == elements[0][0]
+    assert fx["elements"][0]["digest"] == solo["digest"]
+    shas = {e["digest"]["cycles_sha256"] for e in fx["elements"]}
+    assert len(shas) == len(elements)
+    for e in fx["elements"]:
+        assert e["digest"]["steps"] % 512 == 0
+
+
+def _fleet_element_digest(name, i):
+    """The JAX package's digest of fleet element i: a solo JAX Engine on
+    the element's effective config."""
+    from primesim_tpu.sim.engine import Engine as JEngine
+    from primesim_tpu.sim.fleet import apply_overrides
+
+    machine, elements = FLEET_SPECS[name]
+    if isinstance(machine, str):
+        with open(os.path.join(REPO, machine)) as f:
+            machine = json.load(f)
+    cfg = JCfg.from_dict(machine)
+    spec, ov = elements[i]
+    eng = JEngine(apply_overrides(cfg, ov), jax_trace(spec, cfg.line_bits), chunk_steps=512)
+    eng.run()
+    return digest_of_jax_engine(eng)
+
+
+@pytest.mark.slow  # eight and four 1024-core JAX runs
+@pytest.mark.parametrize("name", FLEET)
+def test_fleet_digests_match_the_jax_engine(name):
+    fx = _fleet_fixture(name)
+    for i, e in enumerate(fx["elements"]):
+        assert _fleet_element_digest(name, i) == e["digest"], i
+
+
+def _write_fleet(name, workers=4):
+    """Write a fleet fixture, its elements' JAX runs in `workers`
+    processes at once."""
+    import multiprocessing as mp
+    import time
+
+    t0 = time.perf_counter()
+    machine, elements = FLEET_SPECS[name]
+    with mp.get_context("spawn").Pool(workers) as pool:
+        digests = pool.starmap(_fleet_element_digest, [(name, i) for i in range(len(elements))])
+    fx = {"config": machine, "chunk_steps": 512,
+          "made_with": "solo JAX Engine runs of apply_overrides(config, overrides), "
+                       "one per element (tests/test_torch_rules.py::FLEET_SPECS)",
+          "elements": [{"trace": t, "overrides": ov, "digest": d}
+                       for (t, ov), d in zip(elements, digests)]}
+    path = os.path.join(PKG, "fixtures", f"{name}.json")
+    with open(path, "w") as f:
+        json.dump(fx, f, indent=1)
+        f.write("\n")
+    print(f"wrote {path}: {[d['steps'] for d in digests]} steps, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
 @pytest.mark.parametrize("name", FULL_WIDTH)
 def test_full_width_fixture_names_its_machine_and_trace(name):
     """Each full-width fixture records the machine (a shipped config file
@@ -579,7 +688,10 @@ def write_fixtures(names=()):
     from primesim_tpu.sim.engine import Engine as JEngine
 
     if names:
-        _write_full_width(names)
+        _write_full_width([n for n in names if n not in FLEET])
+        for n in names:
+            if n in FLEET:
+                _write_fleet(n)
         return
     spec = {
         "config": "configs/rung1_64core_fft.json",
@@ -600,6 +712,8 @@ def write_fixtures(names=()):
         f.write("\n")
     print(f"wrote {FIXTURE}: {eng.steps_run} steps")
     _write_full_width(FULL_WIDTH)
+    for n in FLEET:
+        _write_fleet(n)
 
 
 def _write_full_width(names):
