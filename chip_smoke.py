@@ -254,8 +254,45 @@ the final line:
                 B = 8 window (step kernels) and after the rung-3 fleet's
                 window (router_cascade, B = 4), held to its plain version.
 
-Then the kernel summary line (each kernel's batched figures under
-"batched") and, last, the result line
+10. supervised_faults (after cli_sweep, before phase 8: no profiler
+                session precedes it) -- the faulted headline (fixtures/
+                headline_faults_schedule.json, seed 7, 1536 steps) in
+                chunks of 256 under sim/supervisor.py's RunSupervisor, with
+                a snapshot directory in a temporary folder, a snapshot every
+                two chunks, two kept, the guard off: a SIGTERM sent from the
+                on_chunk callback at committed chunk 3 preempts it (a
+                snapshot at step 768); a fresh engine resumes from that
+                snapshot, and its first chunk runs on the card and then
+                raises UNAVAILABLE, so the supervisor rolls the device state
+                back and retries. Fails unless the digest equals
+                fixtures/headline_faults.json and each step kernel launched
+                once per step run, the failed chunk's included. Prints the
+                snapshots written, the retries, the snapshot's bytes, save
+                and load seconds, the rollback copy's bytes and CUDA-event
+                time, the wall and the peak device memory beside the
+                unsupervised headline_faults run's.
+   fleet_fork -- the headline machine as a B = 4 fleet on the headline
+                trace under fixtures/fleet_fork.json's rates-0 schedule
+                (core 1023 fail-stops at step 1024, link 2112 fails at
+                1280): sim/prefix.py must plan one group, elements 0-2, with
+                a 1024-step prefix (element 3's dram_lat keeps it alone);
+                the prefix runs once as a solo engine, is stored in a warm
+                cache in a temporary folder and forked into the three slots,
+                and every element's digest equals the committed JAX one.
+                fleet_fork_warm: a second fleet from the same cache, a hit
+                that simulates no prefix, the same digests. The launches
+                count the prefix's steps and the fleet's.
+   cli_supervised -- through cli_side_by_side on rung 1: `run
+                --checkpoint-dir D --checkpoint-every 2 --guard fail`, then
+                the same command with --resume (a no-op rerun from the
+                final snapshot, equal key for key), and a forked seed sweep
+                (`--fork-prefix auto --warm-cache on`, a rates-0 schedule,
+                three seeds) run twice against one cache per device: the
+                prefix_fork line reads cache_hits 0, then 1; card = CPU.
+
+Then a line of every phase's elapsed seconds ("phase_times"), the kernel
+summary line (each kernel's batched figures under "batched", the launches
+of every path under "launches_by_path") and, last, the result line
 {"ok": true, "device": {...}}.
 """
 
@@ -270,6 +307,7 @@ import sys
 import tempfile
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 from types import SimpleNamespace
 
 import numpy as np
@@ -341,6 +379,15 @@ RING_KILL = (256, 206, 0)
 # timed and bounded: (machine, first step of the staged chunk)
 RING_MODES = (("ring_stride", 0), ("ring_faults", 256))
 MP_CUT = 1024  # the multiprogrammed path's checkpoint step
+# supervised_faults: its chunk, and the committed chunk whose SIGTERM
+# preempts it (step 768 of the faulted headline)
+SUP_CHUNK = 256
+SUP_KILL_CHUNK = 3
+FORK_PREFIX = 1024  # fleet_fork's shared prefix: its schedule's first event
+# cli_supervised: rung 1's trace (64 steps, four chunks of 16) and the
+# sweep's rates-0 schedule, whose first event (step 40) puts the fork at 32
+CLI_SUP_SPEC = "fft_like:n_phases=2,points_per_core=64"
+CLI_SUP_SCHEDULE = {"events": [{"step": 40, "kind": "link_degrade", "link": 5, "extra": 3}]}
 # steps of the multiprogrammed path searched for router_cascade's busiest
 # barrier-arrival step (the staged "mode" of its three legs)
 MP_STAGE_STEPS = 512
@@ -407,14 +454,15 @@ def ops_by_shape(cpu_ev, gpu_ev, demangle) -> list:
                   key=lambda o: -o[2])
 
 
-def cli_side_by_side(args: list[str]) -> dict:
+def cli_side_by_side(args: list[str], env: dict | None = None) -> dict:
     """`python -m primesim_tpu_torch <args> --device D` on the card and on
-    the CPU at once, "{device}" in an argument replaced by D: {device:
-    (returncode, stdout, stderr)}. A run still going on the way out (a
-    timeout) is killed."""
+    the CPU at once, "{device}" in an argument (and in a value of the
+    extra environment `env`) replaced by D: {device: (returncode, stdout,
+    stderr)}. A run still going on the way out (a timeout) is killed."""
     procs = {d: subprocess.Popen(
         [sys.executable, "-m", "primesim_tpu_torch",
          *[a.replace("{device}", d) for a in args], "--device", d], cwd=ROOT,
+        env={**os.environ, **{k: v.replace("{device}", d) for k, v in (env or {}).items()}},
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for d in ("cuda", "cpu")}
     try:
         outs = {d: r.communicate(timeout=600) for d, r in procs.items()}
@@ -429,16 +477,325 @@ def cli_side_by_side(args: list[str]) -> dict:
 T0 = time.perf_counter()
 
 
+PHASE_TIMES: list = []  # [phase, path, elapsed s] of every phase line
+
+
 def emit(obj) -> None:
     """One JSON line; a phase line gets the script's elapsed seconds."""
     if "phase" in obj:
         obj = {**obj, "t_s": round(time.perf_counter() - T0, 1)}
+        PHASE_TIMES.append([obj["phase"], obj.get("path"), obj["t_s"]])
     print(json.dumps(obj), flush=True)
 
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def load_fixture(name):
+    """A committed JAX reference: (its record, machine, trace)."""
+    from primesim_tpu_torch.config.machine import MachineConfig
+    from primesim_tpu_torch.trace import synth
+    from primesim_tpu_torch.trace.format import fold_ins, multiplex
+
+    with open(os.path.join(ROOT, "primesim_tpu_torch", "fixtures", f"{name}.json")) as f:
+        fx = json.load(f)
+    spec = fx["config"]
+    if isinstance(spec, str):
+        with open(os.path.join(ROOT, spec)) as f:
+            spec = json.load(f)
+    mcfg, ts = MachineConfig.from_dict(spec), fx["trace"]
+    if "multiplex" in ts:  # programs multiplexed into one machine
+        tr = multiplex([synth.GENERATORS[p["generator"]](**p["args"])
+                        for p in ts["multiplex"]], line_bits=mcfg.line_bits)
+    else:
+        tr = synth.GENERATORS[ts["generator"]](**ts["args"])
+    return fx, mcfg, fold_ins(tr) if ts.get("fold") else tr
+
+
+def load_fleet_fixture(name, made: dict):
+    """A committed fleet reference: (its record, machine, each element's
+    trace, each element's overrides). `made` maps a trace spec (JSON,
+    sorted keys) to a trace already made; new ones are added to it."""
+    from primesim_tpu_torch.config.machine import MachineConfig
+    from primesim_tpu_torch.trace import synth
+    from primesim_tpu_torch.trace.format import fold_ins
+
+    with open(os.path.join(ROOT, "primesim_tpu_torch", "fixtures", f"{name}.json")) as f:
+        ffx = json.load(f)
+    spec = ffx["config"]
+    if isinstance(spec, str):
+        with open(os.path.join(ROOT, spec)) as f:
+            spec = json.load(f)
+    trs = []
+    for e in ffx["elements"]:
+        key = json.dumps(e["trace"], sort_keys=True)
+        if key not in made:
+            ts = e["trace"]
+            tr = synth.GENERATORS[ts["generator"]](**ts["args"])
+            made[key] = fold_ins(tr) if ts.get("fold") else tr
+        trs.append(made[key])
+    return ffx, MachineConfig.from_dict(spec), trs, [e["overrides"] for e in ffx["elements"]]
+
+
+def resilience_phases(dev, smi_line: str, hf, made: dict, baseline: dict | None = None) -> dict:
+    """The supervised and forked paths: supervised_faults, fleet_fork and
+    cli_supervised (module docstring). `hf` is the headline_faults
+    fixture (record, machine, trace), `made` the traces already made (see
+    load_fleet_fixture), `baseline` the unsupervised headline_faults run's
+    wall_s and peak_memory_bytes. Returns each path's launch counts, set
+    to 0 just before the path was driven."""
+    import gc
+    import signal
+
+    import torch
+
+    from primesim_tpu_torch.kernels import build
+    from primesim_tpu_torch.sim.engine import Engine
+    from primesim_tpu_torch.sim.fleet import FleetEngine
+    from primesim_tpu_torch.sim.prefix import execute_prefix_plan, plan_prefix
+    from primesim_tpu_torch.sim.state import map_state
+    from primesim_tpu_torch.sim.supervisor import Preempted, RunSupervisor
+    from primesim_tpu_torch.stats.digest import run_digest
+
+    launches = {}
+
+    def reset_launches():
+        build.LAUNCHES.update(dict.fromkeys(build.LAUNCHES, 0))
+
+    def check_launches(path, n_steps, ran):
+        for k, n in launches[path].items():
+            if n != (n_steps if k in ran else 0):
+                fail(f"{path}: {k} launched {n} times in {n_steps} steps")
+
+    def element_digest(fl, i):
+        cnt = fl.counters
+        return run_digest(fl.steps_run[i], fl.cycles[i], {k: v[i] for k, v in cnt.items()},
+                          fl.state.link_free[i].cpu().numpy(),
+                          fl.state.dram_free[i].cpu().numpy())
+
+    # ---- supervised_faults: the faulted headline under RunSupervisor,
+    # preempted by SIGTERM at a chunk boundary, resumed in a fresh engine
+    # whose first chunk fails after running on the card and is rolled back
+    hffx, cfg_hf, trace_hf = hf
+    ck_dir = tempfile.mkdtemp(prefix="chip_smoke_sup_")
+    saves = []
+
+    def supervised(on_chunk=None):
+        eng = Engine(cfg_hf, trace_hf, chunk_steps=SUP_CHUNK, device=dev)
+        real_save = eng.save_checkpoint
+
+        def timed_save(path):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            real_save(path)
+            saves.append(time.perf_counter() - t)
+
+        eng.save_checkpoint = timed_save
+        sup = RunSupervisor(eng, snapshot_dir=ck_dir, checkpoint_every_chunks=2,
+                            keep_snapshots=2, guard="off", backoff_s=0.01,
+                            on_chunk=on_chunk)
+        torch.cuda.synchronize()
+        return eng, sup
+
+    def preempt(sup):
+        if sup.committed == SUP_KILL_CHUNK:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    try:
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        eng, sup = supervised(preempt)
+        reset_launches()
+        t0 = time.perf_counter()
+        try:
+            sup.run()
+            fail("supervised_faults: the run was not preempted")
+        except Preempted as e:  # its traceback holds the engine: keep the path only
+            pre_ckpt = e.checkpoint
+        torch.cuda.synchronize()
+        wall1 = time.perf_counter() - t0
+        cut, first = eng.steps_run, sup.summary()
+        snap_bytes = os.path.getsize(pre_ckpt)
+        del eng, sup
+        gc.collect()  # the timed save's wrapper and the engine form a cycle
+        torch.cuda.empty_cache()
+        eng, sup = supervised()
+        t0 = time.perf_counter()
+        resumed = sup.resume()
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        real_steps, failed = eng.run_steps, []
+
+        def fail_once(n):  # the real chunk runs on the card, then it fails
+            done = real_steps(n)
+            if not failed:
+                torch.cuda.synchronize()
+                failed.append(eng.steps_run)
+                raise RuntimeError("UNAVAILABLE: injected after a real chunk on the card")
+            return done
+
+        eng.run_steps = fail_once
+        t0 = time.perf_counter()
+        sup.run()
+        torch.cuda.synchronize()
+        wall2 = time.perf_counter() - t0
+        launches["supervised_faults"] = dict(build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() - held
+        got = run_digest(eng.steps_run, eng.cycles, eng.counters,
+                         eng.state.link_free.cpu().numpy(), eng.state.dram_free.cpu().numpy())
+        copy_ms = []  # the rollback copy alone: CUDA events around one copy
+        for _ in range(5):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            c = map_state(torch.clone, eng.state)
+            b.record()
+            torch.cuda.synchronize()
+            copy_ms.append(a.elapsed_time(b))
+            del c
+        second = sup.summary()
+        executed = eng.steps_run + SUP_CHUNK  # the failed chunk ran too
+        line = {
+            "phase": "supervised_faults", "chunk_steps": SUP_CHUNK,
+            "preempted_at_step": cut, "preempt_checkpoint": os.path.basename(pre_ckpt),
+            "resumed_from": os.path.basename(resumed or ""),
+            "failed_chunk_reached_step": failed[0] if failed else None,
+            "steps": eng.steps_run, "steps_executed": executed,
+            "checkpoints_written": [first["checkpoints_written"], second["checkpoints_written"]],
+            "retries": second["retries"], "snapshots_kept": sorted(os.listdir(ck_dir)),
+            "snapshot_bytes": snap_bytes, "save_s": saves, "load_s": load_s,
+            "rollback_bytes": sup.rollback_bytes, "rollback_copies": sup.rollback_copies,
+            "rollback_copy_ms": float(np.median(copy_ms)),
+            "wall_s": [wall1, wall2], "wall_total_s": wall1 + wall2,
+            "peak_memory_bytes": peak,
+            "unsupervised": baseline, "launches": launches["supervised_faults"],
+            "equals_jax_digest": got == hffx["digest"],
+            "resilience_log": sup.log_lines(), "gpu": smi_line}
+        emit(line)
+    finally:
+        shutil.rmtree(ck_dir, ignore_errors=True)
+    if resumed != pre_ckpt or cut != SUP_KILL_CHUNK * SUP_CHUNK:
+        fail(f"supervised_faults: preempted at {cut}, resumed from {resumed}")
+    if failed != [cut + SUP_CHUNK] or second["retries"] != 1:
+        fail(f"supervised_faults: failed chunk {failed}, retries {second['retries']}")
+    if first["checkpoints_written"] != 2 or second["checkpoints_written"] < 2:
+        fail(f"supervised_faults: checkpoints {first}, {second}")
+    check_launches("supervised_faults", executed, STEP_KERNELS)
+    for k, want in hffx["digest"].items():
+        if got[k] != want:
+            fail(f"supervised_faults: {k} {got[k]} != the JAX package's {want}")
+
+    # ---- fleet_fork: the headline machine as a B = 4 fleet under a
+    # rates-0 schedule; three seed-only elements share a 1024-step prefix,
+    # run once and forked; a second fleet takes it from the warm cache
+    ffx, fcfg, ftrs, fovs = load_fleet_fixture("fleet_fork", made)
+    cache = tempfile.mkdtemp(prefix="chip_smoke_warm_")
+    try:
+        for path in ("fleet_fork", "fleet_fork_warm"):
+            fl = FleetEngine(fcfg, ftrs, fovs, chunk_steps=ffx["chunk_steps"], device=dev)
+            groups = plan_prefix(fl.elem_cfgs, fl.traces, chunk_steps=fl.chunk_steps)
+            plan = [(g.indices, g.prefix_steps) for g in groups]
+            if plan != [([0, 1, 2], FORK_PREFIX)]:
+                fail(f"{path}: planned {plan}, not [([0, 1, 2], {FORK_PREFIX})]")
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            st = execute_prefix_plan(fl, groups, warm_cache=True, cache_root=cache)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            start = fl.steps_run.copy()
+            fl.run()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            launches[path] = dict(build.LAUNCHES)
+            fleet_steps = int((fl.steps_run - start).max())
+            simulated = FORK_PREFIX if st["cache_misses"] else 0
+            got = [element_digest(fl, i) for i in range(fl.n_elements)]
+            warm_bytes = sum(os.path.getsize(os.path.join(cache, n))
+                             for n in os.listdir(cache) if n.endswith(".npz"))
+            emit({"phase": path, "B": fl.n_elements, "prefix": st,
+                  "prefix_steps_simulated": simulated, "fork_and_prefix_s": t1 - t0,
+                  "fleet_steps": fleet_steps, "fleet_wall_s": t2 - t1,
+                  "steps_by_element": fl.steps_run.tolist(),
+                  "prefix_steps_by_element": fl.prefix_steps.tolist(),
+                  "warm_entry_bytes": warm_bytes, "launches": launches[path],
+                  "equals_jax_digest": [g == e["digest"] for g, e in zip(got, ffx["elements"])],
+                  "gpu": smi_line})
+            want_hits = int(path == "fleet_fork_warm")
+            if (st["cache_hits"], st["cache_misses"]) != (want_hits, 1 - want_hits):
+                fail(f"{path}: cache hits/misses {st['cache_hits']}/{st['cache_misses']}")
+            if want_hits and st["prefix_wall_s"] != 0.0:
+                fail(f"{path}: a warm hit simulated its prefix")
+            check_launches(path, simulated + fleet_steps, STEP_KERNELS)
+            for i, (g, e) in enumerate(zip(got, ffx["elements"])):
+                for k, want in e["digest"].items():
+                    if g[k] != want:
+                        fail(f"{path}: element {i} {k} {g[k]} != the JAX package's {want}")
+            del fl
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+
+    # ---- cli_supervised: `run` supervised with the guard, then the same
+    # command with --resume (a no-op rerun from the final snapshot), and a
+    # forked seed sweep run twice against one warm cache; each on the card
+    # and on the CPU side by side
+    cdir = tempfile.mkdtemp(prefix="chip_smoke_cli_sup_")
+    try:
+        run = ["run", "configs/rung1_64core_fft.json", "--synth", CLI_SUP_SPEC, "--fold",
+               "--chunk-steps", "16", "--checkpoint-dir", os.path.join(cdir, "ck_{device}"),
+               "--checkpoint-every", "2", "--guard", "fail"]
+        with open(os.path.join(cdir, "sched.json"), "w") as f:
+            json.dump(CLI_SUP_SCHEDULE, f)
+        sweep = ["sweep", "configs/rung1_64core_fft.json", "--synth", CLI_SUP_SPEC, "--fold",
+                 "--fault-schedule", os.path.join(cdir, "sched.json"),
+                 "--vary", "fault_seed=1", "--vary", "fault_seed=2", "--vary", "fault_seed=3",
+                 "--chunk-steps", "16", "--fork-prefix", "auto", "--warm-cache", "on"]
+        env = {"PRIMETPU_CACHE_DIR": os.path.join(cdir, "warm_{device}")}
+        # the run chain and the sweep chain at once, each in order
+        with ThreadPoolExecutor(2) as pool:
+            runs_f = pool.submit(lambda: [cli_side_by_side(run),
+                                          cli_side_by_side(run + ["--resume"])])
+            sweeps_f = pool.submit(lambda: [cli_side_by_side(sweep, env),
+                                            cli_side_by_side(sweep, env)])
+            res = runs_f.result() + sweeps_f.result()
+    finally:
+        shutil.rmtree(cdir, ignore_errors=True)
+    for r in res:
+        if any(x[0] != 0 for x in r.values()):
+            fail(f"cli_supervised: exit codes {[x[0] for x in r.values()]}: "
+                 f"{r['cuda'][2][-500:]} {r['cpu'][2][-500:]}")
+
+    def lines(out, drop=("wall_s", "device")):
+        got = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+        for ln in got:
+            if ln.get("unit") == "MIPS":
+                ln.pop("value")
+            for k in drop:
+                ln["detail"].pop(k, None)
+        return got
+
+    runs = [{d: lines(r[d][1])[-1]["detail"] for d in r} for r in res[:2]]
+    for d in runs[1]:
+        for k in ("resumed_from", "committed_chunks", "checkpoints_written"):
+            runs[1][d].pop(k)
+            runs[0][d].pop(k)
+    sweeps = [{d: lines(r[d][1], drop=("wall_s", "prefix_wall_s")) for d in r} for r in res[2:]]
+    forks = [{d: [ln["detail"] for ln in s[d] if ln["metric"] == "prefix_fork"] for d in s}
+             for s in sweeps]
+    emit({"phase": "cli_supervised",
+          "run_card_equals_cpu": runs[0]["cuda"] == runs[0]["cpu"],
+          "resume_equals_run": [runs[1][d] == runs[0][d] for d in ("cuda", "cpu")],
+          "instructions": runs[0]["cuda"].get("instructions"),
+          "sweep_card_equals_cpu": [s["cuda"] == s["cpu"] for s in sweeps],
+          "prefix_fork": [f["cuda"] for f in forks]})
+    if runs[0]["cuda"] != runs[0]["cpu"] or any(runs[1][d] != runs[0][d] for d in runs[1]):
+        fail(f"cli_supervised: run lines differ: {runs}")
+    for s, f, hits in zip(sweeps, forks, (0, 1)):
+        if s["cuda"] != s["cpu"] or [x.get("cache_hits") for x in f["cuda"]] != [hits]:
+            fail(f"cli_supervised: sweep lines {s}")
+    return launches
 
 
 def main() -> int:
@@ -474,21 +831,7 @@ def main() -> int:
     wrappers = {k: getattr(m, k) for k, m in mods.items()}
     plains = {k: getattr(m, f"{k}_plain") for k, m in mods.items()}
 
-    def fixture(name):
-        """A committed JAX reference: its machine, trace and record."""
-        with open(os.path.join(ROOT, "primesim_tpu_torch", "fixtures", f"{name}.json")) as f:
-            fx = json.load(f)
-        spec = fx["config"]
-        if isinstance(spec, str):
-            with open(os.path.join(ROOT, spec)) as f:
-                spec = json.load(f)
-        mcfg, ts = MachineConfig.from_dict(spec), fx["trace"]
-        if "multiplex" in ts:  # programs multiplexed into one machine
-            tr = multiplex([synth.GENERATORS[p["generator"]](**p["args"])
-                            for p in ts["multiplex"]], line_bits=mcfg.line_bits)
-        else:
-            tr = synth.GENERATORS[ts["generator"]](**ts["args"])
-        return fx, mcfg, fold_ins(tr) if ts.get("fold") else tr
+    fixture = load_fixture
 
     # ---- 1. device
     smi = subprocess.run(
@@ -1400,7 +1743,7 @@ def main() -> int:
                    for fxs, paths in ((large, LARGE), (zoo, ZOO)) for path, _ in paths]
     main_paths.append(("headline_faults", cfg_hf, hffx, trace_hf, STEP_KERNELS))
     main_paths.append(("rung2", cfg2, r2fx, trace2, STEP_KERNELS))
-    sums_of = {}
+    sums_of, baselines = {}, {}
     real_scrub = inject.scrub_dead
     scrubs = []
 
@@ -1425,6 +1768,7 @@ def main() -> int:
         wall = time.perf_counter() - t0
         launches[path] = dict(build.LAUNCHES)
         peak = torch.cuda.max_memory_allocated() - held
+        baselines[path] = {"wall_s": wall, "peak_memory_bytes": peak}
         got = run_digest(eng.steps_run, eng.cycles, eng.counters,
                          eng.state.link_free.cpu().numpy(),
                          eng.state.dram_free.cpu().numpy())
@@ -1626,23 +1970,10 @@ def main() -> int:
     # trace that freezes early; fleet_rung3: rung 3, B = 4, checkpointed
     # at FLEET_CUT and resumed in a fresh fleet. Each element's digest
     # against the committed JAX one, element 0 against the solo path's.
+    made = {json.dumps(hfx["trace"], sort_keys=True): trace}  # the headline trace, made once
+
     def fleet_fixture(name):
-        with open(os.path.join(ROOT, "primesim_tpu_torch", "fixtures", f"{name}.json")) as f:
-            ffx = json.load(f)
-        spec = ffx["config"]
-        if isinstance(spec, str):
-            with open(os.path.join(ROOT, spec)) as f:
-                spec = json.load(f)
-        made = {json.dumps(hfx["trace"], sort_keys=True): trace}  # the headline trace, made once
-        trs = []
-        for e in ffx["elements"]:
-            key = json.dumps(e["trace"], sort_keys=True)
-            if key not in made:
-                ts = e["trace"]
-                tr = synth.GENERATORS[ts["generator"]](**ts["args"])
-                made[key] = fold_ins(tr) if ts.get("fold") else tr
-            trs.append(made[key])
-        return ffx, MachineConfig.from_dict(spec), trs, [e["overrides"] for e in ffx["elements"]]
+        return load_fleet_fixture(name, made)
 
     def stage_batched(names, step, store):
         """Wrap the kernels `names` so that the `step`-th call of each
@@ -1758,6 +2089,11 @@ def main() -> int:
     if swl["cuda"] != swl["cpu"] or len(swl["cuda"]) != 4 or warn["cuda"] != warn["cpu"] \
             or not warn["cuda"]:
         fail(f"cli_sweep: card {swl['cuda']} != CPU {swl['cpu']} (warnings {warn})")
+
+    # ---- 10. the supervised and forked paths, before any profiler session
+    # (the main paths' timing and theirs are comparable)
+    fleet_launches.update(resilience_phases(
+        dev, smi_line, (hffx, cfg_hf, trace_hf), made, baselines["headline_faults"]))
 
     # ---- 8. profile. First the profiler's device time per launch of the
     # calls phase 5 timed, in the process's first profiler session (none
@@ -2111,7 +2447,9 @@ def main() -> int:
     emit({"phase": "fleet_kernels", "kernels": fleet_timing,
           "event_floor_ms": event_floor_ms, "gpu": smi_line})
 
+    # ---- the supervised and forked paths
 
+    print(json.dumps({"phase_times": PHASE_TIMES}), flush=True)
     machine_of = {p: {"topology": c.noc.topology, "coherence": c.coherence,
                       "sharer_group": c.sharer_group, "sharer_words": c.n_sharer_words}
                   for p, c in mode_cfg.items()}

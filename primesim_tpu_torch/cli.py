@@ -18,12 +18,21 @@ machine invariants after every chunk; `--obs basic|full` records a
 per-chunk metric series (`--metrics-out`) and a Chrome trace of the chunks
 (`--trace-out`); `--xprof DIR` writes a torch.profiler trace of the run.
 `--fault-schedule FILE [--fault-seed N]` arms fault injection (DESIGN.md
-§12). `sweep` fans one config into a fleet (`sim/fleet.py`): one element
-per `--vary K=V[,K=V...]` timing-override set and/or per trace, all run
-as ONE batch on the card, and prints `primetpu sweep`'s lines: one
-`simulated_MIPS` line per element (quarantined elements and
-deduplicated twins included) and a `fleet_aggregate_MIPS` line. A run
-or sweep is on the card unless `--device cpu` is given. `synth` writes
+§12). Any of `--checkpoint-dir`, `--checkpoint-every`, `--checkpoint-wall`,
+`--resume` and `--guard` puts a run or sweep under `RunSupervisor`
+(rotating snapshots, preemption at a chunk boundary with exit 75, retry
+with an on-device rollback, the invariant guard) and adds a RESILIENCE
+section to the report. `sweep` fans one config into a fleet
+(`sim/fleet.py`): one element per `--vary K=V[,K=V...]` timing-override
+set and/or per trace, all run as ONE batch on the card, and prints
+`primetpu sweep`'s lines: one `simulated_MIPS` line per element
+(quarantined elements and deduplicated twins included) and a
+`fleet_aggregate_MIPS` line; `--fork-prefix auto|N` runs each
+prefix-sharing class's shared prefix once and forks it into the fleet
+(`sim/prefix.py`, a `prefix_fork` line), and `--warm-cache on` keeps
+those prefixes on disk ($PRIMETPU_CACHE_DIR, bounded by `--cache-budget`)
+for the next campaign. A run or sweep is on the card unless `--device
+cpu` is given. `synth` writes
 a generator's trace as a PTPU file, `info` prints a config as JSON: both
 as `primetpu` does. A malformed schedule, trace or config exits 2 with
 one `{"error": {type, location, detail}}` JSON line on stderr, as does
@@ -147,7 +156,8 @@ def _finalize_obs(rec) -> None:
         print(f"obs: {kind} written to {path} ({n} records)", file=sys.stderr)
 
 
-def _emit_summary(ns, cfg, counters, cycles, wall, extra, timeline=None) -> None:
+def _emit_summary(ns, cfg, counters, cycles, wall, extra, timeline=None,
+                  resilience=None) -> None:
     """`primetpu run`'s one-line JSON summary (the port's engine name, its
     device and step count added) and optional text report."""
     from .stats.report import write_report
@@ -178,8 +188,91 @@ def _emit_summary(ns, cfg, counters, cycles, wall, extra, timeline=None) -> None
     }))
     if ns.report:
         write_report(ns.report, cfg, counters, cycles, wall_s=wall,
-                     per_core_limit=ns.per_core_limit, timeline=timeline)
+                     per_core_limit=ns.per_core_limit, timeline=timeline,
+                     resilience=resilience)
         print(f"report written to {ns.report}", file=sys.stderr)
+
+
+def _supervised(ns) -> bool:
+    """Any resilience flag engages the supervised (chunk-committed) path."""
+    return bool(
+        ns.resume or ns.checkpoint_dir or ns.checkpoint_every
+        or ns.checkpoint_wall or ns.guard != "off"
+    )
+
+
+def _check_supervision_flags(ns) -> None:
+    if (
+        ns.resume or ns.checkpoint_every or ns.checkpoint_wall
+    ) and not ns.checkpoint_dir:
+        raise SystemExit(
+            "--resume/--checkpoint-every/--checkpoint-wall require "
+            "--checkpoint-dir DIR (where snapshots live)"
+        )
+
+
+def _configure_disk(ns) -> None:
+    """--cache-budget: the one byte budget of the warm-state cache and
+    the disk-pressure ladder."""
+    from .util import diskpressure
+
+    if ns.cache_budget is not None:
+        diskpressure.configure(budget_bytes=ns.cache_budget)
+
+
+def _build_supervisor(ns, eng, obs=None):
+    from .sim.supervisor import RunSupervisor
+
+    return RunSupervisor(
+        eng,
+        snapshot_dir=ns.checkpoint_dir,
+        keep_snapshots=ns.keep_snapshots,
+        checkpoint_every_chunks=ns.checkpoint_every,
+        checkpoint_every_s=ns.checkpoint_wall,
+        guard=ns.guard,
+        max_retries=ns.max_retries,
+        obs=obs,
+    )
+
+
+def _emit_preempted(e, sup) -> int:
+    """Preemption is a clean outcome, not a crash: report where the run
+    stopped and exit 75 (EX_TEMPFAIL: rerun with --resume)."""
+    print(f"preempted: {e}", file=sys.stderr)
+    print(json.dumps({
+        "metric": "preempted",
+        "value": None,
+        "unit": None,
+        "detail": {"checkpoint": e.checkpoint, "signal": e.signum, **sup.summary()},
+    }))
+    return 75
+
+
+def _run_supervised(ns, cfg, eng, device, rec=None) -> int:
+    """Supervised `run` path: chunk-committed execution under a
+    RunSupervisor (auto-checkpoint, preemption, retry, guard)."""
+    from .sim.supervisor import Preempted
+
+    if rec is not None:
+        rec.attach(eng)
+    sup = _build_supervisor(ns, eng, obs=rec)
+    if ns.resume:
+        sup.resume()
+    t0 = time.perf_counter()
+    try:
+        sup.run(max_steps=ns.max_steps)  # None -> the supervisor's budget
+    except Preempted as e:
+        _finalize_obs(rec)  # the flight recorder survives preemption
+        return _emit_preempted(e, sup)
+    wall = time.perf_counter() - t0
+    _emit_summary(
+        ns, cfg, eng.counters, eng.cycles, wall,
+        {"device": str(device), "steps": eng.steps_run, **sup.summary()},
+        timeline=rec.timeline_summary() if rec is not None else None,
+        resilience=sup.log_lines(),
+    )
+    _finalize_obs(rec)
+    return 0
 
 
 def cmd_run(ns) -> int:
@@ -192,6 +285,14 @@ def cmd_run(ns) -> int:
         raise SystemExit(
             f"trace has {tr.n_cores} cores but config has {cfg.n_cores}"
         )
+    _check_supervision_flags(ns)
+    supervised = _supervised(ns)
+    if supervised and (ns.xprof or ns.debug_invariants):
+        raise SystemExit(
+            "--xprof/--debug-invariants do not compose with the supervised "
+            "path (--guard runs the same invariants post-chunk)"
+        )
+    _configure_disk(ns)
     rec = _build_recorder(ns)
     if rec is not None and ns.xprof:
         raise SystemExit(
@@ -203,6 +304,8 @@ def cmd_run(ns) -> int:
         for k in build.KERNELS:  # build and load before the clock starts
             build.library(k)
     eng = Engine(cfg, tr, chunk_steps=ns.chunk_steps, device=device)
+    if supervised:
+        return _run_supervised(ns, cfg, eng, device, rec=rec)
     if rec is not None:
         rec.attach(eng)
     max_steps = ns.max_steps or 10_000_000
@@ -323,11 +426,21 @@ def cmd_sweep(ns) -> int:
     from .kernels import build
     from .sim.engine import resolve_device
     from .sim.fleet import FleetEngine
-    from .sim.prefix import dedup_plan
-    from .sim.supervisor import build_fleet_isolated
+    from .sim.prefix import dedup_plan, execute_prefix_plan, plan_prefix
+    from .sim.supervisor import Preempted, build_fleet_isolated
     from .stats.report import write_report
 
+    if ns.fork_prefix not in ("auto", "off"):
+        try:
+            int(ns.fork_prefix)
+        except ValueError:
+            raise SystemExit(
+                f"sweep: --fork-prefix must be auto, off, or an integer "
+                f"step cap (got {ns.fork_prefix!r})"
+            ) from None
     cfg = _apply_faults(ns, _apply_step_impl(ns, _load_config(ns.config)))
+    _check_supervision_flags(ns)
+    _configure_disk(ns)
 
     # per-element SOURCES: callables for file loads (so an unreadable file
     # quarantines one element, not the sweep), eager traces for synth specs
@@ -413,25 +526,62 @@ def cmd_sweep(ns) -> int:
     fleet.block_until_ready()
     if rec is not None:
         rec.attach(fleet)
+
+    def _fork_now() -> dict:
+        # run (or warm-load) each prefix-sharing class's shared prefix and
+        # fork it into the slots; the metric line records what was skipped
+        groups = plan_prefix(
+            fleet.elem_cfgs, fleet.traces, mode=ns.fork_prefix,
+            chunk_steps=ns.chunk_steps, cap=ns.max_steps or 10_000_000,
+        )
+        st = execute_prefix_plan(fleet, groups, warm_cache=ns.warm_cache == "on", obs=rec)
+        st["mode"] = ns.fork_prefix
+        st["warm_cache"] = ns.warm_cache
+        if dup_of_caller:
+            st["deduped"] = sorted(dup_of_caller)
+        print(json.dumps({"metric": "prefix_fork", "value": st["forked_elements"],
+                          "unit": "elements", "detail": st}))
+        return st
+
     stalled: list[int] = []
-    t0 = time.perf_counter()
-    try:
-        if rec is not None:
-            # chunked dispatch so every chunk lands in the metric ring
-            fleet.run_steps(ns.max_steps or 10_000_000)
-            if not fleet.done():
-                bad = np.flatnonzero(~fleet.done_mask()).tolist()
-                raise RuntimeError(
-                    f"fleet: max_steps exceeded on element(s) {bad} (deadlock?)"
-                )
-        else:
-            fleet.run(max_steps=ns.max_steps or 10_000_000)
-    except RuntimeError as e:
-        # stalled elements are isolated, as quarantine is: reported, and
-        # the finished elements' results kept
-        stalled = [fleet.element_ids[j] for j in np.flatnonzero(~fleet.done_mask())]
-        print(f"sweep: {e} — isolating", file=sys.stderr)
-    wall = time.perf_counter() - t0
+    if _supervised(ns):
+        sup = _build_supervisor(ns, fleet, obs=rec)
+        resumed = sup.resume() if ns.resume else None
+        if resumed is None and ns.fork_prefix != "off":
+            # a restored snapshot is already past the prefix (and carries
+            # its fork provenance); fork only on a fresh start
+            _fork_now()
+        t0 = time.perf_counter()
+        try:
+            sup.run(max_steps=ns.max_steps or 10_000_000)
+        except Preempted as e:
+            _finalize_obs(rec)
+            return _emit_preempted(e, sup)
+        wall = time.perf_counter() - t0
+        stalled = list(sup.stalled_elements)
+        for line in sup.log_lines():
+            print(f"supervisor: {line}", file=sys.stderr)
+    else:
+        if ns.fork_prefix != "off":
+            _fork_now()
+        t0 = time.perf_counter()
+        try:
+            if rec is not None:
+                # chunked dispatch so every chunk lands in the metric ring
+                fleet.run_steps(ns.max_steps or 10_000_000)
+                if not fleet.done():
+                    bad = np.flatnonzero(~fleet.done_mask()).tolist()
+                    raise RuntimeError(
+                        f"fleet: max_steps exceeded on element(s) {bad} (deadlock?)"
+                    )
+            else:
+                fleet.run(max_steps=ns.max_steps or 10_000_000)
+        except RuntimeError as e:
+            # stalled elements are isolated, as quarantine is: reported,
+            # and the finished elements' results kept
+            stalled = [fleet.element_ids[j] for j in np.flatnonzero(~fleet.done_mask())]
+            print(f"sweep: {e} — isolating", file=sys.stderr)
+        wall = time.perf_counter() - t0
 
     counters = fleet.counters
     cycles = fleet.cycles
@@ -546,8 +696,59 @@ def _add_shared_flags(sp) -> None:
              "first (default 4096)",
     )
     sp.add_argument(
+        "--cache-budget", type=int, default=None, metavar="BYTES",
+        help="byte budget of the governed artifact pool (the warm-state "
+             "cache; DESIGN.md §26): LRU pruning and the disk-pressure "
+             "evict ladder both honor it; takes precedence over "
+             "$PRIMETPU_CACHE_MAX_BYTES (default: env var, then 2 GiB)",
+    )
+    sp.add_argument(
         "--device", choices=("cuda", "cpu"), default=None,
         help="default: cuda (an error when there is no card)",
+    )
+    _add_resilience_flags(sp)
+
+
+def _add_resilience_flags(sp) -> None:
+    """run's and sweep's resilience surface (DESIGN.md §10): any of these
+    flags puts the command on the supervised chunk-committed path
+    (sim.supervisor.RunSupervisor); results stay bit-exact."""
+    sp.add_argument(
+        "--checkpoint-dir", metavar="DIR",
+        help="rotating-snapshot directory (ckpt-<seq>.npz, atomic + "
+             "CRC-verified); enables checkpointing and --resume",
+    )
+    sp.add_argument(
+        "--checkpoint-every", type=int, default=0, metavar="K",
+        help="checkpoint every K committed chunks (needs --checkpoint-dir)",
+    )
+    sp.add_argument(
+        "--checkpoint-wall", type=float, default=0.0, metavar="SEC",
+        help="checkpoint when SEC wall-seconds passed since the last one "
+             "(needs --checkpoint-dir; combines with --checkpoint-every)",
+    )
+    sp.add_argument(
+        "--keep-snapshots", type=int, default=3, metavar="N",
+        help="rotating snapshots retained in --checkpoint-dir (default 3)",
+    )
+    sp.add_argument(
+        "--resume", action="store_true",
+        help="restore the newest VALID snapshot from --checkpoint-dir "
+             "(corrupt ones are skipped; config+trace fingerprints are "
+             "verified) and continue — bit-exact with an uninterrupted run",
+    )
+    sp.add_argument(
+        "--guard", choices=("off", "warn", "fail"), default="off",
+        help="post-chunk invariant guard (MESI/directory consistency, "
+             "clock window, monotone counters): warn logs violations, "
+             "fail stops BEFORE checkpointing the bad state",
+    )
+    sp.add_argument(
+        "--max-retries", type=int, default=4, metavar="N",
+        help="retries per chunk on transient device failures (decorrelated "
+             "jitter backoff; OOM halves chunk_steps; each failed attempt "
+             "is rolled back on the device). Then the run gives up with "
+             "the original error",
     )
 
 
@@ -622,6 +823,19 @@ def build_parser() -> argparse.ArgumentParser:
     )
     w.add_argument("--chunk-steps", type=int, default=256)
     w.add_argument("--max-steps", type=int, default=None)
+    w.add_argument(
+        "--fork-prefix", default="off", metavar="auto|off|N",
+        help="run each prefix-sharing class's shared prefix ONCE as a "
+             "solo engine and fork it into the fleet slots (bit-exact; "
+             "'auto' forks at the divergence point, an integer caps the "
+             "prefix at N steps; default off)",
+    )
+    w.add_argument(
+        "--warm-cache", choices=("on", "off"), default="off",
+        help="consult/populate the on-disk warm-state cache "
+             "($PRIMETPU_CACHE_DIR) for forked prefixes — a repeated "
+             "campaign skips the prefix simulation entirely",
+    )
     w.add_argument(
         "--report-dir", help="write per-element text reports to this directory"
     )

@@ -1,6 +1,6 @@
-"""Checkpoint / resume of one engine or one fleet (SURVEY.md §5.4): the
-solo and fleet parts of the JAX package's `sim/checkpoint.py`, in its
-file format.
+"""Checkpoint / resume of one engine or one fleet (SURVEY.md §5.4), and
+the warm-state cache of prefix forking (DESIGN.md §16): the JAX
+package's `sim/checkpoint.py` for the port, in its file format.
 
 A checkpoint is one `.npz`: every state field (nested knobs and fault
 state flattened to `state_<field>__<sub>` keys), the 64-bit counter and
@@ -9,18 +9,20 @@ against another machine or workload is an error, not silent corruption.
 The keys and dtypes are the JAX package's format 7, so a snapshot either
 engine writes resumes bit-exactly in the other: the port's int64 fault
 values (seed and thresholds, in [0, 2^32)) are written as the JAX
-state's uint32 and read back to int64, and the port writes no prefix-fork
-provenance (`prefix_steps` 0, an empty `prefix_cache_key`; in a fleet
-file zeros and a list of nulls) and no attestation members. A fleet
-snapshot holds the batched state (leading element axis), per-element
-cycle bases, step counts and config and trace fingerprints, and the
-[n_counters, B, C] host counters, under the `fleet` key.
+state's uint32 and read back to int64. Prefix-fork provenance (the steps
+of shared prefix an engine or each fleet element was forked from, and
+the warm-cache key of that prefix) is written and read as the JAX
+package does; attestation members are not written. A fleet snapshot
+holds the batched state (leading element axis), per-element cycle bases,
+step counts and config and trace fingerprints, and the [n_counters, B, C]
+host counters, under the `fleet` key.
 
 Durability (DESIGN.md §10): every save goes through `atomic_save_npz`: a
+disk-pressure preflight (`util/diskpressure.py`) before any byte lands, a
 writer-unique temp file, fsync, `os.replace`, a directory fsync; a
 per-array CRC32 manifest turns silent media corruption into a typed
-`CheckpointCorrupt` at load time. The JAX package's disk-pressure
-preflight and chaos site around that write are not ported yet.
+`CheckpointCorrupt` at load time. The JAX package's chaos site around
+that write is not ported yet.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ import numpy as np
 from ..config.machine import MachineConfig
 from ..convert import state_from_numpy, state_to_numpy
 from ..stats.counters import COUNTER_NAMES
+from ..util import diskpressure
 
 _FORMAT = 7  # the JAX package's format: see its sim/checkpoint.py
 
@@ -73,6 +76,13 @@ def atomic_save_npz(path: str, **arrays) -> None:
     }
     named[_CRC_KEY] = np.frombuffer(
         json.dumps(crcs, sort_keys=True).encode(), dtype=np.uint8
+    )
+    # disk-pressure gate before any byte lands: the uncompressed total
+    # bounds the compressed npz. Under pressure this runs the
+    # evict -> compact ladder and raises DiskPressureError rather than
+    # letting savez die mid-write with an ENOSPC-torn temp file
+    diskpressure.preflight(
+        path, sum(v.nbytes for v in named.values()), kind="checkpoint"
     )
     # unique per writer, not per destination: two writers of one path
     # must not rename each other's temp files away
@@ -213,8 +223,11 @@ def save_checkpoint(path: str, engine) -> None:
         format=np.int64(_FORMAT),
         cycle_base=np.int64(engine.cycle_base),
         steps_run=np.int64(engine.steps_run),
-        prefix_steps=np.int64(0),
-        prefix_cache_key=np.frombuffer(b"", dtype=np.uint8),
+        prefix_steps=np.int64(getattr(engine, "prefix_steps", 0) or 0),
+        prefix_cache_key=np.frombuffer(
+            str(getattr(engine, "prefix_cache_key", "") or "").encode(),
+            dtype=np.uint8,
+        ),
         config_json=np.frombuffer(
             engine.cfg.to_json().encode(), dtype=np.uint8
         ),
@@ -261,6 +274,8 @@ def load_checkpoint(path: str, engine) -> None:
     engine._stepped = None  # scrub_offsets re-reads the loaded step
     engine.cycle_base = int(z["cycle_base"])
     engine.steps_run = int(z["steps_run"])
+    engine.prefix_steps = int(z["prefix_steps"]) if "prefix_steps" in z else 0
+    engine.prefix_cache_key = _str_field(z, "prefix_cache_key") or None
     hc = z["host_counters"]
     engine.host_counters = {
         k: hc[i].astype(np.int64) for i, k in enumerate(COUNTER_NAMES)
@@ -278,14 +293,20 @@ def save_fleet_checkpoint(path: str, fleet) -> None:
         [fleet.host_counters[k] for k in COUNTER_NAMES]
     )  # [n_counters, B, C]
     B = len(fleet.elem_cfgs)
+    pre = getattr(fleet, "prefix_steps", None)
+    if pre is None:
+        pre = np.zeros(B, np.int64)
+    keys = getattr(fleet, "prefix_cache_keys", None) or [None] * B
     atomic_save_npz(
         path,
         format=np.int64(_FORMAT),
         fleet=np.int64(1),
         cycle_base=np.asarray(fleet.cycle_base, np.int64),  # [B]
         steps_run=np.asarray(fleet.steps_run, np.int64),  # [B]
-        prefix_steps=np.zeros(B, np.int64),
-        prefix_keys_json=np.frombuffer(json.dumps([None] * B).encode(), dtype=np.uint8),
+        prefix_steps=np.asarray(pre, np.int64),  # [B]
+        prefix_keys_json=np.frombuffer(
+            json.dumps([k or None for k in keys]).encode(), dtype=np.uint8
+        ),
         configs_json=np.frombuffer(
             json.dumps([json.loads(c.to_json()) for c in fleet.elem_cfgs]).encode(),
             dtype=np.uint8,
@@ -326,7 +347,276 @@ def load_fleet_checkpoint(path: str, fleet) -> None:
     fleet._stepped = None  # live flags and step numbers re-read from it
     fleet.cycle_base = z["cycle_base"].astype(np.int64)
     fleet.steps_run = z["steps_run"].astype(np.int64)
+    if "prefix_steps" in z:
+        fleet.prefix_steps = z["prefix_steps"].astype(np.int64)
+    if "prefix_keys_json" in z:
+        fleet.prefix_cache_keys = json.loads(bytes(z["prefix_keys_json"]).decode())
     hc = z["host_counters"]
     fleet.host_counters = {
         k: hc[i].astype(np.int64) for i, k in enumerate(COUNTER_NAMES)
     }
+
+
+# ---------------------------------------------------------------------------
+# Warm-state cache (prefix forking, DESIGN.md §16)
+#
+# Content-addressed snapshots of a solo engine after P steps of a
+# workload, in the JAX package's files and under its keys, so an entry
+# either package writes serves the other. An entry is valid for any run
+# whose first P steps are provably identical to the producer's, which the
+# key enforces by hashing exactly the inputs that can influence them:
+#
+#   - the checkpoint format (state layout identity)
+#   - the trace fingerprint (events + lengths + addressing)
+#   - the normalized-geometry hash (cfg.timing_normalized().to_json())
+#   - the timing-knob values (knobs_from_config leaves)
+#   - the fault-schedule PREFIX: scheduled events with step < P (an event
+#     at step S fires while executing step index S)
+#   - the ECC block (seed + flip/DUE thresholds) ONLY when a rate is
+#     nonzero: with all of them 0 the seed is architecturally unreachable
+#     and seed-varying sweep elements share one entry
+#   - P itself
+#
+# chunk_steps is not part of the key: every absolute observable after P
+# steps is chunking-invariant.
+# ---------------------------------------------------------------------------
+
+_WARM_DEFAULT_MAX_BYTES = 2 << 30  # 2 GiB before LRU eviction kicks in
+
+
+def warm_cache_root() -> str:
+    """The warm-cache directory: $PRIMETPU_CACHE_DIR, or a per-user
+    default under ~/.cache. Created on first use."""
+    root = os.environ.get("PRIMETPU_CACHE_DIR") or os.path.join(
+        os.path.expanduser("~"), ".cache", "primetpu", "warm"
+    )
+    os.makedirs(root, exist_ok=True)
+    return root
+
+
+def _geometry_hash(cfg) -> str:
+    return hashlib.sha256(cfg.timing_normalized().to_json().encode()).hexdigest()
+
+
+def _warm_payload(cfg, trace_fp: str) -> dict:
+    """The step-count-independent part of the cache key."""
+    from .state import knobs_from_config
+
+    kn = knobs_from_config(cfg, "cpu")
+    payload = {
+        "format": _FORMAT,
+        "trace": str(trace_fp),
+        "geom": _geometry_hash(cfg),
+        "knobs": {k: v.numpy().tolist() for k, v in kn._asdict().items()},
+    }
+    if (
+        float(cfg.fault_flip_l1) > 0.0
+        or float(cfg.fault_flip_llc) > 0.0
+        or float(cfg.fault_due_rate) > 0.0
+    ):
+        payload["ecc"] = {
+            "seed": int(cfg.fault_seed),
+            "flip_l1": float(cfg.fault_flip_l1),
+            "flip_llc": float(cfg.fault_flip_llc),
+            "due_rate": float(cfg.fault_due_rate),
+        }
+    return payload
+
+
+def warm_cfg_key(cfg, trace_fp: str) -> str:
+    """Hash of the step-independent key inputs: the sidecar index key
+    `find_warm_states` scans by."""
+    blob = json.dumps(_warm_payload(cfg, trace_fp), sort_keys=True)
+    return hashlib.sha256(blob.encode()).hexdigest()
+
+
+def warm_key(cfg, trace_fp: str, steps: int) -> str:
+    """The full content address of a warm entry: the step-independent
+    payload + the fault-schedule prefix (events with step < steps) +
+    steps."""
+    payload = _warm_payload(cfg, trace_fp)
+    payload["events"] = sorted(
+        tuple(int(x) for x in e)
+        for e in getattr(cfg, "fault_events", ()) or ()
+        if int(e[0]) < int(steps)
+    )
+    payload["steps"] = int(steps)
+    blob = json.dumps(payload, sort_keys=True)
+    return hashlib.sha256(blob.encode()).hexdigest()
+
+
+def _warm_paths(root: str, key: str) -> tuple[str, str]:
+    return os.path.join(root, f"{key}.npz"), os.path.join(root, f"{key}.json")
+
+
+def save_warm_state(root: str, cfg, trace_fp: str, steps: int, snap: dict) -> str:
+    """Write a warm entry (atomic npz + JSON sidecar) and LRU-prune.
+
+    `snap` is the dict a prefix run produces and `FleetEngine.fork_element`
+    takes: {state, cycle_base, steps_run, host_counters}. Returns the
+    key."""
+    key = warm_key(cfg, trace_fp, steps)
+    os.makedirs(root, exist_ok=True)
+    npz_path, meta_path = _warm_paths(root, key)
+    arrays = _state_arrays(snap["state"])
+    arrays["host_counters"] = np.stack(
+        [snap["host_counters"][k] for k in COUNTER_NAMES]
+    )
+    atomic_save_npz(
+        npz_path,
+        format=np.int64(_FORMAT),
+        warm=np.int64(1),
+        steps=np.int64(steps),
+        cycle_base=np.int64(snap["cycle_base"]),
+        steps_run=np.int64(snap["steps_run"]),
+        trace_sha=np.frombuffer(str(trace_fp).encode(), dtype=np.uint8),
+        **arrays,
+    )
+    meta = {
+        "cfg_key": warm_cfg_key(cfg, trace_fp),
+        "key": key,
+        "trace_sha": str(trace_fp),
+        "steps": int(steps),
+    }
+    # writer-unique temp name, as in atomic_save_npz: concurrent sweeps
+    # warming one entry must not rename each other's sidecar away
+    fd, tmp = tempfile.mkstemp(
+        dir=root, prefix=os.path.basename(meta_path) + ".", suffix=".tmp",
+    )
+    try:
+        with os.fdopen(fd, "w") as f:
+            json.dump(meta, f)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, meta_path)
+    finally:
+        if os.path.exists(tmp):
+            try:
+                os.unlink(tmp)
+            except OSError:
+                pass
+    prune_warm_cache(root)
+    return key
+
+
+def load_warm_state(root: str, key: str, cfg, trace_fp: str, steps: int,
+                    device="cpu") -> dict:
+    """Load and verify a warm entry; returns the fork dict with its state
+    on `device`.
+
+    Raises FileNotFoundError when absent (a plain miss), CheckpointCorrupt
+    when the file is torn or tampered (the caller recomputes), and
+    ValueError when the entry doesn't match the requested identity (also
+    recompute)."""
+    npz_path, _ = _warm_paths(root, key)
+    z = load_verified_npz(npz_path)
+    _require_format(z, npz_path)
+    if "warm" not in z:
+        raise ValueError(f"{npz_path}: not a warm-state cache entry")
+    if int(z["steps"]) != int(steps):
+        raise ValueError(
+            f"{npz_path}: entry holds {int(z['steps'])} steps, wanted {steps}"
+        )
+    if bytes(z["trace_sha"]).decode() != str(trace_fp):
+        raise ValueError(f"{npz_path}: entry trace does not match workload")
+    if warm_key(cfg, trace_fp, steps) != key:
+        raise ValueError(f"{npz_path}: entry key does not match workload")
+    if z["state_counters"].shape[0] != len(COUNTER_NAMES):
+        raise ValueError(
+            f"{npz_path}: incompatible counter-row count "
+            f"{z['state_counters'].shape[0]}"
+        )
+    try:
+        os.utime(npz_path, None)  # LRU touch: eviction follows use
+    except OSError:
+        pass
+    hc = z["host_counters"]
+    return {
+        "state": _state_from(z, cfg, device),
+        "cycle_base": np.int64(z["cycle_base"]),
+        "steps_run": np.int64(z["steps_run"]),
+        "host_counters": {
+            k: hc[i].astype(np.int64) for i, k in enumerate(COUNTER_NAMES)
+        },
+    }
+
+
+def find_warm_states(root: str, cfg, trace_fp: str) -> list[tuple[int, str]]:
+    """Entries reusable by (cfg, trace): sidecars whose cfg_key matches
+    and whose full key recomputes identically under this cfg (which checks
+    the fault-schedule prefix below the entry's step count). Returns
+    [(steps, key)] deepest first; unreadable sidecars are skipped (the npz
+    CRC check still guards the load)."""
+    try:
+        names = os.listdir(root)
+    except OSError:
+        return []
+    want_cfg = warm_cfg_key(cfg, trace_fp)
+    out = []
+    for name in names:
+        if not name.endswith(".json") or name.endswith(".json.tmp"):
+            continue
+        try:
+            with open(os.path.join(root, name)) as f:
+                meta = json.load(f)
+        except (OSError, ValueError):
+            continue
+        if meta.get("cfg_key") != want_cfg:
+            continue
+        steps = int(meta.get("steps", 0))
+        key = str(meta.get("key", ""))
+        if steps > 0 and key and warm_key(cfg, trace_fp, steps) == key:
+            out.append((steps, key))
+    out.sort(key=lambda sk: (-sk[0], sk[1]))
+    return out
+
+
+def prune_warm_cache(root: str, max_bytes: int | None = None) -> int:
+    """Evict least-recently-used entries until the cache fits under
+    `max_bytes`. Returns the number of entries removed. Hits refresh
+    mtime, so mtime order is use order.
+
+    The JAX package's executable cache shares this budget
+    (`root/exec/*.bin`, one LRU pool with the warm `.npz` entries); the
+    port prunes that pool too when it finds one. Budget resolution:
+    explicit `max_bytes` > the process-wide `--cache-budget`
+    (diskpressure.budget()) > $PRIMETPU_CACHE_MAX_BYTES > 2 GiB."""
+    if max_bytes is None:
+        max_bytes = diskpressure.budget()
+    if max_bytes is None:
+        max_bytes = int(
+            os.environ.get("PRIMETPU_CACHE_MAX_BYTES", _WARM_DEFAULT_MAX_BYTES)
+        )
+    entries = []
+    pools = [(root, ".npz")]
+    exec_root = os.path.join(root, "exec")
+    if os.path.isdir(exec_root):
+        pools.append((exec_root, ".bin"))
+    for pool_root, suffix in pools:
+        try:
+            names = os.listdir(pool_root)
+        except OSError:
+            continue
+        for name in names:
+            if not name.endswith(suffix):
+                continue
+            path = os.path.join(pool_root, name)
+            try:
+                st = os.stat(path)
+            except OSError:
+                continue
+            entries.append((st.st_mtime, st.st_size, path, suffix))
+    total = sum(e[1] for e in entries)
+    entries.sort()  # oldest first across both pools
+    removed = 0
+    for _mtime, size, path, suffix in entries:
+        if total <= max_bytes:
+            break
+        for victim in (path, path[: -len(suffix)] + ".json"):
+            try:
+                os.unlink(victim)
+            except OSError:
+                pass
+        total -= size
+        removed += 1
+    return removed

@@ -1013,6 +1013,11 @@ class Engine:
         # telemetry sink (obs.Recorder): None records nothing
         self.obs = None
         self.obs_label = "engine"
+        # prefix-fork provenance (checkpoint format 6 on): the steps of
+        # shared prefix this run was forked from and the warm-cache key of
+        # that prefix (0 and None: the run simulated from step 0 itself)
+        self.prefix_steps = 0
+        self.prefix_cache_key = None
 
     def _not_done(self, st: MachineState):
         """[C] bool on the device: cores neither at END nor dead."""
@@ -1110,6 +1115,22 @@ class Engine:
 
     def done(self) -> bool:
         return bool(self.done_mask().all())
+
+    def live_mask(self) -> np.ndarray:
+        """[C] bool: cores that bound the quantum window: not at END, not
+        frozen at a barrier (a frozen core's clock legally lags
+        `quantum_end` until release) and not fail-stopped. The
+        supervisor's clock-window guard reads it
+        (validate.check_chunk_invariants)."""
+        T = self.events.shape[1]
+        p = self.state.ptr.clamp(max=T - 1).long()
+        cores = torch.arange(self.cfg.n_cores, device=self.events.device)
+        et = self.events[cores, p, 0].cpu().numpy()
+        frozen = (et == EV_BARRIER) & (self.state.sync_flag.cpu().numpy() != 0)
+        live = (et != EV_END) & ~frozen
+        if self.cfg.faults_enabled:
+            live &= self.state.faults.core_dead.cpu().numpy() == 0
+        return live
 
     def verify_invariants(self) -> None:
         """Check the DESIGN.md §5 machine invariants on the current state

@@ -31,9 +31,12 @@ deltas and the [B] live flags. Under faults the scrub runs on the union
 of the stepping elements' `kill_possible` steps, which is exact (the
 scrub is the identity where nobody dies).
 
-Not ported here: prefix forking (`fork_element`), slot surgery for a
-serving fleet (`make_slots`, `replace_element`, `clear_element`,
-`restore_element`), the shard x vmap mesh and attestation.
+Prefix forking (`fork_element`, DESIGN.md §16) overlays a shared
+prefix's snapshot into a slot and reseeds the slot's own inputs
+(`sim/prefix.py` runs the prefix). Not ported here: slot surgery for a
+serving fleet (`make_slots`, `replace_element`, `clear_element`, and of
+`restore_element` more than forking needs), the shard x vmap mesh and
+attestation.
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ import torch
 
 from ..config.machine import MachineConfig, check_port_supported
 from ..faults import inject
+from ..faults.schedule import fault_state_from_config
 from ..stats.counters import COUNTER_NAMES
 from ..trace.format import EV_BARRIER, EV_END, EV_LOCK, EV_UNLOCK, Trace, validate_sync
 from .engine import (
@@ -57,7 +61,14 @@ from .engine import (
     resolve_device,
     run_chunk,
 )
-from .state import MachineState, element_state, init_state, stack_states
+from .state import (
+    MachineState,
+    element_state,
+    init_state,
+    knobs_from_config,
+    leaves,
+    stack_states,
+)
 
 _i32 = torch.int32
 
@@ -268,6 +279,11 @@ class FleetEngine:
         # telemetry sink (obs.Recorder): None records nothing
         self.obs = None
         self.obs_label = "fleet"
+        # prefix-fork provenance (checkpoint format 6 on): steps of shared
+        # prefix each element was forked from, and the warm-cache key the
+        # prefix was saved or loaded under (None: ran from step 0)
+        self.prefix_steps = np.zeros(B, np.int64)
+        self.prefix_cache_keys: list = [None] * B
         self._stepped = None  # the state the last chunk left (see _host)
 
     @property
@@ -443,6 +459,46 @@ class FleetEngine:
     def element_counters(self, i: int) -> dict[str, np.ndarray]:
         self._drain()
         return {k: v[i] for k, v in self.host_counters.items()}
+
+    # ---- prefix forking --------------------------------------------------
+
+    def restore_element(self, i: int, snap: dict) -> None:
+        """Overlay a solo snapshot ({state, cycle_base, steps_run,
+        host_counters}: a prefix run's, or a warm-cache entry's) into
+        batch position `i`: its mid-run machine state and 64-bit host
+        accumulators, copied into the slot in place. The host's cached
+        live flags and step numbers are re-read at the next chunk."""
+        for o, x in zip(leaves(self.state), leaves(snap["state"])):
+            o[i].copy_(x)
+        self.cycle_base[i] = snap["cycle_base"]
+        self.steps_run[i] = snap["steps_run"]
+        for k in COUNTER_NAMES:
+            self.host_counters[k][i] = snap["host_counters"][k]
+        self._stepped = None
+
+    def fork_element(self, i: int, snap: dict, cache_key: str | None = None) -> None:
+        """Fork batch position `i` from a shared-prefix snapshot: overlay
+        it (restore_element), then RESEED the slot's per-element inputs
+        from the element's own effective config: the timing knobs and the
+        fault schedule, seed and ECC thresholds. The snapshot's trajectory
+        state stays: the dead-core, dead-link and degrade masks record
+        events that already fired in the prefix.
+
+        The caller (sim.prefix) guarantees the snapshot's step count is at
+        or below the element's divergence point, so the inputs swapped in
+        could not have influenced any state the snapshot carries: the
+        forked element is bit-exact with an unforked run. Events with step
+        < steps_run never re-fire (firing matches the absolute step)."""
+        self.restore_element(i, snap)
+        ecfg = self.elem_cfgs[i]
+        fresh = fault_state_from_config(ecfg, self.device)
+        for f in ("seed", "ev_step", "ev_kind", "ev_a", "ev_b",
+                  "flip_l1", "flip_llc", "due_rate"):
+            getattr(self.state.faults, f)[i].copy_(getattr(fresh, f))
+        for o, x in zip(self.state.knobs, knobs_from_config(ecfg, self.device)):
+            o[i].copy_(x)
+        self.prefix_steps[i] = int(snap["steps_run"])
+        self.prefix_cache_keys[i] = cache_key
 
     # ---- checkpoint / resume --------------------------------------------
 

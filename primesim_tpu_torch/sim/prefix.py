@@ -1,17 +1,112 @@
-"""Identical-element detection for a fleet: the JAX package's
-`sim/prefix.py::dedup_plan` for the port.
+"""Prefix forking: pay for a sweep's shared prefix once (DESIGN.md §16),
+the JAX package's `sim/prefix.py` for the port.
 
-Two elements with the same trace and the same effective config simulate
-the same run, so a sweep simulates the first and reports it for both.
-The JAX module's prefix forking (`plan_prefix`, `execute_prefix_plan`)
-and warm-state cache are not ported yet.
+A `sweep --vary` or chaos-seed campaign simulates an identical trace
+prefix B times: its elements share the trace, the geometry and (for seed
+sweeps) every timing knob, and differ only in inputs that cannot
+influence the machine before a known step. This module computes that
+step (divergence analysis), groups elements into prefix-sharing classes,
+runs each class's prefix ONCE as a solo `Engine` on the card, and
+broadcasts the snapshot into the fleet's slots with
+`FleetEngine.fork_element`.
+
+Divergence rules (the first step at which two elements CAN differ; a
+conservative lower bound is always sound, since forking at or below the
+true divergence point is bit-exact):
+
+- different trace, or different timing knobs        -> step 0 (no sharing)
+- different ECC flip/DUE rates                      -> step 0
+- different seeds AND any rate nonzero              -> step 0
+- different seeds, all rates zero                   -> the first scheduled
+  fault event (with rates zero the seed is architecturally unreachable)
+- schedules differ                                  -> the earliest event
+  NOT common to every member
+- fully identical effective configs                 -> never (dedup's
+  domain: `dedup_plan`)
+
+An event scheduled at step S fires while executing step index S, so a
+P-step prefix fires exactly the events with step < P; the planner also
+floors P to a chunk boundary so the solo prefix engine stops exactly
+where the fleet's chunks would. Prefixes can be stored in and loaded from
+the warm-state cache (`checkpoint.save_warm_state`), whose entries the
+JAX package reads and writes alike.
 """
 
 from __future__ import annotations
 
-from .checkpoint import trace_fingerprint
+import dataclasses
+import time
 
-__all__ = ["dedup_plan", "trace_fingerprint"]
+import numpy as np
+
+from .checkpoint import (
+    CheckpointCorrupt,
+    load_warm_state,
+    save_warm_state,
+    trace_fingerprint,
+    warm_cache_root,
+    warm_key,
+)
+
+__all__ = [
+    "NEVER", "PrefixGroup", "dedup_plan", "execute_prefix_plan",
+    "group_divergence", "plan_prefix", "trace_fingerprint",
+]
+
+#: "never diverges" sentinel — far above any reachable step budget
+NEVER = 1 << 62
+
+
+@dataclasses.dataclass
+class PrefixGroup:
+    """One prefix-sharing class of fleet elements."""
+
+    indices: list[int]  # batch positions sharing the prefix (len >= 2)
+    divergence: int  # first step any two members can differ (or NEVER)
+    prefix_steps: int  # chunk-floored steps the prefix actually runs
+    cache_key: str | None = None  # warm-cache address (set at execution)
+    cache_hit: bool = False  # prefix loaded from disk, not simulated
+
+
+def _knob_sig(cfg) -> tuple:
+    """The timing-knob values as a hashable signature."""
+    from .state import knobs_from_config
+
+    kn = knobs_from_config(cfg, "cpu")
+    return tuple(
+        (k, tuple(v.reshape(-1).tolist())) for k, v in kn._asdict().items()
+    )
+
+
+def _rates(cfg) -> tuple:
+    return (
+        float(cfg.fault_flip_l1),
+        float(cfg.fault_flip_llc),
+        float(cfg.fault_due_rate),
+    )
+
+
+def _events(cfg) -> frozenset:
+    return frozenset(tuple(int(x) for x in e) for e in (cfg.fault_events or ()))
+
+
+def group_divergence(cfgs: list) -> int:
+    """First step at which any two of these same-trace, same-knob,
+    same-rate configs can produce different machine state."""
+    seeds = {int(c.fault_seed) for c in cfgs}
+    evsets = [_events(c) for c in cfgs]
+    common = frozenset.intersection(*evsets)
+    union = frozenset.union(*evsets)
+    non_common = union - common
+    div = NEVER
+    if non_common:
+        div = min(div, min(int(e[0]) for e in non_common))
+    if len(seeds) > 1 and union:
+        # rates are zero here (nonzero rates split the class key), so the
+        # seed is unreachable; the conservative fork point is the
+        # fault-schedule start
+        div = min(div, min(int(e[0]) for e in union))
+    return div
 
 
 def dedup_plan(elem_cfgs: list, traces: list) -> tuple[list[int], dict[int, int]]:
@@ -30,3 +125,141 @@ def dedup_plan(elem_cfgs: list, traces: list) -> tuple[list[int], dict[int, int]
             seen[sig] = i
             keep.append(i)
     return keep, dup_of
+
+
+def plan_prefix(
+    elem_cfgs: list,
+    traces: list,
+    mode: str = "auto",
+    chunk_steps: int = 256,
+    cap: int | None = None,
+) -> list[PrefixGroup]:
+    """Group a fleet's elements into prefix-sharing classes.
+
+    `mode` is the CLI's --fork-prefix value: "off" plans nothing, "auto"
+    forks at the (chunk-floored) divergence point, and an integer CAPS
+    the prefix at that many steps. `cap` also bounds the prefix by the
+    run's step budget. Groups whose floored prefix is zero, or with a
+    single member, are dropped."""
+    if mode == "off":
+        return []
+    user_cap = None
+    if mode != "auto":
+        user_cap = int(mode)
+        if user_cap <= 0:
+            return []
+    classes: dict = {}
+    for i, (cfg, tr) in enumerate(zip(elem_cfgs, traces)):
+        rates = _rates(cfg)
+        key = (
+            trace_fingerprint(tr),
+            _knob_sig(cfg),
+            rates,
+            # nonzero rates make the seed live from step 0, so it splits
+            # the class; with all rates zero seed-varying elements share
+            int(cfg.fault_seed) if any(r > 0.0 for r in rates) else None,
+        )
+        classes.setdefault(key, []).append(i)
+    groups = []
+    for members in classes.values():
+        if len(members) < 2:
+            continue
+        div = group_divergence([elem_cfgs[i] for i in members])
+        if div == NEVER and cap is None and user_cap is None:
+            # identical elements and no step budget to bound the prefix
+            continue
+        p = div
+        if cap is not None:
+            p = min(p, int(cap))
+        if user_cap is not None:
+            p = min(p, user_cap)
+        p = (p // chunk_steps) * chunk_steps
+        if p <= 0:
+            continue
+        groups.append(PrefixGroup(indices=list(members), divergence=div, prefix_steps=p))
+    groups.sort(key=lambda g: g.indices[0])
+    return groups
+
+
+def execute_prefix_plan(
+    fleet,
+    groups: list[PrefixGroup],
+    warm_cache: bool = False,
+    cache_root: str | None = None,
+    obs=None,
+) -> dict:
+    """Run (or load) each group's shared prefix and fork it into the
+    fleet's slots. Returns the stats dict the CLI reports as the
+    `prefix_fork` metric line.
+
+    The prefix runs as a solo Engine on the group representative's
+    effective config, on the fleet's device, with the fleet's
+    chunk_steps: `run_steps` stops on the chunk boundaries the fleet
+    would, so the snapshot is exactly the state an unforked element holds
+    after `prefix_steps` steps. A warm-cache hit skips the simulation; a
+    corrupt or mismatched entry falls back to recompute (and overwrites
+    the bad entry); a full disk skips the store (the fork still happens
+    from the live state)."""
+    from ..util.diskpressure import DiskPressureError
+    from .engine import Engine
+
+    stats = {
+        "groups": len(groups),
+        "forked_elements": 0,
+        "prefix_steps": 0,
+        "cache_hits": 0,
+        "cache_misses": 0,
+        "prefix_wall_s": 0.0,
+    }
+    root = (cache_root or warm_cache_root()) if warm_cache else None
+    for g in groups:
+        rep = g.indices[0]
+        rcfg = fleet.elem_cfgs[rep]
+        rtrace = fleet.traces[rep]
+        fp = trace_fingerprint(rtrace)
+        g.cache_key = warm_key(rcfg, fp, g.prefix_steps)
+        snap = None
+        if root is not None:
+            try:
+                snap = load_warm_state(root, g.cache_key, rcfg, fp, g.prefix_steps,
+                                       device=fleet.device)
+                g.cache_hit = True
+                stats["cache_hits"] += 1
+                if obs is not None:
+                    obs.prefix_event("warm-hit", key=g.cache_key, steps=g.prefix_steps)
+            except FileNotFoundError:
+                stats["cache_misses"] += 1
+                if obs is not None:
+                    obs.prefix_event("warm-miss", key=g.cache_key, steps=g.prefix_steps)
+            except (CheckpointCorrupt, ValueError) as e:
+                # torn, tampered or mismatched entry: recompute and replace
+                stats["cache_misses"] += 1
+                if obs is not None:
+                    obs.prefix_event("warm-corrupt", key=g.cache_key, error=str(e))
+        if snap is None:
+            t0 = time.perf_counter()
+            eng = Engine(rcfg, rtrace, chunk_steps=fleet.chunk_steps, device=fleet.device)
+            if obs is not None:
+                obs.attach(eng, label="prefix")
+            eng.run_steps(g.prefix_steps)
+            eng._drain()
+            snap = {
+                "state": eng.state,
+                "cycle_base": np.int64(eng.cycle_base),
+                "steps_run": np.int64(eng.steps_run),
+                "host_counters": {k: v.copy() for k, v in eng.host_counters.items()},
+            }
+            stats["prefix_wall_s"] += time.perf_counter() - t0
+            if root is not None:
+                try:
+                    save_warm_state(root, rcfg, fp, g.prefix_steps, snap)
+                except DiskPressureError:
+                    pass  # the entry is an optimisation; the fork goes on
+                else:
+                    if obs is not None:
+                        obs.prefix_event("warm-store", key=g.cache_key, steps=g.prefix_steps)
+        for i in g.indices:
+            fleet.fork_element(i, snap, cache_key=g.cache_key)
+        stats["forked_elements"] += len(g.indices)
+        stats["prefix_steps"] = max(stats["prefix_steps"], g.prefix_steps)
+    return stats

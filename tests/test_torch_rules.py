@@ -89,11 +89,13 @@ def test_import_leaves_jax_and_the_jax_package_out():
 
 def test_the_rules_cover_every_module_of_the_port():
     """The import and AST rules walk the whole package: the telemetry,
-    checkpoint, XML and fleet modules are among the modules they check."""
+    checkpoint, XML, fleet, supervision and disk-governance modules are
+    among the modules they check."""
     rel = {os.path.relpath(p, PKG) for p in _modules()}
     for m in ("obs/__init__.py", "obs/metrics.py", "obs/recorder.py", "obs/trace.py",
               "sim/checkpoint.py", "config/xml_compat.py", "cli.py", "sim/fleet.py",
-              "sim/prefix.py", "sim/supervisor.py"):
+              "sim/prefix.py", "sim/supervisor.py", "util/__init__.py",
+              "util/backoff.py", "util/diskpressure.py"):
         assert m in rel, m
     assert not any(r.startswith("obs/prom") for r in rel)
 
@@ -576,6 +578,24 @@ FLEET_SPECS = {
     ]),
 }
 FLEET_SOLO = {"fleet_headline": "headline", "fleet_rung3": "rung3_headline"}
+# the prefix-fork fleet: the headline machine under a schedule with ECC
+# rates 0 (core 1023, one of the 519 cores still running at step 1024,
+# fail-stops there; link 2112 fails at 1280), four elements on the
+# headline trace. Three differ only in their fault seed, which rates 0
+# leave unreachable, so they share the 1024-step prefix before the
+# schedule's first event; the fourth also overrides dram_lat and is not
+# forked.
+FLEET_FORK = {
+    **HEADLINE, "faults_enabled": True, "max_fault_events": 2,
+    "fault_events": [[1024, 1, 1023, 0], [1280, 2, 2112, 0]],
+    "fault_dead_policy": "writeback",
+}
+FORK_SPECS = {"fleet_fork": (FLEET_FORK, [
+    (_HEADLINE_FFT, ov) for ov in (
+        {"fault_seed": 100}, {"fault_seed": 101}, {"fault_seed": 102},
+        {"fault_seed": 103, "dram_lat": 200})
+])}
+ALL_FLEET_SPECS = {**FLEET_SPECS, **FORK_SPECS}
 
 
 def _fleet_fixture(name):
@@ -604,13 +624,32 @@ def test_fleet_fixture_names_its_machine_traces_and_overrides(name):
         assert e["digest"]["steps"] % 512 == 0
 
 
+def test_fleet_fork_fixture_names_its_machine_traces_and_overrides():
+    """The prefix-fork fleet's fixture records FORK_SPECS' machine, traces
+    and overrides at chunk_steps 512. Its premises hold in the JAX runs:
+    the three seed-only elements end alike (rates 0 leave the seed
+    unreachable), the dram_lat element differs, core 1023's scheduled
+    kill landed and the failed link rerouted traffic in every element."""
+    fx = _fleet_fixture("fleet_fork")
+    machine, elements = FORK_SPECS["fleet_fork"]
+    assert fx["config"] == machine and fx["chunk_steps"] == 512
+    assert [(e["trace"], e["overrides"]) for e in fx["elements"]] == [
+        (t, ov) for t, ov in elements]
+    d = [e["digest"] for e in fx["elements"]]
+    assert d[0] == d[1] == d[2] != d[3]
+    for e in d:
+        assert e["steps"] % 512 == 0 and e["steps"] > 1280
+        assert e["counter_sums"]["core_failstops"] == 1
+        assert e["counter_sums"]["noc_reroutes"] > 0
+
+
 def _fleet_element_digest(name, i):
     """The JAX package's digest of fleet element i: a solo JAX Engine on
     the element's effective config."""
     from primesim_tpu.sim.engine import Engine as JEngine
     from primesim_tpu.sim.fleet import apply_overrides
 
-    machine, elements = FLEET_SPECS[name]
+    machine, elements = ALL_FLEET_SPECS[name]
     if isinstance(machine, str):
         with open(os.path.join(REPO, machine)) as f:
             machine = json.load(f)
@@ -622,7 +661,7 @@ def _fleet_element_digest(name, i):
 
 
 @pytest.mark.slow  # eight and four 1024-core JAX runs
-@pytest.mark.parametrize("name", FLEET)
+@pytest.mark.parametrize("name", ALL_FLEET_SPECS)
 def test_fleet_digests_match_the_jax_engine(name):
     fx = _fleet_fixture(name)
     for i, e in enumerate(fx["elements"]):
@@ -636,12 +675,12 @@ def _write_fleet(name, workers=4):
     import time
 
     t0 = time.perf_counter()
-    machine, elements = FLEET_SPECS[name]
+    machine, elements = ALL_FLEET_SPECS[name]
     with mp.get_context("spawn").Pool(workers) as pool:
         digests = pool.starmap(_fleet_element_digest, [(name, i) for i in range(len(elements))])
     fx = {"config": machine, "chunk_steps": 512,
           "made_with": "solo JAX Engine runs of apply_overrides(config, overrides), "
-                       "one per element (tests/test_torch_rules.py::FLEET_SPECS)",
+                       "one per element (tests/test_torch_rules.py::ALL_FLEET_SPECS)",
           "elements": [{"trace": t, "overrides": ov, "digest": d}
                        for (t, ov), d in zip(elements, digests)]}
     path = os.path.join(PKG, "fixtures", f"{name}.json")
@@ -688,9 +727,9 @@ def write_fixtures(names=()):
     from primesim_tpu.sim.engine import Engine as JEngine
 
     if names:
-        _write_full_width([n for n in names if n not in FLEET])
+        _write_full_width([n for n in names if n not in ALL_FLEET_SPECS])
         for n in names:
-            if n in FLEET:
+            if n in ALL_FLEET_SPECS:
                 _write_fleet(n)
         return
     spec = {
@@ -712,7 +751,7 @@ def write_fixtures(names=()):
         f.write("\n")
     print(f"wrote {FIXTURE}: {eng.steps_run} steps")
     _write_full_width(FULL_WIDTH)
-    for n in FLEET:
+    for n in ALL_FLEET_SPECS:
         _write_fleet(n)
 
 
