@@ -290,6 +290,42 @@ the final line:
                 three seeds) run twice against one cache per device: the
                 prefix_fork line reads cache_hits 0, then 1; card = CPU.
 
+11. stream_headline (after cli_supervised, before phase 8) -- the
+                headline trace written as a PTPU file, memory-mapped and run
+                to completion by ingest/stream.py's StreamEngine through
+                256-event windows on the card: the digest (exact steps and
+                the window count included) must equal the JAX StreamEngine's
+                (fixtures/stream_headline.json) and fixtures/headline.json's
+                in every field but the chunk-rounded steps; each step kernel
+                launched once per executed step. Prints the windows, the
+                chunks (host transfers) per window, the wall and MIPS beside
+                the preloaded headline's in this call, and the peak device
+                memory beside its.
+   stream_rung5 -- likewise rung 5 at full geometry (16384 cores) through
+                128-event windows, against fixtures/stream_rung5.json and
+                fixtures/rung5_full.json without steps.
+   stream_snapshot -- the streamed headline cut by run_events at about
+                half its events, snapshotted, resumed in a fresh
+                StreamEngine and finished: the same digest. Prints the
+                snapshot's bytes and its save and load seconds.
+   sync_check (stream_headline) -- one window chunk, its drain and rebase
+                included, makes exactly one synchronising call.
+   cli_stream -- `run configs/rung1_64core_fft.json --trace F --mmap
+                --stream-window 64 --checkpoint-every 2` in process, on the
+                card and with --device cpu: uninterrupted, preempted by a
+                SIGTERM at its third committed window (exit 75), resumed
+                with --resume; card == CPU and resume == run, the step
+                kernels launched once per card step; faults with
+                --stream-window are refused with primetpu's message.
+   online     -- the port's capture shim (built with g++ into _build/) and
+                its ocean_like (gcc; 4 threads, 5 cores) captured through
+                the shared-memory rings while ingest/ring.py's OnlineEngine
+                simulates them on the card: the target exits 0, no event
+                is dropped, and the result equals the preloaded Engine on
+                the captured stream (src.to_trace()) on the card, which
+                equals it on the CPU; `capture --out` writes a trace that
+                the card and the CPU simulate alike.
+
 Then a line of every phase's elapsed seconds ("phase_times"), the kernel
 summary line (each kernel's batched figures under "batched", the launches
 of every path under "launches_by_path") and, last, the result line
@@ -391,6 +427,17 @@ CLI_SUP_SCHEDULE = {"events": [{"step": 40, "kind": "link_degrade", "link": 5, "
 # steps of the multiprogrammed path searched for router_cascade's busiest
 # barrier-arrival step (the staged "mode" of its three legs)
 MP_STAGE_STEPS = 512
+# the streamed paths: the headline through 256-event windows and rung 5
+# through 128-event windows (each window one [C, W + 1, 4] int32 upload),
+# the CLI's supervised stream on rung 1 through 64-event windows, preempted
+# at its third committed window, and the online capture's ocean_like
+# arguments (4 worker threads and the main thread: 5 cores; its machine's
+# quantum is 100,000 cycles: where the shim reads the hardware's
+# instruction counters, a thread's work between two events runs to
+# millions of instructions)
+STREAM_W = {"stream_headline": 256, "stream_rung5": 128}
+CLI_STREAM_W, CLI_STREAM_KILL = 64, 3
+OCEAN_ARGS = ("4", "2", "2")
 
 
 # operators the profiler drops before it builds its operator tree
@@ -537,6 +584,359 @@ def load_fleet_fixture(name, made: dict):
             made[key] = fold_ins(tr) if ts.get("fold") else tr
         trs.append(made[key])
     return ffx, MachineConfig.from_dict(spec), trs, [e["overrides"] for e in ffx["elements"]]
+
+
+def stream_phases(dev, smi_line: str, headline, rung5, baselines: dict) -> dict:
+    """The streamed and captured paths: stream_headline, stream_rung5,
+    stream_snapshot, cli_stream, online and the stream sync_check (module
+    docstring). `headline` and `rung5` are the full-width fixtures
+    (record, machine, trace), `baselines` the preloaded runs' wall_s and
+    peak_memory_bytes by path. Returns each path's launch counts, set to
+    0 just before the path was driven."""
+    import contextlib
+    import gc
+    import io
+    import signal
+
+    import torch
+
+    from primesim_tpu_torch import cli as tcli
+    from primesim_tpu_torch import convert
+    from primesim_tpu_torch.config.machine import CacheConfig, MachineConfig, NocConfig
+    from primesim_tpu_torch.ingest import capture, ring
+    from primesim_tpu_torch.ingest.stream import FAULTS_REFUSED, StreamEngine
+    from primesim_tpu_torch.kernels import build
+    from primesim_tpu_torch.obs import Recorder
+    from primesim_tpu_torch.sim import supervisor
+    from primesim_tpu_torch.sim.engine import Engine, window_chunk
+    from primesim_tpu_torch.stats.digest import run_digest
+    from primesim_tpu_torch.trace.format import Trace
+
+    launches = {}
+    relative = ("ptr", "cycles", "quantum_end", "barrier_time", "step", "link_free", "dram_free")
+
+    def reset_launches():
+        build.LAUNCHES.update(dict.fromkeys(build.LAUNCHES, 0))
+
+    def check_launches(path, n_steps, ran=STEP_KERNELS):
+        for k, n in launches[path].items():
+            if n != (n_steps if k in ran else 0):
+                fail(f"{path}: {k} launched {n} times in {n_steps} steps")
+
+    def digest(eng):
+        return {**run_digest(eng.steps_run, eng.cycles, eng.counters,
+                             eng.state.link_free.cpu().numpy(),
+                             eng.state.dram_free.cpu().numpy()),
+                "windows": len(eng.window_chunks)}
+
+    def against(path, got, stream_fx, full_fx):
+        """Fail unless the digest equals the JAX stream digest (steps and
+        windows included) where one is committed, and the preloaded JAX
+        digest in every field but the chunk-rounded steps."""
+        for k, want in full_fx["digest"].items():
+            if k != "steps" and got[k] != want:
+                fail(f"{path}: {k} {got[k]} != the preloaded JAX digest's {want}")
+        if stream_fx is not None:
+            for k, want in stream_fx["digest"].items():
+                if got[k] != want:
+                    fail(f"{path}: {k} {got[k]} != the JAX stream digest's {want}")
+
+    def stream_fixture(name):
+        p = os.path.join(ROOT, "primesim_tpu_torch", "fixtures", f"{name}.json")
+        if not os.path.exists(p):
+            return None
+        with open(p) as f:
+            return json.load(f)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_stream_")
+    try:
+        # ---- stream_headline and stream_rung5: each trace written as a
+        # PTPU file, memory-mapped and streamed on the card
+        mapped = {}
+        for path, (fx, mcfg, tr) in (("stream_headline", headline), ("stream_rung5", rung5)):
+            W = STREAM_W[path]
+            file = os.path.join(tmp, f"{path}.ptpu")
+            tr.save(file)
+            mapped[path] = Trace.load(file, mmap=True)
+            sfx = stream_fixture(path)
+            base = path.removeprefix("stream_")  # the preloaded path
+            gc.collect()
+            torch.cuda.empty_cache()
+            held = torch.cuda.memory_allocated()
+            eng = StreamEngine(mcfg, mapped[path], window_events=W, device=dev)
+            eng.warmup()
+            Recorder("basic").attach(eng)  # the per-window fill/dispatch/absorb split
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            t0 = time.perf_counter()
+            eng.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches[path] = dict(build.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated() - held
+            got = digest(eng)
+            ch = eng.window_chunks
+            pre = baselines[base]
+            split = {k: float(np.sum([x["phases"][k] for x in eng.obs.store.samples()]))
+                     for k in ("fill", "dispatch", "absorb")}
+            window_bytes = mcfg.n_cores * (W + 1) * 4 * 4
+            emit({"phase": path, "window_events": W, "windows": len(ch),
+                  "chunks_per_window": {"min": int(min(ch)), "median": float(np.median(ch)),
+                                        "max": int(max(ch)), "total": int(sum(ch))},
+                  "steps": eng.steps_run, "wall_s": wall,
+                  "simulated_mips": got["instructions"] / wall / 1e6,
+                  "preloaded_wall_s": pre["wall_s"],
+                  "wall_over_preloaded": wall / pre["wall_s"],
+                  "peak_memory_bytes": peak, "preloaded_peak_memory_bytes": pre["peak_memory_bytes"],
+                  "window_upload_bytes": window_bytes, "phase_s": split,
+                  "trace_bytes": int(tr.events.nbytes),
+                  "launches": launches[path], "instructions": got["instructions"],
+                  "digest": {k: v for k, v in got.items() if k.endswith("sha256")},
+                  "jax_stream_digest": "committed" if sfx else "not committed: "
+                  "checked against the preloaded digest without steps",
+                  "equals_jax_digest": sfx is not None and got == sfx["digest"],
+                  "gpu": smi_line})
+            check_launches(path, eng.steps_run)
+            against(path, got, sfx, fx)
+            if not eng.done() or got["instructions"] != tr.total_instructions():
+                fail(f"{path}: {got['instructions']} instructions retired, "
+                     f"trace has {tr.total_instructions()}")
+            if path == "stream_headline":
+                hs = got
+            del eng
+            torch.cuda.empty_cache()
+        del mapped["stream_rung5"]
+
+        # ---- stream_snapshot: the streamed headline cut at about half its
+        # events, saved, resumed in a fresh engine and finished
+        fx, mcfg, tr = headline
+        W = STREAM_W["stream_headline"]
+        eng = StreamEngine(mcfg, mapped["stream_headline"], window_events=W, device=dev)
+        reset_launches()
+        half = int(eng.real_len.sum()) // 2
+        eng.run_events(half)
+        cut_events, cut_steps = int(eng.cursor.sum()), eng.steps_run
+        snap = os.path.join(tmp, "stream.npz")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.save_checkpoint(snap)
+        save_s = time.perf_counter() - t0
+        del eng
+        torch.cuda.empty_cache()
+        eng = StreamEngine(mcfg, mapped["stream_headline"], window_events=W, device=dev)
+        t0 = time.perf_counter()
+        eng.load_checkpoint(snap)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        eng.run()
+        torch.cuda.synchronize()
+        launches["stream_snapshot"] = dict(build.LAUNCHES)
+        got = digest(eng)
+        got["windows"] = hs["windows"]  # the resumed engine counts its own windows only
+        emit({"phase": "stream_snapshot", "cut_events": cut_events, "cut_steps": cut_steps,
+              "snapshot_bytes": os.path.getsize(snap), "save_s": save_s, "load_s": load_s,
+              "steps": eng.steps_run, "windows_after_resume": len(eng.window_chunks),
+              "launches": launches["stream_snapshot"],
+              "equals_stream_headline": got == hs, "gpu": smi_line})
+        if got != hs:
+            fail(f"stream_snapshot: the resumed digest {got} != the streamed headline's {hs}")
+        check_launches("stream_snapshot", eng.steps_run)
+        del eng
+        torch.cuda.empty_cache()
+
+        # ---- the stream sync_check: one window chunk (its drain and a
+        # rebase included) makes one synchronising call, its transfer
+        eng = StreamEngine(mcfg, mapped["stream_headline"], window_events=W, device=dev)
+        buf, exhausted, filled = eng._fill_window()
+        events = torch.from_numpy(buf).to(dev)
+        ex_dev = torch.from_numpy(exhausted).to(dev)
+        st = eng.state._replace(ptr=torch.zeros(mcfg.n_cores, dtype=torch.int32, device=dev))
+        n = int(min(64, (filled[~exhausted] // (mcfg.local_run_len + 1)).min(initial=64)))
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                window_chunk(mcfg, events, st, n, True, ex_dev, eng.has_sync)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        syncs = [str(w.message)[:200] for w in caught if "synchroniz" in str(w.message)
+                 and "prototype feature" not in str(w.message)]
+        emit({"phase": "sync_check", "path": "stream_headline", "chunk_steps": n,
+              "synchronising_calls": syncs})
+        if len(syncs) != 1:
+            fail(f"sync_check: a window chunk made {len(syncs)} synchronising calls ({syncs[:3]})")
+        del eng, events, st, mapped
+        torch.cuda.empty_cache()
+
+        # ---- cli_stream: rung 1 through the CLI, streamed from a
+        # memory-mapped file under supervision, on the card and on the CPU:
+        # uninterrupted, preempted by SIGTERM at a committed window, resumed
+        rung1 = os.path.join(tmp, "rung1.ptpu")
+        tcli.main(["synth", CLI_SUP_SPEC, "--cores", "64", "--out", rung1, "--fold"])
+        base_args = ["run", "configs/rung1_64core_fft.json", "--trace", rung1, "--mmap",
+                     "--stream-window", str(CLI_STREAM_W), "--checkpoint-every", "2"]
+        real_init = supervisor.RunSupervisor.__init__
+
+        def preempting(self, *a, **kw):
+            real_init(self, *a, **kw)
+
+            def on_chunk(sup):
+                if sup.committed == CLI_STREAM_KILL:
+                    os.kill(os.getpid(), signal.SIGTERM)
+
+            self.on_chunk = on_chunk
+
+        def cli(args, kill=False):
+            out = io.StringIO()
+            if kill:
+                supervisor.RunSupervisor.__init__ = preempting
+            try:
+                with contextlib.redirect_stdout(out):
+                    rc = tcli.main(args)
+            finally:
+                supervisor.RunSupervisor.__init__ = real_init
+            lines = [json.loads(ln) for ln in out.getvalue().splitlines() if ln.startswith("{")]
+            return rc, lines[-1]
+
+        res = {}
+        reset_launches()
+        for d in ("cuda", "cpu"):
+            ck = [os.path.join(tmp, f"ck_{d}_{i}") for i in (0, 1)]
+            res[d] = [cli(base_args + ["--checkpoint-dir", ck[0], "--device", d]),
+                      cli(base_args + ["--checkpoint-dir", ck[1], "--device", d], kill=True),
+                      cli(base_args + ["--checkpoint-dir", ck[1], "--resume", "--device", d])]
+        launches["cli_stream"] = dict(build.LAUNCHES)
+        sched = os.path.join(tmp, "failstop.json")
+        with open(sched, "w") as f:
+            json.dump({"events": [{"step": 5, "kind": "core_failstop", "core": 1}]}, f)
+        try:
+            tcli.main(["run", "configs/rung1_64core_fft.json", "--trace", rung1,
+                       "--stream-window", str(CLI_STREAM_W), "--fault-schedule", sched,
+                       "--device", "cuda"])
+            refused = None
+        except SystemExit as e:
+            refused = str(e)
+
+        def detail(line, drop=("wall_s", "device", "resumed_from", "committed_chunks",
+                               "checkpoints_written")):
+            return {k: v for k, v in line["detail"].items() if k not in drop}
+
+        rcs = {d: [r[0] for r in res[d]] for d in res}
+        emit({"phase": "cli_stream", "returncodes": rcs,
+              "summary": {k: res["cuda"][0][1]["detail"][k]
+                          for k in ("instructions", "max_core_cycles", "noc_msgs", "steps",
+                                    "committed_chunks", "checkpoints_written")},
+              "preempted": res["cuda"][1][1]["detail"].get("committed_chunks"),
+              "resumed_from": os.path.basename(res["cuda"][2][1]["detail"]["resumed_from"] or ""),
+              "card_equals_cpu": detail(res["cuda"][0][1]) == detail(res["cpu"][0][1]),
+              "resume_equals_run": [detail(res[d][2][1]) == detail(res[d][0][1]) for d in res],
+              "launches": launches["cli_stream"],
+              "faults_refusal": refused, "gpu": smi_line})
+        if any(r != [0, 75, 0] for r in rcs.values()):
+            fail(f"cli_stream: exit codes {rcs}")
+        if detail(res["cuda"][0][1]) != detail(res["cpu"][0][1]):
+            fail(f"cli_stream: card {res['cuda'][0][1]} != CPU {res['cpu'][0][1]}")
+        for d in res:
+            if detail(res[d][2][1]) != detail(res[d][0][1]):
+                fail(f"cli_stream: the resumed run {res[d][2][1]} != the run {res[d][0][1]}")
+        if refused != FAULTS_REFUSED:
+            fail(f"cli_stream: faults with --stream-window gave {refused!r}")
+        # the card's preempted run and its resumption together run the
+        # uninterrupted run's steps once more
+        check_launches("cli_stream", 2 * res["cuda"][0][1]["detail"]["steps"])
+
+        # ---- online: the port's shim and ocean_like captured through the
+        # shared-memory rings while OnlineEngine simulates them on the card;
+        # then the preloaded Engine on the captured stream, on the card and
+        # on the CPU, and `capture --out` simulated on both
+        for tool in ("gcc", "g++"):
+            if shutil.which(tool) is None:
+                fail(f"online: no {tool} on this host")
+        binary = os.path.join(tmp, "ocean_like")
+        # -U_FORTIFY_SOURCE: a compiler that fortifies by default would call
+        # __memcpy_chk, which the shim does not interpose
+        subprocess.run(["gcc", "-O2", "-fno-builtin", "-U_FORTIFY_SOURCE", "-o", binary,
+                        str(capture.FRONTEND / "examples" / "ocean_like.c"), "-lpthread"],
+                       check=True, capture_output=True)
+        t0 = time.perf_counter()
+        capture.build_shim()
+        shim_s = time.perf_counter() - t0
+        ocfg = MachineConfig(
+            n_cores=int(OCEAN_ARGS[0]) + 1, n_banks=4,
+            l1=CacheConfig(size=2048, ways=2, line=64, latency=2),
+            llc=CacheConfig(size=16384, ways=4, line=64, latency=10),
+            noc=NocConfig(mesh_x=2, mesh_y=2, link_lat=1, router_lat=1),
+            dram_lat=100, quantum=100_000)
+        proc, src = capture.capture_online([binary, *OCEAN_ARGS], n_cores=ocfg.n_cores, line=64)
+        try:
+            eng = ring.OnlineEngine(ocfg, src, window_events=256, device=dev)
+            eng.warmup()
+            reset_launches()
+            t0 = time.perf_counter()
+            eng.run()
+            torch.cuda.synchronize()
+            online_s = time.perf_counter() - t0
+            launches["online"] = dict(build.LAUNCHES)
+            target_rc = proc.wait(timeout=60)
+            dropped, n_events = src.dropped(), int(src.total.sum())
+            captured = src.to_trace()
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+            src.close()
+        pre = {}
+        for d in ("cuda", "cpu"):
+            pre[d] = Engine(ocfg, captured, chunk_steps=64, device=d)
+            pre[d].run()
+        t_, r_ = convert.state_to_numpy(eng.state), convert.state_to_numpy(pre["cuda"].state)
+        online_equal = np.array_equal(eng.cycles, pre["cuda"].cycles) and all(
+            np.array_equal(eng.counters[k], pre["cuda"].counters[k]) for k in eng.counters
+        ) and all(np.array_equal(t_[f][k], r_[f][k]) if k else np.array_equal(t_[f], r_[f])
+                  for f in set(r_) - set(relative)
+                  for k in (r_[f] if isinstance(r_[f], dict) else [None]))
+        pre_equal = np.array_equal(pre["cuda"].cycles, pre["cpu"].cycles) and all(
+            np.array_equal(pre["cuda"].counters[k], pre["cpu"].counters[k])
+            for k in pre["cpu"].counters)
+        out_file = os.path.join(tmp, "ocean.ptpu")
+        cfg_file = os.path.join(tmp, "ocean.json")
+        with open(cfg_file, "w") as f:
+            f.write(ocfg.to_json())
+        with contextlib.redirect_stderr(io.StringIO()):
+            out_rc = tcli.main(["capture", cfg_file, "--out", out_file, binary, *OCEAN_ARGS])
+        replay = {d: Engine(ocfg, Trace.load(out_file), chunk_steps=64, device=d)
+                  for d in ("cuda", "cpu")}
+        for e in replay.values():
+            e.run()
+        replay_equal = np.array_equal(replay["cuda"].cycles, replay["cpu"].cycles) and all(
+            np.array_equal(replay["cuda"].counters[k], replay["cpu"].counters[k])
+            for k in replay["cpu"].counters)
+        ch = eng.window_chunks
+        emit({"phase": "online", "program": ["ocean_like", *OCEAN_ARGS], "cores": ocfg.n_cores,
+              "target_rc": target_rc, "events": n_events, "dropped": dropped,
+              "steps": eng.steps_run, "windows": len(ch),
+              "chunks_per_window": {"min": int(min(ch)), "median": float(np.median(ch)),
+                                    "max": int(max(ch))},
+              "wall_s": online_s, "shim_build_s": shim_s,
+              "barrier_waits": int(eng.counters["barrier_waits"].sum()),
+              "lock_acquires": int(eng.counters["lock_acquires"].sum()),
+              "online_equals_preloaded_card": online_equal,
+              "preloaded_card_equals_cpu": pre_equal,
+              "capture_out_rc": out_rc, "capture_out_card_equals_cpu": replay_equal,
+              "launches": launches["online"], "gpu": smi_line})
+        if target_rc != 0 or dropped or not n_events or out_rc != 0:
+            fail(f"online: target exited {target_rc}, {dropped} dropped of {n_events}, "
+                 f"capture --out exited {out_rc}")
+        if not (online_equal and pre_equal and replay_equal):
+            fail(f"online: online == preloaded {online_equal}, card == CPU {pre_equal}, "
+                 f"capture --out card == CPU {replay_equal}")
+        check_launches("online", eng.steps_run)
+        del eng, pre, replay
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
 
 
 def resilience_phases(dev, smi_line: str, hf, made: dict, baseline: dict | None = None) -> dict:
@@ -2094,6 +2494,10 @@ def main() -> int:
     # (the main paths' timing and theirs are comparable)
     fleet_launches.update(resilience_phases(
         dev, smi_line, (hffx, cfg_hf, trace_hf), made, baselines["headline_faults"]))
+
+    # ---- 11. the streamed and captured paths, before any profiler session
+    fleet_launches.update(stream_phases(
+        dev, smi_line, (hfx, cfg, trace), large["rung5"], baselines))
 
     # ---- 8. profile. First the profiler's device time per launch of the
     # calls phase 5 timed, in the process's first profiler session (none

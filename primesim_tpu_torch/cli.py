@@ -8,6 +8,9 @@
     python -m primesim_tpu_torch info configs/example_prime.xml
     python -m primesim_tpu_torch sweep configs/rung1_64core_fft.json \
         --synth fft_like:n_phases=2 --fold --vary llc_lat=20 --vary link_lat=2
+    python -m primesim_tpu_torch run cfg.json --trace big.ptpu --mmap \
+        --stream-window 4096
+    python -m primesim_tpu_torch capture cfg.json -- ./pthread_app 4
 
 `run` simulates a trace (PTPU files or a named synthetic generator) on a
 JSON or reference-schema XML machine config, prints the one-line JSON
@@ -22,7 +25,12 @@ per-chunk metric series (`--metrics-out`) and a Chrome trace of the chunks
 `--resume` and `--guard` puts a run or sweep under `RunSupervisor`
 (rotating snapshots, preemption at a chunk boundary with exit 75, retry
 with an on-device rollback, the invariant guard) and adds a RESILIENCE
-section to the report. `sweep` fans one config into a fleet
+section to the report. `--stream-window N` streams the trace through
+N-event windows (`ingest/stream.py`: one window on the card at a time,
+bit-exact with the preloaded run), and `--mmap` memory-maps a single
+trace file for it. `capture` runs a pthread binary under the capture
+shim and simulates it online while it runs (`ingest/ring.py`), or with
+`--out` writes the captured trace. `sweep` fans one config into a fleet
 (`sim/fleet.py`): one element per `--vary K=V[,K=V...]` timing-override
 set and/or per trace, all run as ONE batch on the card, and prints
 `primetpu sweep`'s lines: one `simulated_MIPS` line per element
@@ -98,11 +106,17 @@ def _apply_faults(ns, cfg: MachineConfig) -> MachineConfig:
 
 def _load_trace(ns, n_cores: int, line_bits: int = 6) -> Trace:
     """--trace FILE (repeated: the programs multiplexed into one machine,
-    then folded) or --synth SPEC."""
+    then folded; --mmap memory-maps a single file) or --synth SPEC."""
     if ns.trace:
         from .trace.format import multiplex
 
-        trs = [Trace.load(p) for p in ns.trace]
+        mm = getattr(ns, "mmap", False)
+        if len(ns.trace) > 1 and mm:
+            raise SystemExit(
+                "--mmap is incompatible with multiple --trace flags: "
+                "multiplexing materializes the combined trace in RAM"
+            )
+        trs = [Trace.load(p, mmap=mm) for p in ns.trace]
         # several --trace flags = the reference's MULTIPROGRAMMED mode:
         # each program gets a disjoint address window and sync objects,
         # all sharing this machine's uncore
@@ -157,14 +171,14 @@ def _finalize_obs(rec) -> None:
 
 
 def _emit_summary(ns, cfg, counters, cycles, wall, extra, timeline=None,
-                  resilience=None) -> None:
+                  resilience=None, engine="torch") -> None:
     """`primetpu run`'s one-line JSON summary (the port's engine name, its
     device and step count added) and optional text report."""
     from .stats.report import write_report
 
     tot_ins = int(counters["instructions"].sum())
     detail = {
-        "engine": "torch",
+        "engine": engine,
         "step_impl": cfg.step_impl,
         "n_cores": cfg.n_cores,
         "instructions": tot_ins,
@@ -276,10 +290,13 @@ def _run_supervised(ns, cfg, eng, device, rec=None) -> int:
 
 
 def cmd_run(ns) -> int:
+    from .ingest.stream import FAULTS_REFUSED
     from .kernels import build
     from .sim.engine import Engine, resolve_device
 
     cfg = _apply_faults(ns, _apply_step_impl(ns, _load_config(ns.config)))
+    if cfg.faults_enabled and ns.stream_window:
+        raise SystemExit(FAULTS_REFUSED)
     tr = _load_trace(ns, cfg.n_cores, line_bits=cfg.line_bits)
     if tr.n_cores != cfg.n_cores:
         raise SystemExit(
@@ -299,6 +316,8 @@ def cmd_run(ns) -> int:
             "--obs does not compose with --xprof (pick the flight "
             "recorder OR the XLA profiler for a given run)"
         )
+    if ns.stream_window:
+        return _run_stream(ns, cfg, tr, supervised, rec)
     device = resolve_device(ns.device)
     if device.type == "cuda":
         for k in build.KERNELS:  # build and load before the clock starts
@@ -330,6 +349,96 @@ def cmd_run(ns) -> int:
     )
     _finalize_obs(rec)
     return 0
+
+
+def _run_stream(ns, cfg, tr, supervised, rec) -> int:
+    """`run --stream-window N`: bounded-memory windowed ingest (device
+    memory O(C * N), host O(1) beyond the file with --mmap), bit-exact
+    with the preloaded run."""
+    from .ingest.stream import StreamEngine
+
+    if ns.xprof or ns.debug_invariants:
+        raise SystemExit(
+            "--xprof/--debug-invariants are not supported with "
+            "--stream-window yet"
+        )
+    eng = StreamEngine(cfg, tr, window_events=ns.stream_window, device=ns.device)
+    eng.warmup()  # the kernels build before the clock starts
+    if supervised:
+        return _run_supervised(ns, cfg, eng, eng.device, rec=rec)
+    if rec is not None:
+        rec.attach(eng)
+    t0 = time.perf_counter()
+    eng.run(max_steps=ns.max_steps)  # None: the event-count budget
+    wall = time.perf_counter() - t0
+    _emit_summary(
+        ns, cfg, eng.counters, eng.cycles, wall,
+        {"device": str(eng.device), "steps": eng.steps_run},
+        timeline=rec.timeline_summary() if rec is not None else None,
+    )
+    _finalize_obs(rec)
+    return 0
+
+
+def cmd_capture(ns) -> int:
+    """Execution-driven simulation of a real binary: run the target under
+    the LD_PRELOAD capture shim and either simulate it ONLINE while it
+    executes (the default, through shared-memory rings) or write a PTPU
+    trace for later replay (--out)."""
+    cfg = _load_config(ns.config)
+    if ns.out:
+        if ns.report:
+            raise SystemExit(
+                "--report needs a simulation: drop --out for online mode, "
+                "or replay the trace with `primetpu run --trace`"
+            )
+        from .ingest.capture import capture_run
+
+        try:
+            tr = capture_run(ns.command, line=cfg.l1.line)
+        except RuntimeError as e:
+            print(f"capture failed: {e}", file=sys.stderr)
+            return 1
+        tr.save(ns.out)
+        print(
+            f"wrote {ns.out}: {tr.n_cores} cores x {tr.max_len} events",
+            file=sys.stderr,
+        )
+        return 0
+
+    from .ingest.capture import capture_online
+    from .ingest.ring import OnlineEngine
+    from .sim.engine import resolve_device
+
+    device = resolve_device(ns.device)  # before the target starts
+    proc, src = capture_online(
+        ns.command, n_cores=cfg.n_cores, line=cfg.l1.line, retain_history=False,
+    )
+    try:
+        eng = OnlineEngine(cfg, src, window_events=ns.window, device=device)
+        eng.warmup()  # the kernels build before the clock starts
+        t0 = time.perf_counter()
+        eng.run()
+        wall = time.perf_counter() - t0
+        rc = proc.wait(timeout=30)
+        if rc != 0:
+            print(f"target exited {rc}", file=sys.stderr)
+        if src.dropped():
+            print(
+                f"WARNING: {src.dropped()} events dropped on full rings",
+                file=sys.stderr,
+            )
+        _emit_summary(
+            ns, cfg, eng.counters, eng.cycles, wall,
+            {"events": int(src.total.sum()), "target_rc": rc,
+             "device": str(device), "steps": eng.steps_run},
+            engine="online",
+        )
+        return 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        src.close()
 
 
 class VarySpecError(ValueError):
@@ -789,6 +898,17 @@ def build_parser() -> argparse.ArgumentParser:
         help="write a torch.profiler trace of the run to DIR/trace.json "
              "(Chrome trace format)",
     )
+    r.add_argument(
+        "--stream-window", type=int, default=0, metavar="N",
+        help="stream the trace through N-event windows (bounded device "
+             "memory; bit-exact vs preloaded; for traces larger than the "
+             "card's memory)",
+    )
+    r.add_argument(
+        "--mmap", action="store_true",
+        help="memory-map the trace file (pair with --stream-window for "
+             "traces larger than host memory)",
+    )
     _add_shared_flags(r)
     r.set_defaults(fn=cmd_run)
 
@@ -855,6 +975,28 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--out", required=True)
     s.add_argument("--fold", action="store_true")
     s.set_defaults(fn=cmd_synth)
+
+    c = sub.add_parser(
+        "capture",
+        help="run a pthread binary under the capture frontend and "
+             "simulate it ONLINE (or write a trace with --out)",
+    )
+    c.add_argument("config", help="machine config (.json or .xml)")
+    c.add_argument(
+        "command", nargs="+",
+        help="target command line (prefix with -- to separate flags)",
+    )
+    c.add_argument(
+        "--out", help="write a PTPU trace instead of simulating online"
+    )
+    c.add_argument("--window", type=int, default=1024)
+    c.add_argument("--report", help="write text report to this path")
+    c.add_argument("--per-core-limit", type=int, default=64)
+    c.add_argument(
+        "--device", choices=("cuda", "cpu"), default=None,
+        help="default: cuda (an error when there is no card)",
+    )
+    c.set_defaults(fn=cmd_capture)
 
     i = sub.add_parser("info", help="parse + print a machine config")
     i.add_argument("config")

@@ -1,6 +1,6 @@
-"""Checkpoint / resume of one engine or one fleet (SURVEY.md §5.4), and
-the warm-state cache of prefix forking (DESIGN.md §16): the JAX
-package's `sim/checkpoint.py` for the port, in its file format.
+"""Checkpoint / resume of one engine, one fleet or one stream (SURVEY.md
+§5.4), and the warm-state cache of prefix forking (DESIGN.md §16): the
+JAX package's `sim/checkpoint.py` for the port, in its file format.
 
 A checkpoint is one `.npz`: every state field (nested knobs and fault
 state flattened to `state_<field>__<sub>` keys), the 64-bit counter and
@@ -15,7 +15,9 @@ the warm-cache key of that prefix) is written and read as the JAX
 package does; attestation members are not written. A fleet snapshot
 holds the batched state (leading element axis), per-element cycle bases,
 step counts and config and trace fingerprints, and the [n_counters, B, C]
-host counters, under the `fleet` key.
+host counters, under the `fleet` key. A stream snapshot (a
+`StreamEngine` at a window boundary) adds the per-core stream cursors
+and the window size, under the `stream` key.
 
 Durability (DESIGN.md §10): every save goes through `atomic_save_npz`: a
 disk-pressure preflight (`util/diskpressure.py`) before any byte lands, a
@@ -200,8 +202,15 @@ def _state_from(z, cfg: MachineConfig, device, batch: int | None = None):
 
 
 def trace_fingerprint(trace) -> str:
+    """The JAX package's trace fingerprint: sha256 of the events' bytes,
+    the lengths' and the addressing. The events are hashed a block of
+    cores at a time (the same bytes in the same order), so a
+    memory-mapped trace is never copied whole."""
     h = hashlib.sha256()
-    h.update(np.ascontiguousarray(trace.events).tobytes())
+    ev = trace.events
+    rows = max(1, (1 << 26) // max(1, ev[0].size if len(ev) else 1))
+    for lo in range(0, len(ev), rows):
+        h.update(np.ascontiguousarray(ev[lo:lo + rows]).tobytes())
     h.update(np.ascontiguousarray(trace.lengths).tobytes())
     # addressing interpretation is part of the workload identity: the same
     # raw arrays read as byte- vs line-addressed are different workloads
@@ -278,6 +287,61 @@ def load_checkpoint(path: str, engine) -> None:
     engine.prefix_cache_key = _str_field(z, "prefix_cache_key") or None
     hc = z["host_counters"]
     engine.host_counters = {
+        k: hc[i].astype(np.int64) for i, k in enumerate(COUNTER_NAMES)
+    }
+
+
+def save_stream_checkpoint(path: str, eng) -> None:
+    """Snapshot a StreamEngine at a window boundary (its consistent cut,
+    between two `_advance_window` calls): the state (its `ptr` the
+    window-relative count the last window consumed), the per-core stream
+    cursors, the window size and the 64-bit host accumulators, under the
+    `stream` key, as the JAX package writes it."""
+    arrays = _state_arrays(eng.state)
+    arrays["host_counters"] = np.stack(
+        [eng.host_counters[k] for k in COUNTER_NAMES]
+    )
+    atomic_save_npz(
+        path,
+        format=np.int64(_FORMAT),
+        stream=np.int64(1),
+        cycle_base=np.int64(eng.cycle_base),
+        steps_run=np.int64(eng.steps_run),
+        cursor=np.asarray(eng.cursor, np.int64),
+        window_events=np.int64(eng.W),
+        config_json=np.frombuffer(eng.cfg.to_json().encode(), dtype=np.uint8),
+        trace_sha=np.frombuffer(
+            trace_fingerprint(eng.trace).encode(), dtype=np.uint8
+        ),
+        **arrays,
+    )
+
+
+def load_stream_checkpoint(path: str, eng) -> None:
+    """Restore a stream snapshot (the port's or the JAX package's) into
+    a freshly built StreamEngine on the same config, trace and window
+    size (fingerprint-checked, with the JAX package's messages). The next
+    window fills from the restored cursors: bit-exact with an
+    uninterrupted run. Solo, fleet and element snapshots are refused."""
+    z = load_verified_npz(path)
+    _require_format(z, path)
+    if "stream" not in z:
+        raise ValueError(f"{path}: not a compatible streaming checkpoint")
+    if MachineConfig.from_json(bytes(z["config_json"]).decode()) != eng.cfg:
+        raise ValueError(f"{path}: checkpoint config does not match engine")
+    if bytes(z["trace_sha"]).decode() != trace_fingerprint(eng.trace):
+        raise ValueError(f"{path}: checkpoint trace does not match engine")
+    if int(z["window_events"]) != eng.W:
+        raise ValueError(
+            f"{path}: checkpoint window_events {int(z['window_events'])} "
+            f"!= engine {eng.W} (windows must match for bit-exact resume)"
+        )
+    eng.state = _state_from(z, eng.cfg, eng.device)
+    eng.cursor = z["cursor"].astype(np.int64)
+    eng.cycle_base = int(z["cycle_base"])
+    eng.steps_run = int(z["steps_run"])
+    hc = z["host_counters"]
+    eng.host_counters = {
         k: hc[i].astype(np.int64) for i, k in enumerate(COUNTER_NAMES)
     }
 

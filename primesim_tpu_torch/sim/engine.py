@@ -40,12 +40,18 @@ cores count as done and do not bound the rebase. It knows the step
 number on the host and, from the fault schedule and seed, the steps on
 which a core can die (`faults.inject.kill_possible`): the scrub runs on
 those steps only.
+
+`stream_loop` is the device loop of one window of a streamed trace
+(`ingest/stream.py`): chunks sized on the host from the buffered events
+so that the window ends at the step where the JAX package's
+`stream_loop` ends it, with one host transfer a chunk.
 """
 
 from __future__ import annotations
 
 import functools
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -926,18 +932,26 @@ def not_done(cfg: MachineConfig, events, st: MachineState):
     return nd
 
 
-def drain_rebase(cfg: MachineConfig, events, st: MachineState):
+def drain_rebase(cfg: MachineConfig, events, st: MachineState, nd=None):
     """The end of a chunk on the device, per element: the rebase by whole
     quanta of the element's own quantum (the JAX package's
     `_drain_and_rebase`) and zeroed step counters. Returns (the new
     state, the [B, NC, C] counters it drained, the [B] rebase deltas, the
     [B] bool "some core not done"), none of them read by the host yet,
     so a caller makes one transfer for all three. Done and dead cores do
-    not bound the delta, and an element with no core left keeps 0."""
-    nd = not_done(cfg, events, st)
+    not bound the delta, and an element with no core left keeps 0.
+
+    `nd` ([B, C] bool) replaces the not-done mask (the stream loop's:
+    a core at its window's END padding whose stream goes on still bounds
+    the delta)."""
+    if nd is None:
+        nd = not_done(cfg, events, st)
+    live = nd.any(-1)
     Q = st.knobs.quantum
     m = torch.where(nd, st.cycles, INT32_MAX).amin(-1)
-    live = nd.any(-1)
+    # the clamp never binds where the JAX package's delta is unclamped:
+    # a core that bounds the delta keeps a clock >= 0 after it, and one
+    # that leaves the mask (done or dead) never comes back into it
     delta = torch.where(live, (m // Q) * Q, 0).clamp(min=0)
     d = delta[:, None]
     router = cfg.noc.contention and cfg.noc.contention_model == "router"
@@ -954,6 +968,94 @@ def drain_rebase(cfg: MachineConfig, events, st: MachineState):
         counters=torch.zeros_like(st.counters),
     )
     return new, st.counters, delta, live
+
+
+# ---- windowed (streaming) ingest: the JAX package's `stream_loop`
+
+STREAM_REBASE = 64  # steps of a window between two rebases, as in JAX
+
+
+class WindowOut(NamedTuple):
+    """What one window's device loop (`stream_loop`) leaves: the state
+    (its `ptr` the window-relative events consumed, its counters zero),
+    the counters it drained as int64 [NC, C], the summed rebase deltas,
+    the steps executed, the host's copy of `ptr` and the chunks run."""
+
+    state: MachineState
+    counters: np.ndarray
+    base: int
+    steps: int
+    ptr: np.ndarray
+    chunks: int
+
+
+def window_chunk(cfg: MachineConfig, events, st: MachineState, n_steps: int,
+                 rebase: bool, exhausted, has_sync: bool = True):
+    """`n_steps` steps of a solo state on one window ([C, W + 1, 4]
+    events), then the drain and, when `rebase`, the rebase over the
+    stream's not-done mask (`exhausted`, [C] bool on the device: a core
+    bounds the delta unless it sits on END with no events beyond its
+    window), with ONE host transfer. Returns (the new state, the [NC, C]
+    int32 counters drained, the [C] window-relative pointers, the delta)
+    as host numpy but for the state."""
+    st = run_chunk(cfg, n_steps, events, st, has_sync)
+    if rebase:
+        bev, bst = events[None], batch_state(st)
+        nd = not_done(cfg, bev, bst) | ~exhausted[None]
+        new, cnt, delta, _ = drain_rebase(cfg, bev, bst, nd=nd)
+        new = solo_state(new)
+    else:
+        new = st._replace(counters=torch.zeros_like(st.counters))
+        cnt, delta = st.counters, torch.zeros(1, dtype=_i32, device=events.device)
+    host = torch.cat([cnt.flatten(), st.ptr, delta]).cpu().numpy()
+    NC, C = len(COUNTER_NAMES), cfg.n_cores
+    return new, host[: NC * C].reshape(NC, C), host[NC * C: -1], int(host[-1])
+
+
+def stream_loop(cfg: MachineConfig, events, st: MachineState, exhausted,
+                filled, max_steps: int, has_sync: bool = True) -> WindowOut:
+    """The device loop of one window of a stream (the JAX package's
+    `stream_loop`): `events` [C, W + 1, 4] on the device holds each core's
+    next events END-padded, `exhausted` ([C] bool, host) marks the cores
+    with none beyond the window and `filled` ([C], host) counts the real
+    events buffered. `st.ptr` must be 0.
+
+    JAX tests its exit on the device before every step: it stops once a
+    core that is not exhausted holds fewer than `need = local_run_len +
+    1` unconsumed events (the most one step eats), once every core sits
+    on END, or at `max_steps`. The port makes the same cut from the host
+    with one transfer a chunk: a chunk of n steps is safe while every
+    non-exhausted core holds at least n * need events (so JAX's exit
+    cannot fire inside it) and while some core holds more than
+    (n - 1) * need (so not every core can reach END before its last
+    step), and it ends on each 64-step mark of the window, where JAX
+    drains and rebases. The host reads `ptr` back after each chunk and
+    sizes the next; the window ends at the first chunk boundary where
+    no step is safe, which is exactly the step where JAX's condition
+    first fails. Near a window's end the chunks shrink, down to single
+    steps."""
+    need = cfg.local_run_len + 1
+    C = cfg.n_cores
+    ex = np.asarray(exhausted, bool)
+    filled = np.asarray(filled, np.int64)
+    ex_dev = torch.from_numpy(ex).to(events.device)  # one upload a window
+    acc = np.zeros((len(COUNTER_NAMES), C), np.int64)
+    ptr = np.zeros(C, np.int64)
+    base = k = chunks = 0
+    while True:
+        left = filled - ptr
+        n = min(STREAM_REBASE - k % STREAM_REBASE, max_steps - k,
+                int((left[~ex] // need).min(initial=max_steps)),
+                int(-(-np.maximum(left, 0).max(initial=0) // need)))
+        if n <= 0:
+            return WindowOut(st, acc, base, k, ptr, chunks)
+        k += n
+        st, cnt, p, delta = window_chunk(
+            cfg, events, st, n, k % STREAM_REBASE == 0, ex_dev, has_sync)
+        acc += cnt
+        ptr = p.astype(np.int64)
+        base += delta
+        chunks += 1
 
 
 class Engine:

@@ -1,9 +1,12 @@
 """Resilient execution layer (DESIGN.md §10): the JAX package's
-`sim/supervisor.py` for the port's solo `Engine` and its `FleetEngine`.
+`sim/supervisor.py` for the port's solo `Engine`, its `FleetEngine` and
+its `StreamEngine`.
 
 `RunSupervisor` drives an engine to completion chunk by committed chunk
-through the engine's own `run_steps`, so supervised results are bit-exact
-with unsupervised ones, and adds:
+through the engine's own `run_steps` (a stream: one window,
+`_advance_window`, is one committed chunk, and a snapshot is a stream
+snapshot), so supervised results are bit-exact with unsupervised ones,
+and adds:
 
 - **rotating atomic snapshots**: `ckpt-<seq>.npz` files written through
   `checkpoint.atomic_save_npz` (the JAX package's format, so a snapshot
@@ -28,7 +31,8 @@ with unsupervised ones, and adds:
   that fails after doing its work has already changed the tensors the
   state before it holds. Before each attempt the supervisor therefore
   keeps a device-to-device copy of the whole state (the batched state of
-  a fleet), with the host's counters, clocks and step counts; a failed
+  a fleet), with the host's counters, clocks and step counts (and a
+  stream's cursors); a failed
   attempt gets that copy back, bit for bit, and the engine re-derives its
   host caches from it. One state's bytes and one copy a chunk, on the
   supervised path only.
@@ -40,8 +44,8 @@ with unsupervised ones, and adds:
 
 Not ported yet: the device-loss reshard ladder (a `device_loss` failure
 takes the transient path, as the JAX supervisor does when there is
-nothing to demote), the chaos revocation site, the stream kind, the
-attestation rollback and the overlapped-dispatch discard.
+nothing to demote), the chaos revocation site, the attestation rollback
+and the overlapped-dispatch discard.
 
 `validate_fleet_element` and `build_fleet_isolated` quarantine a sweep's
 malformed elements before batching.
@@ -224,8 +228,8 @@ def _host_state(st):
 
 
 class RunSupervisor:
-    """Drive a solo `Engine` or a `FleetEngine` to completion chunk by
-    chunk (module docstring). `on_chunk(supervisor)` fires after every
+    """Drive a solo `Engine`, a `FleetEngine` or a `StreamEngine` to
+    completion chunk by chunk (module docstring). `on_chunk(supervisor)` fires after every
     committed chunk, before the guard and preemption checks: the
     deterministic injection point of the crash-recovery tests."""
 
@@ -246,7 +250,11 @@ class RunSupervisor:
         if guard not in ("off", "warn", "fail"):
             raise ValueError(f"guard must be off|warn|fail, got {guard!r}")
         self.engine = engine
-        self.kind = "fleet" if hasattr(engine, "elem_cfgs") else "solo"
+        self.kind = (
+            "stream"
+            if hasattr(engine, "_advance_window")
+            else "fleet" if hasattr(engine, "elem_cfgs") else "solo"
+        )
         self.store = (
             SnapshotStore(snapshot_dir, keep_snapshots) if snapshot_dir else None
         )
@@ -266,6 +274,7 @@ class RunSupervisor:
         self.checkpoints_written = 0
         self.resumed_from: str | None = None
         self.stalled_elements: list[int] = []  # fleet: budget-exhausted
+        self._stream_finished = False  # stream: the last window finished it
         # the rollback copy: bytes of one copy of the device state, and
         # copies taken (one per attempt at a chunk)
         self.rollback_bytes = 0
@@ -385,7 +394,12 @@ class RunSupervisor:
             signal.signal(sig, h)
         self._prev_handlers = {}
 
-    # ---- engine surface -------------------------------------------------
+    # ---- engine surface (kind dispatch) ---------------------------------
+
+    def _done(self) -> bool:
+        if self.kind == "stream":
+            return self._stream_finished or self.engine.done()
+        return self.engine.done()
 
     def _steps_used(self) -> int:
         if self.kind == "fleet":
@@ -407,12 +421,16 @@ class RunSupervisor:
         if not self.rollback_bytes:
             self.rollback_bytes = sum(x.numel() * x.element_size() for x in leaves(state))
         self.rollback_copies += 1
-        return {
+        snap = {
             "state": state,
             "steps_run": np.copy(eng.steps_run) if self.kind == "fleet" else eng.steps_run,
             "cycle_base": np.copy(eng.cycle_base) if self.kind == "fleet" else eng.cycle_base,
             "host_counters": {k: v.copy() for k, v in eng.host_counters.items()},
         }
+        if self.kind == "stream":
+            snap["cursor"] = eng.cursor.copy()
+            snap["window_chunks"] = list(eng.window_chunks)
+        return snap
 
     def _rollback(self, snap: dict) -> None:
         """Give the engine back the state before the failed attempt; its
@@ -423,17 +441,25 @@ class RunSupervisor:
         eng.steps_run = snap["steps_run"]
         eng.cycle_base = snap["cycle_base"]
         eng.host_counters = snap["host_counters"]
+        if self.kind == "stream":
+            eng.cursor = snap["cursor"]
+            eng.window_chunks = snap["window_chunks"]
         eng._stepped = None
 
-    def _advance_chunk(self) -> int:
-        """Advance the engine by one committed chunk; returns steps run."""
+    def _advance_chunk(self, budget_left: int) -> int:
+        """Advance the engine by one committed chunk; returns steps run
+        (a stream: the window's device loop's count)."""
+        if self.kind == "stream":
+            k, finished = self.engine._advance_window(budget_left)
+            self._stream_finished = finished
+            return k
         before = self._steps_used()
         self.engine.run_steps(self.engine.chunk_steps)
         return self._steps_used() - before
 
     # ---- retry / degradation --------------------------------------------
 
-    def _advance_with_retry(self) -> int:
+    def _advance_with_retry(self, budget_left: int) -> int:
         from ..util.backoff import DecorrelatedJitter
 
         attempt = 0
@@ -443,7 +469,7 @@ class RunSupervisor:
         while True:
             snap = self._snapshot()
             try:
-                return self._advance_chunk()
+                return self._advance_chunk(budget_left)
             except Exception as e:
                 self._rollback(snap)
                 kind = classify_failure(e)
@@ -550,9 +576,15 @@ class RunSupervisor:
         Raises Preempted (after checkpointing) on SIGTERM/SIGINT,
         GuardViolation under `guard="fail"`, RuntimeError when the step
         budget runs out with cores still live (fleet: budget-stalled
-        elements are recorded in `stalled_elements` instead)."""
+        elements are recorded in `stalled_elements` instead). A stream's
+        budget defaults to its engine's `_default_budget`."""
         if max_steps is None:
-            max_steps = 10_000_000
+            max_steps = (
+                self.engine._default_budget()
+                if self.kind == "stream"
+                else 10_000_000
+            )
+        budget_left = int(max_steps)
         start_steps = self._steps_used()
         self._install_signals()
         self._prev_totals = self._counter_totals()
@@ -572,8 +604,12 @@ class RunSupervisor:
         last_ckpt_t = time.monotonic()
         chunks_since_ckpt = 0
         try:
-            while not self.engine.done():
-                stepped = self._advance_with_retry()
+            while not self._done():
+                if self.kind == "stream":
+                    stepped = self._advance_with_retry(budget_left)
+                    budget_left -= stepped
+                else:
+                    stepped = self._advance_with_retry(0)
                 self.committed += 1
                 chunks_since_ckpt += 1
                 if self.on_chunk is not None:
@@ -610,25 +646,31 @@ class RunSupervisor:
                     self.checkpoint()
                     chunks_since_ckpt = 0
                     last_ckpt_t = now
-                if stepped == 0 or (
-                    self._steps_used() - start_steps >= max_steps
-                    and not self.engine.done()
-                ):
-                    if self.kind == "fleet":
-                        self.stalled_elements = [
-                            self.engine.element_ids[j]
-                            for j in np.flatnonzero(~self.engine.done_mask())
-                        ]
-                        self._log(
-                            "stall",
-                            f"step budget exhausted; elements "
-                            f"{self.stalled_elements} still live — "
-                            "isolating, rest of the batch is complete",
+                if self.kind != "stream":
+                    if stepped == 0 or (
+                        self._steps_used() - start_steps >= max_steps
+                        and not self._done()
+                    ):
+                        if self.kind == "fleet":
+                            self.stalled_elements = [
+                                self.engine.element_ids[j]
+                                for j in np.flatnonzero(~self.engine.done_mask())
+                            ]
+                            self._log(
+                                "stall",
+                                f"step budget exhausted; elements "
+                                f"{self.stalled_elements} still live — "
+                                "isolating, rest of the batch is complete",
+                            )
+                            break
+                        raise RuntimeError(
+                            f"supervised run: step budget ({max_steps}) "
+                            "exhausted with cores still live (deadlock?)"
                         )
-                        break
+                elif budget_left <= 0 and not self._done():
                     raise RuntimeError(
                         f"supervised run: step budget ({max_steps}) "
-                        "exhausted with cores still live (deadlock?)"
+                        "exhausted with the stream unfinished"
                     )
             if self.store is not None:
                 self.checkpoint()  # final snapshot: resume == no-op rerun

@@ -19,7 +19,11 @@ programs multiplexed into its 1024 cores (`multiprog_rung3.json`: an FFT,
 barriers, locks, a reader-writer) and the shipped rung-2 machine
 (`rung2_full.json`); and two fleets, eight elements of the headline
 machine and four of rung 3, each element's digest under its own timing
-overrides (`fleet_headline.json`, `fleet_rung3.json`). Regenerate them (after a deliberate change of
+overrides (`fleet_headline.json`, `fleet_rung3.json`); and two streamed
+runs, the headline through 256-event windows and rung 5 through 128-event
+windows, each a JAX `StreamEngine` digest with its exact step count and
+its window count (`stream_headline.json`, `stream_rung5.json`).
+Regenerate them (after a deliberate change of
 the simulated model) with:
     PYTHONPATH=. python tests/test_torch_rules.py --write-fixture [name ...]
 naming the full-width fixtures to rewrite, or none for all of them and
@@ -89,13 +93,14 @@ def test_import_leaves_jax_and_the_jax_package_out():
 
 def test_the_rules_cover_every_module_of_the_port():
     """The import and AST rules walk the whole package: the telemetry,
-    checkpoint, XML, fleet, supervision and disk-governance modules are
-    among the modules they check."""
+    checkpoint, XML, fleet, supervision, disk-governance and ingest
+    modules are among the modules they check."""
     rel = {os.path.relpath(p, PKG) for p in _modules()}
     for m in ("obs/__init__.py", "obs/metrics.py", "obs/recorder.py", "obs/trace.py",
               "sim/checkpoint.py", "config/xml_compat.py", "cli.py", "sim/fleet.py",
               "sim/prefix.py", "sim/supervisor.py", "util/__init__.py",
-              "util/backoff.py", "util/diskpressure.py"):
+              "util/backoff.py", "util/diskpressure.py", "ingest/__init__.py",
+              "ingest/stream.py", "ingest/ring.py", "ingest/capture.py"):
         assert m in rel, m
     assert not any(r.startswith("obs/prom") for r in rel)
 
@@ -720,6 +725,93 @@ def test_full_width_fixture_names_its_machine_and_trace(name):
     assert fx["digest"]["instructions"] == fx["digest"]["counter_sums"]["instructions"]
 
 
+# the streamed fixtures: a full-width fixture's machine and trace run by
+# the JAX package's StreamEngine through `window_events`-deep windows. The
+# digest adds the window count; its steps are the exact step count (the
+# preloaded digest's are rounded up to whole chunks), and every other
+# field equals the full-width fixture's: the headline and rung 5 run no
+# router and no DRAM queue, so their link and controller clocks stay 0
+# whatever the rebase cadence
+STREAM_SPECS = {"stream_headline": ("headline", 256), "stream_rung5": ("rung5_full", 128)}
+
+
+def _stream_fixture(name):
+    with open(os.path.join(PKG, "fixtures", f"{name}.json")) as f:
+        return json.load(f)
+
+
+@pytest.mark.parametrize("name", STREAM_SPECS)
+def test_stream_fixture_names_its_machine_trace_and_window(name):
+    """Each stream fixture records its full-width fixture's machine and
+    trace and its window size; its digest equals that fixture's but for
+    the steps, which are exact (no more than the chunk-rounded count, and
+    more than the chunk before it), and it counts at least as many
+    windows as the longest core's events need."""
+    fx = _stream_fixture(name)
+    base, window = STREAM_SPECS[name]
+    with open(os.path.join(PKG, "fixtures", f"{base}.json")) as f:
+        full = json.load(f)
+    assert (fx["config"], fx["trace"], fx["window_events"]) == (
+        full["config"], full["trace"], window)
+    d, fd = dict(fx["digest"]), full["digest"]
+    windows, steps = d.pop("windows"), d.pop("steps")
+    assert d == {k: v for k, v in fd.items() if k != "steps"}
+    assert fd["steps"] - full["chunk_steps"] < steps <= fd["steps"]
+    trace = FULL_WIDTH_SPECS[base][1]
+    tr = t_fold(t_synth.GENERATORS[trace["generator"]](**trace["args"]))
+    assert windows >= -(-int(tr.lengths.max() - 1) // window)
+
+
+def stream_digest_of_jax(name) -> dict:
+    """The JAX package's StreamEngine run of a stream fixture: its digest
+    with the window count."""
+    from primesim_tpu.ingest.stream import StreamEngine as JStream
+
+    fx = _stream_fixture(name)
+    spec = fx["config"]
+    if isinstance(spec, str):
+        with open(os.path.join(REPO, spec)) as f:
+            spec = json.load(f)
+    cfg = JCfg.from_dict(spec)
+    eng = JStream(cfg, jax_trace(fx["trace"], cfg.line_bits), window_events=fx["window_events"])
+    windows, budget = 0, eng._default_budget()
+    while True:
+        k, finished = eng._advance_window(budget)
+        budget -= k
+        windows += 1
+        if finished:
+            break
+    return {**digest_of_jax_engine(eng), "windows": windows}
+
+
+@pytest.mark.slow  # a 1024- and a 16384-core JAX stream run
+@pytest.mark.parametrize("name", STREAM_SPECS)
+def test_stream_digests_match_the_jax_stream_engine(name):
+    assert stream_digest_of_jax(name) == _stream_fixture(name)["digest"]
+
+
+def _write_stream(name):
+    import time
+
+    t0 = time.perf_counter()
+    base, window = STREAM_SPECS[name]
+    with open(os.path.join(PKG, "fixtures", f"{base}.json")) as f:
+        full = json.load(f)
+    path = os.path.join(PKG, "fixtures", f"{name}.json")
+    fx = {"config": full["config"], "trace": full["trace"], "window_events": window,
+          "made_with": "the JAX package's StreamEngine run window by window "
+                       "(tests/test_torch_rules.py::stream_digest_of_jax)",
+          "digest": None}
+    with open(path, "w") as f:
+        json.dump(fx, f)
+    fx["digest"] = stream_digest_of_jax(name)
+    with open(path, "w") as f:
+        json.dump(fx, f, indent=1)
+        f.write("\n")
+    print(f"wrote {path}: {fx['digest']['steps']} steps, {fx['digest']['windows']} "
+          f"windows, {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def write_fixtures(names=()):
     import jax
 
@@ -727,10 +819,13 @@ def write_fixtures(names=()):
     from primesim_tpu.sim.engine import Engine as JEngine
 
     if names:
-        _write_full_width([n for n in names if n not in ALL_FLEET_SPECS])
+        _write_full_width([n for n in names if n not in ALL_FLEET_SPECS
+                           and n not in STREAM_SPECS])
         for n in names:
             if n in ALL_FLEET_SPECS:
                 _write_fleet(n)
+            if n in STREAM_SPECS:
+                _write_stream(n)
         return
     spec = {
         "config": "configs/rung1_64core_fft.json",
@@ -753,6 +848,8 @@ def write_fixtures(names=()):
     _write_full_width(FULL_WIDTH)
     for n in ALL_FLEET_SPECS:
         _write_fleet(n)
+    for n in STREAM_SPECS:
+        _write_stream(n)
 
 
 def _write_full_width(names):
