@@ -52,6 +52,7 @@ the final line:
    cli_faults -- `python -m primesim_tpu_torch run` on rung 1 with a fault
                 schedule and --fault-seed 7, once on the card and once with
                 --device cpu: the same summary numbers and FAULTS section.
+                Its processes, cli_xml's and cli_sweep's run at once.
    cli_xml   -- `run configs/example_prime.xml --synth fft_like:n_phases=2
                 --fold --debug-invariants` (the reference-schema XML config,
                 the invariants after every chunk), once on the card and once
@@ -64,7 +65,8 @@ the final line:
                 per step. Likewise two 256-core zoo machines on a 16x16
                 grid: a ring with the stride prefetcher on
                 stream(256, 128 ops) and a torus under MOESI on
-                readers_writer(256, 8 rounds).
+                readers_writer(256, 8 rounds), which the CPU repeats to
+                step 384 only (CPU_DEPTH: the card's state there is kept).
    reduced_faults -- three fault machines at 256 cores on 16x16 grids, run
                 to completion on the card and on the CPU: equal in every
                 state field, the fault state included, the step kernels
@@ -77,13 +79,14 @@ the final line:
                 ring on lock_contention(256, 3 sections, 2 locks) with a
                 failed and a degraded row link and the kill of a lock
                 holder (RING_KILL): fails unless the core holds the slot
-                at the kill step and not after it. Rung 3's router machine
+                at the kill step and not after it (the CPU repeats this
+                ring to step 384 only). Rung 3's router machine
                 on fft_like(256, 4 phases, 32 points) with two failed
                 links and flip_llc 1e-3 (router_cascade once per step).
-5. capture   -- the first 320 steps (one chunk) of the headline machine
-                and of rung 3 on the card, each equal to the port's CPU run
-                of them in per-core cycles, all 26 counters and every state
-                field. Meanwhile the kernel inputs staged at steps 1 and 300
+5. capture   -- the first 320 steps of the headline machine and of rung 3
+                on the card (chunks of 64), the first 192 of them equal to
+                the port's CPU run of them in per-core cycles, all 26
+                counters and every state field. Meanwhile the kernel inputs staged at steps 1 and 300
                 (the headline's, and rung 3's router_cascade) are kept;
                 each kernel equals its plain version on them. Each kernel
                 is then timed alone on the later step's inputs, as the
@@ -164,22 +167,25 @@ the final line:
                 the programs written as PTPU files by the port's synth verb
                 and loaded through the CLI's loader. With the flight recorder
                 attached, it runs to step 1024, is checkpointed and freed; a
-                fresh engine loads the checkpoint and runs to the end. Fails
-                unless the digest equals the JAX package's, every kernel
-                launched once per step and router_cascade every time with
-                its barrier-arrival leg, locks and barriers both ran, the
-                invariants hold, and the recorder holds one sample and one
-                chunk span per chunk whose instruction deltas sum to the
-                digest's. Prints the checkpoint's bytes and save and load
-                seconds.
+                fresh engine loads the checkpoint and runs to step 1536
+                (MP_DEPTH). Fails unless the digest equals the JAX
+                package's at that depth (fixtures/multiprog_rung3_cut.json),
+                every kernel launched once per step and router_cascade every
+                time with its barrier-arrival leg, locks and barriers both
+                ran, the invariants hold, and the recorder holds one sample
+                and one chunk span per chunk whose instruction deltas sum to
+                the digest's. Prints the checkpoint's bytes and save and load
+                seconds. The state at step 1536 is snapshotted for:
    cli_multiprog -- the same four PTPU files through `python -m
                 primesim_tpu_torch run configs/rung3_1024core_o3.json
                 --trace ... (4) --fold --chunk-steps 512 --obs full
-                --metrics-out --trace-out --report --per-core-limit 16` on
-                the card: the summary's instructions, max_core_cycles and
-                noc_msgs equal the digest's, one metrics line per chunk, a
-                trace that loads, a TIMELINE section; prints the mean
-                dispatch/drain/rebase split of a chunk.
+                --metrics-out --trace-out --report --per-core-limit 16
+                --checkpoint-dir D --resume` on the card, resumed from that
+                snapshot and run to the end: the summary's instructions,
+                max_core_cycles and noc_msgs equal the whole run's JAX
+                digest, one metrics line per chunk run, a trace that loads,
+                a TIMELINE section; prints the mean dispatch/drain/rebase
+                split of a chunk.
 8. profile   -- first, in the process's first torch.profiler session (no
                 session precedes the main paths' timing), 10 wrapper calls
                 per kernel on the inputs phase 5 timed, each on fresh
@@ -237,17 +243,21 @@ the final line:
                 aggregate MIPS and the fleet's peak device memory.
    fleet_rung3 -- the shipped rung 3, B = 4 (fixtures/fleet_rung3.json),
                 run to step 1024, checkpointed, freed, resumed in a fresh
-                fleet and run to the end; all four kernels once per fleet
-                step; digests as above (element 0: rung3_headline.json).
+                fleet and run to step 1536 (FLEET_DEPTH); all four kernels
+                once per fleet step; every element's digest equal to the
+                JAX package's at that depth (fixtures/fleet_rung3_cut.json).
    cli_sweep -- `python -m primesim_tpu_torch sweep` on rung 1 with three
                 --vary sets, one a duplicate, on the card and with
-                --device cpu side by side: the same lines but for wall
-                seconds and MIPS, the same dedup warning. Printed before
-                phase 8.
+                --device cpu side by side (run beside cli_faults): the same
+                lines but for wall seconds and MIPS, the same dedup
+                warning. Printed before phase 8.
    fleet_scaling -- after phase 8: the headline fleet's first B = 1, 4, 8
-                elements, 512 steps from step 0 in chunks of 64 (aggregate
+                elements, 128 steps from step 0 in chunks of 64 (aggregate
                 MIPS), then a profiled 64-step window (events and busy
-                time a step); fleet_profile: the rung-3 fleet's window of
+                time a step), and a profiled window of steps 0-63 of the
+                B = 1 fleet with its sync phase forced on as a serving
+                fleet runs it (its extra device events a step);
+                fleet_profile: the rung-3 fleet's window of
                 steps 256-319. Recorded, not gated.
    fleet_kernels -- each batched kernel alone (CUDA events, its plain
                 version, a bound from the inputs) on the step after the
@@ -259,14 +269,17 @@ the final line:
                 headline_faults_schedule.json, seed 7, 1536 steps) in
                 chunks of 256 under sim/supervisor.py's RunSupervisor, with
                 a snapshot directory in a temporary folder, a snapshot every
-                two chunks, two kept, the guard off: a SIGTERM sent from the
+                two chunks, two kept, the guard off, and a SoloAttest chain:
+                a SIGTERM sent from the
                 on_chunk callback at committed chunk 3 preempts it (a
                 snapshot at step 768); a fresh engine resumes from that
                 snapshot, and its first chunk runs on the card and then
                 raises UNAVAILABLE, so the supervisor rolls the device state
-                back and retries. Fails unless the digest equals
-                fixtures/headline_faults.json and each step kernel launched
-                once per step run, the failed chunk's included. Prints the
+                and the chain back and retries. Fails unless the digest equals
+                fixtures/headline_faults.json, the resumed chain is the JAX
+                run's after chunk 3 and the final head the uninterrupted
+                JAX run's (fixtures/attest_faults.json), and each step kernel
+                launched once per step run, the failed chunk's included. Prints the
                 snapshots written, the retries, the snapshot's bytes, save
                 and load seconds, the rollback copy's bytes and CUDA-event
                 time, the wall and the peak device memory beside the
@@ -280,12 +293,15 @@ the final line:
                 cache in a temporary folder and forked into the three slots,
                 and every element's digest equals the committed JAX one.
                 fleet_fork_warm: a second fleet from the same cache, a hit
-                that simulates no prefix, the same digests. The launches
-                count the prefix's steps and the fleet's.
+                that simulates no prefix, run 512 steps past the fork
+                (FORK_CHECK) and equal there to fleet_fork's digests at the
+                same step. The launches count the prefix's steps and the
+                fleet's.
    cli_supervised -- through cli_side_by_side on rung 1: `run
-                --checkpoint-dir D --checkpoint-every 2 --guard fail`, then
-                the same command with --resume (a no-op rerun from the
-                final snapshot, equal key for key), and a forked seed sweep
+                --checkpoint-dir D --checkpoint-every 2 --guard fail
+                --attest chain`, then the same command with --resume (a
+                no-op rerun from the final snapshot, equal key for key, the
+                chain included), and a forked seed sweep
                 (`--fork-prefix auto --warm-cache on`, a rates-0 schedule,
                 three seeds) run twice against one cache per device: the
                 prefix_fork line reads cache_hits 0, then 1; card = CPU.
@@ -311,10 +327,11 @@ the final line:
    sync_check (stream_headline) -- one window chunk, its drain and rebase
                 included, makes exactly one synchronising call.
    cli_stream -- `run configs/rung1_64core_fft.json --trace F --mmap
-                --stream-window 64 --checkpoint-every 2` in process, on the
-                card and with --device cpu: uninterrupted, preempted by a
-                SIGTERM at its third committed window (exit 75), resumed
-                with --resume; card == CPU and resume == run, the step
+                --stream-window 64 --checkpoint-every 2 --attest chain` in
+                process, on the card and with --device cpu: uninterrupted,
+                preempted by a SIGTERM at its third committed window (exit
+                75), resumed with --resume; card == CPU and resume == run,
+                the window-scoped chain included, the step
                 kernels launched once per card step; faults with
                 --stream-window are refused with primetpu's message.
    online     -- the port's capture shim (built with g++ into _build/) and
@@ -325,6 +342,42 @@ the final line:
                 the captured stream (src.to_trace()) on the card, which
                 equals it on the CPU; `capture --out` writes a trace that
                 the card and the CPU simulate alike.
+
+12. attest_headline (after online, before phase 8) -- the headline run
+                (chunks of 512) with a SoloAttest chain: the head after
+                every chunk equal to the JAX package's
+                (fixtures/attest_headline.json; a mismatch names the first
+                chunk whose committed state differs), the digest equal to
+                fixtures/headline.json, each step kernel once per step.
+                Prints the wall beside the unattested headline's, the bytes
+                hashed and the transfer and hash seconds of each chunk.
+   serve_headline -- `python -m primesim_tpu_torch serve` on the headline
+                machine as a child process: one bucket of 4 slots of
+                ceil(T / 64) pages, --chunk-steps 512, --attest chain, no
+                checkpoint during the run; fleet_headline's elements 0, 1,
+                2 and 7 submitted by four `submit --synth ... --fold --vary
+                ...` processes at once. Every result's steps, instructions,
+                max core cycles, cycle and counter hashes and counter sums
+                equal the element's JAX digest and its chain head a JAX
+                solo run's at cadence 512 (fixtures/serve_headline.json;
+                element 0's is attest_headline's last head). The daemon's
+                health reports its fleet steps and kernel launches (each
+                step kernel once per fleet step) and its peak device
+                memory; prints the jobs' wall and aggregate MIPS.
+   serve_recover (run beside the CLI phases of step 4, printed after
+                cli_xml) -- the daemon on the shipped rung-2 machine (256
+                cores), four jobs (fixtures/serve_rung2.json), started with
+                PRIMETPU_CHAOS_PLAN set to kill it (SIGKILL) at its first
+                `scheduler.post-checkpoint` (2 s of wall between
+                checkpoints; the jobs submitted at once), then restarted on
+                the same state directory:
+                the kill lands mid-service with element checkpoints on
+                disk, the journal replays with no job lost, and every job
+                ends DONE with results and chain heads equal to the JAX
+                runs'.
+   sync_check (attest_headline) -- after phase 8: one attested chunk of the
+                headline makes at most two synchronising calls (the chunk's
+                transfer and the chain's one batched transfer).
 
 Then a line of every phase's elapsed seconds ("phase_times"), the kernel
 summary line (each kernel's batched figures under "batched", the launches
@@ -386,13 +439,17 @@ FLEET_RUNG3_B = 4
 # the fleet paths: the fleet step whose batched kernel inputs are staged
 # and timed (the first step after each profiled window), rung 3's
 # checkpoint step, and the steps of each fleet_scaling run
-FLEET_STAGE = {"fleet_headline": 576, "fleet_rung3": 320}
+FLEET_STAGE = {"fleet_headline": 192, "fleet_rung3": 320}
 FLEET_CUT = 1024
-FLEET_SCALE_STEPS = 512
+# fleet_rung3's depth: run to FLEET_CUT, checkpointed, resumed, run to here
+# and held to the JAX digests at this depth (fixtures/fleet_rung3_cut.json)
+FLEET_DEPTH = 1536
+FLEET_SCALE_STEPS = 128
 RUNG3_STAGED = ("router_cascade",)  # staged from rung 3, the rest from the headline
-# steps of each main path that the CPU run repeats: one chunk holding the
-# staged steps 1 and 300
+# steps of each main path run on the card to stage steps 1 and 300, and
+# the first of them that the CPU repeats
 CHECK_STEPS = 320
+CHECK_CPU_STEPS = 192
 PROF_REPS = 10  # profiled launches of each kernel alone
 CAPTURE = {"headline": (1, 300), "rung3": (1, 300)}
 # the full-geometry large-core paths and the zoo's main paths: (path,
@@ -414,12 +471,22 @@ RING_KILL = (256, 206, 0)
 # the reduced ring machines whose sharer_reductions (ring mode) is staged,
 # timed and bounded: (machine, first step of the staged chunk)
 RING_MODES = (("ring_stride", 0), ("ring_faults", 256))
+# the two longest reduced runs, repeated on the CPU to these steps only
+# (the card runs them to the end; the ring's past its kill of the lock
+# holder at step 256)
+CPU_DEPTH = {"ring_faults": 384, "torus_moesi": 384}
 MP_CUT = 1024  # the multiprogrammed path's checkpoint step
+# its depth: held to the JAX digest there (fixtures/multiprog_rung3_cut.json),
+# snapshotted, and finished by the CLI from that snapshot (cli_multiprog)
+MP_DEPTH = 1536
 # supervised_faults: its chunk, and the committed chunk whose SIGTERM
 # preempts it (step 768 of the faulted headline)
 SUP_CHUNK = 256
 SUP_KILL_CHUNK = 3
 FORK_PREFIX = 1024  # fleet_fork's shared prefix: its schedule's first event
+# fleet_fork_warm runs this many steps after its warm fork and is held to
+# fleet_fork's digests there (fleet_fork runs on to the end, against JAX)
+FORK_CHECK = 512
 # cli_supervised: rung 1's trace (64 steps, four chunks of 16) and the
 # sweep's rates-0 schedule, whose first event (step 40) puts the fork at 32
 CLI_SUP_SPEC = "fft_like:n_phases=2,points_per_core=64"
@@ -559,6 +626,16 @@ def load_fixture(name):
     else:
         tr = synth.GENERATORS[ts["generator"]](**ts["args"])
     return fx, mcfg, fold_ins(tr) if ts.get("fold") else tr
+
+
+def load_cut(name, steps: int):
+    """A committed JAX digest at a cut depth (tests/test_torch_rules.py::
+    CUT_SPECS): its record, checked to be at `steps`."""
+    with open(os.path.join(ROOT, "primesim_tpu_torch", "fixtures", f"{name}.json")) as f:
+        fx = json.load(f)
+    if fx["steps"] != steps:
+        fail(f"{name}: the fixture's depth is {fx['steps']} steps, not {steps}")
+    return fx
 
 
 def load_fleet_fixture(name, made: dict):
@@ -776,7 +853,8 @@ def stream_phases(dev, smi_line: str, headline, rung5, baselines: dict) -> dict:
         rung1 = os.path.join(tmp, "rung1.ptpu")
         tcli.main(["synth", CLI_SUP_SPEC, "--cores", "64", "--out", rung1, "--fold"])
         base_args = ["run", "configs/rung1_64core_fft.json", "--trace", rung1, "--mmap",
-                     "--stream-window", str(CLI_STREAM_W), "--checkpoint-every", "2"]
+                     "--stream-window", str(CLI_STREAM_W), "--checkpoint-every", "2",
+                     "--attest", "chain"]
         real_init = supervisor.RunSupervisor.__init__
 
         def preempting(self, *a, **kw):
@@ -832,6 +910,7 @@ def stream_phases(dev, smi_line: str, headline, rung5, baselines: dict) -> dict:
               "resumed_from": os.path.basename(res["cuda"][2][1]["detail"]["resumed_from"] or ""),
               "card_equals_cpu": detail(res["cuda"][0][1]) == detail(res["cpu"][0][1]),
               "resume_equals_run": [detail(res[d][2][1]) == detail(res[d][0][1]) for d in res],
+              "attest": res["cuda"][0][1]["detail"].get("attest"),
               "launches": launches["cli_stream"],
               "faults_refusal": refused, "gpu": smi_line})
         if any(r != [0, 75, 0] for r in rcs.values()):
@@ -843,6 +922,8 @@ def stream_phases(dev, smi_line: str, headline, rung5, baselines: dict) -> dict:
                 fail(f"cli_stream: the resumed run {res[d][2][1]} != the run {res[d][0][1]}")
         if refused != FAULTS_REFUSED:
             fail(f"cli_stream: faults with --stream-window gave {refused!r}")
+        if not res["cuda"][0][1]["detail"].get("attest", {}).get("head"):
+            fail(f"cli_stream: no chain in the summary {res['cuda'][0][1]}")
         # the card's preempted run and its resumption together run the
         # uninterrupted run's steps once more
         check_launches("cli_stream", 2 * res["cuda"][0][1]["detail"]["steps"])
@@ -951,6 +1032,7 @@ def resilience_phases(dev, smi_line: str, hf, made: dict, baseline: dict | None 
 
     import torch
 
+    from primesim_tpu_torch.attest import SoloAttest
     from primesim_tpu_torch.kernels import build
     from primesim_tpu_torch.sim.engine import Engine
     from primesim_tpu_torch.sim.fleet import FleetEngine
@@ -979,11 +1061,17 @@ def resilience_phases(dev, smi_line: str, hf, made: dict, baseline: dict | None 
     # preempted by SIGTERM at a chunk boundary, resumed in a fresh engine
     # whose first chunk fails after running on the card and is rolled back
     hffx, cfg_hf, trace_hf = hf
+    with open(os.path.join(ROOT, "primesim_tpu_torch", "fixtures", "attest_faults.json")) as f:
+        atfx = json.load(f)
+    if (atfx["config"], atfx["trace"], atfx["chunk_steps"]) != (
+            hffx["config"], hffx["trace"], SUP_CHUNK):
+        fail("supervised_faults: attest_faults.json names another run than this path's")
     ck_dir = tempfile.mkdtemp(prefix="chip_smoke_sup_")
     saves = []
 
     def supervised(on_chunk=None):
         eng = Engine(cfg_hf, trace_hf, chunk_steps=SUP_CHUNK, device=dev)
+        eng.attest = SoloAttest(SUP_CHUNK)  # rolls back and crosses the snapshot with the state
         real_save = eng.save_checkpoint
 
         def timed_save(path):
@@ -1026,6 +1114,7 @@ def resilience_phases(dev, smi_line: str, hf, made: dict, baseline: dict | None 
         resumed = sup.resume()
         torch.cuda.synchronize()
         load_s = time.perf_counter() - t0
+        chain_at_resume = eng.attest.payload()
         real_steps, failed = eng.run_steps, []
 
         def fail_once(n):  # the real chunk runs on the card, then it fails
@@ -1071,6 +1160,8 @@ def resilience_phases(dev, smi_line: str, hf, made: dict, baseline: dict | None 
             "peak_memory_bytes": peak,
             "unsupervised": baseline, "launches": launches["supervised_faults"],
             "equals_jax_digest": got == hffx["digest"],
+            "attest": eng.attest.payload(), "chain_at_resume": chain_at_resume,
+            "attest_equals_jax": eng.attest.payload() == atfx["attest"],
             "resilience_log": sup.log_lines(), "gpu": smi_line}
         emit(line)
     finally:
@@ -1085,12 +1176,22 @@ def resilience_phases(dev, smi_line: str, hf, made: dict, baseline: dict | None 
     for k, want in hffx["digest"].items():
         if got[k] != want:
             fail(f"supervised_faults: {k} {got[k]} != the JAX package's {want}")
+    # the chain crossed the snapshot (its head there is the JAX run's after
+    # the preempted chunk) and the rolled-back chunk was linked once
+    if chain_at_resume["head"] != atfx["heads"][SUP_KILL_CHUNK - 1] \
+            or chain_at_resume["chunks"] != SUP_KILL_CHUNK:
+        fail(f"supervised_faults: the resumed chain {chain_at_resume} is not the JAX run's "
+             f"after chunk {SUP_KILL_CHUNK}")
+    if line["attest_equals_jax"] is not True:
+        fail(f"supervised_faults: the chain {line['attest']} != the uninterrupted JAX "
+             f"run's {atfx['attest']}")
 
     # ---- fleet_fork: the headline machine as a B = 4 fleet under a
     # rates-0 schedule; three seed-only elements share a 1024-step prefix,
     # run once and forked; a second fleet takes it from the warm cache
     ffx, fcfg, ftrs, fovs = load_fleet_fixture("fleet_fork", made)
     cache = tempfile.mkdtemp(prefix="chip_smoke_warm_")
+    at_check = None  # fleet_fork's digests FORK_CHECK steps after the fork
     try:
         for path in ("fleet_fork", "fleet_fork_warm"):
             fl = FleetEngine(fcfg, ftrs, fovs, chunk_steps=ffx["chunk_steps"], device=dev)
@@ -1105,7 +1206,11 @@ def resilience_phases(dev, smi_line: str, hf, made: dict, baseline: dict | None 
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             start = fl.steps_run.copy()
-            fl.run()
+            fl.run_steps(FORK_CHECK)
+            check = [element_digest(fl, i) for i in range(fl.n_elements)]
+            if path == "fleet_fork":  # the warm fleet is held to these digests
+                at_check = check
+                fl.run()
             torch.cuda.synchronize()
             t2 = time.perf_counter()
             launches[path] = dict(build.LAUNCHES)
@@ -1114,13 +1219,16 @@ def resilience_phases(dev, smi_line: str, hf, made: dict, baseline: dict | None 
             got = [element_digest(fl, i) for i in range(fl.n_elements)]
             warm_bytes = sum(os.path.getsize(os.path.join(cache, n))
                              for n in os.listdir(cache) if n.endswith(".npz"))
+            equal = ([g == e["digest"] for g, e in zip(got, ffx["elements"])]
+                     if path == "fleet_fork" else [c == a for c, a in zip(check, at_check)])
             emit({"phase": path, "B": fl.n_elements, "prefix": st,
                   "prefix_steps_simulated": simulated, "fork_and_prefix_s": t1 - t0,
                   "fleet_steps": fleet_steps, "fleet_wall_s": t2 - t1,
                   "steps_by_element": fl.steps_run.tolist(),
                   "prefix_steps_by_element": fl.prefix_steps.tolist(),
                   "warm_entry_bytes": warm_bytes, "launches": launches[path],
-                  "equals_jax_digest": [g == e["digest"] for g, e in zip(got, ffx["elements"])],
+                  ("equals_jax_digest" if path == "fleet_fork"
+                   else f"equals_fleet_fork_{FORK_CHECK}_steps_after_the_fork"): equal,
                   "gpu": smi_line})
             want_hits = int(path == "fleet_fork_warm")
             if (st["cache_hits"], st["cache_misses"]) != (want_hits, 1 - want_hits):
@@ -1128,10 +1236,14 @@ def resilience_phases(dev, smi_line: str, hf, made: dict, baseline: dict | None 
             if want_hits and st["prefix_wall_s"] != 0.0:
                 fail(f"{path}: a warm hit simulated its prefix")
             check_launches(path, simulated + fleet_steps, STEP_KERNELS)
-            for i, (g, e) in enumerate(zip(got, ffx["elements"])):
-                for k, want in e["digest"].items():
-                    if g[k] != want:
-                        fail(f"{path}: element {i} {k} {g[k]} != the JAX package's {want}")
+            if path == "fleet_fork":
+                for i, (g, e) in enumerate(zip(got, ffx["elements"])):
+                    for k, want in e["digest"].items():
+                        if g[k] != want:
+                            fail(f"{path}: element {i} {k} {g[k]} != the JAX package's {want}")
+            elif not all(equal):
+                fail(f"{path}: {FORK_CHECK} steps after the warm fork, elements {equal} "
+                     "differ from fleet_fork's")
             del fl
             torch.cuda.empty_cache()
     finally:
@@ -1145,7 +1257,7 @@ def resilience_phases(dev, smi_line: str, hf, made: dict, baseline: dict | None 
     try:
         run = ["run", "configs/rung1_64core_fft.json", "--synth", CLI_SUP_SPEC, "--fold",
                "--chunk-steps", "16", "--checkpoint-dir", os.path.join(cdir, "ck_{device}"),
-               "--checkpoint-every", "2", "--guard", "fail"]
+               "--checkpoint-every", "2", "--guard", "fail", "--attest", "chain"]
         with open(os.path.join(cdir, "sched.json"), "w") as f:
             json.dump(CLI_SUP_SCHEDULE, f)
         sweep = ["sweep", "configs/rung1_64core_fft.json", "--synth", CLI_SUP_SPEC, "--fold",
@@ -1188,14 +1300,325 @@ def resilience_phases(dev, smi_line: str, hf, made: dict, baseline: dict | None 
           "run_card_equals_cpu": runs[0]["cuda"] == runs[0]["cpu"],
           "resume_equals_run": [runs[1][d] == runs[0][d] for d in ("cuda", "cpu")],
           "instructions": runs[0]["cuda"].get("instructions"),
+          "attest": runs[0]["cuda"].get("attest"),
           "sweep_card_equals_cpu": [s["cuda"] == s["cpu"] for s in sweeps],
           "prefix_fork": [f["cuda"] for f in forks]})
     if runs[0]["cuda"] != runs[0]["cpu"] or any(runs[1][d] != runs[0][d] for d in runs[1]):
         fail(f"cli_supervised: run lines differ: {runs}")
+    if not runs[0]["cuda"].get("attest", {}).get("head"):
+        fail(f"cli_supervised: no chain in the summary {runs[0]['cuda']}")
     for s, f, hits in zip(sweeps, forks, (0, 1)):
         if s["cuda"] != s["cpu"] or [x.get("cache_hits") for x in f["cuda"]] != [hits]:
             fail(f"cli_supervised: sweep lines {s}")
     return launches
+
+
+def spawn_daemon(args: list[str], env: dict | None = None):
+    """`python -m primesim_tpu_torch serve ...` on the card as a child
+    process: (the process, its socket) once a health round trip answers.
+    Fails if it exits first or is not ready within 300 s."""
+    from primesim_tpu_torch.serve.client import ServeClient
+
+    sock = os.path.join(args[args.index("--state-dir") + 1], "serve.sock")
+    proc = subprocess.Popen([sys.executable, "-m", "primesim_tpu_torch", *args], cwd=ROOT,
+                            env={**os.environ, **(env or {})}, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    probe, deadline = ServeClient(sock, timeout_s=5.0), time.time() + 300
+    while True:
+        if proc.poll() is not None:
+            fail(f"serve: the daemon exited {proc.returncode} at startup: "
+                 f"{proc.stderr.read()[-1000:]}")
+        if os.path.exists(sock):
+            try:
+                probe.health()
+                return proc, sock
+            except OSError:
+                pass
+        if time.time() > deadline:
+            proc.kill()
+            fail("serve: the daemon never answered")
+        time.sleep(0.05)
+
+
+def attest_serve_phases(dev, smi_line: str, headline, baselines: dict, made: dict) -> dict:
+    """The attested and served paths: attest_headline and serve_headline
+    (module docstring). `headline` is the headline fixture
+    (record, machine, trace), `baselines` the preloaded runs' wall_s and
+    peak_memory_bytes by path, `made` the traces already made (see
+    load_fleet_fixture). Returns each path's launch counts, set to 0 just
+    before the path was driven (a daemon's: its process's, from 0)."""
+    import torch
+
+    from primesim_tpu_torch.attest import SoloAttest
+    from primesim_tpu_torch.kernels import build
+    from primesim_tpu_torch.serve.client import ServeClient
+    from primesim_tpu_torch.serve.scheduler import PAGE_EVENTS
+    from primesim_tpu_torch.sim.engine import Engine
+    from primesim_tpu_torch.stats.digest import run_digest
+    from primesim_tpu_torch.trace import synth
+    from primesim_tpu_torch.trace.format import fold_ins
+
+    launches = {}
+
+    def fixture_json(name):
+        with open(os.path.join(ROOT, "primesim_tpu_torch", "fixtures", f"{name}.json")) as f:
+            return json.load(f)
+
+    def served(result):
+        """A result record's digest: the fixture digest's fields but the
+        link and controller clocks, which a result does not carry."""
+        d = run_digest(result["steps"], result["core_cycles"],
+                       {k: np.asarray(v) for k, v in result["counters"].items()}, [], [])
+        return {k: v for k, v in d.items() if k not in ("link_free_sha256", "dram_free_sha256")}
+
+    def check_daemon_launches(path, dstats, ran=STEP_KERNELS):
+        n = dstats["fleet_steps"]
+        for k, c in dstats["kernel_launches"].items():
+            if c != (n if k in ran else 0):
+                fail(f"{path}: {k} launched {c} times in {n} fleet steps")
+
+    # ---- attest_headline: the headline run with a chain, every chunk's
+    # head against the JAX package's
+    hfx, cfg, trace = headline
+    afx = fixture_json("attest_headline")
+    if (afx["config"], afx["trace"]) != (hfx["config"], hfx["trace"]):
+        fail("attest_headline: the fixture names another machine or trace than the headline's")
+    chunk = afx["chunk_steps"]
+    held = torch.cuda.memory_allocated()
+    eng = Engine(cfg, trace, chunk_steps=chunk, device=dev)
+    eng.attest = SoloAttest(chunk)
+    per_chunk, observe = [], eng.attest.observe
+
+    def observed(e):
+        observe(e)
+        per_chunk.append({**eng.attest.stats, "head": eng.attest.payload()["head"]})
+
+    eng.attest.observe = observed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.LAUNCHES.update(dict.fromkeys(build.LAUNCHES, 0))
+    t0 = time.perf_counter()
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches["attest_headline"] = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() - held
+    got = run_digest(eng.steps_run, eng.cycles, eng.counters,
+                     eng.state.link_free.cpu().numpy(), eng.state.dram_free.cpu().numpy())
+    heads = [c["head"] for c in per_chunk]
+    first_bad = next((k + 1 for k, (a, b) in enumerate(zip(heads, afx["heads"])) if a != b),
+                     None)
+    emit({"phase": "attest_headline", "chunk_steps": chunk, "steps": eng.steps_run,
+          "chunks": len(heads), "wall_s": wall, "simulated_mips": got["instructions"] / wall / 1e6,
+          "unattested": baselines["headline"], "peak_memory_bytes": peak,
+          "bytes_hashed_per_chunk": [c["bytes"] for c in per_chunk],
+          "transfer_s_per_chunk": [c["transfer_s"] for c in per_chunk],
+          "hash_s_per_chunk": [c["hash_s"] for c in per_chunk],
+          "attest": eng.attest.payload(), "heads_equal_jax": first_bad is None
+          and len(heads) == len(afx["heads"]), "launches": launches["attest_headline"],
+          "gpu": smi_line})
+    if len(heads) != len(afx["heads"]) or first_bad is not None:
+        fail(f"attest_headline: the chain first differs from the JAX heads at chunk "
+             f"{first_bad} ({len(heads)} chunks, the JAX run {len(afx['heads'])})")
+    if eng.attest.payload() != afx["attest"]:
+        fail(f"attest_headline: payload {eng.attest.payload()} != the JAX {afx['attest']}")
+    for k, want in hfx["digest"].items():
+        if got[k] != want:
+            fail(f"attest_headline: {k} {got[k]} != the JAX package's {want}")
+    for k, n in launches["attest_headline"].items():
+        if n != (eng.steps_run if k in STEP_KERNELS else 0):
+            fail(f"attest_headline: {k} launched {n} times in {eng.steps_run} steps")
+    del eng
+    torch.cuda.empty_cache()
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    procs = []
+    try:
+        # ---- serve_headline: the daemon through the CLI on the headline
+        # machine, one bucket of 4 slots, four of fleet_headline's
+        # elements submitted through `submit`
+        sfx = fixture_json("serve_headline")
+        if sfx["config"] != hfx["config"] or sfx["jobs"][0]["attest"] != afx["attest"]:
+            fail("serve_headline: the fixture's machine or element 0's chain is not the "
+                 "headline's")
+        cfg_path = os.path.join(tmp, "headline.json")
+        with open(cfg_path, "w") as f:
+            f.write(cfg.to_json())
+        specs, job_trs = [], []
+        for e in sfx["jobs"]:
+            ts = e["trace"]
+            specs.append(ts["generator"] + ":" + ",".join(
+                f"{k}={v}" for k, v in ts["args"].items() if k != "n_cores"))
+            key = json.dumps(ts, sort_keys=True)
+            if key not in made:
+                tr = synth.GENERATORS[ts["generator"]](**ts["args"])
+                made[key] = fold_ins(tr) if ts.get("fold") else tr
+            job_trs.append(made[key])
+        pages = -(-max(tr.max_len for tr in job_trs) // PAGE_EVENTS)
+        schunk = sfx["chunk_steps"]
+        proc, sock = spawn_daemon(
+            ["serve", cfg_path, "--state-dir", os.path.join(tmp, "headline"),
+             "--buckets", f"{len(specs)}x{pages}", "--chunk-steps", str(schunk),
+             "--attest", "chain", "--checkpoint-wall", "3600"])
+        procs.append(proc)
+        t0 = time.perf_counter()
+        subs = [subprocess.Popen(
+            [sys.executable, "-m", "primesim_tpu_torch", "submit", "--socket", sock,
+             "--synth", spec, "--fold",
+             *(["--vary", ",".join(f"{k}={v}" for k, v in e["overrides"].items())]
+               if e["overrides"] else [])],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for spec, e in zip(specs, sfx["jobs"])]
+        ids = []
+        for sp in subs:
+            out, err = sp.communicate(timeout=600)
+            if sp.returncode != 0:
+                fail(f"serve_headline: submit exited {sp.returncode}: {out} {err[-500:]}")
+            ids.append(json.loads(out.strip().splitlines()[-1])["job"]["job_id"])
+        cli = ServeClient(sock, timeout_s=60.0)
+        results = [cli.wait(i, timeout_s=900.0) for i in ids]
+        jobs_wall = time.perf_counter() - t0
+        health = cli.health()
+        cli.drain()  # the queue is empty: the daemon exits 0
+        out, err = proc.communicate(timeout=600)
+        dstats = health["device"]
+        launches["serve_headline"] = dstats["kernel_launches"]
+        ins = sum(r["result"]["instructions"] for r in results if r["state"] == "DONE")
+        same = [r["state"] == "DONE" and served(r["result"]) == e["digest"]
+                for r, e in zip(results, sfx["jobs"])]
+        chains = [r.get("result", {}).get("attest") == e["attest"]
+                  for r, e in zip(results, sfx["jobs"])]
+        emit({"phase": "serve_headline", "bucket": f"{len(specs)}x{pages}",
+              "capacity_events": pages * PAGE_EVENTS, "chunk_steps": schunk,
+              "elements": [e["element"] for e in sfx["jobs"]],
+              "job_steps": [r.get("result", {}).get("steps") for r in results],
+              "jobs_wall_s": jobs_wall, "aggregate_mips": ins / jobs_wall / 1e6,
+              "fleet_steps": dstats["fleet_steps"], "launches": launches["serve_headline"],
+              "launches_per_fleet_step": {k: n / max(1, dstats["fleet_steps"])
+                                          for k, n in launches["serve_headline"].items()},
+              "peak_memory_bytes": dstats.get("peak_memory_bytes"),
+              "service": {k: health[k] for k in ("completed", "aggregate_mips", "latency_s")},
+              "results_equal_jax": same, "heads_equal_jax": chains,
+              "daemon_returncode": proc.returncode, "gpu": smi_line})
+        if not all(same) or not all(chains):
+            fail(f"serve_headline: results {same}, chain heads {chains} against the JAX runs")
+        if proc.returncode != 0:
+            fail(f"serve_headline: the daemon exited {proc.returncode}: {err[-500:]}")
+        if dstats["fleet_steps"] < max(r["result"]["steps"] for r in results):
+            fail(f"serve_headline: {dstats['fleet_steps']} fleet steps for jobs of "
+                 f"{[r['result']['steps'] for r in results]}")
+        check_daemon_launches("serve_headline", dstats)
+
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
+def serve_recover_phase(smi_line: str):
+    """serve_recover (module docstring), for a worker thread beside the
+    CLI phases: the daemon on rung 2 killed by a chaos crashpoint after its
+    first checkpoint and restarted. Returns (its phase line, its launch
+    counts, the failures found), for the main thread to print and judge."""
+    from primesim_tpu_torch.config.machine import MachineConfig
+    from primesim_tpu_torch.serve import JobJournal, fold_records
+    from primesim_tpu_torch.serve.client import ServeClient
+    from primesim_tpu_torch.serve.scheduler import PAGE_EVENTS, parse_synth_spec
+    from primesim_tpu_torch.stats.digest import run_digest
+
+    def served(result):
+        d = run_digest(result["steps"], result["core_cycles"],
+                       {k: np.asarray(v) for k, v in result["counters"].items()}, [], [])
+        return {k: v for k, v in d.items() if k not in ("link_free_sha256", "dram_free_sha256")}
+
+    problems = []
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_recover_")
+    procs = []
+    try:
+        with open(os.path.join(ROOT, "primesim_tpu_torch", "fixtures", "serve_rung2.json")) as f:
+            rfx = json.load(f)
+        with open(os.path.join(ROOT, rfx["config"])) as f:
+            rcfg = MachineConfig.from_json(f.read())
+        rtrs = [parse_synth_spec(j["synth"], rcfg.n_cores, True) for j in rfx["jobs"]]
+        rpages = -(-max(tr.max_len for tr in rtrs) // PAGE_EVENTS)
+        plan = os.path.join(tmp, "plan.json")
+        with open(plan, "w") as f:
+            json.dump({"seed": 0, "events": [{"site": "scheduler.post-checkpoint",
+                                              "occurrence": 1, "action": "kill", "args": {}}]}, f)
+        state = os.path.join(tmp, "rung2")
+        args = ["serve", rfx["config"], "--state-dir", state, "--buckets",
+                f"{len(rtrs)}x{rpages}", "--chunk-steps", str(rfx["chunk_steps"]),
+                "--attest", "chain"]
+        t0 = time.perf_counter()
+        proc, sock = spawn_daemon(args + ["--checkpoint-wall", "2", "--idle-exit", "30"],
+                                  env={"PRIMETPU_CHAOS_PLAN": plan, "PRIMETPU_CHAOS_MODE": "kill"})
+        procs.append(proc)
+        # all four at once, so that they are admitted together, before the
+        # first periodic checkpoint (2 s after the scheduler was made)
+        with ThreadPoolExecutor(len(rfx["jobs"])) as pool:
+            ids = [f.result()["job_id"] for f in [pool.submit(
+                ServeClient(sock, timeout_s=60.0).submit, synth=j["synth"],
+                overrides=j["overrides"], fold=True) for j in rfx["jobs"]]]
+        proc.communicate(timeout=600)
+        killed_s = time.perf_counter() - t0
+        before, _ = fold_records(JobJournal(state).replay()[0])
+        ckpts = sorted(os.listdir(os.path.join(state, "jobs")))
+        proc2, sock2 = spawn_daemon(args + ["--checkpoint-wall", "3600"])
+        procs.append(proc2)
+        cli2 = ServeClient(sock2, timeout_s=60.0)
+        results = [cli2.wait(i, timeout_s=900.0) for i in ids]
+        health = cli2.health()
+        cli2.drain()
+        out, err = proc2.communicate(timeout=600)
+        recover_s = time.perf_counter() - t0 - killed_s
+        records, dropped = JobJournal(state).replay()
+        after, _ = fold_records(records)
+        dstats = health["device"]
+        launches = dstats["kernel_launches"]
+        same = [r["state"] == "DONE" and served(r["result"]) == j["digest"]
+                for r, j in zip(results, rfx["jobs"])]
+        chains = [r.get("result", {}).get("attest") == j["attest"]
+                  for r, j in zip(results, rfx["jobs"])]
+        line = {"phase": "serve_recover", "bucket": f"{len(rtrs)}x{rpages}",
+                "chunk_steps": rfx["chunk_steps"], "killed_returncode": proc.returncode,
+                "killed_after_s": killed_s,
+                "states_at_kill": {i: before[i].state for i in before},
+                "element_checkpoints_at_kill": ckpts, "recovered": health["recovered"],
+                "recover_wall_s": recover_s, "journal_records": len(records),
+                "journal_torn_tail": dropped,
+                "job_steps": [r.get("result", {}).get("steps") for r in results],
+                "fleet_steps_after_restart": dstats["fleet_steps"], "launches": launches,
+                "results_equal_jax": same, "heads_equal_jax": chains,
+                "daemon_returncode": proc2.returncode, "gpu": smi_line}
+        if proc.returncode != -9:
+            problems.append(f"serve_recover: the chaos crashpoint did not kill the daemon "
+                            f"(exit {proc.returncode})")
+        if sorted(before) != sorted(ids) or all(j.terminal for j in before.values()) \
+                or not ckpts:
+            problems.append(f"serve_recover: the kill landed with jobs {before} and "
+                            f"checkpoints {ckpts}: not mid-service")
+        if sorted(after) != sorted(ids) or any(j.state != "DONE" for j in after.values()):
+            problems.append(f"serve_recover: the journal lost a job: {after}")
+        if not all(same) or not all(chains):
+            problems.append(f"serve_recover: results {same}, chain heads {chains} against "
+                            "the JAX runs")
+        if proc2.returncode != 0:
+            problems.append(f"serve_recover: the restarted daemon exited {proc2.returncode}: "
+                            f"{err[-500:]}")
+        n = dstats["fleet_steps"]
+        for k, c in dstats["kernel_launches"].items():
+            if c != (n if k in STEP_KERNELS else 0):
+                problems.append(f"serve_recover: {k} launched {c} times in {n} fleet steps")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return line, launches, problems
 
 
 def main() -> int:
@@ -1282,10 +1705,27 @@ def main() -> int:
             return fn(mcfg or cfg, *args, **(kw or {}))
         return fn(*args, **(kw or {}))
 
+    def card_cut(eng):
+        """What same_run compares of an engine, copied to the host now (the
+        card run goes on; the CPU stops here)."""
+        return SimpleNamespace(state_np=convert.state_to_numpy(eng.state),
+                               steps_run=eng.steps_run, cycles=eng.cycles,
+                               counters={k: v.copy() for k, v in eng.counters.items()})
+
+    def cpu_repeat(mcfg, rtr, chunk, depth=None):
+        """The port's CPU run of a machine, to `depth` steps or to the end:
+        (the engine, its seconds)."""
+        t0 = time.perf_counter()
+        cpu = Engine(mcfg, rtr, chunk_steps=chunk, device="cpu")
+        cpu.run_steps(depth) if depth else cpu.run()
+        return cpu, time.perf_counter() - t0
+
     def same_run(phase, gpu, cpu):
-        """Fail unless two engines agree in steps, per-core cycles, every
-        counter and every state field; returns the card's state as numpy."""
-        gs, cs = convert.state_to_numpy(gpu.state), convert.state_to_numpy(cpu.state)
+        """Fail unless two engines (or a card_cut and an engine) agree in
+        steps, per-core cycles, every counter and every state field;
+        returns the card's state as numpy."""
+        gs = gpu.state_np if hasattr(gpu, "state_np") else convert.state_to_numpy(gpu.state)
+        cs = convert.state_to_numpy(cpu.state)
         for f in gs:
             same = (all(np.array_equal(gs[f][k], cs[f][k]) for k in gs[f])
                     if f in ("knobs", "faults") else np.array_equal(gs[f], cs[f]))
@@ -1685,10 +2125,23 @@ def main() -> int:
                                   {"step": 2, "kind": "link_degrade", "link": 9, "extra": 4}],
                        "flip_l1": 0.02, "flip_llc": 0.02, "due_rate": 0.5,
                        "due_failstop": True}, f)
-        runs = cli_side_by_side(
-            ["run", fx["config"], "--synth", "fft_like:n_phases=1,points_per_core=8,seed=3",
-             "--fold", "--fault-schedule", sched, "--fault-seed", "7",
-             "--report", os.path.join(tmp, "{device}.txt")])
+        # the CLI paths of this phase, of cli_xml and of cli_sweep (printed
+        # after the fleets) at once: six processes, each on its own; and
+        # beside them serve_recover's daemons (no wall of theirs is a path
+        # measurement; its line is printed after cli_xml's)
+        recover_pool = ThreadPoolExecutor(1)
+        recover_f = recover_pool.submit(serve_recover_phase, smi_line)
+        with ThreadPoolExecutor(3) as pool:
+            futs = [pool.submit(cli_side_by_side, a) for a in (
+                ["run", fx["config"], "--synth", "fft_like:n_phases=1,points_per_core=8,seed=3",
+                 "--fold", "--fault-schedule", sched, "--fault-seed", "7",
+                 "--report", os.path.join(tmp, "{device}.txt")],
+                ["run", "configs/example_prime.xml", "--synth", "fft_like:n_phases=2",
+                 "--fold", "--debug-invariants"],
+                ["sweep", "configs/rung1_64core_fft.json", "--synth", "fft_like:n_phases=2",
+                 "--fold", "--vary", "llc_lat=20", "--vary", "link_lat=2,router_lat=3",
+                 "--vary", "llc_lat=20"])]
+            runs, xml_runs, sweep_runs = (f.result() for f in futs)
         for d, (rc, out, err) in runs.items():
             if rc != 0:
                 fail(f"cli_faults: run --device {d} exited {rc}: {err[-500:]}")
@@ -1705,9 +2158,7 @@ def main() -> int:
     # ---- the CLI on the reference-schema XML config with --debug-invariants,
     # on the card and on the CPU: the same summary but for the host's clock
     xml = {}
-    runs = cli_side_by_side(["run", "configs/example_prime.xml", "--synth", "fft_like:n_phases=2",
-                             "--fold", "--debug-invariants"])
-    for d, (rc, out, err) in runs.items():
+    for d, (rc, out, err) in xml_runs.items():
         if rc != 0:
             fail(f"cli_xml: run --device {d} exited {rc}: {err[-500:]}")
         xml[d] = json.loads(out.strip().splitlines()[-1])["detail"]
@@ -1715,6 +2166,11 @@ def main() -> int:
     if xml["cuda"] != xml["cpu"]:
         fail(f"cli_xml: the card's summary {xml['cuda']} != the CPU's {xml['cpu']}")
     emit({"phase": "cli_xml", "summary": xml["cuda"], "card_equals_cpu": True})
+    recover_line, recover_launches, problems = recover_f.result()
+    recover_pool.shutdown()
+    emit(recover_line)
+    for msg in problems:
+        fail(msg)
 
     # ---- reduced: the coarse vector and the chunked full map at 256
     # cores, card == CPU to completion
@@ -1734,16 +2190,17 @@ def main() -> int:
             "noc": {**spec["noc"], "mesh_x": 16, "mesh_y": 16, **noc}})
         gpu = Engine(mcfg, rtr, chunk_steps=128, device=dev)
         reset_launches()
+        depth = CPU_DEPTH.get(name)
+        if depth:  # the CPU repeats the card's run to this depth only
+            gpu.run_steps(depth)
+            cut = card_cut(gpu)
         gpu.run()
         n_launch = dict(build.LAUNCHES)
-        t0 = time.perf_counter()
-        cpu = Engine(mcfg, rtr, chunk_steps=128, device="cpu")
-        cpu.run()
-        cpu_s = time.perf_counter() - t0
+        cpu, cpu_s = cpu_repeat(mcfg, rtr, 128, depth)
         for k, n in n_launch.items():
             if n != (gpu.steps_run if k in STEP_KERNELS else 0):
                 fail(f"reduced {name}: {k} launched {n} times in {gpu.steps_run} steps")
-        same_run(f"reduced {name}", gpu, cpu)
+        same_run(f"reduced {name}", cut if depth else gpu, cpu)
         gpu.verify_invariants()
         sums = {k: int(gpu.counters[k].sum())
                 for k in ("invalidations", "probes", "prefetch_hits")}
@@ -1754,7 +2211,7 @@ def main() -> int:
                          "sharer_chunk_words": mcfg.sharer_chunk_words,
                          "topology": mcfg.noc.topology, "coherence": mcfg.coherence,
                          "prefetcher": mcfg.prefetcher, **sums,
-                         "cpu_s": cpu_s, "launches": n_launch}
+                         "cpu_steps": cpu.steps_run, "cpu_s": cpu_s, "launches": n_launch}
         reduced_runs[name] = (mcfg, rtr, n_launch)
         del gpu, cpu
     emit({"phase": "reduced", "card_equals_cpu": True, "machines": reduced})
@@ -1795,6 +2252,7 @@ def main() -> int:
         gpu = Engine(mcfg, rtr, chunk_steps=chunk, device=dev)
         reset_launches()
         info = {}
+        depth = CPU_DEPTH.get(name)
         if name == "torus_faults":
             gpu.run_steps(rtk)  # the state the kill step starts from
             ptr, flag = state_np(gpu, "ptr", "sync_flag")
@@ -1814,17 +2272,17 @@ def main() -> int:
             if holder[rgs] == rgc or not int(dead[rgc]):
                 fail(f"reduced {name}: lock slot {rgs} still held by core {rgc} after its kill")
             info["lock_slot_after_kill"] = int(holder[rgs])
+        if depth:  # the CPU repeats the card's run to this depth only
+            gpu.run_steps(depth - gpu.steps_run)
+            cut = card_cut(gpu)
         gpu.run()
         n_launch = dict(build.LAUNCHES)
-        t0 = time.perf_counter()
-        cpu = Engine(mcfg, rtr, chunk_steps=chunk, device="cpu")
-        cpu.run()
-        cpu_s = time.perf_counter() - t0
+        cpu, cpu_s = cpu_repeat(mcfg, rtr, chunk, depth)
         router = name == "router_faults"
         for k, n in n_launch.items():
             if n != (gpu.steps_run if k in STEP_KERNELS or router else 0):
                 fail(f"reduced {name}: {k} launched {n} times in {gpu.steps_run} steps")
-        same_run(f"reduced {name}", gpu, cpu)
+        same_run(f"reduced {name}", cut if depth else gpu, cpu)
         if not gpu.done():
             fail(f"reduced {name}: the run did not complete")
         gpu.verify_invariants()
@@ -1844,7 +2302,7 @@ def main() -> int:
             "contention_model": mcfg.noc.contention_model if mcfg.noc.contention else None,
             "dead_policy": mcfg.fault_dead_policy, "due_failstop": mcfg.fault_due_failstop,
             "dead_cores": np.flatnonzero(gpu.state.faults.core_dead.cpu().numpy()).tolist(),
-            **sums, **info, "cpu_s": cpu_s, "launches": n_launch}
+            **sums, **info, "cpu_steps": cpu.steps_run, "cpu_s": cpu_s, "launches": n_launch}
         reduced_runs[name] = (mcfg, rtr, n_launch)
         del gpu, cpu
     emit({"phase": "reduced_faults", "card_equals_cpu": True, "fault_state_equal": True,
@@ -1873,16 +2331,15 @@ def main() -> int:
         for k in names:
             setattr(mods[k], k, recorder(k, CAPTURE[path]))
         try:
-            gpu = Engine(pcfg, ptr, chunk_steps=CHECK_STEPS, device=dev)
-            gpu.run_steps(CHECK_STEPS)
+            gpu = Engine(pcfg, ptr, chunk_steps=64, device=dev)
+            gpu.run_steps(CHECK_CPU_STEPS)
+            cut = card_cut(gpu)
+            gpu.run_steps(CHECK_STEPS - CHECK_CPU_STEPS)
         finally:
             for k in names:
                 setattr(mods[k], k, wrappers[k])
-        t0 = time.perf_counter()
-        cpu = Engine(pcfg, ptr, chunk_steps=CHECK_STEPS, device="cpu")
-        cpu.run_steps(CHECK_STEPS)
-        check_s[path] = time.perf_counter() - t0
-        same_run(f"capture {path}", gpu, cpu)
+        cpu, check_s[path] = cpu_repeat(pcfg, ptr, 64, CHECK_CPU_STEPS)
+        same_run(f"capture {path}", cut, cpu)
         del gpu, cpu
         for k in names:
             if set(staged[k]) != set(CAPTURE[path]):
@@ -2124,7 +2581,7 @@ def main() -> int:
     bounds = {k: step_bounds[k][0] for k in STEP_KERNELS}
     bounds["router_cascade"] = cas_bound
     capture_line = {"phase": "capture", "steps": CAPTURE, "timed_step": timed_step,
-          "card_equals_cpu_steps": CHECK_STEPS, "cpu_s": check_s,
+          "card_equals_cpu_steps": CHECK_CPU_STEPS, "cpu_s": check_s,
           "max_abs_err": max_err, "timing_ms": timing,
           "event_floor_ms": event_floor_ms, "profiler_reps": PROF_REPS,
           "bytes": {**{k: step_bounds[k][2] for k in STEP_KERNELS},
@@ -2275,7 +2732,7 @@ def main() -> int:
                 fail(f"multiprog_rung3: resumed at step {eng.steps_run}, not {MP_CUT}")
             rec.attach(eng)
             t0 = time.perf_counter()
-            eng.run_chunked()
+            eng.run_steps(MP_DEPTH - MP_CUT)
             torch.cuda.synchronize()
             rest_s = time.perf_counter() - t0
         finally:
@@ -2284,6 +2741,7 @@ def main() -> int:
         peak = torch.cuda.max_memory_allocated() - held
         got = run_digest(eng.steps_run, eng.cycles, eng.counters,
                          eng.state.link_free.cpu().numpy(), eng.state.dram_free.cpu().numpy())
+        mp_cut = load_cut("multiprog_rung3_cut", MP_DEPTH)["digests"][0]
         sums = got["counter_sums"]
         samples = rec.store.samples()
         spans = [e for e in rec.trace.events if e["ph"] == "B" and e["name"] == "chunk"]
@@ -2302,37 +2760,45 @@ def main() -> int:
               "recorder": {"chunks": len(samples), "spans": len(spans),
                            "mean_phase_s": mean_phases},
               "digest": {k: v for k, v in got.items() if k.endswith("sha256")},
-              "equals_jax_digest": got == mpfx["digest"], "gpu": smi_line})
+              "depth": MP_DEPTH, "equals_jax_digest": got == mp_cut, "gpu": smi_line})
         for k, n in launches["multiprog_rung3"].items():
             if n != eng.steps_run:
                 fail(f"multiprog_rung3: {k} launched {n} times in {eng.steps_run} steps")
         if with_sync[0] != eng.steps_run:
             fail(f"multiprog_rung3: router_cascade ran {with_sync[0]} of "
                  f"{eng.steps_run} steps with the barrier-arrival leg")
-        for k, want in mpfx["digest"].items():
+        for k, want in mp_cut.items():
             if got[k] != want:
-                fail(f"multiprog_rung3: {k} {got[k]} != the JAX package's {want}")
+                fail(f"multiprog_rung3: {k} {got[k]} != the JAX package's {want} at "
+                     f"step {MP_DEPTH}")
         if not (sums["lock_acquires"] and sums["barrier_waits"]):
             fail("multiprog_rung3: no lock acquired or no barrier waited")
-        if not eng.done():
-            fail("multiprog_rung3: not every core reached END")
+        if eng.steps_run != MP_DEPTH:
+            fail(f"multiprog_rung3: stopped at step {eng.steps_run}, not {MP_DEPTH}")
         if len(samples) != n_chunks or len(spans) != n_chunks:
             fail(f"multiprog_rung3: {len(samples)} samples and {len(spans)} chunk spans "
                  f"for {n_chunks} chunks")
         if sum(x["deltas"]["instructions"] for x in samples) != got["instructions"]:
             fail("multiprog_rung3: the recorder's instruction deltas miss the total")
         eng.verify_invariants()
+        # the CLI below finishes the run from this state
+        mp_ck = os.path.join(mp_dir, "ck")
+        os.makedirs(mp_ck)
+        eng.save_checkpoint(os.path.join(mp_ck, "ckpt-00000001.npz"))
         del eng
         torch.cuda.empty_cache()
 
-        # the same programs through `python -m primesim_tpu_torch run`
+        # the same programs through `python -m primesim_tpu_torch run`,
+        # resumed from the snapshot at MP_DEPTH and run to the end: its
+        # summary is the whole run's
         out = {k: os.path.join(mp_dir, f) for k, f in (
             ("metrics", "m.jsonl"), ("trace", "t.json"), ("report", "r.txt"))}
         cmd = [sys.executable, "-m", "primesim_tpu_torch", "run", mpfx["config"],
                *[a for p in mp_paths for a in ("--trace", p)], "--fold",
                "--chunk-steps", str(mpfx["chunk_steps"]), "--obs", "full",
                "--metrics-out", out["metrics"], "--trace-out", out["trace"],
-               "--report", out["report"], "--per-core-limit", "16"]
+               "--report", out["report"], "--per-core-limit", "16",
+               "--checkpoint-dir", mp_ck, "--resume"]
         t0 = time.perf_counter()
         r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
         cli_s = time.perf_counter() - t0
@@ -2351,6 +2817,7 @@ def main() -> int:
         split = {k: float(np.mean([x["phases"][k] for x in lines]))
                  for k in ("dispatch", "drain", "rebase")}
         emit({"phase": "cli_multiprog", "summary": {k: detail[k] for k in want},
+              "resumed_from": os.path.basename(detail.get("resumed_from") or ""),
               "steps": detail["steps"], "wall_s": detail["wall_s"], "command_s": cli_s,
               "timeline": detail.get("timeline"), "metrics_lines": len(lines),
               "trace_events": n_events, "report_has_timeline": has_timeline,
@@ -2358,9 +2825,10 @@ def main() -> int:
               "chunk_wall_s": [x["wall_s"] for x in lines], "gpu": smi_line})
         if {k: detail[k] for k in want} != want:
             fail(f"cli_multiprog: summary {detail} != the JAX digest's {want}")
-        if len(lines) != detail["steps"] // mpfx["chunk_steps"] or not has_timeline:
-            fail(f"cli_multiprog: {len(lines)} metrics lines for {detail['steps']} steps, "
-                 f"TIMELINE {has_timeline}")
+        if len(lines) != (detail["steps"] - MP_DEPTH) // mpfx["chunk_steps"] \
+                or not has_timeline or detail["steps"] != mpfx["digest"]["steps"]:
+            fail(f"cli_multiprog: {len(lines)} metrics lines for {detail['steps']} steps "
+                 f"from {MP_DEPTH}, TIMELINE {has_timeline}")
     finally:
         shutil.rmtree(mp_dir, ignore_errors=True)
 
@@ -2396,6 +2864,9 @@ def main() -> int:
             ("fleet_headline", "fleet_headline", hfx, STEP_KERNELS, None),
             ("fleet_rung3", "fleet_rung3", r3fx, tuple(wrappers), FLEET_CUT)):
         ffx, fcfg, ftrs, fovs = fleet_fixture(fname)
+        if cut is not None:  # a shallower run, held to the JAX digests at its depth
+            ffx = {**ffx, "elements": [{**e, "digest": d} for e, d in zip(
+                ffx["elements"], load_cut("fleet_rung3_cut", FLEET_DEPTH)["digests"])]}
         ck = os.path.join(tempfile.gettempdir(), f"chip_smoke_{os.getpid()}_{path}.npz")
         held = torch.cuda.memory_allocated()
         fl = FleetEngine(fcfg, ftrs, fovs, chunk_steps=ffx["chunk_steps"], device=dev)
@@ -2422,8 +2893,8 @@ def main() -> int:
                 if list(fl.steps_run) != [cut] * fl.n_elements:
                     fail(f"{path}: resumed at steps {list(fl.steps_run)}, not {cut}")
                 ck_info = {"checkpoint_step": cut, "checkpoint_bytes": os.path.getsize(ck),
-                           "save_s": t2 - t1, "load_s": t3 - t2}
-                fl.run()
+                           "save_s": t2 - t1, "load_s": t3 - t2, "depth": FLEET_DEPTH}
+                fl.run_steps(FLEET_DEPTH - cut)
             torch.cuda.synchronize()
         finally:
             if os.path.exists(ck):
@@ -2446,7 +2917,8 @@ def main() -> int:
             "launches_per_step": {k: n / steps for k, n in fleet_launches[path].items()},
             "peak_memory_bytes": peak, **ck_info,
             "max_core_cycles": [g["max_core_cycles"] for g in got],
-            "equals_jax_digest": same, "element0_equals_solo": got[0] == solo_fx["digest"],
+            "equals_jax_digest": same,
+            "element0_equals_solo": got[0] == solo_fx["digest"] if cut is None else None,
             "gpu": smi_line}
         emit(fleet_lines[path])
         del fl
@@ -2458,7 +2930,7 @@ def main() -> int:
             for k, want in e["digest"].items():
                 if g[k] != want:
                     fail(f"{path}: element {i} {k} {g[k]} != the JAX package's {want}")
-        if got[0] != solo_fx["digest"]:
+        if cut is None and got[0] != solo_fx["digest"]:
             fail(f"{path}: element 0 differs from the solo path's digest")
         if path == "fleet_headline" and not max(fl_s := [g["steps"] for g in got]) > fl_s[-1]:
             fail(f"{path}: the short element finished with the others ({fl_s})")
@@ -2466,9 +2938,7 @@ def main() -> int:
     # ---- cli_sweep: `sweep` on rung 1 with three --vary sets, one a
     # duplicate, on the card and on the CPU side by side: the same lines
     # but for wall seconds and MIPS, the same dedup warning
-    res = cli_side_by_side(["sweep", "configs/rung1_64core_fft.json", "--synth",
-                            "fft_like:n_phases=2", "--fold", "--vary", "llc_lat=20",
-                            "--vary", "link_lat=2,router_lat=3", "--vary", "llc_lat=20"])
+    res = sweep_runs  # run beside cli_faults and cli_xml
 
     def sweep_lines(out):
         lines = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
@@ -2498,6 +2968,10 @@ def main() -> int:
     # ---- 11. the streamed and captured paths, before any profiler session
     fleet_launches.update(stream_phases(
         dev, smi_line, (hfx, cfg, trace), large["rung5"], baselines))
+
+    # ---- 12. the attested and served paths, before any profiler session
+    fleet_launches.update(attest_serve_phases(dev, smi_line, (hfx, cfg, trace), baselines, made))
+    fleet_launches["serve_recover"] = recover_launches
 
     # ---- 8. profile. First the profiler's device time per launch of the
     # calls phase 5 timed, in the process's first profiler session (none
@@ -2755,6 +3229,33 @@ def main() -> int:
     if len(syncs) != 1 or chunks != 1:
         fail(f"sync_check: a recorded chunk made {len(syncs)} synchronising calls ({syncs[:3]})")
 
+    # one attested chunk of the headline makes at most two synchronising
+    # calls: the chunk's transfer and the chain's one batched transfer of
+    # the state's leaves
+    from primesim_tpu_torch.attest import SoloAttest
+
+    eng = Engine(cfg, trace, chunk_steps=64, device=dev)
+    eng.attest = SoloAttest(64)
+    eng.run_steps(64)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            eng._chunk()
+            eng.attest.observe(eng)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [str(w.message)[:200] for w in caught if "synchroniz" in str(w.message)
+             and "prototype feature" not in str(w.message)]
+    emit({"phase": "sync_check", "path": "attest_headline", "steps": [64, 127],
+          "attest_chunks": eng.attest.payload()["chunks"], "bytes_hashed": eng.attest.stats["bytes"],
+          "synchronising_calls": syncs})
+    del eng
+    torch.cuda.empty_cache()
+    if len(syncs) > 2:
+        fail(f"sync_check: an attested chunk made {len(syncs)} synchronising calls ({syncs[:3]})")
+
     # the ring mode of sharer_reductions on the reduced ring machines, at
     # the busiest step (by active rows) of a 64-step chunk
     for path, start in RING_MODES:
@@ -2812,7 +3313,17 @@ def main() -> int:
                 undo()
         del fl
         torch.cuda.empty_cache()
-    emit({"phase": "fleet_scaling", "path": "fleet_headline", "by_B": scaling, "gpu": smi_line})
+    # the serving fleets' sync path (force_sync, as make_slots builds
+    # them): the same B = 1 element with phase 2.7 on, its device events a
+    # step beside the plain fleet's
+    fl = FleetEngine(fcfg, ftrs[:1], fovs[:1], chunk_steps=64, device=dev, force_sync=True)
+    sync_path = fleet_window(fl)  # steps 0-63: a headline step's launches do not vary
+    sync_path["extra_device_events_per_step"] = (
+        sync_path["device_events_per_step"] - scaling[1]["device_events_per_step"])
+    del fl
+    torch.cuda.empty_cache()
+    emit({"phase": "fleet_scaling", "path": "fleet_headline", "by_B": scaling,
+          "sync_path_B1": sync_path, "gpu": smi_line})
     ffx, fcfg, ftrs, fovs = fleet_fixture("fleet_rung3")
     fl = FleetEngine(fcfg, ftrs, fovs, chunk_steps=64, device=dev)
     fl.run_steps(256)

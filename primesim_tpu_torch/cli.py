@@ -11,6 +11,12 @@
     python -m primesim_tpu_torch run cfg.json --trace big.ptpu --mmap \
         --stream-window 4096
     python -m primesim_tpu_torch capture cfg.json -- ./pthread_app 4
+    python -m primesim_tpu_torch run cfg.json --synth fft_like --fold \
+        --attest chain
+    python -m primesim_tpu_torch serve cfg.json --state-dir D --attest chain
+    python -m primesim_tpu_torch submit --socket D/serve.sock \
+        --synth fft_like:n_phases=2 --fold --vary llc_lat=20 --wait
+    python -m primesim_tpu_torch serve-status --socket D/serve.sock
 
 `run` simulates a trace (PTPU files or a named synthetic generator) on a
 JSON or reference-schema XML machine config, prints the one-line JSON
@@ -39,12 +45,23 @@ set and/or per trace, all run as ONE batch on the card, and prints
 prefix-sharing class's shared prefix once and forks it into the fleet
 (`sim/prefix.py`, a `prefix_fork` line), and `--warm-cache on` keeps
 those prefixes on disk ($PRIMETPU_CACHE_DIR, bounded by `--cache-budget`)
-for the next campaign. A run or sweep is on the card unless `--device
-cpu` is given. `synth` writes
+for the next campaign. `run --attest chain` fingerprints every committed
+chunk (every window of a streamed run) into a chain whose head joins the
+summary as `attest` (attest/chain.py: the JAX package's heads). `serve`
+is the continuous-batching daemon (serve/server.py: jobs over a unix
+socket or `--tcp HOST:PORT`, journaled, checkpointed per job, drained on
+SIGTERM with exit 75 when work remains, SIGHUP reloads the config);
+`submit` sends it one job (exit 4 on backpressure), `serve-status` asks
+for its health, jobs, metrics, a live line (`--watch`) or a drain. A
+run, sweep or daemon is on the card unless `--device cpu` is given.
+`synth` writes
 a generator's trace as a PTPU file, `info` prints a config as JSON: both
 as `primetpu` does. A malformed schedule, trace or config exits 2 with
-one `{"error": {type, location, detail}}` JSON line on stderr, as does
-a malformed `--vary` spec.
+one `{"error": {type, location, detail}}` JSON line on stderr, as do a
+malformed `--vary` spec, a `--resume` whose snapshots are all corrupt
+(`CheckpointCorrupt`) and a failed attestation check (`AttestationError`).
+A plan file named by `PRIMETPU_CHAOS_PLAN` is installed before anything
+runs (chaos/sites.py).
 """
 
 from __future__ import annotations
@@ -281,7 +298,8 @@ def _run_supervised(ns, cfg, eng, device, rec=None) -> int:
     wall = time.perf_counter() - t0
     _emit_summary(
         ns, cfg, eng.counters, eng.cycles, wall,
-        {"device": str(device), "steps": eng.steps_run, **sup.summary()},
+        {"device": str(device), "steps": eng.steps_run, **sup.summary(),
+         **_attest_extra(eng)},
         timeline=rec.timeline_summary() if rec is not None else None,
         resilience=sup.log_lines(),
     )
@@ -323,6 +341,12 @@ def cmd_run(ns) -> int:
         for k in build.KERNELS:  # build and load before the clock starts
             build.library(k)
     eng = Engine(cfg, tr, chunk_steps=ns.chunk_steps, device=device)
+    if ns.attest == "chain":
+        # the chain covers every committed chunk of the host loop (the
+        # JAX package's chunked dispatch, which attestation forces there)
+        from .attest import SoloAttest
+
+        eng.attest = SoloAttest(ns.chunk_steps)
     if supervised:
         return _run_supervised(ns, cfg, eng, device, rec=rec)
     if rec is not None:
@@ -344,11 +368,15 @@ def cmd_run(ns) -> int:
         print(f"profiler trace written to {ns.xprof}", file=sys.stderr)
     _emit_summary(
         ns, cfg, eng.counters, eng.cycles, wall,
-        {"device": str(device), "steps": eng.steps_run},
+        {"device": str(device), "steps": eng.steps_run, **_attest_extra(eng)},
         timeline=rec.timeline_summary() if rec is not None else None,
     )
     _finalize_obs(rec)
     return 0
+
+
+def _attest_extra(eng) -> dict:
+    return {} if eng.attest is None else {"attest": eng.attest.payload()}
 
 
 def _run_stream(ns, cfg, tr, supervised, rec) -> int:
@@ -363,6 +391,12 @@ def _run_stream(ns, cfg, tr, supervised, rec) -> int:
             "--stream-window yet"
         )
     eng = StreamEngine(cfg, tr, window_events=ns.stream_window, device=ns.device)
+    if ns.attest == "chain":
+        # window-scoped chain: the stream engine's natural chunk is the
+        # window, so the cadence field is the window size
+        from .attest import SoloAttest
+
+        eng.attest = SoloAttest(ns.stream_window)
     eng.warmup()  # the kernels build before the clock starts
     if supervised:
         return _run_supervised(ns, cfg, eng, eng.device, rec=rec)
@@ -373,7 +407,7 @@ def _run_stream(ns, cfg, tr, supervised, rec) -> int:
     wall = time.perf_counter() - t0
     _emit_summary(
         ns, cfg, eng.counters, eng.cycles, wall,
-        {"device": str(eng.device), "steps": eng.steps_run},
+        {"device": str(eng.device), "steps": eng.steps_run, **_attest_extra(eng)},
         timeline=rec.timeline_summary() if rec is not None else None,
     )
     _finalize_obs(rec)
@@ -772,8 +806,223 @@ def cmd_info(ns) -> int:
     return 0
 
 
-def _add_shared_flags(sp) -> None:
-    """run's and sweep's fault, telemetry and device flags."""
+def _parse_buckets(spec: str):
+    """'SLOTSxPAGES[,SLOTSxPAGES...]' -> ((slots, pages), ...): the
+    serving fleet's paged capacity ladder (serve/scheduler.py)."""
+    out = []
+    for part in spec.split(","):
+        s, x, p = part.partition("x")
+        if not x or not s.isdigit() or not p.isdigit() \
+                or int(s) < 1 or int(p) < 1:
+            raise SystemExit(
+                f"bad --buckets entry {part!r} (want SLOTSxPAGES, e.g. 6x1)"
+            )
+        out.append((int(s), int(p)))
+    return tuple(out)
+
+
+def cmd_serve(ns) -> int:
+    """Start the continuous-batching simulation daemon (DESIGN.md §14):
+    one fleet per capacity bucket on the device, jobs spliced into slots
+    as elements retire, WAL-journaled so kill -9 loses nothing. SIGTERM
+    drains (checkpoint + exit 75 when work remains); SIGHUP reloads
+    --config's fault schedule (same geometry only)."""
+    from .kernels import build
+    from .serve.quota import TenantQuota
+    from .serve.server import PrimeServer
+    from .sim.engine import resolve_device
+
+    cfg = _apply_faults(ns, _apply_step_impl(ns, _load_config(ns.config)))
+    _configure_disk(ns)
+    rec = _build_recorder(ns)
+    if ns.tcp and ns.socket:
+        raise SystemExit("--tcp and --socket are mutually exclusive")
+    device = resolve_device(ns.device)
+    if device.type == "cuda":
+        for k in build.KERNELS:  # build and load before the first job
+            build.library(k)
+    server = PrimeServer(
+        cfg,
+        state_dir=ns.state_dir,
+        socket_path=ns.tcp or ns.socket,
+        buckets=_parse_buckets(ns.buckets),
+        chunk_steps=ns.chunk_steps,
+        max_queue=ns.max_queue,
+        checkpoint_every_s=ns.checkpoint_wall,
+        config_path=ns.config,
+        idle_exit_s=ns.idle_exit,
+        obs=rec,
+        warm_cache=ns.warm_cache == "on",
+        quota=TenantQuota.parse(ns.quota) if ns.quota else None,
+        attest=ns.attest,
+        device=device,
+    )
+    # bind before the readiness line so `--tcp HOST:0` prints the real
+    # kernel-assigned port (tests and scripts scrape this line)
+    target = server.bind()
+    print(
+        f"serve: listening on {target} (local, "
+        f"recovered={server.recovered['jobs_requeued']} job(s))",
+        file=sys.stderr, flush=True,
+    )
+    rc = server.serve_forever()
+    if ns.report:
+        import numpy as np
+
+        from .stats.counters import COUNTER_NAMES
+        from .stats.report import write_report
+
+        # the aggregate SERVICE report: per-core counter/cycle axes are
+        # not meaningful across heterogeneous jobs, so they render zero
+        # and the SERVICE section carries the data
+        write_report(
+            ns.report, cfg,
+            {k: np.zeros(cfg.n_cores, np.int64) for k in COUNTER_NAMES},
+            np.zeros(cfg.n_cores, np.int64),
+            title="primetpu serve",
+            service=server.sched.service_report(),
+            timeline=rec.timeline_summary() if rec is not None else None,
+        )
+        print(f"report written to {ns.report}", file=sys.stderr)
+    _finalize_obs(rec)
+    print(
+        f"serve: drained rc={rc} "
+        f"({json.dumps(server.sched.service_report())})",
+        file=sys.stderr,
+    )
+    return rc
+
+
+def cmd_submit(ns) -> int:
+    """Submit one job to a running daemon; with --wait, block for the
+    terminal state and print the full result record."""
+    from .serve.client import ServeClient, ServeError
+
+    cli = ServeClient(ns.socket)
+    overrides = {}
+    for spec in ns.vary or []:
+        overrides.update(_parse_vary(spec))
+    try:
+        job = cli.submit(
+            trace_path=ns.trace,
+            synth=ns.synth,
+            overrides=overrides,
+            fold=ns.fold,
+            deadline_s=ns.deadline,
+            max_steps=ns.max_steps or 10_000_000,
+            priority=ns.priority,
+            client=ns.client,
+            retries=ns.retries,
+        )
+        if ns.wait:
+            job = cli.wait(job["job_id"], timeout_s=ns.timeout)
+    except ServeError as e:
+        out = {"ok": False, "error": e.error}
+        if e.retry_after_s is not None:
+            out["retry_after_s"] = e.retry_after_s
+        print(json.dumps(out))
+        return 4 if e.retry_after_s is not None else 1
+    except OSError as e:
+        from .serve.protocol import error_obj
+
+        print(json.dumps({"ok": False, **error_obj(e)}))
+        return 1
+    print(json.dumps({"ok": True, "job": job}))
+    if ns.wait and job["state"] != "DONE":
+        return 1
+    return 0
+
+
+def _watch_line(h: dict) -> str:
+    """One live status line from a health reply (serve-status --watch)."""
+    jobs = h.get("jobs", {})
+    slots = h.get("slots", {})
+    lat = h.get("latency_s") or {}
+    age = h.get("last_dispatch_age_s")
+    parts = [
+        time.strftime("%H:%M:%S"),
+        f"q={h.get('queue_depth', 0)}",
+        f"slots={slots.get('occupied', 0)}/{slots.get('total', 0)}",
+        f"run={jobs.get('RUNNING', 0)}",
+        f"done={h.get('completed', 0)}",
+        f"mips={h.get('aggregate_mips', 0.0)}",
+        f"p50={lat.get('p50') if lat.get('p50') is not None else '-'}",
+        f"disp={f'{age}s ago' if age is not None else 'never'}",
+        f"up={h.get('uptime_s', 0)}s",
+    ]
+    if h.get("draining"):
+        parts.append("DRAINING")
+    return "  ".join(parts)
+
+
+def cmd_serve_status(ns) -> int:
+    """Query a running daemon: health (default), --jobs listing,
+    --metrics (Prometheus text), --watch (live one-line refresh), or
+    --drain (ask it to finish the queue and exit)."""
+    from .serve.client import ServeClient, ServeError
+
+    cli = ServeClient(ns.socket)
+    try:
+        if ns.drain:
+            print(json.dumps(cli.drain()))
+        elif ns.jobs:
+            print(json.dumps(cli.status()))
+        elif ns.metrics:
+            sys.stdout.write(cli.metrics())
+        elif ns.watch:
+            from .util.backoff import DecorrelatedJitter
+
+            n = 0
+            down_since = None
+            failed_polls = 0
+            jit = DecorrelatedJitter(base=min(ns.interval, 0.5),
+                                     cap=max(ns.interval * 4, 2.0))
+            while True:
+                # a dead target prints DOWN and keeps watching under
+                # jittered backoff (the daemon may be mid-restart)
+                try:
+                    line = _watch_line(cli.health())
+                    if down_since is not None:
+                        line += (
+                            f"  [RECOVERED after "
+                            f"{time.monotonic() - down_since:.1f}s "
+                            f"({failed_polls} failed poll(s)) "
+                            f"via {cli.target}]"
+                        )
+                        down_since = None
+                        failed_polls = 0
+                        jit.reset()
+                except (ServeError, OSError) as e:
+                    down_since = down_since or time.monotonic()
+                    failed_polls += 1
+                    line = (
+                        f"{time.strftime('%H:%M:%S')}  "
+                        f"DOWN {cli.target} ({type(e).__name__})"
+                    )
+                print(line, flush=True)
+                n += 1
+                if ns.count and n >= ns.count:
+                    break
+                time.sleep(jit.next_delay() if down_since is not None
+                           else ns.interval)
+        else:
+            print(json.dumps(cli.health()))
+    except KeyboardInterrupt:
+        return 0
+    except ServeError as e:
+        print(json.dumps({"ok": False, "error": e.error}))
+        return 1
+    except OSError as e:
+        from .serve.protocol import error_obj
+
+        print(json.dumps({"ok": False, **error_obj(e)}))
+        return 1
+    return 0
+
+
+def _add_shared_flags(sp, resilience: bool = True) -> None:
+    """run's and sweep's (and, but for the resilience flags, serve's)
+    fault, telemetry, cache-budget and device flags."""
     sp.add_argument(
         "--fault-schedule", metavar="FILE",
         help="JSON fault schedule (events, flip and DUE rates, policies); "
@@ -815,7 +1064,8 @@ def _add_shared_flags(sp) -> None:
         "--device", choices=("cuda", "cpu"), default=None,
         help="default: cuda (an error when there is no card)",
     )
-    _add_resilience_flags(sp)
+    if resilience:
+        _add_resilience_flags(sp)
 
 
 def _add_resilience_flags(sp) -> None:
@@ -858,6 +1108,14 @@ def _add_resilience_flags(sp) -> None:
              "jitter backoff; OOM halves chunk_steps; each failed attempt "
              "is rolled back on the device). Then the run gives up with "
              "the original error",
+    )
+
+
+def _add_attest_flag(sp) -> None:
+    sp.add_argument(
+        "--attest", choices=("off", "chain"), default="off",
+        help="result integrity (DESIGN.md §24): fingerprint-chain every "
+             "committed chunk (default off — bit-exact with today)",
     )
 
 
@@ -909,6 +1167,7 @@ def build_parser() -> argparse.ArgumentParser:
         help="memory-map the trace file (pair with --stream-window for "
              "traces larger than host memory)",
     )
+    _add_attest_flag(r)
     _add_shared_flags(r)
     r.set_defaults(fn=cmd_run)
 
@@ -1001,14 +1260,152 @@ def build_parser() -> argparse.ArgumentParser:
     i = sub.add_parser("info", help="parse + print a machine config")
     i.add_argument("config")
     i.set_defaults(fn=cmd_info)
+
+    v = sub.add_parser(
+        "serve",
+        help="run the continuous-batching simulation daemon (jobs over a "
+             "unix socket; WAL-journaled, crash-safe, drains on SIGTERM)",
+    )
+    v.add_argument("config", help="machine config (.json or .xml)")
+    v.add_argument(
+        "--state-dir", required=True, metavar="DIR",
+        help="journal + per-job checkpoints + default socket live here; "
+             "restarting with the same DIR resumes every unfinished job",
+    )
+    v.add_argument(
+        "--socket", default=None, metavar="PATH",
+        help="unix socket path (default: STATE_DIR/serve.sock)",
+    )
+    v.add_argument(
+        "--tcp", default=None, metavar="HOST:PORT",
+        help="listen on TCP instead of the unix socket (port 0 = "
+             "kernel-assigned; the readiness line prints the real one)",
+    )
+    v.add_argument(
+        "--quota", default=None, metavar="RATE[:BURST]",
+        help="per-tenant admission quota: token bucket of RATE "
+             "submits/sec (burst default max(1,RATE)) per client id; "
+             "rejected submits get retry_after_s backpressure",
+    )
+    v.add_argument(
+        "--buckets", default="6x1,2x8", metavar="SxP[,SxP...]",
+        help="capacity ladder: SLOTSxPAGES per bucket, one fleet each, "
+             "page = 64 event slots/core (default 6x1,2x8)",
+    )
+    v.add_argument("--chunk-steps", type=int, default=128)
+    v.add_argument(
+        "--max-queue", type=int, default=64, metavar="N",
+        help="pending-queue bound; submits past it get RETRY_AFTER",
+    )
+    v.add_argument(
+        "--checkpoint-wall", type=float, default=2.0, metavar="SEC",
+        help="element-checkpoint in-flight jobs every SEC wall-seconds",
+    )
+    v.add_argument(
+        "--idle-exit", type=float, default=None, metavar="SEC",
+        help="exit 0 after SEC seconds with nothing queued or running "
+             "(one-shot/CI mode; default: serve forever)",
+    )
+    v.add_argument(
+        "--step-impl", choices=("xla", "pallas"), default=None,
+        help="the JAX package's step implementation: recorded in the "
+             "config; the port runs its own kernels",
+    )
+    v.add_argument(
+        "--report", metavar="PATH",
+        help="write a text report with the SERVICE section at drain",
+    )
+    v.add_argument(
+        "--warm-cache", choices=("on", "off"), default="off",
+        help="consult the on-disk warm-state cache at admission: a "
+             "resubmitted (trace, config) job starts from the deepest "
+             "matching cached state instead of step 0",
+    )
+    _add_attest_flag(v)
+    _add_shared_flags(v, resilience=False)
+    v.set_defaults(fn=cmd_serve)
+
+    b = sub.add_parser(
+        "submit",
+        help="submit one job to a running `serve` daemon",
+    )
+    b.add_argument("--socket", required=True, metavar="PATH|HOST:PORT",
+                   help="daemon target: unix socket path or TCP host:port")
+    b.add_argument("--trace", help="PTPU trace file (server-side path)")
+    b.add_argument("--synth", help="synthetic workload spec name[:k=v,...]")
+    b.add_argument(
+        "--vary", action="append", metavar="K=V[,K=V...]",
+        help="timing overrides for this job (same keys as sweep --vary)",
+    )
+    b.add_argument("--fold", action="store_true")
+    b.add_argument(
+        "--deadline", type=float, default=None, metavar="SEC",
+        help="wall-clock budget from acceptance; expiry -> TIMEOUT",
+    )
+    b.add_argument("--max-steps", type=int, default=None)
+    b.add_argument("--priority", type=int, default=0)
+    b.add_argument("--client", default="anon")
+    b.add_argument(
+        "--retries", type=int, default=0, metavar="N",
+        help="honor RETRY_AFTER backpressure up to N resubmits",
+    )
+    b.add_argument(
+        "--wait", action="store_true",
+        help="block until the job is terminal; exit 0 only on DONE",
+    )
+    b.add_argument("--timeout", type=float, default=300.0, metavar="SEC")
+    b.set_defaults(fn=cmd_submit)
+
+    t = sub.add_parser(
+        "serve-status",
+        help="healthz for a running daemon (queue depth, occupancy, "
+             "aggregate MIPS, latency percentiles)",
+    )
+    t.add_argument("--socket", required=True, metavar="PATH|HOST:PORT",
+                   help="daemon target: unix socket path or TCP host:port")
+    t.add_argument(
+        "--jobs", action="store_true", help="list every known job instead"
+    )
+    t.add_argument(
+        "--drain", action="store_true",
+        help="ask the daemon to finish its queue and exit",
+    )
+    t.add_argument(
+        "--metrics", action="store_true",
+        help="print the daemon's Prometheus text exposition (the same "
+             "payload the `metrics` protocol verb serves)",
+    )
+    t.add_argument(
+        "--watch", action="store_true",
+        help="poll health and print one live status line per interval "
+             "(queue, occupancy, MIPS, latency p50, last dispatch)",
+    )
+    t.add_argument(
+        "--interval", type=float, default=2.0, metavar="SEC",
+        help="--watch poll interval (default 2.0)",
+    )
+    t.add_argument(
+        "--count", type=int, default=0, metavar="N",
+        help="--watch: stop after N lines (default 0 = forever)",
+    )
+    t.set_defaults(fn=cmd_serve_status)
     return p
 
 
 def main(argv=None) -> int:
+    # subprocess chaos activation: PRIMETPU_CHAOS_PLAN installs its plan
+    # in this process (no-op when the variable is unset)
+    from .chaos.sites import install_from_env
+
+    install_from_env()
     ns = build_parser().parse_args(argv)
+    from .attest.errors import AttestationError
+    from .sim.checkpoint import CheckpointCorrupt
+
     try:
         return ns.fn(ns)
-    except (TraceError, ConfigError, FaultConfigError, VarySpecError) as e:
+    except (TraceError, ConfigError, FaultConfigError, CheckpointCorrupt,
+            VarySpecError, AttestationError) as e:
         # typed errors exit 2 with ONE structured JSON line on stderr, as
         # `primetpu` prints them
         print(json.dumps(_error_obj(e)), file=sys.stderr)

@@ -9,6 +9,10 @@ packages, so a state taken mid-run from one continues bit-exactly in the
 other. The fault state's uint32 values (seed, thresholds) become the
 port's int64 and come back as int64 of the same value. A fleet's batched
 state carries the same way, every array with its leading element axis.
+
+`to_host` brings many tensors of one device to the host with a single
+synchronisation: checkpoints and attestation digests read a whole state
+through it.
 """
 
 from __future__ import annotations
@@ -57,3 +61,27 @@ def state_to_numpy(st: MachineState) -> dict:
     for n in _NESTED:
         out[n] = {k: v.cpu().numpy() for k, v in getattr(st, n)._asdict().items()}
     return out
+
+
+def to_host(tensors) -> list[np.ndarray]:
+    """Host numpy arrays of `tensors` (all on one device) with ONE
+    synchronisation: on a card each tensor is queued into its own 8-byte
+    aligned slice of one pinned buffer, then the stream is waited on once
+    (a `.cpu()` per tensor waits once per tensor, from pageable memory).
+    On the CPU the arrays are views of the tensors themselves."""
+    tensors = list(tensors)
+    if not tensors or tensors[0].device.type != "cuda":
+        return [t.detach().numpy() for t in tensors]
+    sizes = [t.numel() * t.element_size() for t in tensors]
+    offs = [0]
+    for n in sizes:
+        offs.append(offs[-1] + -(-n // 8) * 8)
+    buf = torch.empty(offs[-1], dtype=torch.uint8, pin_memory=True)
+    for t, o, n in zip(tensors, offs, sizes):
+        buf[o:o + n].view(t.dtype).view(t.shape).copy_(t, non_blocking=True)
+    torch.cuda.current_stream(tensors[0].device).synchronize()
+    host = buf.numpy()
+    return [
+        host[o:o + n].view(torch.empty((), dtype=t.dtype).numpy().dtype).reshape(t.shape)
+        for t, o, n in zip(tensors, offs, sizes)
+    ]

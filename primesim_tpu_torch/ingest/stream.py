@@ -137,6 +137,11 @@ class StreamEngine:
         # telemetry sink (obs.Recorder): None records nothing
         self.obs = None
         self.obs_label = "stream"
+        # attestation chain (attest.SoloAttest), window-scoped: the stream
+        # engine's natural chunk is the window, observed once after it is
+        # absorbed (never per host chunk), with the cursors in the digest;
+        # None hashes nothing
+        self.attest = None
 
     def _fill_window(self):
         """The next window of every core's stream from the cursors: the
@@ -193,6 +198,8 @@ class StreamEngine:
                 self.obs_label, k, t3 - t0, self.host_counters,
                 phases={"fill": t1 - t0, "dispatch": t2 - t1, "absorb": t3 - t2},
             )
+        if self.attest is not None:
+            self.attest.observe(self)
         finished = bool((at_end & exhausted).all())
         if not finished and k == 0 and not consumed.any():
             raise RuntimeError(

@@ -48,13 +48,20 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def build_dir() -> Path:
+def source_key() -> str:
+    """sha256 of the nvcc flags and every kernel source and header: what
+    a build is keyed by, and the `kernels` field of the attestation
+    toolchain fingerprint."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for f in sorted(CSRC.iterdir()):
         if f.suffix in (".cu", ".cuh"):
             h.update(f.name.encode())
             h.update(f.read_bytes())
-    return BUILD_ROOT / h.hexdigest()[:16]
+    return h.hexdigest()
+
+
+def build_dir() -> Path:
+    return BUILD_ROOT / source_key()[:16]
 
 
 def build() -> Path:

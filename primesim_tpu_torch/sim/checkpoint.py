@@ -1,6 +1,7 @@
-"""Checkpoint / resume of one engine, one fleet or one stream (SURVEY.md
-§5.4), and the warm-state cache of prefix forking (DESIGN.md §16): the
-JAX package's `sim/checkpoint.py` for the port, in its file format.
+"""Checkpoint / resume of one engine, one fleet, one stream or one fleet
+element (SURVEY.md §5.4), and the warm-state cache of prefix forking
+(DESIGN.md §16): the JAX package's `sim/checkpoint.py` for the port, in
+its file format.
 
 A checkpoint is one `.npz`: every state field (nested knobs and fault
 state flattened to `state_<field>__<sub>` keys), the 64-bit counter and
@@ -12,19 +13,30 @@ values (seed and thresholds, in [0, 2^32)) are written as the JAX
 state's uint32 and read back to int64. Prefix-fork provenance (the steps
 of shared prefix an engine or each fleet element was forked from, and
 the warm-cache key of that prefix) is written and read as the JAX
-package does; attestation members are not written. A fleet snapshot
-holds the batched state (leading element axis), per-element cycle bases,
-step counts and config and trace fingerprints, and the [n_counters, B, C]
-host counters, under the `fleet` key. A stream snapshot (a
-`StreamEngine` at a window boundary) adds the per-core stream cursors
-and the window size, under the `stream` key.
+package does. A fleet snapshot holds the batched state (leading element
+axis), per-element cycle bases, step counts and config and trace
+fingerprints, and the [n_counters, B, C] host counters, under the
+`fleet` key. A stream snapshot (a `StreamEngine` at a window boundary)
+adds the per-core stream cursors and the window size, under the `stream`
+key. An element snapshot (one serving-fleet slot, solo-shaped, under the
+`element` key) is the serving daemon's per-job checkpoint: it splices
+into any slot of any serving fleet of the same geometry.
+
+Attestation (DESIGN.md §24): when the engine carries a fingerprint chain
+(`engine.attest`), solo and stream snapshots add the chain's members
+(`attest_head`, `attest_chunks`, `attest_start`, `attest_chunk_steps`),
+fleet snapshots an `attest_json` list, and element snapshots also an
+`attest_payload_sha` self-digest of their arrays taken before the bytes
+go to disk; the loaders seed the engine's chain from them, so a resumed
+run continues the same chain, across the packages too. With no chain the
+writers add nothing: an attest-off snapshot holds exactly the members it
+held before attestation existed.
 
 Durability (DESIGN.md §10): every save goes through `atomic_save_npz`: a
 disk-pressure preflight (`util/diskpressure.py`) before any byte lands, a
-writer-unique temp file, fsync, `os.replace`, a directory fsync; a
-per-array CRC32 manifest turns silent media corruption into a typed
-`CheckpointCorrupt` at load time. The JAX package's chaos site around
-that write is not ported yet.
+writer-unique temp file, fsync, the chaos site `checkpoint.write`,
+`os.replace`, a directory fsync; a per-array CRC32 manifest turns silent
+media corruption into a typed `CheckpointCorrupt` at load time.
 """
 
 from __future__ import annotations
@@ -37,8 +49,9 @@ import zlib
 
 import numpy as np
 
+from ..chaos import sites as chaos
 from ..config.machine import MachineConfig
-from ..convert import state_from_numpy, state_to_numpy
+from ..convert import state_from_numpy, to_host
 from ..stats.counters import COUNTER_NAMES
 from ..util import diskpressure
 
@@ -97,6 +110,9 @@ def atomic_save_npz(path: str, **arrays) -> None:
             np.savez_compressed(f, **named)
             f.flush()
             os.fsync(f.fileno())
+        # chaos durable-write site: a torn/fsync fault here dies BEFORE
+        # the rename, so `path` keeps the previous complete snapshot
+        chaos.durable("checkpoint.write", path=tmp)
         os.replace(tmp, path)
         # fsync the directory so the rename itself survives power loss
         dfd = os.open(os.path.dirname(os.path.abspath(path)), os.O_RDONLY)
@@ -169,17 +185,39 @@ def _str_field(z, key: str) -> str:
 def _state_arrays(st) -> dict[str, np.ndarray]:
     """The state as npz arrays: plain fields as `state_<name>`, the nested
     knobs and fault state as `state_<name>__<sub>`, the fault state's
-    uint32 values as uint32."""
-    arrays = {}
-    for k, v in state_to_numpy(st).items():
-        if k in _NESTED:
-            for kk, vv in v.items():
-                if kk in _U32.get(k, ()):
-                    vv = vv.astype(np.uint32)
-                arrays[f"state_{k}__{kk}"] = vv
-        else:
-            arrays[f"state_{k}"] = v
-    return arrays
+    uint32 values as uint32, all brought to the host in one transfer
+    (`convert.to_host`). The order is the JAX package's leaf order
+    (`jax.tree_util.tree_leaves` of its MachineState: field order, the
+    nested tuples in their own field order), so the values are also the
+    leaves an attestation digest hashes (attest/chain.py)."""
+    return _state_arrays_many([st])[0]
+
+
+def _state_arrays_many(states) -> list[dict[str, np.ndarray]]:
+    """`_state_arrays` of several states (a fleet's element views) with
+    one transfer for all of them."""
+    from .state import MachineState
+
+    names, tensors = [], []
+    for st in states:
+        for f in MachineState._fields:
+            v = getattr(st, f)
+            if f in _NESTED:
+                for kk in type(v)._fields:
+                    names.append((f"state_{f}__{kk}", kk in _U32.get(f, ())))
+                    tensors.append(getattr(v, kk))
+            else:
+                names.append((f"state_{f}", False))
+                tensors.append(v)
+    out, per = [], len(names) // max(1, len(states))
+    host = to_host(tensors)
+    for j in range(len(states)):
+        out.append({
+            name: a.astype(np.uint32) if u32 else a
+            for (name, u32), a in zip(names[j * per:(j + 1) * per],
+                                      host[j * per:(j + 1) * per])
+        })
+    return out
 
 
 def _state_from(z, cfg: MachineConfig, device, batch: int | None = None):
@@ -220,6 +258,50 @@ def trace_fingerprint(trace) -> str:
     return h.hexdigest()
 
 
+def _payload_digest(arrays: dict, cycle_base, steps_run) -> str:
+    """Self-digest over an element checkpoint's payload arrays, computed
+    from the in-memory values BEFORE the bytes head to disk. The CRC
+    manifest proves the file holds what was written; this proves what
+    was written is what the engine held: the two together bracket the
+    silent-corruption site `checkpoint.payload` (DESIGN.md §24)."""
+    h = hashlib.sha256(b"ptckpt-attest1")
+    h.update(np.int64(steps_run).tobytes())
+    h.update(np.int64(cycle_base).tobytes())
+    for k in sorted(arrays):
+        h.update(k.encode())
+        h.update(np.ascontiguousarray(arrays[k]))
+    return h.hexdigest()
+
+
+def _attest_members(payload: dict | None) -> dict:
+    """Optional attestation-chain members, written only when the engine
+    carries a chain."""
+    if payload is None:
+        return {}
+    return {
+        "attest_head": np.frombuffer(str(payload["head"]).encode(), dtype=np.uint8),
+        "attest_chunks": np.int64(payload["chunks"]),
+        "attest_start": np.int64(payload["start"]),
+        "attest_chunk_steps": np.int64(payload["chunk_steps"]),
+    }
+
+
+def _attest_from(z) -> dict | None:
+    if "attest_chunks" not in z:
+        return None
+    return {
+        "head": _str_field(z, "attest_head"),
+        "chunks": int(z["attest_chunks"]),
+        "start": int(z["attest_start"]),
+        "chunk_steps": int(z["attest_chunk_steps"]),
+    }
+
+
+def _chain_payload(eng) -> dict | None:
+    at = getattr(eng, "attest", None)
+    return None if at is None else at.payload()
+
+
 def save_checkpoint(path: str, engine) -> None:
     """Snapshot an Engine mid-run (drains the device counters first)."""
     engine._drain()
@@ -243,6 +325,7 @@ def save_checkpoint(path: str, engine) -> None:
         trace_sha=np.frombuffer(
             trace_fingerprint(engine.trace).encode(), dtype=np.uint8
         ),
+        **_attest_members(_chain_payload(engine)),
         **arrays,
     )
 
@@ -289,6 +372,8 @@ def load_checkpoint(path: str, engine) -> None:
     engine.host_counters = {
         k: hc[i].astype(np.int64) for i, k in enumerate(COUNTER_NAMES)
     }
+    if getattr(engine, "attest", None) is not None:
+        engine.attest.seed(_attest_from(z), int(z["steps_run"]))
 
 
 def save_stream_checkpoint(path: str, eng) -> None:
@@ -313,6 +398,7 @@ def save_stream_checkpoint(path: str, eng) -> None:
         trace_sha=np.frombuffer(
             trace_fingerprint(eng.trace).encode(), dtype=np.uint8
         ),
+        **_attest_members(_chain_payload(eng)),
         **arrays,
     )
 
@@ -343,6 +429,111 @@ def load_stream_checkpoint(path: str, eng) -> None:
     hc = z["host_counters"]
     eng.host_counters = {
         k: hc[i].astype(np.int64) for i, k in enumerate(COUNTER_NAMES)
+    }
+    if getattr(eng, "attest", None) is not None:
+        eng.attest.seed(_attest_from(z), int(z["steps_run"]))
+
+
+def save_element_checkpoint(path: str, fleet, i: int, job_id: str = "",
+                            trace=None) -> None:
+    """Snapshot ONE fleet element solo-shaped: the serving daemon's
+    per-job checkpoint (DESIGN.md §14). A fleet chunk boundary is a
+    consistent per-element cut (elements are independent), so the saved
+    state splices into ANY slot of ANY serving fleet on the same geometry
+    (`FleetEngine.restore_element`) and resumes bit-exactly.
+
+    `trace` overrides the fingerprinted workload: a job admitted into a
+    small bucket runs a leading WINDOW of its trace there while its
+    identity stays the FULL trace, which its checkpoints must verify
+    against. With an attestation chain on the slot the snapshot carries
+    the chain and a self-digest of its arrays, taken before the chaos
+    site `checkpoint.payload` and the write."""
+    fleet._drain()
+    arrays = _state_arrays(fleet.element_state(i))
+    arrays["host_counters"] = np.stack(
+        [fleet.host_counters[k][i] for k in COUNTER_NAMES]
+    )  # [n_counters, C]
+    at = fleet.attest.payload(i) if getattr(fleet, "attest", None) is not None else None
+    extra = _attest_members(at)
+    if at is not None:
+        extra["attest_payload_sha"] = np.frombuffer(
+            _payload_digest(arrays, fleet.cycle_base[i], fleet.steps_run[i]).encode(),
+            dtype=np.uint8,
+        )
+    chaos.corrupt("checkpoint.payload", {"host_counters": arrays["host_counters"]})
+    pre = getattr(fleet, "prefix_steps", None)
+    keys = getattr(fleet, "prefix_cache_keys", None)
+    atomic_save_npz(
+        path,
+        format=np.int64(_FORMAT),
+        element=np.int64(1),
+        cycle_base=np.int64(fleet.cycle_base[i]),
+        steps_run=np.int64(fleet.steps_run[i]),
+        prefix_steps=np.int64(int(pre[i]) if pre is not None else 0),
+        prefix_cache_key=np.frombuffer(
+            str((keys[i] if keys is not None else "") or "").encode(), dtype=np.uint8
+        ),
+        job_id=np.frombuffer(str(job_id).encode(), dtype=np.uint8),
+        config_json=np.frombuffer(fleet.elem_cfgs[i].to_json().encode(), dtype=np.uint8),
+        trace_sha=np.frombuffer(
+            trace_fingerprint(trace if trace is not None else fleet.traces[i]).encode(),
+            dtype=np.uint8,
+        ),
+        **extra,
+        **arrays,
+    )
+
+
+def load_element_checkpoint(path: str, cfg, trace, device="cpu") -> dict:
+    """Load a per-job element checkpoint (the port's or the JAX
+    package's), checked against the job's effective config and trace
+    (fingerprints, as the solo loader checks them) and, when it carries
+    one, against its attestation self-digest (`AttestationError` when the
+    payload is not what the engine committed). Returns the dict
+    `FleetEngine.restore_element` takes: the solo-shaped state on
+    `device`, the 64-bit cycle base and step count, the host counters,
+    the job id, prefix provenance and the chain payload (None without)."""
+    z = load_verified_npz(path)
+    _require_format(z, path)
+    if "element" not in z:
+        raise ValueError(f"{path}: not a compatible element checkpoint")
+    if MachineConfig.from_json(bytes(z["config_json"]).decode()) != cfg:
+        raise ValueError(f"{path}: checkpoint config does not match job")
+    if bytes(z["trace_sha"]).decode() != trace_fingerprint(trace):
+        raise ValueError(f"{path}: checkpoint trace does not match job")
+    if z["state_counters"].shape[0] != len(COUNTER_NAMES):
+        raise ValueError(
+            f"{path}: checkpoint has {z['state_counters'].shape[0]} counter "
+            f"rows but this build defines {len(COUNTER_NAMES)} — saved by an "
+            "incompatible version"
+        )
+    if "attest_payload_sha" in z:
+        from ..attest.errors import AttestationError
+
+        arrays = {k: v for k, v in z.items() if k.startswith("state_")}
+        arrays["host_counters"] = z["host_counters"]
+        got = _payload_digest(arrays, z["cycle_base"], z["steps_run"])
+        if got != _str_field(z, "attest_payload_sha"):
+            raise AttestationError(
+                f"{path}: checkpoint payload does not match its attest "
+                "self-digest — the file verifies its CRC manifest but "
+                "holds values the engine never committed (silent "
+                "corruption between hash and write)",
+                site="checkpoint.payload",
+                unit=_str_field(z, "job_id"),
+            )
+    hc = z["host_counters"]
+    return {
+        "state": _state_from(z, cfg, device),
+        "cycle_base": np.int64(z["cycle_base"]),
+        "steps_run": np.int64(z["steps_run"]),
+        "job_id": bytes(z["job_id"]).decode(),
+        "prefix_steps": int(z["prefix_steps"]) if "prefix_steps" in z else 0,
+        "prefix_cache_key": _str_field(z, "prefix_cache_key") or None,
+        "host_counters": {
+            k: hc[i].astype(np.int64) for i, k in enumerate(COUNTER_NAMES)
+        },
+        "attest": _attest_from(z),
     }
 
 
@@ -378,6 +569,12 @@ def save_fleet_checkpoint(path: str, fleet) -> None:
         trace_shas=np.frombuffer(
             ",".join(trace_fingerprint(t) for t in fleet.traces).encode(),
             dtype=np.uint8,
+        ),
+        **(
+            {"attest_json": np.frombuffer(
+                json.dumps([fleet.attest.payload(i) for i in range(B)],
+                           sort_keys=True).encode(), dtype=np.uint8)}
+            if getattr(fleet, "attest", None) is not None else {}
         ),
         **arrays,
     )
@@ -419,6 +616,12 @@ def load_fleet_checkpoint(path: str, fleet) -> None:
     fleet.host_counters = {
         k: hc[i].astype(np.int64) for i, k in enumerate(COUNTER_NAMES)
     }
+    if getattr(fleet, "attest", None) is not None and "attest_json" in z:
+        from ..attest import AttestChain
+
+        for i, p in enumerate(json.loads(bytes(z["attest_json"]).decode())):
+            if p and fleet.attest.chain(i) is not None:
+                fleet.attest.chains[i] = AttestChain.from_payload(p)
 
 
 # ---------------------------------------------------------------------------

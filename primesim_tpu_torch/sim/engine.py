@@ -1115,6 +1115,9 @@ class Engine:
         # telemetry sink (obs.Recorder): None records nothing
         self.obs = None
         self.obs_label = "engine"
+        # attestation chain (attest.SoloAttest): None hashes nothing; set,
+        # it observes every committed chunk of run_steps (DESIGN.md §24)
+        self.attest = None
         # prefix-fork provenance (checkpoint format 6 on): the steps of
         # shared prefix this run was forked from and the warm-cache key of
         # that prefix (0 and None: the run simulated from step 0 itself)
@@ -1205,6 +1208,9 @@ class Engine:
         done = self.done()
         while self.steps_run < target and not done:
             done = self._chunk()
+            if self.attest is not None:
+                # after the drain and the rebase: the committed values
+                self.attest.observe(self)
             if debug_invariants:
                 self.verify_invariants()
         return done

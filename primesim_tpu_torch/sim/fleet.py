@@ -33,10 +33,25 @@ scrub is the identity where nobody dies).
 
 Prefix forking (`fork_element`, DESIGN.md §16) overlays a shared
 prefix's snapshot into a slot and reseeds the slot's own inputs
-(`sim/prefix.py` runs the prefix). Not ported here: slot surgery for a
-serving fleet (`make_slots`, `replace_element`, `clear_element`, and of
-`restore_element` more than forking needs), the shard x vmap mesh and
-attestation.
+(`sim/prefix.py` runs the prefix).
+
+Slot surgery for the serving daemon (serve/scheduler.py): `make_slots`
+builds an all-idle fleet whose event rows hold up to a fixed capacity
+(`min_events_capacity`) and whose sync phase is always on
+(`force_sync`), so its shapes never change while jobs come and go;
+`replace_element` splices a workload into a slot (its event row, a fresh
+init state, zeroed host accumulators), `clear_element` retires a slot to
+the idle workload, `restore_element` overlays an element checkpoint, and
+`upload_events` copies the splices' event rows to the card once per
+serving tick. A splice writes one row of the batched state in place, so
+it drops the host's cached live flags and step numbers (`_host`).
+
+Attestation (`self.attest`, an `attest.FleetAttest` or None): after each
+chunk's drain and rebase, the elements live at the chunk's start advance
+their chains, so a fleet element's head equals its solo run's. The chaos
+site `fleet.counters` may flip a drained host counter just before that.
+
+Not ported: the shard x vmap mesh and overlapped dispatch.
 """
 
 from __future__ import annotations
@@ -47,7 +62,9 @@ import time
 import numpy as np
 import torch
 
+from ..chaos import sites as chaos
 from ..config.machine import MachineConfig, check_port_supported
+from ..convert import to_host
 from ..faults import inject
 from ..faults.schedule import fault_state_from_config
 from ..stats.counters import COUNTER_NAMES
@@ -194,6 +211,8 @@ class FleetEngine:
         overrides: list[dict] | None = None,
         chunk_steps: int = 256,
         device=None,
+        min_events_capacity: int = 0,
+        force_sync: bool = False,
     ):
         if cfg.pallas_reduce:
             raise ValueError(
@@ -235,16 +254,21 @@ class FleetEngine:
                 ((ty == EV_LOCK) | (ty == EV_UNLOCK) | (ty == EV_BARRIER)).any()
             )
         # shared: ANY element with sync events turns phase 2.7 on for the
-        # whole fleet (a no-op for the others)
-        self.has_sync = has_sync
+        # whole fleet (a no-op for the others); `force_sync` pins it on so
+        # a serving fleet's launches never depend on its occupants
+        self.has_sync = has_sync or force_sync
         # events: per-element line-event arrays END-padded to a common T
-        # and stacked [B, C, T, 4] (the engines clamp ptr to T-1)
-        T = max(t.max_len for t in traces)
+        # and stacked [B, C, T, 4] (the engines clamp ptr to T-1);
+        # `min_events_capacity` reserves room for traces spliced in later
+        # (replace_element). The host copy stays: splices edit it
+        T = max(max(t.max_len for t in traces), int(min_events_capacity))
         evs = np.zeros((B, C, T, 4), np.int32)
         evs[:, :, :, 0] = EV_END
         for i, t in enumerate(traces):
             e = np.asarray(t.line_events(cfg.line_bits))
             evs[i, :, : e.shape[1]] = e
+        self._events_np = evs
+        self._dirty: set[int] = set()  # rows spliced since the last upload
         self.events = torch.from_numpy(evs).to(self.device)
         # same per-chunk counter-accumulator bound as Engine, over the
         # worst event of ANY element
@@ -284,7 +308,10 @@ class FleetEngine:
         # prefix was saved or loaded under (None: ran from step 0)
         self.prefix_steps = np.zeros(B, np.int64)
         self.prefix_cache_keys: list = [None] * B
+        # attestation chains (attest.FleetAttest): None hashes nothing
+        self.attest = None
         self._stepped = None  # the state the last chunk left (see _host)
+        self._drained = None  # a state whose device counters are zero
 
     @property
     def n_elements(self) -> int:
@@ -294,20 +321,23 @@ class FleetEngine:
 
     def _host(self):
         """(live [B] bool, host step numbers [B]) of the current state.
-        Kept from the last chunk's transfer; re-read (one synchronisation)
-        only when the state is not the one that chunk left, e.g. at the
-        start or after a checkpoint was loaded."""
+        Kept from the last chunk's transfer; re-read in ONE transfer (with
+        a faulted fleet's schedules) only when the state is not the one
+        that chunk left: at the start, after a checkpoint was loaded, or
+        after slot surgery wrote rows in place."""
         if self.state is not self._stepped:
-            self._live = ~self.done_mask()
-            self._live_dev = torch.from_numpy(self._live.astype(np.int32)).to(self.device)
-            self._host_step = self.state.step.cpu().numpy().astype(np.int64)
+            live = not_done(self.cfg, self.events, self.state).any(-1)
+            fs, keys = self.state.faults, ()
             if self.cfg.faults_enabled:
-                fs = self.state.faults
-                self._fs_host = [
-                    {k: getattr(fs, k)[i].cpu().numpy() for k in
-                     ("seed", "ev_step", "ev_kind", "flip_l1", "due_rate")}
-                    for i in range(self.n_elements)
-                ]
+                keys = ("seed", "ev_step", "ev_kind", "flip_l1", "due_rate")
+            host = to_host([live, self.state.step, *(getattr(fs, k) for k in keys)])
+            self._live = host[0].copy()
+            self._live_dev = live.to(_i32)
+            self._host_step = host[1].astype(np.int64)
+            self._fs_host = [
+                {k: a[i].copy() for k, a in zip(keys, host[2:])}
+                for i in range(self.n_elements)
+            ] if keys else None
             self._stepped = self.state
         return self._live, self._host_step
 
@@ -326,6 +356,10 @@ class FleetEngine:
         return out
 
     def _drain(self) -> None:
+        """Fold the device counters into the host's. Free after a chunk
+        (its drain zeroed them on the card): no transfer then."""
+        if self.state is self._drained:
+            return
         cnt = self.state.counters.cpu().numpy()  # [B, n_counters, C]
         for i, k in enumerate(COUNTER_NAMES):
             self.host_counters[k] += cnt[:, i].astype(np.int64)
@@ -333,6 +367,7 @@ class FleetEngine:
         self.state = self.state._replace(counters=torch.zeros_like(self.state.counters))
         if kept:
             self._stepped = self.state
+        self._drained = self.state
 
     def _event_types_at_ptr(self) -> np.ndarray:
         """[B, C] event type codes under each element's trace pointer
@@ -353,7 +388,9 @@ class FleetEngine:
         return ~not_done(self.cfg, self.events, self.state).cpu().numpy()
 
     def done_mask(self) -> np.ndarray:
-        return self.core_done_mask().all(axis=1)
+        """[B] bool: elements every core of which is at END or dead (from
+        the last chunk's transfer when the state is the one it left)."""
+        return ~self._host()[0]
 
     def done(self) -> bool:
         return bool(self.done_mask().all())
@@ -426,7 +463,10 @@ class FleetEngine:
         self._host_step = host_step + np.where(stepping, self.chunk_steps, 0)
         self._live = host[-B:] != 0
         self._live_dev = nd_any.to(_i32)
-        self._stepped = self.state
+        self._stepped = self._drained = self.state
+        self._corrupt_hook()
+        if self.attest is not None:
+            self.attest.observe(self, live)
         if self.obs is not None:
             t3 = time.perf_counter()
             self.obs.chunk_committed(
@@ -434,6 +474,20 @@ class FleetEngine:
                 phases={"dispatch": t1 - t0, "drain": t2 - t1, "rebase": t3 - t2},
             )
         return self._live
+
+    def _corrupt_hook(self) -> None:
+        """Silent-corruption site `fleet.counters` (DESIGN.md §24): a flip
+        lands after the drain and before the chunk is fingerprinted, so
+        the chain honestly covers the corrupted values, as a flaky DIMM
+        would. Detection is attestation's cross-execution compare."""
+        chaos.corrupt("fleet.counters", self.host_counters)
+
+    def step_chunk(self) -> None:
+        """Advance the whole batch by exactly ONE committed chunk (the
+        serving tick): every element steps; finished and idle elements'
+        steps are no-ops but for their step counters, and their
+        `steps_run` stays put."""
+        self._chunk_once()
 
     def block_until_ready(self) -> None:
         if self.device.type == "cuda":
@@ -460,21 +514,129 @@ class FleetEngine:
         self._drain()
         return {k: v[i] for k, v in self.host_counters.items()}
 
-    # ---- prefix forking --------------------------------------------------
+    # ---- slot surgery (serve/) and prefix forking -----------------------
+
+    @classmethod
+    def make_slots(cls, cfg: MachineConfig, n_slots: int, capacity_events: int,
+                   chunk_steps: int = 256, device=None) -> "FleetEngine":
+        """An all-idle serving fleet: `n_slots` elements holding the empty
+        workload (`idle_trace`), with event rows reserved for traces of up
+        to `capacity_events` per core and the sync phase on. Jobs are
+        spliced into free slots with `replace_element` and retired with
+        `clear_element`; the shapes and the launches never change over
+        the fleet's service lifetime."""
+        return cls(
+            cfg,
+            [idle_trace(cfg.n_cores)] * n_slots,
+            chunk_steps=chunk_steps,
+            device=device,
+            min_events_capacity=capacity_events,
+            force_sync=True,
+        )
+
+    @property
+    def events_capacity(self) -> int:
+        """Per-core event capacity (the padded T of the event rows): the
+        longest trace `replace_element` accepts."""
+        return int(self._events_np.shape[2])
+
+    def replace_element(self, i: int, trace: Trace, override: dict | None = None,
+                        base_cfg: MachineConfig | None = None,
+                        upload: bool = True) -> None:
+        """Splice a new (trace, override) workload into batch position `i`
+        without touching any other element: rewrite its event row
+        (END-padded to the capacity), reset its machine state to
+        `init_state` of its effective config, and zero its host
+        accumulators. The previous occupant's device counters are drained
+        first (free right after a chunk).
+
+        `base_cfg` (default: the fleet's config) admits under a reloaded
+        config (e.g. a SIGHUP-refreshed fault schedule); it must share the
+        fleet's geometry. `upload=False` defers the row's copy to the card
+        so that a tick's splices share one `upload_events()`."""
+        ov = dict(override or {})
+        ecfg = apply_overrides(base_cfg or self.cfg, ov)
+        if ecfg.timing_normalized() != self.geom_cfg:
+            raise ValueError(
+                "replace_element: effective config does not share this "
+                "fleet's compiled geometry"
+            )
+        if trace.n_cores != self.cfg.n_cores:
+            raise ValueError(
+                f"trace has {trace.n_cores} cores, config {self.cfg.n_cores}"
+            )
+        validate_sync(trace, self.cfg.barrier_slots)
+        e = np.asarray(trace.line_events(self.cfg.line_bits))
+        T = self.events_capacity
+        if e.shape[1] > T:
+            raise ValueError(
+                f"trace needs {e.shape[1]} event slots/core but this "
+                f"fleet's capacity is {T}"
+            )
+        per_step = _trace_per_step_bound(self.cfg, trace)
+        if self.chunk_steps * per_step >= 1 << _ACC_BITS:
+            raise ValueError(
+                f"chunk_steps={self.chunk_steps} x max per-step "
+                f"instruction increment {per_step} overflows the "
+                f"2^{_ACC_BITS} per-chunk counter accumulator"
+            )
+        row = self._events_np[i]
+        row[:] = 0
+        row[:, :, 0] = EV_END
+        row[:, : e.shape[1]] = e
+        self._dirty.add(i)
+        self.traces[i] = trace
+        self.elem_cfgs[i] = ecfg
+        self.element_overrides[i] = ov
+        # flush the previous occupant's device counters before its state
+        # row is overwritten (harvest reads host_counters afterwards)
+        self._drain()
+        for o, x in zip(leaves(self.state), leaves(init_state(ecfg, self.device))):
+            o[i].copy_(x)
+        self.cycle_base[i] = 0
+        self.steps_run[i] = 0
+        self.prefix_steps[i] = 0
+        self.prefix_cache_keys[i] = None
+        for k in self.host_counters:
+            self.host_counters[k][i] = 0
+        self._stepped = None  # the row changed in place: re-read the host caches
+        # a new occupant never inherits the previous job's chain; the
+        # owner re-tracks the slot if the new workload is attested
+        if self.attest is not None:
+            self.attest.drop(i)
+        if upload:
+            self.upload_events()
+
+    def clear_element(self, i: int, upload: bool = True) -> None:
+        """Retire batch position `i` to the idle workload (done at step
+        0): the slot stops contributing work and is ready for the next
+        `replace_element`."""
+        self.replace_element(i, idle_trace(self.cfg.n_cores), upload=upload)
+
+    def upload_events(self) -> None:
+        """Copy the event rows spliced since the last call to the card.
+        One call covers any number of `upload=False` splices."""
+        for i in sorted(self._dirty):
+            self.events[i].copy_(torch.from_numpy(self._events_np[i]))
+        self._dirty.clear()
 
     def restore_element(self, i: int, snap: dict) -> None:
-        """Overlay a solo snapshot ({state, cycle_base, steps_run,
-        host_counters}: a prefix run's, or a warm-cache entry's) into
-        batch position `i`: its mid-run machine state and 64-bit host
-        accumulators, copied into the slot in place. The host's cached
-        live flags and step numbers are re-read at the next chunk."""
+        """Overlay a solo snapshot into batch position `i`: an element
+        checkpoint's (checkpoint.load_element_checkpoint), a prefix run's
+        or a warm-cache entry's ({state, cycle_base, steps_run,
+        host_counters}): its mid-run machine state and 64-bit host
+        accumulators, copied into the slot in place. For a checkpoint,
+        call `replace_element(i, trace, override)` with the SAME workload
+        first; the resumed element is then bit-exact with one never
+        interrupted. The host's cached live flags and step numbers are
+        re-read at the next chunk."""
         for o, x in zip(leaves(self.state), leaves(snap["state"])):
             o[i].copy_(x)
         self.cycle_base[i] = snap["cycle_base"]
         self.steps_run[i] = snap["steps_run"]
         for k in COUNTER_NAMES:
             self.host_counters[k][i] = snap["host_counters"][k]
-        self._stepped = None
+        self._stepped = self._drained = None
 
     def fork_element(self, i: int, snap: dict, cache_key: str | None = None) -> None:
         """Fork batch position `i` from a shared-prefix snapshot: overlay

@@ -42,10 +42,16 @@ and adds:
 - **chaos narration**: under an armed fault model the supervisor logs
   the schedule and every fault-counter movement at chunk boundaries.
 
+An engine's attestation chain (`engine.attest`) rolls back with its
+state: the snapshot before each attempt keeps the chain's head and
+count, so a retried chunk is never linked twice, and an OOM halving
+records the new cadence on the chain (`note_cadence`), which makes it
+incomparable to a full-cadence chain instead of falsely divergent.
+
 Not ported yet: the device-loss reshard ladder (a `device_loss` failure
 takes the transient path, as the JAX supervisor does when there is
-nothing to demote), the chaos revocation site, the attestation rollback
-and the overlapped-dispatch discard.
+nothing to demote), the chaos revocation site and the overlapped-dispatch
+discard.
 
 `validate_fleet_element` and `build_fleet_isolated` quarantine a sweep's
 malformed elements before batching.
@@ -430,6 +436,10 @@ class RunSupervisor:
         if self.kind == "stream":
             snap["cursor"] = eng.cursor.copy()
             snap["window_chunks"] = list(eng.window_chunks)
+        if getattr(eng, "attest", None) is not None:
+            # the chain must roll back with the state it covers, or a
+            # retried chunk would be linked twice
+            snap["attest"] = eng.attest.snapshot()
         return snap
 
     def _rollback(self, snap: dict) -> None:
@@ -444,6 +454,8 @@ class RunSupervisor:
         if self.kind == "stream":
             eng.cursor = snap["cursor"]
             eng.window_chunks = snap["window_chunks"]
+        if "attest" in snap and getattr(eng, "attest", None) is not None:
+            eng.attest.restore(snap["attest"])
         eng._stepped = None
 
     def _advance_chunk(self, budget_left: int) -> int:
@@ -492,6 +504,12 @@ class RunSupervisor:
                 if kind == "oom" and chunk > 1:
                     # halving only changes the drain/rebase cadence
                     self.engine.chunk_steps = max(1, chunk // 2)
+                    at = getattr(self.engine, "attest", None)
+                    if at is not None:
+                        # the chain is cadence-scoped (§24): record the
+                        # halving so it reads as incomparable, never as a
+                        # false divergence
+                        at.note_cadence(self.engine.chunk_steps)
                     self._log(
                         "degrade",
                         f"device OOM: chunk_steps {chunk} -> "

@@ -10,8 +10,9 @@ writes:
   `checkpoint.prune_warm_cache` reads it before the
   `PRIMETPU_CACHE_MAX_BYTES` environment variable;
 - **preflight** (`preflight(path, need_bytes, kind)`) runs inside
-  `checkpoint.atomic_save_npz` before the temp file exists. When free
-  space cannot cover the write, it runs the ladder;
+  `checkpoint.atomic_save_npz` before the temp file exists and inside
+  `serve/journal.py::JobJournal.append` before a record is written. When
+  free space cannot cover the write, it runs the ladder;
 - **the ladder**: registered evictors, cheapest to recreate first
   (caches at priority 0, rotated snapshots at priority 1), then
   registered compactors, and only when both fail the typed
@@ -19,15 +20,17 @@ writes:
   a run (the supervisor skips a rotation); it does not crash it.
 
 The registries are the port's own, separate from the JAX module's. The
-JAX module's chaos `disk.preflight` site (a plan event that makes
-preflight see zero free bytes) is not ported yet: `free_bytes` reads the
-filesystem only.
+chaos `disk.preflight` site (`chaos/sites.py::disk_full`): a plan event
+opens a window during which `free_bytes` reports zero, so the ladder runs
+on a healthy disk.
 """
 
 from __future__ import annotations
 
 import os
 import shutil
+
+from ..chaos import sites as chaos
 
 #: free-bytes floor kept on the filesystem beyond the write itself
 DEFAULT_HEADROOM_BYTES = 8 << 20
@@ -105,9 +108,10 @@ def unregister(name: str) -> None:
 
 
 def free_bytes(path: str) -> int:
-    """Free bytes on `path`'s filesystem. (The JAX module's chaos
-    `disk.preflight` site, which reports zero here while a plan's ENOSPC
-    window is open, joins with the chaos sites.)"""
+    """Free bytes on `path`'s filesystem, as the ladder should see them:
+    zero while a chaos ENOSPC window (`disk.preflight` site) is open."""
+    if chaos.disk_full("disk.preflight"):
+        return 0
     probe = path if os.path.isdir(path) else (os.path.dirname(path) or ".")
     try:
         return int(shutil.disk_usage(probe).free)

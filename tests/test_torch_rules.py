@@ -22,7 +22,16 @@ machine and four of rung 3, each element's digest under its own timing
 overrides (`fleet_headline.json`, `fleet_rung3.json`); and two streamed
 runs, the headline through 256-event windows and rung 5 through 128-event
 windows, each a JAX `StreamEngine` digest with its exact step count and
-its window count (`stream_headline.json`, `stream_rung5.json`).
+its window count (`stream_headline.json`, `stream_rung5.json`); two
+attestation chains, the headline at chunks of 512 and the faulted
+headline at chunks of 256, each with its head after every chunk
+(`attest_headline.json`, `attest_faults.json`); the served jobs' JAX
+solo runs with their chains, four of fleet_headline's elements and four
+small jobs on the shipped rung-2 machine (`serve_headline.json`,
+`serve_rung2.json`); and digests at a cut depth for the card phases that
+run shallower than the whole run (`fleet_rung3_cut.json`,
+`multiprog_rung3_cut.json`, both at step 1536). The small ones are
+re-derived from JAX in tier 1, the full-width ones by slow tests.
 Regenerate them (after a deliberate change of
 the simulated model) with:
     PYTHONPATH=. python tests/test_torch_rules.py --write-fixture [name ...]
@@ -93,16 +102,26 @@ def test_import_leaves_jax_and_the_jax_package_out():
 
 def test_the_rules_cover_every_module_of_the_port():
     """The import and AST rules walk the whole package: the telemetry,
-    checkpoint, XML, fleet, supervision, disk-governance and ingest
-    modules are among the modules they check."""
+    checkpoint, XML, fleet, supervision, disk-governance, ingest,
+    attestation, chaos and serving modules are among the modules they
+    check (the serving daemon's Prometheus renderer `obs/prom.py`
+    included), and the JAX package's unported serving modules are not
+    in the port."""
     rel = {os.path.relpath(p, PKG) for p in _modules()}
     for m in ("obs/__init__.py", "obs/metrics.py", "obs/recorder.py", "obs/trace.py",
-              "sim/checkpoint.py", "config/xml_compat.py", "cli.py", "sim/fleet.py",
-              "sim/prefix.py", "sim/supervisor.py", "util/__init__.py",
+              "obs/prom.py", "sim/checkpoint.py", "config/xml_compat.py", "cli.py",
+              "sim/fleet.py", "sim/prefix.py", "sim/supervisor.py", "util/__init__.py",
               "util/backoff.py", "util/diskpressure.py", "ingest/__init__.py",
-              "ingest/stream.py", "ingest/ring.py", "ingest/capture.py"):
+              "ingest/stream.py", "ingest/ring.py", "ingest/capture.py",
+              "attest/__init__.py", "attest/errors.py", "attest/chain.py",
+              "chaos/__init__.py", "chaos/plan.py", "chaos/sites.py",
+              "serve/__init__.py", "serve/jobs.py", "serve/protocol.py", "serve/quota.py",
+              "serve/journal.py", "serve/client.py", "serve/scheduler.py",
+              "serve/server.py"):
         assert m in rel, m
-    assert not any(r.startswith("obs/prom") for r in rel)
+    for m in ("serve/replicate.py", "serve/dispatch.py", "attest/audit.py",
+              "chaos/campaign.py"):
+        assert m not in rel, m
 
 
 def test_no_module_of_the_port_imports_jax():
@@ -812,6 +831,272 @@ def _write_stream(name):
           f"windows, {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# ---- attestation, serving and cut-depth fixtures ---------------------------
+#
+# attest_headline / attest_faults: a full-width fixture's machine and trace
+# run by the JAX Engine's chunked loop with a SoloAttest chain at
+# `chunk_steps`, recording the chain head after every chunk (a mismatch on
+# the card names the first chunk whose committed state differs), the final
+# payload and the run's digest. serve_headline: four of fleet_headline's
+# elements as serving jobs, each a solo JAX run at the fleet fixture's
+# cadence with its chain (element 0's is attest_headline's last head).
+# serve_rung2: four small jobs on the shipped rung-2 machine, each a solo
+# JAX run's served-result digest and chain at the daemon's cadence. The
+# cut-depth fixtures: a fixture's runs stopped after `steps` steps
+# (`run_steps`), for card phases that run shallower than the whole run.
+ATTEST_SPECS = {"attest_headline": ("headline", 512), "attest_faults": ("headline_faults", 256)}
+SERVE_HEADLINE_ELEMENTS = (0, 1, 2, 7)
+SERVE_RUNG2 = {
+    "config": "configs/rung2_256core_parsec.json",
+    "chunk_steps": 64,
+    "jobs": [
+        ("fft_like:n_phases=4,points_per_core=96,ins_per_mem=8,seed=%d" % s, ov)
+        for s, ov in ((51, {}), (52, {"llc_lat": 20}), (53, {"link_lat": 2}),
+                      (54, {"quantum": 500, "dram_lat": 200}))
+    ],
+}
+CUT_SPECS = {"fleet_rung3_cut": ("fleet_rung3", 1536),
+             "multiprog_rung3_cut": ("multiprog_rung3", 1536)}
+ATTEST_FIXTURES = (*ATTEST_SPECS, "serve_headline", "serve_rung2", *CUT_SPECS)
+
+
+def _jax_cfg(machine):
+    if isinstance(machine, str):
+        with open(os.path.join(REPO, machine)) as f:
+            machine = json.load(f)
+    return JCfg.from_dict(machine)
+
+
+def attested_jax_run(cfg, tr, chunk_steps):
+    """A JAX Engine's chunked run with a SoloAttest chain: (the engine,
+    the chain head after every chunk)."""
+    from primesim_tpu.attest import SoloAttest
+    from primesim_tpu.sim.engine import Engine as JEngine
+
+    eng = JEngine(cfg, tr, chunk_steps=chunk_steps)
+    eng.attest = SoloAttest(chunk_steps)
+    heads, observe = [], eng.attest.observe
+
+    def recorded(e):
+        observe(e)
+        heads.append(eng.attest.payload()["head"])
+
+    eng.attest.observe = recorded
+    eng.run_chunked()
+    return eng, heads
+
+
+def attest_fixture_of_jax(name) -> dict:
+    base, chunk = ATTEST_SPECS[name]
+    machine, trace = FULL_WIDTH_SPECS[base]
+    cfg = _jax_cfg(machine)
+    eng, heads = attested_jax_run(cfg, jax_trace(trace, cfg.line_bits), chunk)
+    return {"config": machine, "trace": trace, "chunk_steps": chunk,
+            "made_with": "the JAX Engine's run_chunked with a SoloAttest chain "
+                         "(tests/test_torch_rules.py::attest_fixture_of_jax)",
+            "heads": heads, "attest": eng.attest.payload(),
+            "digest": digest_of_jax_engine(eng)}
+
+
+def served_digest(result: dict) -> dict:
+    """What a served job's result record is held to: its fixture digest's
+    fields but the link and controller clocks (a result does not carry
+    them)."""
+    from primesim_tpu_torch.stats.digest import run_digest
+
+    d = run_digest(result["steps"], result["core_cycles"],
+                   {k: np.asarray(v) for k, v in result["counters"].items()}, [], [])
+    return {k: v for k, v in d.items() if k not in ("link_free_sha256", "dram_free_sha256")}
+
+
+def serve_headline_element(i) -> dict:
+    """fleet_headline's element i as a served job: a solo JAX run at the
+    fleet fixture's cadence with its chain."""
+    from primesim_tpu.sim.fleet import apply_overrides
+
+    machine, elements = FLEET_SPECS["fleet_headline"]
+    spec, ov = elements[i]
+    cfg = _jax_cfg(machine)
+    eng, _ = attested_jax_run(apply_overrides(cfg, ov), jax_trace(spec, cfg.line_bits), 512)
+    d = digest_of_jax_engine(eng)
+    return {"element": i, "trace": spec, "overrides": ov,
+            "digest": {k: v for k, v in d.items()
+                       if k not in ("link_free_sha256", "dram_free_sha256")},
+            "attest": eng.attest.payload()}
+
+
+def serve_rung2_job(i) -> dict:
+    """SERVE_RUNG2's job i: a solo JAX run of its folded synth spec under
+    its overrides, at the daemon's cadence with its chain."""
+    from primesim_tpu.serve.scheduler import parse_synth_spec
+    from primesim_tpu.sim.fleet import apply_overrides
+
+    spec, ov = SERVE_RUNG2["jobs"][i]
+    cfg = _jax_cfg(SERVE_RUNG2["config"])
+    eng, _ = attested_jax_run(apply_overrides(cfg, ov),
+                              parse_synth_spec(spec, cfg.n_cores, True),
+                              SERVE_RUNG2["chunk_steps"])
+    d = digest_of_jax_engine(eng)
+    return {"synth": spec, "overrides": ov,
+            "digest": {k: v for k, v in d.items()
+                       if k not in ("link_free_sha256", "dram_free_sha256")},
+            "attest": eng.attest.payload()}
+
+
+def cut_digest_of_jax(name, i=0) -> dict:
+    """The digest after CUT_SPECS[name]'s steps (`run_steps`) of its base
+    fixture's run: fleet element i's solo run, or the solo run."""
+    from primesim_tpu.sim.engine import Engine as JEngine
+    from primesim_tpu.sim.fleet import apply_overrides
+
+    base, steps = CUT_SPECS[name]
+    if base in FLEET_SPECS:
+        machine, elements = FLEET_SPECS[base]
+        spec, ov = elements[i]
+    else:
+        (machine, spec), ov = FULL_WIDTH_SPECS[base], {}
+    cfg = _jax_cfg(machine)
+    eng = JEngine(apply_overrides(cfg, ov), jax_trace(spec, cfg.line_bits), chunk_steps=512)
+    eng.run_steps(steps)
+    return digest_of_jax_engine(eng)
+
+
+def _write_json(name, fx):
+    path = os.path.join(PKG, "fixtures", f"{name}.json")
+    with open(path, "w") as f:
+        json.dump(fx, f, indent=1)
+        f.write("\n")
+    print(f"wrote {path}", flush=True)
+
+
+def _write_attest_fixtures(names, workers=6):
+    """Write the attestation, serving and cut-depth fixtures, their JAX
+    runs in `workers` processes at once."""
+    import multiprocessing as mp
+
+    jobs = []
+    for n in names:
+        if n in ATTEST_SPECS:
+            jobs.append((n, attest_fixture_of_jax, (n,)))
+        elif n == "serve_headline":
+            jobs += [(n, serve_headline_element, (i,)) for i in SERVE_HEADLINE_ELEMENTS]
+        elif n == "serve_rung2":
+            jobs += [(n, serve_rung2_job, (i,)) for i in range(len(SERVE_RUNG2["jobs"]))]
+        elif n in CUT_SPECS:
+            base = CUT_SPECS[n][0]
+            count = len(FLEET_SPECS[base][1]) if base in FLEET_SPECS else 1
+            jobs += [(n, cut_digest_of_jax, (n, i)) for i in range(count)]
+    with mp.get_context("spawn").Pool(workers) as pool:
+        outs = pool.starmap(_call, [(fn, args) for _, fn, args in jobs])
+    got: dict = {}
+    for (n, _, _), out in zip(jobs, outs):
+        got.setdefault(n, []).append(out)
+    for n, outs in got.items():
+        if n in ATTEST_SPECS:
+            _write_json(n, outs[0])
+        elif n == "serve_headline":
+            _write_json(n, {
+                "config": FLEET_SPECS["fleet_headline"][0], "chunk_steps": 512,
+                "made_with": "solo JAX runs with a SoloAttest chain of fleet_headline's "
+                             "elements (tests/test_torch_rules.py::serve_headline_element)",
+                "jobs": outs})
+        elif n == "serve_rung2":
+            _write_json(n, {
+                **{k: SERVE_RUNG2[k] for k in ("config", "chunk_steps")},
+                "made_with": "solo JAX runs with a SoloAttest chain "
+                             "(tests/test_torch_rules.py::serve_rung2_job)",
+                "jobs": outs})
+        else:
+            base, steps = CUT_SPECS[n]
+            _write_json(n, {"base": base, "steps": steps,
+                            "made_with": "JAX Engine.run_steps(steps) of the base fixture's "
+                                         "run(s) (tests/test_torch_rules.py::cut_digest_of_jax)",
+                            "digests": outs})
+
+
+def _call(fn, args):
+    return fn(*args)
+
+
+def _attest_fixture(name):
+    with open(os.path.join(PKG, "fixtures", f"{name}.json")) as f:
+        return json.load(f)
+
+
+@pytest.mark.parametrize("name", ATTEST_SPECS)
+def test_attest_fixture_names_its_run_and_a_head_per_chunk(name):
+    """Each attestation fixture records its base full-width fixture's
+    machine and trace, its cadence, one head per chunk (the last one the
+    payload's) and the base run's digest."""
+    fx = _attest_fixture(name)
+    base, chunk = ATTEST_SPECS[name]
+    with open(os.path.join(PKG, "fixtures", f"{base}.json")) as f:
+        full = json.load(f)
+    assert (fx["config"], fx["trace"], fx["chunk_steps"]) == (full["config"], full["trace"], chunk)
+    assert fx["digest"] == full["digest"]
+    assert len(fx["heads"]) == fx["attest"]["chunks"] == -(-full["digest"]["steps"] // chunk)
+    assert fx["heads"][-1] == fx["attest"]["head"] and len(set(fx["heads"])) == len(fx["heads"])
+    assert (fx["attest"]["start"], fx["attest"]["chunk_steps"]) == (0, chunk)
+
+
+def test_serve_fixtures_name_their_jobs():
+    """serve_headline holds fleet_headline's elements 0, 1, 2 and 7 with
+    their digests (element 0's chain is attest_headline's); serve_rung2
+    holds SERVE_RUNG2's jobs, each a chain at its cadence covering its
+    steps."""
+    fx, fleet = _attest_fixture("serve_headline"), _fleet_fixture("fleet_headline")
+    assert fx["config"] == fleet["config"] and fx["chunk_steps"] == fleet["chunk_steps"]
+    for job, i in zip(fx["jobs"], SERVE_HEADLINE_ELEMENTS):
+        e = fleet["elements"][i]
+        assert (job["element"], job["trace"], job["overrides"]) == (i, e["trace"], e["overrides"])
+        assert job["digest"] == {k: v for k, v in e["digest"].items()
+                                 if k not in ("link_free_sha256", "dram_free_sha256")}
+    assert fx["jobs"][0]["attest"] == _attest_fixture("attest_headline")["attest"]
+    r2 = _attest_fixture("serve_rung2")
+    assert (r2["config"], r2["chunk_steps"]) == (SERVE_RUNG2["config"], SERVE_RUNG2["chunk_steps"])
+    assert [(j["synth"], j["overrides"]) for j in r2["jobs"]] == [
+        (sp, ov) for sp, ov in SERVE_RUNG2["jobs"]]
+    for j in (*fx["jobs"], *r2["jobs"]):
+        at = j["attest"]
+        assert at["chunks"] * at["chunk_steps"] == j["digest"]["steps"]
+
+
+@pytest.mark.parametrize("name", CUT_SPECS)
+def test_cut_fixtures_stop_short_of_their_full_runs(name):
+    fx = _attest_fixture(name)
+    base, steps = CUT_SPECS[name]
+    assert (fx["base"], fx["steps"]) == (base, steps)
+    full = _attest_fixture(base)
+    fulls = ([e["digest"] for e in full["elements"]] if "elements" in full
+             else [full["digest"]])
+    assert len(fx["digests"]) == len(fulls)
+    for cut, whole in zip(fx["digests"], fulls):
+        assert cut["steps"] == min(steps, whole["steps"])
+        assert (cut["instructions"] < whole["instructions"]) == (whole["steps"] > steps)
+
+
+def test_serve_rung2_fixture_matches_the_jax_engine():
+    """The first rung-2 job re-derived from JAX (a 256-core run: tier 1);
+    the full-width attestation fixtures are re-derived by the slow test
+    below."""
+    assert serve_rung2_job(0) == _attest_fixture("serve_rung2")["jobs"][0]
+
+
+@pytest.mark.slow  # 1024-core JAX runs
+@pytest.mark.parametrize("name", [*ATTEST_SPECS, "serve_headline", "serve_rung2",
+                                  *CUT_SPECS])
+def test_attest_and_serve_fixtures_match_the_jax_engine(name):
+    fx = _attest_fixture(name)
+    if name in ATTEST_SPECS:
+        assert attest_fixture_of_jax(name) == {**fx}
+    elif name == "serve_headline":
+        assert [serve_headline_element(i) for i in SERVE_HEADLINE_ELEMENTS] == fx["jobs"]
+    elif name == "serve_rung2":
+        assert [serve_rung2_job(i) for i in range(len(SERVE_RUNG2["jobs"]))] == fx["jobs"]
+    else:
+        assert [cut_digest_of_jax(name, i) for i in range(len(fx["digests"]))] == fx["digests"]
+
+
 def write_fixtures(names=()):
     import jax
 
@@ -820,12 +1105,13 @@ def write_fixtures(names=()):
 
     if names:
         _write_full_width([n for n in names if n not in ALL_FLEET_SPECS
-                           and n not in STREAM_SPECS])
+                           and n not in STREAM_SPECS and n not in ATTEST_FIXTURES])
         for n in names:
             if n in ALL_FLEET_SPECS:
                 _write_fleet(n)
             if n in STREAM_SPECS:
                 _write_stream(n)
+        _write_attest_fixtures([n for n in names if n in ATTEST_FIXTURES])
         return
     spec = {
         "config": "configs/rung1_64core_fft.json",
@@ -850,6 +1136,7 @@ def write_fixtures(names=()):
         _write_fleet(n)
     for n in STREAM_SPECS:
         _write_stream(n)
+    _write_attest_fixtures(ATTEST_FIXTURES)
 
 
 def _write_full_width(names):
