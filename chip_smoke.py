@@ -84,9 +84,11 @@ the final line:
                 on fft_like(256, 4 phases, 32 points) with two failed
                 links and flip_llc 1e-3 (router_cascade once per step).
 5. capture   -- the first 320 steps of the headline machine and of rung 3
-                on the card (chunks of 64), the first 192 of them equal to
-                the port's CPU run of them in per-core cycles, all 26
-                counters and every state field. Meanwhile the kernel inputs staged at steps 1 and 300
+                on the card (chunks of 64), the first 64 of them equal
+                to the port's CPU run of them in per-core
+                cycles, all 26 counters and every state field, and to the
+                JAX package's digest at step 64 (fixtures/headline_cut.json,
+                rung3_headline_cut.json). Meanwhile the kernel inputs staged at steps 1 and 300
                 (the headline's, and rung 3's router_cascade) are kept;
                 each kernel equals its plain version on them. Each kernel
                 is then timed alone on the later step's inputs, as the
@@ -297,7 +299,9 @@ the final line:
                 (FORK_CHECK) and equal there to fleet_fork's digests at the
                 same step. The launches count the prefix's steps and the
                 fleet's.
-   cli_supervised -- through cli_side_by_side on rung 1: `run
+   cli_supervised (in the background thread of dispatch_rung2, after
+                it; printed before phase 5) -- through
+                cli_side_by_side on rung 1: `run
                 --checkpoint-dir D --checkpoint-every 2 --guard fail
                 --attest chain`, then the same command with --resume (a
                 no-op rerun from the final snapshot, equal key for key, the
@@ -352,11 +356,11 @@ the final line:
                 Prints the wall beside the unattested headline's, the bytes
                 hashed and the transfer and hash seconds of each chunk.
    serve_headline -- `python -m primesim_tpu_torch serve` on the headline
-                machine as a child process: one bucket of 4 slots of
+                machine as a child process: one bucket of 3 slots of
                 ceil(T / 64) pages, --chunk-steps 512, --attest chain, no
-                checkpoint during the run; fleet_headline's elements 0, 1,
-                2 and 7 submitted by four `submit --synth ... --fold --vary
-                ...` processes at once. Every result's steps, instructions,
+                checkpoint during the run; fleet_headline's elements 0, 1
+                and 7 (SERVE_ELEMENTS) submitted by three `submit --synth
+                ... --fold --vary ...` processes at once. Every result's steps, instructions,
                 max core cycles, cycle and counter hashes and counter sums
                 equal the element's JAX digest and its chain head a JAX
                 solo run's at cadence 512 (fixtures/serve_headline.json;
@@ -378,6 +382,41 @@ the final line:
    sync_check (attest_headline) -- after phase 8: one attested chunk of the
                 headline makes at most two synchronising calls (the chunk's
                 transfer and the chain's one batched transfer).
+
+13. pool_headline (in a background thread from phase 3 on, beside
+                dispatch_rung2 in another, printed before phase 5; neither
+                times anything the other phases compare) -- `python -m
+                primesim_tpu_torch sweep` on the headline machine with
+                --workers 2 --attest chain --chunk-steps 512 --lease-ttl 5:
+                serve_headline.json's elements 0, 1 and 7 (1536, 1536 and
+                1024 steps) as units, leased to two `worker` processes that
+                share the card, with PRIMETPU_POOL_CRASH=w0:1 (worker w0
+                kills itself after its first checkpointed chunk). Fails
+                unless the victim's unit was re-leased and resumed with
+                resumed_steps > 0, the pool report shows the expiry and a
+                redispatch, every element's instructions, max core cycles
+                and chain head equal the fixture's, every worker's stderr
+                names the card, and the surviving workers launched each
+                step kernel once per step they ran (router_cascade never).
+                Prints the wall, the checkpoint seconds and the unit walls.
+   dispatch_rung2 -- `serve configs/rung2_256core_parsec.json --pool-dir D
+                --workers 2 --attest chain --audit-rate 1.0 --chunk-steps
+                64`: serve_rung2.json's four jobs submitted at once, run by
+                an autoscaled pool of two `worker` processes behind a
+                spawned `coordinator`. Fails unless every served result
+                (steps, per-core cycles, counters) gives the fixture's
+                digest and chain head, the coordinator counts 4 audits and
+                4 passed, and the workers ran on the card (each step kernel
+                at least twice per job step: every unit is run again by its
+                audit).
+   pipeline_rung5 (in phase 11, after stream_rung5) -- ingest/pipeline.py's
+                run_pipelined on rung 5 at full geometry over
+                stream_rung5's file: 128-event windows filled from 256-event
+                segments that two ingest `worker` processes write ahead.
+                Fails unless the digest equals stream_rung5.json's (720
+                steps, 29 windows) and each step kernel launched once per
+                step; prints the segments, the stalls and the wall beside
+                stream_rung5's.
 
 Then a line of every phase's elapsed seconds ("phase_times"), the kernel
 summary line (each kernel's batched figures under "batched", the launches
@@ -447,9 +486,10 @@ FLEET_DEPTH = 1536
 FLEET_SCALE_STEPS = 128
 RUNG3_STAGED = ("router_cascade",)  # staged from rung 3, the rest from the headline
 # steps of each main path run on the card to stage steps 1 and 300, and
-# the first of them that the CPU repeats
+# the first of them that the CPU repeats, where the card is also held
+# to a JAX digest (fixtures/headline_cut.json, rung3_headline_cut.json)
 CHECK_STEPS = 320
-CHECK_CPU_STEPS = 192
+CHECK_CPU_STEPS = 64
 PROF_REPS = 10  # profiled launches of each kernel alone
 CAPTURE = {"headline": (1, 300), "rung3": (1, 300)}
 # the full-geometry large-core paths and the zoo's main paths: (path,
@@ -505,6 +545,15 @@ MP_STAGE_STEPS = 512
 STREAM_W = {"stream_headline": 256, "stream_rung5": 128}
 CLI_STREAM_W, CLI_STREAM_KILL = 64, 3
 OCEAN_ARGS = ("4", "2", "2")
+# the served and pooled headline paths' jobs: elements of
+# serve_headline.json (serve_headline leaves out element 2, whose 2560
+# steps would set its fleet's depth: 1536 fleet steps, not 2560);
+# pool_headline's chaos kill (worker w0 after its first checkpointed
+# chunk) and lease TTL; pipeline_rung5's ingest segments (events per
+# core) and ingest workers
+SERVE_ELEMENTS = (0, 1, 7)
+POOL_CRASH, POOL_TTL = "w0:1", 5
+PIPE_SEG, PIPE_WORKERS = 256, 2
 
 
 # operators the profiler drops before it builds its operator tree
@@ -681,6 +730,7 @@ def stream_phases(dev, smi_line: str, headline, rung5, baselines: dict) -> dict:
     from primesim_tpu_torch import convert
     from primesim_tpu_torch.config.machine import CacheConfig, MachineConfig, NocConfig
     from primesim_tpu_torch.ingest import capture, ring
+    from primesim_tpu_torch.ingest.pipeline import run_pipelined
     from primesim_tpu_torch.ingest.stream import FAULTS_REFUSED, StreamEngine
     from primesim_tpu_torch.kernels import build
     from primesim_tpu_torch.obs import Recorder
@@ -729,7 +779,7 @@ def stream_phases(dev, smi_line: str, headline, rung5, baselines: dict) -> dict:
     try:
         # ---- stream_headline and stream_rung5: each trace written as a
         # PTPU file, memory-mapped and streamed on the card
-        mapped = {}
+        mapped, walls = {}, {}
         for path, (fx, mcfg, tr) in (("stream_headline", headline), ("stream_rung5", rung5)):
             W = STREAM_W[path]
             file = os.path.join(tmp, f"{path}.ptpu")
@@ -781,9 +831,44 @@ def stream_phases(dev, smi_line: str, headline, rung5, baselines: dict) -> dict:
                      f"trace has {tr.total_instructions()}")
             if path == "stream_headline":
                 hs = got
+            walls[path] = wall
             del eng
             torch.cuda.empty_cache()
         del mapped["stream_rung5"]
+
+        # ---- pipeline_rung5: rung 5 streamed as stream_rung5, its windows
+        # filled from segments that ingest worker processes write ahead
+        fx, mcfg, tr = rung5
+        file, W = os.path.join(tmp, "stream_rung5.ptpu"), STREAM_W["stream_rung5"]
+        sfx = stream_fixture("stream_rung5")
+        gc.collect()
+        torch.cuda.empty_cache()
+        reset_launches()
+        t0 = time.perf_counter()
+        eng, sup, ing = run_pipelined(
+            mcfg, Trace.load(file, mmap=True), trace_path=file, window_events=W,
+            seg_events=PIPE_SEG, ingest_workers=PIPE_WORKERS,
+            pool_dir=os.path.join(tmp, "ingest_pool"), device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches["pipeline_rung5"] = dict(build.LAUNCHES)
+        got = digest(eng)
+        emit({"phase": "pipeline_rung5", "window_events": W, "seg_events": ing["seg_events"],
+              "ingest_workers": PIPE_WORKERS, "segments": ing["segments"],
+              "segments_preingested": ing["segments_preingested"],
+              "pipeline_stalls": ing["pipeline_stalls"], "pool": ing["pool"],
+              "windows": got["windows"], "steps": eng.steps_run, "wall_s": wall,
+              "stream_rung5_wall_s": walls["stream_rung5"],
+              "wall_over_stream": wall / walls["stream_rung5"],
+              "supervisor": sup.summary(), "launches": launches["pipeline_rung5"],
+              "equals_jax_digest": got == sfx["digest"], "gpu": smi_line})
+        check_launches("pipeline_rung5", eng.steps_run)
+        against("pipeline_rung5", got, sfx, fx)
+        if ing["segments"] < 2 or ing["segments_preingested"]:
+            fail(f"pipeline_rung5: {ing['segments']} segments, "
+                 f"{ing['segments_preingested']} ingested before the run")
+        del eng, sup
+        torch.cuda.empty_cache()
 
         # ---- stream_snapshot: the streamed headline cut at about half its
         # events, saved, resumed in a fresh engine and finished
@@ -1021,8 +1106,8 @@ def stream_phases(dev, smi_line: str, headline, rung5, baselines: dict) -> dict:
 
 
 def resilience_phases(dev, smi_line: str, hf, made: dict, baseline: dict | None = None) -> dict:
-    """The supervised and forked paths: supervised_faults, fleet_fork and
-    cli_supervised (module docstring). `hf` is the headline_faults
+    """The supervised and forked paths: supervised_faults and fleet_fork
+    (module docstring). `hf` is the headline_faults
     fixture (record, machine, trace), `made` the traces already made (see
     load_fleet_fixture), `baseline` the unsupervised headline_faults run's
     wall_s and peak_memory_bytes. Returns each path's launch counts, set
@@ -1249,6 +1334,13 @@ def resilience_phases(dev, smi_line: str, hf, made: dict, baseline: dict | None 
     finally:
         shutil.rmtree(cache, ignore_errors=True)
 
+    return launches
+
+
+def cli_supervised_phase() -> list:
+    """cli_supervised (module docstring), for a background thread beside
+    phases 3 and 4 (child processes only; it times nothing): its phase
+    line, for the main thread to print."""
     # ---- cli_supervised: `run` supervised with the guard, then the same
     # command with --resume (a no-op rerun from the final snapshot), and a
     # forked seed sweep run twice against one warm cache; each on the card
@@ -1296,13 +1388,13 @@ def resilience_phases(dev, smi_line: str, hf, made: dict, baseline: dict | None 
     sweeps = [{d: lines(r[d][1], drop=("wall_s", "prefix_wall_s")) for d in r} for r in res[2:]]
     forks = [{d: [ln["detail"] for ln in s[d] if ln["metric"] == "prefix_fork"] for d in s}
              for s in sweeps]
-    emit({"phase": "cli_supervised",
+    line = {"phase": "cli_supervised",
           "run_card_equals_cpu": runs[0]["cuda"] == runs[0]["cpu"],
           "resume_equals_run": [runs[1][d] == runs[0][d] for d in ("cuda", "cpu")],
           "instructions": runs[0]["cuda"].get("instructions"),
           "attest": runs[0]["cuda"].get("attest"),
           "sweep_card_equals_cpu": [s["cuda"] == s["cpu"] for s in sweeps],
-          "prefix_fork": [f["cuda"] for f in forks]})
+          "prefix_fork": [f["cuda"] for f in forks]}
     if runs[0]["cuda"] != runs[0]["cpu"] or any(runs[1][d] != runs[0][d] for d in runs[1]):
         fail(f"cli_supervised: run lines differ: {runs}")
     if not runs[0]["cuda"].get("attest", {}).get("head"):
@@ -1310,7 +1402,7 @@ def resilience_phases(dev, smi_line: str, hf, made: dict, baseline: dict | None 
     for s, f, hits in zip(sweeps, forks, (0, 1)):
         if s["cuda"] != s["cpu"] or [x.get("cache_hits") for x in f["cuda"]] != [hits]:
             fail(f"cli_supervised: sweep lines {s}")
-    return launches
+    return [line]
 
 
 def spawn_daemon(args: list[str], env: dict | None = None):
@@ -1435,12 +1527,13 @@ def attest_serve_phases(dev, smi_line: str, headline, baselines: dict, made: dic
     procs = []
     try:
         # ---- serve_headline: the daemon through the CLI on the headline
-        # machine, one bucket of 4 slots, four of fleet_headline's
-        # elements submitted through `submit`
+        # machine, one bucket of 3 slots, three of fleet_headline's
+        # elements (SERVE_ELEMENTS) submitted through `submit`
         sfx = fixture_json("serve_headline")
         if sfx["config"] != hfx["config"] or sfx["jobs"][0]["attest"] != afx["attest"]:
             fail("serve_headline: the fixture's machine or element 0's chain is not the "
                  "headline's")
+        sfx["jobs"] = [e for e in sfx["jobs"] if e["element"] in SERVE_ELEMENTS]
         cfg_path = os.path.join(tmp, "headline.json")
         with open(cfg_path, "w") as f:
             f.write(cfg.to_json())
@@ -1621,6 +1714,206 @@ def serve_recover_phase(smi_line: str):
     return line, launches, problems
 
 
+def worker_lines(err: str) -> tuple[dict, dict]:
+    """A pool's worker lines on stderr: {worker id: the device line} and
+    {worker id: the exit record (units, checkpoint seconds, unit walls,
+    kernel launches)}."""
+    devices, exits = {}, {}
+    for ln in err.splitlines():
+        if not ln.startswith("worker "):
+            continue
+        wid, _, rest = ln[len("worker "):].partition(": ")
+        if rest.startswith("device "):
+            devices[wid] = rest
+        elif rest.startswith("exit "):
+            exits[wid] = json.JSONDecoder().raw_decode(rest.partition(", ")[2])[0]
+    return devices, exits
+
+
+def pool_launches(path: str, exits: dict, at_least: int) -> dict:
+    """The step kernels' launches summed over a pool's workers (those that
+    printed an exit line): each step kernel as often as the others, at
+    least `at_least` times, router_cascade never. Returns the sums."""
+    total = dict.fromkeys(KERNEL_META, 0)
+    for rec in exits.values():
+        for k, n in rec["launches"].items():
+            total[k] += n
+    if total["router_cascade"] or len({total[k] for k in STEP_KERNELS}) != 1 \
+            or total["probe_classify"] < at_least:
+        fail(f"{path}: the workers launched {total} (at least {at_least} each step kernel)")
+    return total
+
+
+def pool_phase(path: str, smi_line: str, headline) -> tuple[list, dict]:
+    """A pooled path, pool_headline or dispatch_rung2 (module docstring),
+    for a background thread: a process tree of its own that shares the
+    card with the main thread's phases 3 and 4. `headline` is the headline
+    fixture (record, machine, trace). Returns (its phase line, for the
+    main thread to print, and its launch counts, summed over its worker
+    processes, each of which counts from 0)."""
+    from primesim_tpu_torch.config.machine import MachineConfig
+    from primesim_tpu_torch.serve import JobJournal
+    from primesim_tpu_torch.serve.client import ServeClient
+    from primesim_tpu_torch.serve.protocol import request
+    from primesim_tpu_torch.serve.scheduler import PAGE_EVENTS, parse_synth_spec
+    from primesim_tpu_torch.pool.units import fold_unit_records
+    from primesim_tpu_torch.stats.digest import run_digest
+
+    def fixture_json(name):
+        with open(os.path.join(ROOT, "primesim_tpu_torch", "fixtures", f"{name}.json")) as f:
+            return json.load(f)
+
+    def served(result):
+        d = run_digest(result["steps"], result["core_cycles"],
+                       {k: np.asarray(v) for k, v in result["counters"].items()}, [], [])
+        return {k: v for k, v in d.items() if k not in ("link_free_sha256", "dram_free_sha256")}
+
+    def on_the_card(path, devices, exits):
+        """Every worker that ran a unit (an exit record with units done, or
+        a killed one with a device line) names the card; an autoscaled
+        worker that idled out before it leased anything has no device."""
+        name = smi_line.split(",")[0].strip()
+        ran = set(devices) | {w for w, x in exits.items() if x["units_done"]}
+        off = [w for w in ran if not devices.get(w, "").startswith("device cuda")
+               or name not in devices.get(w, "")]
+        if not ran or off:
+            fail(f"{path}: workers {off or 'none'} did not name the card ({devices}, "
+                 f"exits {exits})")
+
+    launches, lines = {}, []
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pool_")
+    procs = []
+    try:
+        if path == "pool_headline":
+            # ---- pool_headline: `sweep --workers 2` on the headline machine,
+            # serve_headline's elements 0, 1 and 7 as units, worker w0 killed
+            # after its first checkpointed chunk
+            hfx, cfg, _ = headline
+            sfx = fixture_json("serve_headline")
+            jobs = [j for j in sfx["jobs"] if j["element"] in SERVE_ELEMENTS]
+            cfg_path = os.path.join(tmp, "headline.json")
+            with open(cfg_path, "w") as f:
+                f.write(cfg.to_json())
+            argv = [sys.executable, "-m", "primesim_tpu_torch", "sweep", cfg_path, "--fold",
+                    "--workers", "2", "--attest", "chain", "--chunk-steps", str(sfx["chunk_steps"]),
+                    "--lease-ttl", str(POOL_TTL), "--pool-dir", os.path.join(tmp, "pool")]
+            for j in jobs:
+                ts = j["trace"]
+                argv += ["--synth", ts["generator"] + ":" + ",".join(
+                    f"{k}={v}" for k, v in ts["args"].items() if k != "n_cores")]
+                # element 0 has no overrides: llc_lat=10 is the machine's own
+                # LLC latency, so its effective config is the machine's
+                argv += ["--vary", ",".join(f"{k}={v}" for k, v in j["overrides"].items())
+                         or f"llc_lat={cfg.llc.latency}"]
+            t0 = time.perf_counter()
+            started = round(t0 - T0, 1)
+            sp = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True, timeout=900,
+                                env={**os.environ, "PRIMETPU_POOL_CRASH": POOL_CRASH})
+            wall = time.perf_counter() - t0
+            if sp.returncode != 0:
+                fail(f"pool_headline: sweep exited {sp.returncode}: {sp.stderr[-2000:]}")
+            rows = [json.loads(ln) for ln in sp.stdout.splitlines() if ln.strip()]
+            elems = [r for r in rows if r["metric"] == "simulated_MIPS"]
+            pool = rows[-1]["detail"]["pool"]
+            records, _ = JobJournal(os.path.join(tmp, "pool")).replay()
+            folded, _ = fold_unit_records(records)
+            resumed = {u: f["resumed_steps"] for u, f in sorted(folded.items())}
+            devices, exits = worker_lines(sp.stderr)
+            same = [len(elems) == len(jobs) and all(
+                e["detail"][k] == j["digest"][k] for k in ("instructions", "max_core_cycles"))
+                and e["detail"]["attest"] == j["attest"] for e, j in zip(elems, jobs)]
+            launches["pool_headline"] = pool_launches(
+                "pool_headline", exits,
+                sum(j["digest"]["steps"] for j in jobs) - sum(resumed.values()))
+            lines.append({"phase": "pool_headline", "workers": 2, "crash": POOL_CRASH,
+                  "lease_ttl_s": POOL_TTL, "elements": [j["element"] for j in jobs],
+                  "unit_steps": [j["digest"]["steps"] for j in jobs], "wall_s": wall,
+                  "pool": pool, "resumed_steps": resumed,
+                  "unit_wall_s": [e["detail"]["wall_s"] for e in elems],
+                  "worker_unit_walls_s": {w: x["unit_walls_s"] for w, x in exits.items()},
+                  "checkpoint_s": {w: x["checkpoint_s"] for w, x in exits.items()},
+                  "kernel_load_s": {w: x["kernel_load_s"] for w, x in exits.items()},
+                  "workers_exited": sorted(exits), "devices": devices,
+                  "results_equal_jax": same, "launches": launches["pool_headline"],
+                  "started_t_s": started, "ended_t_s": round(time.perf_counter() - T0, 1),
+                  "gpu": smi_line})
+            if not all(same):
+                fail(f"pool_headline: results or heads differ from the JAX runs: {same}")
+            if pool["expired_leases"] < 1 or pool["redispatches"] < 1 or "w0" in exits:
+                fail(f"pool_headline: no kill was recovered: {pool}, exits {sorted(exits)}")
+            if not any(v > 0 for v in resumed.values()):
+                fail(f"pool_headline: no unit resumed from its checkpoint: {resumed}")
+            on_the_card("pool_headline", devices, exits)
+
+        if path == "dispatch_rung2":
+            # ---- dispatch_rung2: the daemon on rung 2 dispatching serve_rung2's
+            # jobs to an autoscaled pool of 2 workers, every unit audited
+            rfx = fixture_json("serve_rung2")
+            with open(os.path.join(ROOT, rfx["config"])) as f:
+                rcfg = MachineConfig.from_json(f.read())
+            rtrs = [parse_synth_spec(j["synth"], rcfg.n_cores, True) for j in rfx["jobs"]]
+            pages = -(-max(tr.max_len for tr in rtrs) // PAGE_EVENTS)
+            pool_dir = os.path.join(tmp, "dispatch_pool")
+            t0 = time.perf_counter()
+            started = round(t0 - T0, 1)
+            proc, sock = spawn_daemon(
+                ["serve", rfx["config"], "--state-dir", os.path.join(tmp, "dispatch"),
+                 "--pool-dir", pool_dir, "--workers", "2", "--buckets",
+                 f"{len(rtrs)}x{pages}", "--chunk-steps", str(rfx["chunk_steps"]),
+                 "--attest", "chain", "--audit-rate", "1.0"])
+            procs.append(proc)
+            with ThreadPoolExecutor(len(rfx["jobs"])) as ex:
+                ids = [f.result()["job_id"] for f in [ex.submit(
+                    ServeClient(sock, timeout_s=60.0).submit, synth=j["synth"],
+                    overrides=j["overrides"], fold=True) for j in rfx["jobs"]]]
+            cli = ServeClient(sock, timeout_s=60.0)
+            results = [cli.wait(i, timeout_s=600.0) for i in ids]
+            jobs_wall = time.perf_counter() - t0
+            deadline = time.time() + 300
+            while True:
+                c = request(os.path.join(pool_dir, "pool.sock"), {"verb": "status"})["counters"]
+                if c["audits_ok"] + c["attest_mismatches"] >= len(ids) or time.time() > deadline:
+                    break
+                time.sleep(0.2)
+            audits_wall = time.perf_counter() - t0
+            health = cli.health()
+            cli.drain()
+            _, err = proc.communicate(timeout=300)
+            devices, exits = worker_lines(err)
+            same = [r["state"] == "DONE" and served(r["result"]) == j["digest"]
+                    and r["result"].get("attest") == j["attest"]
+                    for r, j in zip(results, rfx["jobs"])]
+            steps = sum(j["digest"]["steps"] for j in rfx["jobs"])
+            launches["dispatch_rung2"] = pool_launches("dispatch_rung2", exits, 2 * steps)
+            lines.append({"phase": "dispatch_rung2", "workers": health["workers"],
+                  "bucket": f"{len(rtrs)}x{pages}", "chunk_steps": rfx["chunk_steps"],
+                  "job_steps": [r.get("result", {}).get("steps") for r in results],
+                  "jobs_wall_s": jobs_wall, "audits_wall_s": audits_wall,
+                  "coordinator": {k: c[k] for k in ("leases", "acks", "duplicates", "hedges",
+                                                    "audits", "audits_ok", "attest_confirms",
+                                                    "attest_mismatches", "expired")},
+                  "checkpoint_s": {w: x["checkpoint_s"] for w, x in exits.items()},
+                  "units_done": {w: x["units_done"] for w, x in exits.items()},
+                  "devices": devices, "results_equal_jax": same,
+                  "launches": launches["dispatch_rung2"],
+                  "daemon_returncode": proc.returncode, "started_t_s": started,
+                  "ended_t_s": round(time.perf_counter() - T0, 1), "gpu": smi_line})
+            if not all(same):
+                fail(f"dispatch_rung2: results or heads differ from the JAX runs: {same}")
+            if (c["audits"], c["audits_ok"]) != (len(ids), len(ids)):
+                fail(f"dispatch_rung2: audits {c['audits']}, passed {c['audits_ok']}")
+            if proc.returncode != 0:
+                fail(f"dispatch_rung2: the daemon exited {proc.returncode}: {err[-1000:]}")
+            on_the_card("dispatch_rung2", devices, exits)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return lines, launches
+
+
 def main() -> int:
     import torch
 
@@ -1677,6 +1970,17 @@ def main() -> int:
 
     t0 = time.perf_counter()
     hfx, cfg, trace = fixture("headline")
+    # ---- 13. the pooled paths: worker processes sharing the card, in two
+    # background threads beside phases 3 and 4 (their checks time nothing),
+    # cli_supervised (child processes too) after dispatch_rung2; their lines
+    # are printed before phase 5
+    def dispatch_then_cli():
+        lines, launches_of = pool_phase("dispatch_rung2", smi_line, (hfx, cfg, trace))
+        return lines + cli_supervised_phase(), launches_of
+
+    pool_ex = ThreadPoolExecutor(2)
+    pool_fs = [pool_ex.submit(pool_phase, "pool_headline", smi_line, (hfx, cfg, trace)),
+               pool_ex.submit(dispatch_then_cli)]
     r3fx, cfg3, trace3 = fixture("rung3_headline")
     if trace3.events.tobytes() != trace.events.tobytes():
         fail("rung 3's fixture names another trace than the headline's")
@@ -2308,6 +2612,14 @@ def main() -> int:
     emit({"phase": "reduced_faults", "card_equals_cpu": True, "fault_state_equal": True,
           "machines": faulted})
 
+    pool_launches = {}
+    for f in pool_fs:
+        pool_lines, launches_of = f.result()  # a failure there exits here
+        pool_launches.update(launches_of)
+        for line in pool_lines:
+            emit(line)
+    pool_ex.shutdown()
+
     # ---- 5. capture: the first chunk of each main path, card == CPU, and
     # the kernel inputs it stages
     staged = {k: {} for k in wrappers}
@@ -2326,8 +2638,9 @@ def main() -> int:
         return rec
 
     check_s = {}
-    for path, pcfg, ptr, names in (("headline", cfg, trace, STEP_KERNELS),
-                                   ("rung3", cfg3, trace3, RUNG3_STAGED)):
+    for path, pcfg, ptr, names, cut_fx in (
+            ("headline", cfg, trace, STEP_KERNELS, "headline_cut"),
+            ("rung3", cfg3, trace3, RUNG3_STAGED, "rung3_headline_cut")):
         for k in names:
             setattr(mods[k], k, recorder(k, CAPTURE[path]))
         try:
@@ -2339,7 +2652,11 @@ def main() -> int:
             for k in names:
                 setattr(mods[k], k, wrappers[k])
         cpu, check_s[path] = cpu_repeat(pcfg, ptr, 64, CHECK_CPU_STEPS)
-        same_run(f"capture {path}", cut, cpu)
+        cs = same_run(f"capture {path}", cut, cpu)
+        if run_digest(cut.steps_run, cut.cycles, cut.counters, cs["link_free"],
+                      cs["dram_free"]) != load_cut(cut_fx, CHECK_CPU_STEPS)["digests"][0]:
+            fail(f"capture {path}: the card's digest at step {CHECK_CPU_STEPS} is not "
+                 f"the JAX package's ({cut_fx}.json)")
         del gpu, cpu
         for k in names:
             if set(staged[k]) != set(CAPTURE[path]):
@@ -2582,6 +2899,7 @@ def main() -> int:
     bounds["router_cascade"] = cas_bound
     capture_line = {"phase": "capture", "steps": CAPTURE, "timed_step": timed_step,
           "card_equals_cpu_steps": CHECK_CPU_STEPS, "cpu_s": check_s,
+          "card_equals_jax_cut": ["headline_cut", "rung3_headline_cut"],
           "max_abs_err": max_err, "timing_ms": timing,
           "event_floor_ms": event_floor_ms, "profiler_reps": PROF_REPS,
           "bytes": {**{k: step_bounds[k][2] for k in STEP_KERNELS},
@@ -2971,6 +3289,7 @@ def main() -> int:
 
     # ---- 12. the attested and served paths, before any profiler session
     fleet_launches.update(attest_serve_phases(dev, smi_line, (hfx, cfg, trace), baselines, made))
+    fleet_launches.update(pool_launches)  # the pooled paths' (phase 13)
     fleet_launches["serve_recover"] = recover_launches
 
     # ---- 8. profile. First the profiler's device time per launch of the

@@ -25,11 +25,11 @@ trials, env activation) the hook delivers a real SIGKILL instead.
 
 The catalog holds the sites the port threads: the durable writes of the
 journal and of checkpoints, the client's socket, the serving daemon's
-crashpoints, the two silent-corruption sites and the disk-space probe.
-The JAX package's other sites (the executable cache, the pool's
-coordinator and worker, replication, device revocation) and their hooks
-(`replication`, `clock_skew`, `wrap_clock`, `device_revoke`) belong to
-parts of it the port does not have yet.
+and the pool's crashpoints, the pool's lease and heartbeat clocks, the
+two silent-corruption sites and the disk-space probe. The JAX package's
+other sites (the executable cache, replication, device revocation) and
+their hooks (`replication`, `device_revoke`) belong to parts of it the
+port does not have yet.
 """
 
 from __future__ import annotations
@@ -54,6 +54,13 @@ SITES = {
     "scheduler.pre-dispatch": "crashpoint",
     "scheduler.post-dispatch": "crashpoint",
     "scheduler.post-checkpoint": "crashpoint",
+    "coordinator.post-lease": "crashpoint",
+    "coordinator.post-ack": "crashpoint",
+    "worker.pre-ack": "crashpoint",
+    "worker.post-checkpoint": "crashpoint",
+    # clock-skew sites on the lease/heartbeat timers
+    "coordinator.clock": "clock",
+    "worker.heartbeat.interval": "clock",
     # silent-data-corruption sites (DESIGN.md §24): perturb committed
     # values in place with NO crash; only attestation cross-checks tell
     "fleet.counters": "silent_corruption",      # sim/fleet.py post-drain
@@ -266,6 +273,20 @@ def socket_recv(site: str, sock) -> None:
     raise ConnectionError(f"{site}: injected disconnect before reply")
 
 
+def clock_skew(site: str, value: float) -> float:
+    """Clock/interval site: pass `value` through, skewed once the plan's
+    event has fired (the offset persists for the rest of the trial —
+    clocks jump, they don't flicker)."""
+    if _RT is None:
+        return value
+    ev = _RT.hit(site)
+    if ev is not None and ev.action == "skew":
+        _RT.clock_offsets[site] = (
+            _RT.clock_offsets.get(site, 0.0) + float(ev.arg("offset_s", 1.0))
+        )
+    return value + _RT.clock_offsets.get(site, 0.0)
+
+
 def corrupt(site: str, arrays: dict) -> bool:
     """Silent-corruption site (DESIGN.md §24): perturb one committed
     int64 value in one of `arrays` (a dict of writable host numpy
@@ -306,3 +327,17 @@ def disk_full(site: str) -> bool:
         _RT.windows[site] = left - 1
         return True
     return False
+
+
+def wrap_clock(site: str, clock):
+    """Wrap a clock callable with the skew site. Returns `clock`
+    UNCHANGED when no runtime is active at wrap time — the no-plan path
+    keeps the exact original callable (zero per-call overhead), which is
+    why chaos must be installed before the component is constructed."""
+    if _RT is None:
+        return clock
+
+    def skewed():
+        return clock_skew(site, clock())
+
+    return skewed

@@ -17,6 +17,12 @@
     python -m primesim_tpu_torch submit --socket D/serve.sock \
         --synth fft_like:n_phases=2 --fold --vary llc_lat=20 --wait
     python -m primesim_tpu_torch serve-status --socket D/serve.sock
+    python -m primesim_tpu_torch sweep cfg.json --synth fft_like --fold \
+        --vary llc_lat=20 --vary link_lat=2 --workers 2 --pool-dir P
+    python -m primesim_tpu_torch run cfg.json --trace big.ptpu \
+        --stream-window 128 --ingest-workers 2 --seg-events 256
+    python -m primesim_tpu_torch serve cfg.json --state-dir D --pool-dir P \
+        --workers 2 --attest chain --audit-rate 1.0
 
 `run` simulates a trace (PTPU files or a named synthetic generator) on a
 JSON or reference-schema XML machine config, prints the one-line JSON
@@ -52,8 +58,18 @@ is the continuous-batching daemon (serve/server.py: jobs over a unix
 socket or `--tcp HOST:PORT`, journaled, checkpointed per job, drained on
 SIGTERM with exit 75 when work remains, SIGHUP reloads the config);
 `submit` sends it one job (exit 4 on backpressure), `serve-status` asks
-for its health, jobs, metrics, a live line (`--watch`) or a drain. A
-run, sweep or daemon is on the card unless `--device cpu` is given.
+for its health, jobs, metrics, a live line (`--watch`) or a drain.
+`sweep --workers N` runs the sweep as an elastic pooled campaign
+(pool/: a lease coordinator in this process and N `worker` processes,
+crash-resumed from per-unit checkpoints under `--pool-dir`; `--attest
+chain` and `--audit-rate` compare and audit their chain heads), `run
+--stream-window W --ingest-workers K` fills the windows from trace
+segments K `worker` processes write ahead (ingest/pipeline.py), and
+`serve --pool-dir` dispatches jobs to an autoscaled pool of `worker`
+processes behind a spawned or adopted `coordinator` (serve/dispatch.py).
+Every one of those children is a `python -m primesim_tpu_torch` process,
+given `--device cpu` when its parent runs on the CPU. A run, sweep,
+worker or daemon is on the card unless `--device cpu` is given.
 `synth` writes
 a generator's trace as a PTPU file, `info` prints a config as JSON: both
 as `primetpu` does. A malformed schedule, trace or config exits 2 with
@@ -390,6 +406,10 @@ def _run_stream(ns, cfg, tr, supervised, rec) -> int:
             "--xprof/--debug-invariants are not supported with "
             "--stream-window yet"
         )
+    if ns.ingest_workers:
+        # the rung-5 pipelined path (DESIGN.md §22): pool workers ingest
+        # trace segments ahead of a supervised stream engine
+        return _run_pipelined_cli(ns, cfg, tr, rec)
     eng = StreamEngine(cfg, tr, window_events=ns.stream_window, device=ns.device)
     if ns.attest == "chain":
         # window-scoped chain: the stream engine's natural chunk is the
@@ -408,6 +428,75 @@ def _run_stream(ns, cfg, tr, supervised, rec) -> int:
     _emit_summary(
         ns, cfg, eng.counters, eng.cycles, wall,
         {"device": str(eng.device), "steps": eng.steps_run, **_attest_extra(eng)},
+        timeline=rec.timeline_summary() if rec is not None else None,
+    )
+    _finalize_obs(rec)
+    return 0
+
+
+def _run_pipelined_cli(ns, cfg, tr, rec) -> int:
+    """`run --stream-window W --ingest-workers K`: the pipelined rung-5
+    path (DESIGN.md §22). Pool ingest workers materialize trace segments
+    ahead of a supervised PipelineStreamEngine in THIS process; the
+    supervisor contract (checkpoints/resume/guard/preemption) is the
+    stream engine's, unchanged."""
+    from .ingest.pipeline import run_pipelined
+    from .sim.supervisor import Preempted
+
+    traces = ns.trace or []
+    if len(traces) + (1 if ns.synth else 0) != 1:
+        raise SystemExit(
+            "--ingest-workers needs exactly one --trace file or one "
+            "--synth spec (workers re-materialize the source from its "
+            "portable spec)"
+        )
+    if traces and ns.fold:
+        raise SystemExit(
+            "--ingest-workers does not compose with --fold for trace "
+            "files yet (ingest workers re-read the raw file)"
+        )
+    trace_path = os.path.abspath(traces[0]) if traces else None
+    sup_kwargs = dict(
+        snapshot_dir=ns.checkpoint_dir,
+        keep_snapshots=ns.keep_snapshots,
+        checkpoint_every_chunks=ns.checkpoint_every,
+        checkpoint_every_s=ns.checkpoint_wall,
+        guard=ns.guard,
+        max_retries=ns.max_retries,
+        obs=rec,
+    )
+    t0 = time.perf_counter()
+    try:
+        eng, sup, ingest = run_pipelined(
+            cfg, tr,
+            trace_path=trace_path,
+            synth_spec=ns.synth if not traces else None,
+            window_events=ns.stream_window,
+            seg_events=ns.seg_events or None,
+            ingest_workers=ns.ingest_workers,
+            pool_dir=ns.pool_dir,
+            device=ns.device,
+            supervisor_kwargs=sup_kwargs,
+            max_steps=ns.max_steps,
+            resume=bool(ns.resume),
+            obs=rec,
+            log=lambda m: print(f"run: {m}", file=sys.stderr),
+        )
+    except Preempted as e:
+        _finalize_obs(rec)
+        return _emit_preempted(e, e.supervisor)
+    wall = time.perf_counter() - t0
+    print(json.dumps({
+        "metric": "ingest_pipeline",
+        "value": ingest["segments"],
+        "unit": "segments",
+        "detail": ingest,
+    }))
+    for line in sup.log_lines():
+        print(f"supervisor: {line}", file=sys.stderr)
+    _emit_summary(
+        ns, cfg, eng.counters, eng.cycles, wall,
+        {"device": str(eng.device), "steps": eng.steps_run, **sup.summary()},
         timeline=rec.timeline_summary() if rec is not None else None,
     )
     _finalize_obs(rec)
@@ -584,6 +673,17 @@ def cmd_sweep(ns) -> int:
     cfg = _apply_faults(ns, _apply_step_impl(ns, _load_config(ns.config)))
     _check_supervision_flags(ns)
     _configure_disk(ns)
+    if ns.workers:
+        # elastic pool path (DESIGN.md §17): coordinator in-process, N
+        # worker subprocesses leasing units over the serve protocol
+        from .pool.campaign import run_pooled_sweep
+
+        return run_pooled_sweep(ns, cfg)
+    if ns.report:
+        raise SystemExit(
+            "sweep: --report is the pooled campaign report (--workers); "
+            "use --report-dir for per-element reports"
+        )
 
     # per-element SOURCES: callables for file loads (so an unreadable file
     # quarantines one element, not the sweep), eager traces for synth specs
@@ -790,6 +890,108 @@ def cmd_sweep(ns) -> int:
     return 0
 
 
+def cmd_worker(ns) -> int:
+    """Pool worker process (DESIGN.md §17): lease work units from a
+    coordinator, simulate them under per-unit element checkpoints and
+    heartbeats, ack results. Normally spawned BY a pooled sweep, a
+    dispatching daemon or a pipelined run; running one by hand joins an
+    in-flight campaign (that is the elastic part)."""
+    from .pool.worker import run_worker
+
+    return run_worker(
+        ns.connect,
+        ns.worker_id,
+        warm_cache=ns.warm_cache == "on",
+        reconnect_timeout_s=ns.reconnect_timeout,
+        crash_after_chunks=ns.crash_after_chunks,
+        idle_exit_s=ns.idle_exit,
+        device=ns.device,
+    )
+
+
+def cmd_coordinator(ns) -> int:
+    """Standalone dynamic-mode pool coordinator (DESIGN.md §18): the
+    lease/heartbeat/ack bookkeeper for an elastic serving fleet.
+    Normally spawned by `serve --pool-dir`; run by hand for a shared
+    pool several front-ends dispatch into. SIGTERM/SIGINT close the
+    socket and flush the unit ledger; kill -9 at any instant is
+    recoverable — restarting over the same --pool-dir replays every
+    enqueued unit, adopts acked results, and re-adopts live worker
+    leases by heartbeat epoch. It simulates nothing and touches no
+    device."""
+    import signal as _signal
+
+    from .pool.coordinator import PoolCoordinator
+    from .serve.protocol import socket_alive
+
+    sock = ns.socket or os.path.join(ns.pool_dir, "pool.sock")
+    if socket_alive(sock):
+        # Probe BEFORE constructing: __init__ replays the shared ledger
+        # and journals a recovery note, which a losing standby must not
+        # spam into the live coordinator's journal.
+        print(
+            f"coordinator: a live coordinator already owns {sock}",
+            file=sys.stderr,
+        )
+        return 1
+
+    rec = _build_recorder(ns)
+    coord = PoolCoordinator(
+        [],
+        pool_dir=ns.pool_dir,
+        socket_path=ns.socket,
+        lease_ttl_s=ns.lease_ttl,
+        poison_threshold=ns.poison_threshold,
+        hedge=ns.hedge == "on",
+        obs=rec,
+        dynamic=True,
+        attest=ns.attest,
+        audit_rate=ns.audit_rate,
+    )
+    try:
+        coord.start()
+    except RuntimeError as e:  # lost the bind race to another standby
+        print(f"coordinator: {e}", file=sys.stderr)
+        return 1
+    pid_path = os.path.join(ns.pool_dir, "coordinator.pid")
+    with open(pid_path, "w") as f:
+        f.write(str(os.getpid()))
+    stop = {"flag": False}
+
+    def _term(signum, frame):
+        stop["flag"] = True
+
+    try:
+        _signal.signal(_signal.SIGTERM, _term)
+        _signal.signal(_signal.SIGINT, _term)
+    except ValueError:
+        pass
+    r = coord.recovered
+    print(
+        f"coordinator: listening on {coord.socket_path} "
+        f"(recovered units={r.get('units_respawned', 0)} "
+        f"results={r.get('results_adopted', 0)} "
+        f"leases={r.get('leases_readopted', 0)})",
+        file=sys.stderr,
+    )
+    try:
+        while not stop["flag"]:
+            coord.tick()
+            time.sleep(0.2)
+    finally:
+        coord.close()
+        try:
+            os.unlink(pid_path)
+        except OSError:
+            pass
+        _finalize_obs(rec)
+        print(
+            f"coordinator: closed ({json.dumps(coord.pool_report())})",
+            file=sys.stderr,
+        )
+    return 0
+
+
 def cmd_synth(ns) -> int:
     tr = _parse_synth(ns.spec, ns.cores, ns.fold)
     tr.save(ns.out)
@@ -838,7 +1040,7 @@ def cmd_serve(ns) -> int:
     if ns.tcp and ns.socket:
         raise SystemExit("--tcp and --socket are mutually exclusive")
     device = resolve_device(ns.device)
-    if device.type == "cuda":
+    if device.type == "cuda" and not ns.pool_dir:
         for k in build.KERNELS:  # build and load before the first job
             build.library(k)
     server = PrimeServer(
@@ -856,12 +1058,17 @@ def cmd_serve(ns) -> int:
         quota=TenantQuota.parse(ns.quota) if ns.quota else None,
         attest=ns.attest,
         device=device,
+        pool_dir=ns.pool_dir,
+        max_workers=ns.workers,
+        lease_ttl_s=ns.lease_ttl,
+        audit_rate=ns.audit_rate,
     )
     # bind before the readiness line so `--tcp HOST:0` prints the real
     # kernel-assigned port (tests and scripts scrape this line)
     target = server.bind()
+    mode = f"dispatch->{ns.pool_dir}" if ns.pool_dir else "local"
     print(
-        f"serve: listening on {target} (local, "
+        f"serve: listening on {target} ({mode}, "
         f"recovered={server.recovered['jobs_requeued']} job(s))",
         file=sys.stderr, flush=True,
     )
@@ -1032,6 +1239,25 @@ def _add_shared_flags(sp, resilience: bool = True) -> None:
         "--fault-seed", type=int, default=None, metavar="N",
         help="seed of the counter-based fault PRNG (default 0)",
     )
+    _add_obs_flags(sp)
+    sp.add_argument(
+        "--cache-budget", type=int, default=None, metavar="BYTES",
+        help="byte budget of the governed artifact pool (the warm-state "
+             "cache; DESIGN.md §26): LRU pruning and the disk-pressure "
+             "evict ladder both honor it; takes precedence over "
+             "$PRIMETPU_CACHE_MAX_BYTES (default: env var, then 2 GiB)",
+    )
+    sp.add_argument(
+        "--device", choices=("cuda", "cpu"), default=None,
+        help="default: cuda (an error when there is no card)",
+    )
+    if resilience:
+        _add_resilience_flags(sp)
+
+
+def _add_obs_flags(sp) -> None:
+    """The telemetry flags (`obs.Recorder`): run's, sweep's, serve's and
+    the coordinator's."""
     sp.add_argument(
         "--obs", choices=("off", "basic", "full"), default="off",
         help="telemetry level: off (default), basic (per-chunk metric "
@@ -1053,19 +1279,6 @@ def _add_shared_flags(sp, resilience: bool = True) -> None:
         help="metric ring-buffer size in chunks; older samples drop "
              "first (default 4096)",
     )
-    sp.add_argument(
-        "--cache-budget", type=int, default=None, metavar="BYTES",
-        help="byte budget of the governed artifact pool (the warm-state "
-             "cache; DESIGN.md §26): LRU pruning and the disk-pressure "
-             "evict ladder both honor it; takes precedence over "
-             "$PRIMETPU_CACHE_MAX_BYTES (default: env var, then 2 GiB)",
-    )
-    sp.add_argument(
-        "--device", choices=("cuda", "cpu"), default=None,
-        help="default: cuda (an error when there is no card)",
-    )
-    if resilience:
-        _add_resilience_flags(sp)
 
 
 def _add_resilience_flags(sp) -> None:
@@ -1111,11 +1324,41 @@ def _add_resilience_flags(sp) -> None:
     )
 
 
-def _add_attest_flag(sp) -> None:
+def _add_attest_flag(sp, audit: bool = False) -> None:
     sp.add_argument(
         "--attest", choices=("off", "chain"), default="off",
         help="result integrity (DESIGN.md §24): fingerprint-chain every "
-             "committed chunk (default off — bit-exact with today)",
+             "committed chunk (default off — bit-exact with today); with "
+             "a pool, compare hedged-twin results and verify worker "
+             "toolchains at lease grant",
+    )
+    if audit:
+        sp.add_argument(
+            "--audit-rate", type=float, default=0.0, metavar="P",
+            help="(--attest chain, a pool) re-dispatch this fraction of "
+                 "DONE units to a different worker and compare chain "
+                 "heads (deterministic per-unit sampling; default 0)",
+        )
+
+
+def _add_pool_flags(sp, poison_threshold: int) -> None:
+    """The lease flags of a pool's coordinator (`sweep --workers`, the
+    `coordinator` verb)."""
+    sp.add_argument(
+        "--lease-ttl", type=float, default=10.0, metavar="SEC",
+        help="lease deadline; a worker missing heartbeats this long is "
+             "presumed dead and its unit re-dispatches (default 10)",
+    )
+    sp.add_argument(
+        "--poison-threshold", type=int, default=poison_threshold,
+        metavar="K",
+        help="quarantine a unit after its lease expired under K DISTINCT "
+             f"workers (default {poison_threshold})",
+    )
+    sp.add_argument(
+        "--hedge", choices=("on", "off"), default="on",
+        help="near campaign end, speculatively re-dispatch the slowest "
+             "in-flight unit to an idle worker; first ack wins (default on)",
     )
 
 
@@ -1166,6 +1409,24 @@ def build_parser() -> argparse.ArgumentParser:
         "--mmap", action="store_true",
         help="memory-map the trace file (pair with --stream-window for "
              "traces larger than host memory)",
+    )
+    r.add_argument(
+        "--ingest-workers", type=int, default=0, metavar="K",
+        help="(--stream-window) pipeline the window fill MPMD-style: K "
+             "`python -m primesim_tpu_torch worker` processes ingest "
+             "trace segments over the lease protocol, ahead of the "
+             "(supervised) simulation in this process (DESIGN.md §22)",
+    )
+    r.add_argument(
+        "--seg-events", type=int, default=0, metavar="L",
+        help="(--ingest-workers) events/core per ingest segment "
+             "(default: max(--stream-window, 4096))",
+    )
+    r.add_argument(
+        "--pool-dir", default=None, metavar="DIR",
+        help="(--ingest-workers) segment files + ingest lease ledger "
+             "live here; re-running with the same DIR re-uses segments "
+             "already ingested (default: a throwaway temp dir)",
     )
     _add_attest_flag(r)
     _add_shared_flags(r)
@@ -1225,8 +1486,83 @@ def build_parser() -> argparse.ArgumentParser:
              "(unreadable trace, bad overrides) aborts the whole sweep "
              "instead of being quarantined into its own JSON line",
     )
+    w.add_argument(
+        "--workers", type=int, default=0, metavar="N",
+        help="run the sweep as an elastic pooled campaign: a lease-based "
+             "coordinator plus N `python -m primesim_tpu_torch worker` "
+             "processes sharing the card; a crashed worker's units "
+             "re-dispatch and resume from their last checkpoint "
+             "(DESIGN.md §17)",
+    )
+    w.add_argument(
+        "--pool-dir", default=None, metavar="DIR",
+        help="(--workers) lease ledger + per-unit checkpoints live here; "
+             "restarting a killed campaign with the same DIR resumes it "
+             "(default: a throwaway temp dir)",
+    )
+    _add_pool_flags(w, poison_threshold=2)
+    w.add_argument(
+        "--report", metavar="PATH",
+        help="(--workers) write a text report with the POOL section",
+    )
+    _add_attest_flag(w, audit=True)
     _add_shared_flags(w)
     w.set_defaults(fn=cmd_sweep)
+
+    k = sub.add_parser(
+        "worker",
+        help="pool worker: lease work units from a coordinator socket "
+             "(normally spawned by `sweep --workers`, `serve --pool-dir` "
+             "or `run --ingest-workers`; run by hand to join a campaign)",
+    )
+    k.add_argument("--connect", required=True, metavar="SOCK",
+                   help="coordinator socket (unix path or HOST:PORT)")
+    k.add_argument("--worker-id", required=True, metavar="ID")
+    k.add_argument(
+        "--warm-cache", choices=("on", "off"), default="off",
+        help="consult the on-disk warm-state cache for fresh units",
+    )
+    k.add_argument(
+        "--reconnect-timeout", type=float, default=60.0, metavar="SEC",
+        help="give up (exit 75) after the coordinator has been "
+             "unreachable this long",
+    )
+    k.add_argument(
+        "--crash-after-chunks", type=int, default=None,
+        help=argparse.SUPPRESS,  # chaos-test hook: SIGKILL self at chunk N
+    )
+    k.add_argument(
+        "--idle-exit", type=float, default=None, metavar="SEC",
+        help="exit 0 after SEC seconds of continuous idle (no leases "
+             "granted) — the elastic fleet's scale-down path",
+    )
+    k.add_argument(
+        "--device", choices=("cuda", "cpu"), default=None,
+        help="where units simulate, resolved at the first one: cuda "
+             "(default; no card is an error, never a run on the CPU)",
+    )
+    k.set_defaults(fn=cmd_worker)
+
+    co = sub.add_parser(
+        "coordinator",
+        help="standalone dynamic-mode pool coordinator for an elastic "
+             "serving fleet (normally spawned by `serve --pool-dir`; "
+             "run by hand to share one pool across front-ends)",
+    )
+    co.add_argument(
+        "--pool-dir", required=True, metavar="DIR",
+        help="unit ledger + checkpoints + default socket live here; "
+             "restarting with the same DIR replays every enqueued unit",
+    )
+    co.add_argument(
+        "--socket", default=None, metavar="PATH|HOST:PORT",
+        help="listen target (default: POOL_DIR/pool.sock; host:port "
+             "listens on TCP, port 0 = kernel-assigned)",
+    )
+    _add_pool_flags(co, poison_threshold=3)
+    _add_attest_flag(co, audit=True)
+    _add_obs_flags(co)
+    co.set_defaults(fn=cmd_coordinator)
 
     s = sub.add_parser("synth", help="generate a synthetic PTPU trace file")
     s.add_argument("spec", help="generator spec name[:k=v,...]")
@@ -1282,6 +1618,22 @@ def build_parser() -> argparse.ArgumentParser:
              "kernel-assigned; the readiness line prints the real one)",
     )
     v.add_argument(
+        "--pool-dir", default=None, metavar="DIR",
+        help="dispatch mode: run jobs on an autoscaling pool of `python "
+             "-m primesim_tpu_torch worker` processes over this pool "
+             "directory (spawns a coordinator, or adopts one already "
+             "listening — the standby-takeover path)",
+    )
+    v.add_argument(
+        "--workers", type=int, default=2, metavar="N",
+        help="dispatch mode: autoscale up to N worker processes "
+             "(default 2)",
+    )
+    v.add_argument(
+        "--lease-ttl", type=float, default=10.0, metavar="SEC",
+        help="dispatch mode: pool lease TTL (default 10)",
+    )
+    v.add_argument(
         "--quota", default=None, metavar="RATE[:BURST]",
         help="per-tenant admission quota: token bucket of RATE "
              "submits/sec (burst default max(1,RATE)) per client id; "
@@ -1321,7 +1673,7 @@ def build_parser() -> argparse.ArgumentParser:
              "resubmitted (trace, config) job starts from the deepest "
              "matching cached state instead of step 0",
     )
-    _add_attest_flag(v)
+    _add_attest_flag(v, audit=True)
     _add_shared_flags(v, resilience=False)
     v.set_defaults(fn=cmd_serve)
 

@@ -1,0 +1,361 @@
+"""Work units — the pool's unit of dispatch (DESIGN.md §17): the JAX
+package's `pool/units.py` for the port, unchanged in what it computes, so
+that either package builds the same units and keys for the same campaign
+and replays a pool ledger the other wrote.
+
+A sweep campaign decomposes into one work unit per fleet element: a
+self-contained, SERIALIZABLE description (effective config JSON, trace
+path or synth spec, timing overrides, step budgets) that any worker
+process can materialize deterministically — the same property
+`serve.scheduler.materialize_workload` gives the daemon, which is what
+makes re-dispatch after a worker crash bit-exact: re-running a unit from
+its spec (or from its last element checkpoint) yields the identical
+simulation.
+
+The coordinator's durable state is a `serve.journal.JobJournal` in the
+pool directory, holding pool record types:
+
+    lease   {unit_id, worker, epoch, key, hedge}
+    expire  {unit_id, worker, epoch}          (missed heartbeat)
+    ack     {unit_id, worker, epoch, key, result, resumed_steps, attest}
+    ack_dup {unit_id, worker, epoch, key, result, resumed_steps, attest}
+    suspect {unit_id, key, workers, held}      (attested twins diverged)
+    verdict {unit_id, key, outcome, ...}       (tiebreak resolution)
+    audit   {unit_id, worker, ok, attest}      (sampled re-execution)
+    poison  {unit_id, key, kills}
+    note    {msg}                              (operator annotations)
+    drain   {}                                 (campaign completed)
+
+`fold_unit_records` rebuilds the restart state with the same invariants
+as serve's `fold_records`: duplicate-tolerant and first-ACK-wins — the
+first `ack` for a unit is authoritative; later acks (the losing half of
+a hedged pair, or a redelivery) are RETAINED as `ack_dup` records with
+their full payload (attestation needs both sides of a hedged pair) but
+never change the result. Expire records survive the fold so poison
+counting spans coordinator restarts. The attestation records
+(DESIGN.md §24) are order-sensitive: a `suspect` voids the unit's
+result back to PENDING with both held payloads on record, and a
+`verdict` either restores an authoritative result (quarantining the
+divergent worker) or parks the unit in the terminal SUSPECT state.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+
+#: a unit whose lease expired under K DISTINCT workers is poison — the
+#: fleet-level analogue of build_fleet_isolated's element quarantine
+DEFAULT_POISON_THRESHOLD = 2
+
+# unit lifecycle states (coordinator-side). SUSPECT is distinct from
+# POISON: poison marks a unit that repeatedly KILLS workers (the unit is
+# the problem), suspect marks a unit whose attested results DIVERGED and
+# could not be tiebroken (some worker is the problem, and we can no
+# longer tell which result to trust) — see DESIGN.md §24.
+PENDING = "PENDING"
+LEASED = "LEASED"
+DONE = "DONE"
+POISON = "POISON"
+SUSPECT = "SUSPECT"
+
+
+def unit_key(unit: dict) -> str:
+    """Content address of a unit's WORKLOAD identity (not its id): the
+    ledger stamps every lease/ack with it so a restarted coordinator
+    rejects replayed results whose campaign definition changed."""
+    payload = {
+        k: unit.get(k)
+        for k in ("index", "config", "trace_path", "synth", "fold",
+                  "overrides", "chunk_steps", "max_steps")
+    }
+    # later workload dimensions join the identity only when SET, so every
+    # pre-existing ledger key (no mesh, sim-kind units) stays unchanged
+    for k in ("devices", "kind", "seg_events", "seg_index"):
+        if unit.get(k):
+            payload[k] = unit.get(k)
+    blob = json.dumps(payload, sort_keys=True, separators=(",", ":"))
+    return hashlib.sha256(blob.encode()).hexdigest()[:16]
+
+
+def build_units(
+    cfg,
+    trace_paths: list[str],
+    synth_specs: list[str],
+    overrides: list[dict],
+    fold: bool,
+    chunk_steps: int,
+    max_steps: int,
+    warm_cache: bool = False,
+    devices: int = 0,
+) -> list[dict]:
+    """Decompose a sweep (the CLI's fan rule output: sources and
+    overrides already paired 1:1) into per-element work units. Trace
+    sources travel by PATH and synth sources by SPEC — workers
+    materialize them locally (traces never cross the wire)."""
+    sources: list[tuple[str, str]] = [("trace_path", p) for p in trace_paths]
+    sources += [("synth", s) for s in synth_specs]
+    if len(sources) != len(overrides):
+        raise ValueError(
+            f"{len(sources)} sources vs {len(overrides)} override dicts "
+            "(the caller applies the fan rule first)"
+        )
+    cfg_json = cfg.to_json()
+    units = []
+    for i, ((kind, src), ov) in enumerate(zip(sources, overrides)):
+        unit = {
+            "unit_id": f"u{i:05d}",
+            "index": i,
+            "config": cfg_json,
+            "trace_path": src if kind == "trace_path" else None,
+            "synth": src if kind == "synth" else None,
+            "fold": bool(fold),
+            "overrides": dict(ov),
+            "chunk_steps": int(chunk_steps),
+            "max_steps": int(max_steps),
+            "warm_cache": bool(warm_cache),
+        }
+        if devices:
+            # mesh shape is part of the leased workload's identity: an
+            # acked result must have been produced on the geometry bucket
+            # the campaign asked for (shard x vmap, DESIGN.md §22)
+            unit["devices"] = int(devices)
+        unit["key"] = unit_key(unit)
+        units.append(unit)
+    return units
+
+
+def build_ingest_units(
+    cfg,
+    trace_path: str | None,
+    synth_spec: str | None,
+    seg_events: int,
+    n_segments: int,
+    chunk_steps: int = 0,
+) -> list[dict]:
+    """Decompose a rung-scale streaming run's INGEST stage into one work
+    unit per fixed-size trace segment (MPMD pipeline stage 1, DESIGN.md
+    §22): unit k materializes per-core events [k*L, (k+1)*L) of the
+    source — line-normalized, END-padded — into an atomic npz under the
+    pool dir. Segments are mutually independent, so the existing lease
+    protocol (hedging, poison, resume) applies unchanged."""
+    if (trace_path is None) == (synth_spec is None):
+        # caller contract, not a user-reachable path: the CLI rejects a
+        # bad --trace/--synth combination before building units
+        raise ValueError("ingest units need exactly one of trace/synth source")
+    cfg_json = cfg.to_json()
+    units = []
+    for k in range(n_segments):
+        unit = {
+            "unit_id": f"g{k:05d}",
+            "index": k,
+            "kind": "ingest",
+            "config": cfg_json,
+            "trace_path": trace_path,
+            "synth": synth_spec,
+            "fold": False,
+            "overrides": {},
+            "chunk_steps": int(chunk_steps),
+            "max_steps": 0,
+            "seg_events": int(seg_events),
+            "seg_index": k,
+        }
+        unit["key"] = unit_key(unit)
+        units.append(unit)
+    return units
+
+
+def fold_unit_records(records: list[dict]):
+    """Fold a replayed pool ledger into restart state:
+    `(units, clean_drain)` where `units` maps unit_id -> {result,
+    result_epoch, kills, max_epoch, poison, resumed_steps}.
+
+    Invariants (tested under duplicates and out-of-order delivery):
+    - first ACK wins: the first `ack` per unit is kept verbatim; every
+      later ack for that unit is a discarded duplicate, whatever its
+      epoch says;
+    - an `ack` is authoritative even when its `lease` record was never
+      seen (out-of-order append across a torn tail);
+    - `expire` records accumulate DISTINCT workers per unit (poison
+      evidence survives coordinator restarts); expires arriving after
+      the ack don't un-finish the unit;
+    - `poison` marks stick unless the unit also has a result (a hedged
+      twin finished before the poison verdict landed — the result wins,
+      the campaign keeps the data)."""
+    units: dict[str, dict] = {}
+    clean_drain = False
+
+    def _u(unit_id: str) -> dict:
+        return units.setdefault(
+            unit_id,
+            {"result": None, "result_epoch": None, "kills": set(),
+             "max_epoch": 0, "poison": False, "resumed_steps": 0,
+             "key": None, "attest": None, "ack_worker": None,
+             "dup_acks": [], "suspects": set(), "held": [],
+             "suspect": None, "audits": []},
+        )
+
+    for rec in records:
+        t = rec.get("t")
+        if t == "unit":
+            # dynamic-mode spec record (coordinator enqueue); the spec
+            # itself is consumed by the coordinator's recovery pass —
+            # here it only breaks a trailing drain
+            clean_drain = False
+        elif t == "lease":
+            u = _u(str(rec["unit_id"]))
+            u["max_epoch"] = max(u["max_epoch"], int(rec.get("epoch", 0)))
+            u["key"] = u["key"] or rec.get("key")
+            clean_drain = False
+        elif t == "expire":
+            u = _u(str(rec["unit_id"]))
+            u["kills"].add(str(rec.get("worker", "?")))
+            u["max_epoch"] = max(u["max_epoch"], int(rec.get("epoch", 0)))
+            clean_drain = False
+        elif t == "ack":
+            u = _u(str(rec["unit_id"]))
+            if u["result"] is None:  # first ACK wins; duplicates discarded
+                u["result"] = rec.get("result")
+                u["result_epoch"] = int(rec.get("epoch", 0))
+                u["resumed_steps"] = int(rec.get("resumed_steps", 0))
+                u["key"] = rec.get("key") or u["key"]
+                u["attest"] = rec.get("attest")
+                u["ack_worker"] = rec.get("worker")
+            u["max_epoch"] = max(u["max_epoch"], int(rec.get("epoch", 0)))
+            clean_drain = False
+        elif t == "ack_dup":
+            # the losing half of a hedged pair (or an audit re-run),
+            # retained with its FULL payload so cross-checks and
+            # post-hoc audits can see both sides — never authoritative
+            u = _u(str(rec["unit_id"]))
+            u["dup_acks"].append({
+                "worker": str(rec.get("worker", "?")),
+                "epoch": int(rec.get("epoch", 0)),
+                "result": rec.get("result"),
+                "resumed_steps": int(rec.get("resumed_steps", 0)),
+                "attest": rec.get("attest"),
+                "audit": bool(rec.get("audit")),
+            })
+            u["max_epoch"] = max(u["max_epoch"], int(rec.get("epoch", 0)))
+            clean_drain = False
+        elif t == "suspect":
+            # attested twins diverged: the unit's result is VOIDED back
+            # to pending, both held payloads stay on record, and the
+            # divergent workers are barred from re-running this unit
+            u = _u(str(rec["unit_id"]))
+            u["result"] = None
+            u["result_epoch"] = None
+            u["resumed_steps"] = 0
+            u["attest"] = None
+            u["ack_worker"] = None
+            u["suspect"] = "pending"
+            u["suspects"] |= {str(w) for w in rec.get("workers", [])}
+            u["held"] = list(rec.get("held") or [])
+            clean_drain = False
+        elif t == "verdict":
+            u = _u(str(rec["unit_id"]))
+            if rec.get("outcome") == "resolved":
+                u["result"] = rec.get("result")
+                u["result_epoch"] = int(rec.get("epoch", 0))
+                u["resumed_steps"] = int(rec.get("resumed_steps", 0))
+                u["attest"] = rec.get("attest")
+                u["ack_worker"] = rec.get("worker")
+                u["suspect"] = None
+                u["suspects"] |= {
+                    str(w) for w in rec.get("quarantined", [])}
+                u["held"] = []
+            else:  # unresolved: three mutually-divergent results
+                u["suspect"] = "terminal"
+                u["held"] = list(rec.get("held") or u["held"])
+            clean_drain = False
+        elif t == "audit":
+            u = _u(str(rec["unit_id"]))
+            u["audits"].append({
+                "worker": str(rec.get("worker", "?")),
+                "ok": rec.get("ok"),
+            })
+            clean_drain = False
+        elif t == "poison":
+            u = _u(str(rec["unit_id"]))
+            if u["result"] is None:
+                u["poison"] = True
+                u["kills"] |= {str(w) for w in rec.get("kills", [])}
+            clean_drain = False
+        elif t == "drain":
+            clean_drain = True
+    return units, clean_drain
+
+
+def pool_compactor(records: list[dict]) -> list[dict]:
+    """Compaction fold for the POOL ledger (`JobJournal(compactor=...)`):
+    re-emit the minimal record list whose `fold_unit_records` equals the
+    original history's. Per unit, in first-seen order:
+
+    - the first `unit` spec record (dynamic-mode enqueues — the
+      coordinator's recovery pass rebuilds specs from these);
+    - one synthetic `lease` carrying the fold's `max_epoch` and `key`
+      (worker "compact" — the fold only reads epoch/key from leases);
+    - one `expire` per distinct killer (poison evidence must survive);
+    - the authoritative `ack` (result, result_epoch, resumed_steps) or
+      the `poison` verdict, whichever the fold kept;
+    - the trailing `drain` when the history ended clean.
+
+    `max_epoch >= result_epoch` always holds in a real fold (the ack
+    itself raises max_epoch), so re-folding the compacted list restores
+    both epochs exactly.
+
+    Attestation history (ack_dup / suspect / verdict / audit records,
+    DESIGN.md §24) is EVIDENCE, not just state — compaction re-emits a
+    unit's full ack/attestation flow verbatim, in original order,
+    whenever any such record exists, because the fold of that flow is
+    order-sensitive and post-hoc audits need both sides of every
+    divergence."""
+    specs: dict[str, dict] = {}
+    flows: dict[str, list] = {}
+    _FLOW = ("ack", "ack_dup", "suspect", "verdict", "audit")
+    for rec in records:
+        t = rec.get("t")
+        if t == "unit":
+            spec = rec.get("unit") or {}
+            uid = str(spec.get("unit_id", ""))
+            if uid and uid not in specs:
+                specs[uid] = rec
+        elif t in _FLOW:
+            flows.setdefault(str(rec.get("unit_id", "")), []).append(rec)
+    units, clean = fold_unit_records(records)
+    out: list[dict] = []
+    for unit_id, u in units.items():
+        if unit_id in specs:
+            out.append(specs[unit_id])
+        if u["max_epoch"] or u["key"]:
+            out.append({"t": "lease", "unit_id": unit_id,
+                        "worker": "compact", "epoch": u["max_epoch"],
+                        "key": u["key"]})
+        for worker in sorted(u["kills"]):
+            out.append({"t": "expire", "unit_id": unit_id,
+                        "worker": worker, "epoch": 0})
+        flow = flows.get(unit_id, [])
+        if any(r.get("t") != "ack" for r in flow):
+            out.extend(flow)
+            if u["poison"] and u["result"] is None:
+                out.append({"t": "poison", "unit_id": unit_id,
+                            "key": u["key"], "kills": sorted(u["kills"])})
+        elif u["result"] is not None:
+            out.append({"t": "ack", "unit_id": unit_id,
+                        "worker": u["ack_worker"] or "compact",
+                        "epoch": u["result_epoch"], "key": u["key"],
+                        "result": u["result"],
+                        "resumed_steps": u["resumed_steps"],
+                        **({"attest": u["attest"]} if u["attest"]
+                           else {})})
+        elif u["poison"]:
+            out.append({"t": "poison", "unit_id": unit_id,
+                        "key": u["key"], "kills": sorted(u["kills"])})
+    # spec records for units never leased/acked yet (queued work must
+    # survive compaction too)
+    for uid, rec in specs.items():
+        if uid not in units:
+            out.append(rec)
+    if clean:
+        out.append({"t": "drain"})
+    return out

@@ -1,10 +1,10 @@
 """primesim_tpu_torch.serve — the crash-safe continuous-batching
-simulation service, the JAX package's `serve/` for the port, in its
-local mode.
+simulation service, the JAX package's `serve/` for the port.
 
 `python -m primesim_tpu_torch serve` owns one fleet per capacity bucket
 on its device and splices client jobs into free slots as elements
-retire; every accepted job is journaled (WAL) and checkpointed so a
+retire (or, with `--pool-dir`, dispatches them to an autoscaling pool of
+worker processes, `dispatch.py`); every accepted job is journaled (WAL) and checkpointed so a
 `kill -9` loses nothing. See DESIGN.md §14. The daemon, its clients, its
 journal and its element checkpoints are the JAX package's formats, so
 either package's client talks to either daemon and a state directory
@@ -13,8 +13,7 @@ written by one replays in the other.
 Light modules (jobs, journal, protocol, quota, client) import eagerly;
 the scheduler and server (which pull in torch and the fleet) resolve
 lazily so `import primesim_tpu_torch.serve` stays cheap for clients.
-Not ported yet: the replicated journal (`replicate.py`) and dispatch to
-a worker pool (`dispatch.py`).
+Not ported yet: the replicated journal (`replicate.py`).
 """
 
 from .client import ServeClient, ServeError
@@ -34,6 +33,7 @@ from .protocol import error_obj
 
 _LAZY = {
     "Scheduler": "scheduler",
+    "DispatchScheduler": "dispatch",
     "SlotBucket": "scheduler",
     "QueueFull": "scheduler",
     "DEFAULT_BUCKETS": "scheduler",
@@ -57,6 +57,7 @@ __all__ = [
     "CANCELLED",
     "DEFAULT_BUCKETS",
     "DONE",
+    "DispatchScheduler",
     "EX_TEMPFAIL",
     "FAILED",
     "Job",

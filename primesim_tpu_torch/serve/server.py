@@ -1,6 +1,8 @@
 """`serve` — the daemon around the scheduler (DESIGN.md §14), the JAX
-package's `serve/server.py` for the port, in its local mode: one process
-owns the buckets' fleets on its device.
+package's `serve/server.py` for the port: in its local mode one process
+owns the buckets' fleets on its device; in its dispatch mode
+(`pool_dir`, DESIGN.md §18) jobs run on an autoscaling pool of worker
+processes (`serve/dispatch.py`).
 
 Threading model: listener threads (socketserver.ThreadingMixIn over a
 unix stream socket) PARSE requests and enqueue closures onto the
@@ -25,8 +27,7 @@ ACKed job is either terminal (kept for STATUS/RESULT) or re-enqueued,
 resuming from its newest per-job element checkpoint when one exists —
 `kill -9` at ANY instant loses no accepted job.
 
-Not ported yet: the replicated journal (`replicas`, `quorum`, fencing)
-and dispatch to a worker pool (`pool_dir`, `max_workers`, `devices`).
+Not ported yet: the replicated journal (`replicas`, `quorum`, fencing).
 """
 
 from __future__ import annotations
@@ -81,6 +82,11 @@ class PrimeServer:
         quota: TenantQuota | None = None,
         attest: str = "off",
         device=None,
+        pool_dir: str | None = None,
+        max_workers: int = 2,
+        lease_ttl_s: float = 10.0,
+        spawn_pool: bool = True,
+        audit_rate: float = 0.0,
     ):
         self.state_dir = str(state_dir)
         os.makedirs(self.state_dir, exist_ok=True)
@@ -93,19 +99,41 @@ class PrimeServer:
         self.quota = quota
         self.journal = JobJournal(self.state_dir, compactor=serve_compactor)
         self.journal.obs = obs
-        self.sched = Scheduler(
-            cfg,
-            self.journal,
-            self.state_dir,
-            buckets=buckets,
-            chunk_steps=chunk_steps,
-            max_queue=max_queue,
-            checkpoint_every_s=checkpoint_every_s,
-            obs=obs,
-            warm_cache=warm_cache,
-            attest=attest,
-            device=device,
-        )
+        if pool_dir:
+            # dispatch mode: jobs run on an autoscaling worker fleet via
+            # a (spawned or adopted) pool coordinator — DESIGN.md §18
+            from .dispatch import DispatchScheduler
+
+            self.sched = DispatchScheduler(
+                cfg,
+                self.journal,
+                self.state_dir,
+                pool_dir,
+                buckets=buckets,
+                chunk_steps=chunk_steps,
+                max_queue=max_queue,
+                max_workers=max_workers,
+                lease_ttl_s=lease_ttl_s,
+                obs=obs,
+                spawn=spawn_pool,
+                attest=attest,
+                audit_rate=audit_rate,
+                device=device,
+            )
+        else:
+            self.sched = Scheduler(
+                cfg,
+                self.journal,
+                self.state_dir,
+                buckets=buckets,
+                chunk_steps=chunk_steps,
+                max_queue=max_queue,
+                checkpoint_every_s=checkpoint_every_s,
+                obs=obs,
+                warm_cache=warm_cache,
+                attest=attest,
+                device=device,
+            )
         self.inbox: "queue.Queue[_Request]" = queue.Queue()
         self._draining = False
         self._stop = False
@@ -444,6 +472,8 @@ class PrimeServer:
                 except OSError:
                     pass
         unfinished = self.sched.drain()
+        if hasattr(self.sched, "shutdown_children"):
+            self.sched.shutdown_children()
         self._drain_inbox()  # flush replies so clients aren't left hanging
         self.journal.close()
         return EX_TEMPFAIL if unfinished else 0

@@ -30,7 +30,9 @@ solo runs with their chains, four of fleet_headline's elements and four
 small jobs on the shipped rung-2 machine (`serve_headline.json`,
 `serve_rung2.json`); and digests at a cut depth for the card phases that
 run shallower than the whole run (`fleet_rung3_cut.json`,
-`multiprog_rung3_cut.json`, both at step 1536). The small ones are
+`multiprog_rung3_cut.json`, both at step 1536; `headline_cut.json`,
+`rung3_headline_cut.json`, at step 64 in chunks of 64, where the capture
+phase's CPU repeat stops). The small ones are
 re-derived from JAX in tier 1, the full-width ones by slow tests.
 Regenerate them (after a deliberate change of
 the simulated model) with:
@@ -44,6 +46,7 @@ import ast
 import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -103,10 +106,10 @@ def test_import_leaves_jax_and_the_jax_package_out():
 def test_the_rules_cover_every_module_of_the_port():
     """The import and AST rules walk the whole package: the telemetry,
     checkpoint, XML, fleet, supervision, disk-governance, ingest,
-    attestation, chaos and serving modules are among the modules they
-    check (the serving daemon's Prometheus renderer `obs/prom.py`
-    included), and the JAX package's unported serving modules are not
-    in the port."""
+    attestation, chaos, serving and pool modules are among the modules
+    they check (the serving daemon's Prometheus renderer `obs/prom.py`,
+    the dispatcher and the pipelined ingest included), and the JAX
+    package's unported modules are not in the port."""
     rel = {os.path.relpath(p, PKG) for p in _modules()}
     for m in ("obs/__init__.py", "obs/metrics.py", "obs/recorder.py", "obs/trace.py",
               "obs/prom.py", "sim/checkpoint.py", "config/xml_compat.py", "cli.py",
@@ -117,10 +120,11 @@ def test_the_rules_cover_every_module_of_the_port():
               "chaos/__init__.py", "chaos/plan.py", "chaos/sites.py",
               "serve/__init__.py", "serve/jobs.py", "serve/protocol.py", "serve/quota.py",
               "serve/journal.py", "serve/client.py", "serve/scheduler.py",
-              "serve/server.py"):
+              "serve/server.py", "serve/dispatch.py", "pool/__init__.py", "pool/units.py",
+              "pool/coordinator.py", "pool/worker.py", "pool/campaign.py",
+              "ingest/pipeline.py"):
         assert m in rel, m
-    for m in ("serve/replicate.py", "serve/dispatch.py", "attest/audit.py",
-              "chaos/campaign.py"):
+    for m in ("serve/replicate.py", "attest/audit.py", "chaos/campaign.py"):
         assert m not in rel, m
 
 
@@ -137,6 +141,32 @@ def test_no_module_of_the_port_imports_jax():
             for n in names:
                 top = n.split(".")[0]
                 assert top not in ("jax", "jaxlib", "primesim_tpu"), (path, n)
+
+
+# a module path of the JAX package, or a command that runs it
+_JAX_PACKAGE_NAME = re.compile(r"primesim_tpu\.|-m primesim_tpu(?!_torch)|^primesim_tpu$")
+
+
+def test_no_string_of_the_port_names_the_jax_package():
+    """No string the port's code holds (docstrings aside) names a module
+    of the JAX package or runs it (`-m primesim_tpu`): the processes the
+    pool, the daemon and the pipelined run spawn are `python -m
+    primesim_tpu_torch` ones."""
+    for path in _modules():
+        tree = ast.parse(open(path).read(), path)
+        docs = {id(n.body[0].value) for n in ast.walk(tree)
+                if isinstance(n, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                                  ast.AsyncFunctionDef))
+                and n.body and isinstance(n.body[0], ast.Expr)
+                and isinstance(n.body[0].value, ast.Constant)}
+        for node in ast.walk(tree):
+            if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                    and id(node) not in docs):
+                assert not _JAX_PACKAGE_NAME.search(node.value), (path, node.lineno, node.value)
+    for bad in ("primesim_tpu.cli", "-m primesim_tpu worker", "primesim_tpu"):
+        assert _JAX_PACKAGE_NAME.search(bad)
+    for good in ("primesim_tpu_torch", "-m primesim_tpu_torch worker", "primesim_tpu_torch.pool"):
+        assert not _JAX_PACKAGE_NAME.search(good)
 
 
 def _tiny():
@@ -855,8 +885,12 @@ SERVE_RUNG2 = {
                       (54, {"quantum": 500, "dram_lat": 200}))
     ],
 }
-CUT_SPECS = {"fleet_rung3_cut": ("fleet_rung3", 1536),
-             "multiprog_rung3_cut": ("multiprog_rung3", 1536)}
+# name -> (base fixture, steps, chunk_steps): JAX's run_steps rounds up
+# to whole chunks, so a cut shallower than 512 steps names its chunk
+CUT_SPECS = {"fleet_rung3_cut": ("fleet_rung3", 1536, 512),
+             "multiprog_rung3_cut": ("multiprog_rung3", 1536, 512),
+             "headline_cut": ("headline", 64, 64),
+             "rung3_headline_cut": ("rung3_headline", 64, 64)}
 ATTEST_FIXTURES = (*ATTEST_SPECS, "serve_headline", "serve_rung2", *CUT_SPECS)
 
 
@@ -949,14 +983,14 @@ def cut_digest_of_jax(name, i=0) -> dict:
     from primesim_tpu.sim.engine import Engine as JEngine
     from primesim_tpu.sim.fleet import apply_overrides
 
-    base, steps = CUT_SPECS[name]
+    base, steps, chunk = CUT_SPECS[name]
     if base in FLEET_SPECS:
         machine, elements = FLEET_SPECS[base]
         spec, ov = elements[i]
     else:
         (machine, spec), ov = FULL_WIDTH_SPECS[base], {}
     cfg = _jax_cfg(machine)
-    eng = JEngine(apply_overrides(cfg, ov), jax_trace(spec, cfg.line_bits), chunk_steps=512)
+    eng = JEngine(apply_overrides(cfg, ov), jax_trace(spec, cfg.line_bits), chunk_steps=chunk)
     eng.run_steps(steps)
     return digest_of_jax_engine(eng)
 
@@ -1007,8 +1041,9 @@ def _write_attest_fixtures(names, workers=6):
                              "(tests/test_torch_rules.py::serve_rung2_job)",
                 "jobs": outs})
         else:
-            base, steps = CUT_SPECS[n]
+            base, steps, chunk = CUT_SPECS[n]
             _write_json(n, {"base": base, "steps": steps,
+                            **({"chunk_steps": chunk} if chunk != 512 else {}),
                             "made_with": "JAX Engine.run_steps(steps) of the base fixture's "
                                          "run(s) (tests/test_torch_rules.py::cut_digest_of_jax)",
                             "digests": outs})
@@ -1064,8 +1099,8 @@ def test_serve_fixtures_name_their_jobs():
 @pytest.mark.parametrize("name", CUT_SPECS)
 def test_cut_fixtures_stop_short_of_their_full_runs(name):
     fx = _attest_fixture(name)
-    base, steps = CUT_SPECS[name]
-    assert (fx["base"], fx["steps"]) == (base, steps)
+    base, steps, chunk = CUT_SPECS[name]
+    assert (fx["base"], fx["steps"], fx.get("chunk_steps", 512)) == (base, steps, chunk)
     full = _attest_fixture(base)
     fulls = ([e["digest"] for e in full["elements"]] if "elements" in full
              else [full["digest"]])
