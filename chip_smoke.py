@@ -244,8 +244,8 @@ the final line:
                 headline's, the short element finished first. Prints the
                 aggregate MIPS and the fleet's peak device memory.
    fleet_rung3 -- the shipped rung 3, B = 4 (fixtures/fleet_rung3.json),
-                run to step 1024, checkpointed, freed, resumed in a fresh
-                fleet and run to step 1536 (FLEET_DEPTH); all four kernels
+                run to step 512 (FLEET_CUT), checkpointed, freed, resumed in
+                a fresh fleet and run to step 1024 (FLEET_DEPTH); all four kernels
                 once per fleet step; every element's digest equal to the
                 JAX package's at that depth (fixtures/fleet_rung3_cut.json).
    cli_sweep -- `python -m primesim_tpu_torch sweep` on rung 1 with three
@@ -277,10 +277,12 @@ the final line:
                 snapshot at step 768); a fresh engine resumes from that
                 snapshot, and its first chunk runs on the card and then
                 raises UNAVAILABLE, so the supervisor rolls the device state
-                and the chain back and retries. Fails unless the digest equals
-                fixtures/headline_faults.json, the resumed chain is the JAX
-                run's after chunk 3 and the final head the uninterrupted
-                JAX run's (fixtures/attest_faults.json), and each step kernel
+                and the chain back and retries; a second SIGTERM preempts it
+                after that chunk (SUP_STOP_CHUNK, step 1024). Fails unless
+                the resumed chain is the JAX run's after chunk 3 and the
+                head after chunk 4 the uninterrupted JAX run's there
+                (fixtures/attest_faults.json: a hash of every state field),
+                and each step kernel
                 launched once per step run, the failed chunk's included. Prints the
                 snapshots written, the retries, the snapshot's bytes, save
                 and load seconds, the rollback copy's bytes and CUDA-event
@@ -293,12 +295,13 @@ the final line:
                 a 1024-step prefix (element 3's dram_lat keeps it alone);
                 the prefix runs once as a solo engine, is stored in a warm
                 cache in a temporary folder and forked into the three slots,
-                and every element's digest equals the committed JAX one.
+                and the fleet runs 512 steps past the fork (FORK_CHECK;
+                element 3 from step 0): every element's digest equals the
+                committed JAX one there (fixtures/fleet_fork_cut.json).
                 fleet_fork_warm: a second fleet from the same cache, a hit
-                that simulates no prefix, run 512 steps past the fork
-                (FORK_CHECK) and equal there to fleet_fork's digests at the
-                same step. The launches count the prefix's steps and the
-                fleet's.
+                that simulates no prefix, run as far and equal there to the
+                JAX digests and to fleet_fork's. The launches count the
+                prefix's steps and the fleet's.
    cli_supervised (in the background thread of dispatch_rung2, after
                 it; printed before phase 5) -- through
                 cli_side_by_side on rung 1: `run
@@ -348,13 +351,14 @@ the final line:
                 the card and the CPU simulate alike.
 
 12. attest_headline (after online, before phase 8) -- the headline run
-                (chunks of 512) with a SoloAttest chain: the head after
-                every chunk equal to the JAX package's
-                (fixtures/attest_headline.json; a mismatch names the first
-                chunk whose committed state differs), the digest equal to
-                fixtures/headline.json, each step kernel once per step.
-                Prints the wall beside the unattested headline's, the bytes
-                hashed and the transfer and hash seconds of each chunk.
+                to step 1024 (ATTEST_DEPTH: two chunks of 512; the whole
+                run until PR 14) with a SoloAttest chain: the head after
+                every chunk, a hash of every state field, equal to the JAX
+                package's (fixtures/attest_headline.json; a mismatch names
+                the first chunk whose committed state differs), each step
+                kernel once per step. Prints the wall beside the unattested
+                headline's (and its steps), the bytes hashed and the
+                transfer and hash seconds of each chunk.
    serve_headline -- `python -m primesim_tpu_torch serve` on the headline
                 machine as a child process: one bucket of 3 slots of
                 ceil(T / 64) pages, --chunk-steps 512, --attest chain, no
@@ -409,6 +413,35 @@ the final line:
                 4 passed, and the workers ran on the card (each step kernel
                 at least twice per job step: every unit is run again by its
                 audit).
+   audit_pool (in pool_headline's thread, after it) -- the resumed unit's
+                first unit checkpoint (copied aside as it landed; the
+                coordinator reaps unit checkpoints at each ack) put back
+                into pool_headline's directory, then `fsck DIR` (clean,
+                the checkpoint among what it checked) and `audit DIR` on
+                the card: every unit `ok` with its acked head confirmed,
+                the replayed heads the fixture's, the checkpoint a prefix
+                of its unit's replay, each step kernel launched as often
+                as the others and at least once per replayed step
+                (router_cascade never). Prints the fsck's and the audit's
+                walls, each replay's wall and the launches.
+   replicated_headline (in a third background thread from phase 3 on,
+                printed before phase 5) -- two `replica` daemons (`--tcp
+                127.0.0.1:0`), a primary `serve` on the headline machine
+                with `--replicas` both (serve_headline's bucket, chunk
+                512, --attest chain) and a standby `serve --standby-of
+                PRIMARY --takeover-grace 1.0`. serve_headline's three jobs
+                go to the primary; once both replicas' chains hold the
+                three accepts and the primary has run a chunk, it is
+                killed (SIGKILL) and its state directory deleted. Fails
+                unless the standby promotes at a higher epoch, reruns the
+                jobs to results and chain heads equal to
+                fixtures/serve_headline.json's, launches each step kernel
+                once per fleet step and exits 0 on a drain, `fsck
+                --compare` of its journal against each replica's and
+                `fsck` of its state directory are clean, and the replicas
+                exit 0 on SIGTERM. Prints the takeover wall (kill to
+                PROMOTING), the frames shipped and acked, the jobs' wall
+                and the launches.
    pipeline_rung5 (in phase 11, after stream_rung5) -- ingest/pipeline.py's
                 run_pipelined on rung 5 at full geometry over
                 stream_rung5's file: 128-event windows filled from 256-event
@@ -430,9 +463,11 @@ import hashlib
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
@@ -479,10 +514,11 @@ FLEET_RUNG3_B = 4
 # and timed (the first step after each profiled window), rung 3's
 # checkpoint step, and the steps of each fleet_scaling run
 FLEET_STAGE = {"fleet_headline": 192, "fleet_rung3": 320}
-FLEET_CUT = 1024
+FLEET_CUT = 512
 # fleet_rung3's depth: run to FLEET_CUT, checkpointed, resumed, run to here
-# and held to the JAX digests at this depth (fixtures/fleet_rung3_cut.json)
-FLEET_DEPTH = 1536
+# and held to the JAX digests at this depth (fixtures/fleet_rung3_cut.json;
+# 1536 until PR 14, with the checkpoint at 1024)
+FLEET_DEPTH = 1024
 FLEET_SCALE_STEPS = 128
 RUNG3_STAGED = ("router_cascade",)  # staged from rung 3, the rest from the headline
 # steps of each main path run on the card to stage steps 1 and 300, and
@@ -523,10 +559,17 @@ MP_DEPTH = 1536
 # preempts it (step 768 of the faulted headline)
 SUP_CHUNK = 256
 SUP_KILL_CHUNK = 3
+# the resumed run is preempted again after this committed chunk and held to
+# the JAX chain head there (it ran on to step 1536 until PR 14)
+SUP_STOP_CHUNK = 4
 FORK_PREFIX = 1024  # fleet_fork's shared prefix: its schedule's first event
-# fleet_fork_warm runs this many steps after its warm fork and is held to
-# fleet_fork's digests there (fleet_fork runs on to the end, against JAX)
+# fleet_fork and fleet_fork_warm run this many steps after the fork and are
+# held to the JAX digests there (fixtures/fleet_fork_cut.json; fleet_fork
+# ran on to the end until PR 14)
 FORK_CHECK = 512
+# attest_headline's depth: two chunks of 512, each head held to the JAX
+# run's (it ran the whole 1536 steps until PR 14)
+ATTEST_DEPTH = 1024
 # cli_supervised: rung 1's trace (64 steps, four chunks of 16) and the
 # sweep's rates-0 schedule, whose first event (step 40) puts the fork at 32
 CLI_SUP_SPEC = "fft_like:n_phases=2,points_per_core=64"
@@ -1172,14 +1215,16 @@ def resilience_phases(dev, smi_line: str, hf, made: dict, baseline: dict | None 
         torch.cuda.synchronize()
         return eng, sup
 
-    def preempt(sup):
-        if sup.committed == SUP_KILL_CHUNK:
-            os.kill(os.getpid(), signal.SIGTERM)
+    def preempt_at(n):
+        def on_chunk(sup):
+            if sup.committed == n:
+                os.kill(os.getpid(), signal.SIGTERM)
+        return on_chunk
 
     try:
         held = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        eng, sup = supervised(preempt)
+        eng, sup = supervised(preempt_at(SUP_KILL_CHUNK))
         reset_launches()
         t0 = time.perf_counter()
         try:
@@ -1194,7 +1239,7 @@ def resilience_phases(dev, smi_line: str, hf, made: dict, baseline: dict | None 
         del eng, sup
         gc.collect()  # the timed save's wrapper and the engine form a cycle
         torch.cuda.empty_cache()
-        eng, sup = supervised()
+        eng, sup = supervised(preempt_at(SUP_STOP_CHUNK - SUP_KILL_CHUNK))
         t0 = time.perf_counter()
         resumed = sup.resume()
         torch.cuda.synchronize()
@@ -1212,13 +1257,17 @@ def resilience_phases(dev, smi_line: str, hf, made: dict, baseline: dict | None 
 
         eng.run_steps = fail_once
         t0 = time.perf_counter()
-        sup.run()
+        try:
+            sup.run()
+            fail("supervised_faults: the resumed run was not preempted")
+        except Preempted:
+            pass
         torch.cuda.synchronize()
         wall2 = time.perf_counter() - t0
         launches["supervised_faults"] = dict(build.LAUNCHES)
         peak = torch.cuda.max_memory_allocated() - held
-        got = run_digest(eng.steps_run, eng.cycles, eng.counters,
-                         eng.state.link_free.cpu().numpy(), eng.state.dram_free.cpu().numpy())
+        want_chain = {"head": atfx["heads"][SUP_STOP_CHUNK - 1], "chunks": SUP_STOP_CHUNK,
+                      "start": 0, "chunk_steps": SUP_CHUNK}
         copy_ms = []  # the rollback copy alone: CUDA events around one copy
         for _ in range(5):
             a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1244,9 +1293,8 @@ def resilience_phases(dev, smi_line: str, hf, made: dict, baseline: dict | None 
             "wall_s": [wall1, wall2], "wall_total_s": wall1 + wall2,
             "peak_memory_bytes": peak,
             "unsupervised": baseline, "launches": launches["supervised_faults"],
-            "equals_jax_digest": got == hffx["digest"],
             "attest": eng.attest.payload(), "chain_at_resume": chain_at_resume,
-            "attest_equals_jax": eng.attest.payload() == atfx["attest"],
+            "attest_equals_jax": eng.attest.payload() == want_chain,
             "resilience_log": sup.log_lines(), "gpu": smi_line}
         emit(line)
     finally:
@@ -1255,12 +1303,10 @@ def resilience_phases(dev, smi_line: str, hf, made: dict, baseline: dict | None 
         fail(f"supervised_faults: preempted at {cut}, resumed from {resumed}")
     if failed != [cut + SUP_CHUNK] or second["retries"] != 1:
         fail(f"supervised_faults: failed chunk {failed}, retries {second['retries']}")
-    if first["checkpoints_written"] != 2 or second["checkpoints_written"] < 2:
-        fail(f"supervised_faults: checkpoints {first}, {second}")
+    if first["checkpoints_written"] != 2 or second["checkpoints_written"] != 1 \
+            or eng.steps_run != SUP_STOP_CHUNK * SUP_CHUNK:
+        fail(f"supervised_faults: checkpoints {first}, {second}, stopped at {eng.steps_run}")
     check_launches("supervised_faults", executed, STEP_KERNELS)
-    for k, want in hffx["digest"].items():
-        if got[k] != want:
-            fail(f"supervised_faults: {k} {got[k]} != the JAX package's {want}")
     # the chain crossed the snapshot (its head there is the JAX run's after
     # the preempted chunk) and the rolled-back chunk was linked once
     if chain_at_resume["head"] != atfx["heads"][SUP_KILL_CHUNK - 1] \
@@ -1269,12 +1315,13 @@ def resilience_phases(dev, smi_line: str, hf, made: dict, baseline: dict | None 
              f"after chunk {SUP_KILL_CHUNK}")
     if line["attest_equals_jax"] is not True:
         fail(f"supervised_faults: the chain {line['attest']} != the uninterrupted JAX "
-             f"run's {atfx['attest']}")
+             f"run's after chunk {SUP_STOP_CHUNK} {want_chain}")
 
     # ---- fleet_fork: the headline machine as a B = 4 fleet under a
     # rates-0 schedule; three seed-only elements share a 1024-step prefix,
     # run once and forked; a second fleet takes it from the warm cache
     ffx, fcfg, ftrs, fovs = load_fleet_fixture("fleet_fork", made)
+    cut_fx = load_cut("fleet_fork_cut", [FORK_PREFIX + FORK_CHECK] * 3 + [FORK_CHECK])
     cache = tempfile.mkdtemp(prefix="chip_smoke_warm_")
     at_check = None  # fleet_fork's digests FORK_CHECK steps after the fork
     try:
@@ -1292,28 +1339,25 @@ def resilience_phases(dev, smi_line: str, hf, made: dict, baseline: dict | None 
             t1 = time.perf_counter()
             start = fl.steps_run.copy()
             fl.run_steps(FORK_CHECK)
-            check = [element_digest(fl, i) for i in range(fl.n_elements)]
-            if path == "fleet_fork":  # the warm fleet is held to these digests
-                at_check = check
-                fl.run()
             torch.cuda.synchronize()
             t2 = time.perf_counter()
             launches[path] = dict(build.LAUNCHES)
             fleet_steps = int((fl.steps_run - start).max())
             simulated = FORK_PREFIX if st["cache_misses"] else 0
             got = [element_digest(fl, i) for i in range(fl.n_elements)]
+            if path == "fleet_fork":  # the warm fleet is held to these digests too
+                at_check = got
             warm_bytes = sum(os.path.getsize(os.path.join(cache, n))
                              for n in os.listdir(cache) if n.endswith(".npz"))
-            equal = ([g == e["digest"] for g, e in zip(got, ffx["elements"])]
-                     if path == "fleet_fork" else [c == a for c, a in zip(check, at_check)])
+            equal = [g == d for g, d in zip(got, cut_fx["digests"])]
             emit({"phase": path, "B": fl.n_elements, "prefix": st,
                   "prefix_steps_simulated": simulated, "fork_and_prefix_s": t1 - t0,
                   "fleet_steps": fleet_steps, "fleet_wall_s": t2 - t1,
                   "steps_by_element": fl.steps_run.tolist(),
                   "prefix_steps_by_element": fl.prefix_steps.tolist(),
                   "warm_entry_bytes": warm_bytes, "launches": launches[path],
-                  ("equals_jax_digest" if path == "fleet_fork"
-                   else f"equals_fleet_fork_{FORK_CHECK}_steps_after_the_fork"): equal,
+                  "equals_jax_digest": equal,
+                  "equals_fleet_fork": None if path == "fleet_fork" else got == at_check,
                   "gpu": smi_line})
             want_hits = int(path == "fleet_fork_warm")
             if (st["cache_hits"], st["cache_misses"]) != (want_hits, 1 - want_hits):
@@ -1321,14 +1365,14 @@ def resilience_phases(dev, smi_line: str, hf, made: dict, baseline: dict | None 
             if want_hits and st["prefix_wall_s"] != 0.0:
                 fail(f"{path}: a warm hit simulated its prefix")
             check_launches(path, simulated + fleet_steps, STEP_KERNELS)
-            if path == "fleet_fork":
-                for i, (g, e) in enumerate(zip(got, ffx["elements"])):
-                    for k, want in e["digest"].items():
-                        if g[k] != want:
-                            fail(f"{path}: element {i} {k} {g[k]} != the JAX package's {want}")
-            elif not all(equal):
-                fail(f"{path}: {FORK_CHECK} steps after the warm fork, elements {equal} "
-                     "differ from fleet_fork's")
+            for i, (g, d) in enumerate(zip(got, cut_fx["digests"])):
+                for k, want in d.items():
+                    if g[k] != want:
+                        fail(f"{path}: element {i} {k} {g[k]} != the JAX package's {want} "
+                             f"{FORK_CHECK} steps after the fork")
+            if path == "fleet_fork_warm" and got != at_check:
+                fail(f"{path}: {FORK_CHECK} steps after the warm fork, elements differ "
+                     "from fleet_fork's")
             del fl
             torch.cuda.empty_cache()
     finally:
@@ -1490,7 +1534,7 @@ def attest_serve_phases(dev, smi_line: str, headline, baselines: dict, made: dic
     torch.cuda.reset_peak_memory_stats()
     build.LAUNCHES.update(dict.fromkeys(build.LAUNCHES, 0))
     t0 = time.perf_counter()
-    eng.run()
+    eng.run_steps(ATTEST_DEPTH)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches["attest_headline"] = dict(build.LAUNCHES)
@@ -1498,25 +1542,26 @@ def attest_serve_phases(dev, smi_line: str, headline, baselines: dict, made: dic
     got = run_digest(eng.steps_run, eng.cycles, eng.counters,
                      eng.state.link_free.cpu().numpy(), eng.state.dram_free.cpu().numpy())
     heads = [c["head"] for c in per_chunk]
-    first_bad = next((k + 1 for k, (a, b) in enumerate(zip(heads, afx["heads"])) if a != b),
+    want_heads = afx["heads"][:ATTEST_DEPTH // chunk]
+    want_chain = {"head": want_heads[-1], "chunks": len(want_heads), "start": 0,
+                  "chunk_steps": chunk}
+    first_bad = next((k + 1 for k, (a, b) in enumerate(zip(heads, want_heads)) if a != b),
                      None)
     emit({"phase": "attest_headline", "chunk_steps": chunk, "steps": eng.steps_run,
           "chunks": len(heads), "wall_s": wall, "simulated_mips": got["instructions"] / wall / 1e6,
-          "unattested": baselines["headline"], "peak_memory_bytes": peak,
+          "unattested": baselines["headline"], "unattested_steps": hfx["digest"]["steps"],
+          "peak_memory_bytes": peak,
           "bytes_hashed_per_chunk": [c["bytes"] for c in per_chunk],
           "transfer_s_per_chunk": [c["transfer_s"] for c in per_chunk],
           "hash_s_per_chunk": [c["hash_s"] for c in per_chunk],
           "attest": eng.attest.payload(), "heads_equal_jax": first_bad is None
-          and len(heads) == len(afx["heads"]), "launches": launches["attest_headline"],
+          and len(heads) == len(want_heads), "launches": launches["attest_headline"],
           "gpu": smi_line})
-    if len(heads) != len(afx["heads"]) or first_bad is not None:
+    if len(heads) != len(want_heads) or first_bad is not None:
         fail(f"attest_headline: the chain first differs from the JAX heads at chunk "
-             f"{first_bad} ({len(heads)} chunks, the JAX run {len(afx['heads'])})")
-    if eng.attest.payload() != afx["attest"]:
-        fail(f"attest_headline: payload {eng.attest.payload()} != the JAX {afx['attest']}")
-    for k, want in hfx["digest"].items():
-        if got[k] != want:
-            fail(f"attest_headline: {k} {got[k]} != the JAX package's {want}")
+             f"{first_bad} ({len(heads)} chunks, the JAX run {len(want_heads)})")
+    if eng.attest.payload() != want_chain:
+        fail(f"attest_headline: payload {eng.attest.payload()} != the JAX {want_chain}")
     for k, n in launches["attest_headline"].items():
         if n != (eng.steps_run if k in STEP_KERNELS else 0):
             fail(f"attest_headline: {k} launched {n} times in {eng.steps_run} steps")
@@ -1744,6 +1789,82 @@ def pool_launches(path: str, exits: dict, at_least: int) -> dict:
     return total
 
 
+def keep_unit_checkpoints(units_dir: str, kept: str, stop) -> None:
+    """Until `stop` is set: copy each unit checkpoint (units/<uid>.npz,
+    written by an atomic rename) into `kept` the first time it is seen."""
+    os.makedirs(kept, exist_ok=True)
+    while True:
+        done = stop.is_set()
+        for name in os.listdir(units_dir) if os.path.isdir(units_dir) else ():
+            if name.endswith(".npz") and not os.path.exists(os.path.join(kept, name)):
+                try:
+                    shutil.copyfile(os.path.join(units_dir, name), os.path.join(kept, name))
+                except FileNotFoundError:  # reaped at its ack meanwhile
+                    pass
+        if done:
+            return
+        time.sleep(0.1)
+
+
+def audit_pool(pool_dir: str, kept: str, resumed: dict, jobs: list, smi_line: str):
+    """audit_pool (module docstring), in pool_headline's thread after it:
+    the resumed unit's first checkpoint put back into the pool directory,
+    `fsck` of the directory clean, then `audit` of it on the card: every
+    unit `ok` with its ack confirmed, the checkpoint a prefix of its replay,
+    each step kernel launched once per replayed step. Returns (its phase
+    line, the audit process's launch counts)."""
+    victim = next((u for u, n in sorted(resumed.items()) if n > 0), None)
+    if victim is None or not os.path.exists(os.path.join(kept, f"{victim}.npz")):
+        fail(f"audit_pool: no kept checkpoint of the resumed unit ({resumed}, "
+             f"kept {sorted(os.listdir(kept))})")
+    os.makedirs(os.path.join(pool_dir, "units"), exist_ok=True)
+    shutil.copyfile(os.path.join(kept, f"{victim}.npz"),
+                    os.path.join(pool_dir, "units", f"{victim}.npz"))
+    from primesim_tpu_torch.analysis.fsck import render_json, run_fsck
+
+    t0 = time.perf_counter()
+    started = round(t0 - T0, 1)
+    report = json.loads(render_json(run_fsck(pool_dir)))  # no device: in this process
+    fsck_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    au = subprocess.run([sys.executable, "-m", "primesim_tpu_torch", "audit", pool_dir],
+                        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    audit_s = time.perf_counter() - t1
+    if au.returncode != 0:
+        fail(f"audit_pool: audit exited {au.returncode}: {au.stdout[-1000:]} {au.stderr[-1000:]}")
+    verdicts = [json.loads(ln) for ln in au.stdout.splitlines() if ln.strip()]
+    dev_line = [ln for ln in au.stderr.splitlines() if ln.startswith("audit: device ")]
+    if len(dev_line) != 1 or not dev_line[0].startswith("audit: device cuda"):
+        fail(f"audit_pool: the audit did not run on the card: {au.stderr[-1000:]}")
+    extra = json.loads(dev_line[0].partition(", ")[2])
+    launches = extra["launches"]
+    steps = sum(j["digest"]["steps"] for j in jobs)
+    by = {v["unit_id"]: v for v in verdicts}
+    line = {"phase": "audit_pool", "units": len(verdicts),
+            "statuses": {u: v["status"] for u, v in by.items()},
+            "resumed_unit": victim, "checkpoint": by.get(victim, {}).get("detail", {})
+            .get("checkpoint"), "fsck_s": fsck_s, "fsck_checked": report["checked"],
+            "fsck_summary": report["summary"], "audit_s": audit_s,
+            "replay_wall_s": extra["replay_wall_s"], "replayed_steps": steps,
+            "launches": launches, "started_t_s": started,
+            "ended_t_s": round(time.perf_counter() - T0, 1), "gpu": smi_line}
+    if report["summary"]["corrupt"] or report["checked"]["checkpoints"] != 1:
+        fail(f"audit_pool: fsck found {report['findings']} over {report['checked']}")
+    if len(verdicts) != len(jobs) or any(
+            v["status"] != "ok" or v["detail"].get("ack") != "confirmed" for v in verdicts):
+        fail(f"audit_pool: verdicts {verdicts}")
+    if not str(line["checkpoint"]).startswith("prefix ok at chunk "):
+        fail(f"audit_pool: the resumed unit's checkpoint was not held to its replay: "
+             f"{by.get(victim)}")
+    heads = sorted(v["detail"]["replay"]["head"] for v in verdicts)
+    if heads != sorted(j["attest"]["head"] for j in jobs):
+        fail(f"audit_pool: replayed heads {heads} are not the JAX runs'")
+    if launches["router_cascade"] or len({launches[k] for k in STEP_KERNELS}) != 1 \
+            or launches["probe_classify"] < steps:
+        fail(f"audit_pool: the replays launched {launches} for {steps} steps")
+    return line, launches
+
+
 def pool_phase(path: str, smi_line: str, headline) -> tuple[list, dict]:
     """A pooled path, pool_headline or dispatch_rung2 (module docstring),
     for a background thread: a process tree of its own that shares the
@@ -1807,8 +1928,19 @@ def pool_phase(path: str, smi_line: str, headline) -> tuple[list, dict]:
                          or f"llc_lat={cfg.llc.latency}"]
             t0 = time.perf_counter()
             started = round(t0 - T0, 1)
-            sp = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True, timeout=900,
-                                env={**os.environ, "PRIMETPU_POOL_CRASH": POOL_CRASH})
+            # the first unit checkpoint each unit writes, copied aside as it
+            # lands (the coordinator reaps them at each ack): audit_pool
+            # puts the resumed unit's back and holds it to the replay
+            kept, stop = os.path.join(tmp, "kept_units"), threading.Event()
+            watcher = threading.Thread(target=keep_unit_checkpoints,
+                                       args=(os.path.join(tmp, "pool", "units"), kept, stop))
+            watcher.start()
+            try:
+                sp = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True, timeout=900,
+                                    env={**os.environ, "PRIMETPU_POOL_CRASH": POOL_CRASH})
+            finally:
+                stop.set()
+                watcher.join()
             wall = time.perf_counter() - t0
             if sp.returncode != 0:
                 fail(f"pool_headline: sweep exited {sp.returncode}: {sp.stderr[-2000:]}")
@@ -1844,6 +1976,9 @@ def pool_phase(path: str, smi_line: str, headline) -> tuple[list, dict]:
             if not any(v > 0 for v in resumed.values()):
                 fail(f"pool_headline: no unit resumed from its checkpoint: {resumed}")
             on_the_card("pool_headline", devices, exits)
+            line, launches["audit_pool"] = audit_pool(
+                os.path.join(tmp, "pool"), kept, resumed, jobs, smi_line)
+            lines.append(line)
 
         if path == "dispatch_rung2":
             # ---- dispatch_rung2: the daemon on rung 2 dispatching serve_rung2's
@@ -1914,6 +2049,193 @@ def pool_phase(path: str, smi_line: str, headline) -> tuple[list, dict]:
     return lines, launches
 
 
+class Child:
+    """A `python -m primesim_tpu_torch` child whose stderr lines are
+    collected by a thread, each with the script's clock when it arrived."""
+
+    def __init__(self, args: list[str]):
+        self.proc = subprocess.Popen([sys.executable, "-m", "primesim_tpu_torch", *args],
+                                     cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                     text=True)
+        self.lines: list = []  # (time.perf_counter(), line)
+        self.out = ""
+        self._t = threading.Thread(target=self._read, daemon=True)
+        self._t.start()
+        self._o = threading.Thread(target=self._read_out, daemon=True)
+        self._o.start()
+
+    def _read(self) -> None:
+        for ln in self.proc.stderr:
+            self.lines.append((time.perf_counter(), ln.rstrip("\n")))
+
+    def _read_out(self) -> None:
+        self.out = self.proc.stdout.read()
+
+    def wait_line(self, what: str, timeout: float = 300.0, start: int = 0):
+        """(arrival time, line) of the first stderr line from `start` on that
+        holds `what`; fails if the child exits first or it never comes."""
+        deadline = time.time() + timeout
+        while True:
+            for t, ln in self.lines[start:]:
+                if what in ln:
+                    return t, ln
+            if self.proc.poll() is not None and not self._t.is_alive():
+                fail(f"a child exited {self.proc.returncode} before {what!r}: "
+                     f"{[ln for _, ln in self.lines][-20:]}")
+            if time.time() > deadline:
+                fail(f"no {what!r} line within {timeout} s: {[ln for _, ln in self.lines][-20:]}")
+            time.sleep(0.05)
+
+    def finish(self, timeout: float = 600.0) -> int:
+        self.proc.wait(timeout=timeout)
+        self._t.join(timeout=30)
+        self._o.join(timeout=30)
+        return self.proc.returncode
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def replicated_phase(smi_line: str, headline) -> tuple[list, dict]:
+    """replicated_headline (module docstring), for a background thread
+    beside phases 3 and 4: two `replica` daemons, a primary `serve
+    --replicas` on the headline machine and a standby `--standby-of` it,
+    the primary killed (SIGKILL) and its state directory deleted once the
+    replicas hold the jobs' accepts and it has committed a chunk. Returns
+    (its phase line, for the main thread to print, and the promoted
+    daemon's launch counts)."""
+    from primesim_tpu_torch.analysis.fsck import _check_journal_dir, run_compare, run_fsck
+    from primesim_tpu_torch.serve.client import ServeClient
+    from primesim_tpu_torch.serve.scheduler import PAGE_EVENTS, parse_synth_spec
+    from primesim_tpu_torch.stats.digest import run_digest
+
+    def served(result):
+        d = run_digest(result["steps"], result["core_cycles"],
+                       {k: np.asarray(v) for k, v in result["counters"].items()}, [], [])
+        return {k: v for k, v in d.items() if k not in ("link_free_sha256", "dram_free_sha256")}
+
+    def target(line):
+        return line.split("listening on ", 1)[1].split(" ", 1)[0]
+
+    hfx, cfg, _ = headline
+    with open(os.path.join(ROOT, "primesim_tpu_torch", "fixtures", "serve_headline.json")) as f:
+        sfx = json.load(f)
+    jobs = [e for e in sfx["jobs"] if e["element"] in SERVE_ELEMENTS]
+    specs = [e["trace"]["generator"] + ":" + ",".join(
+        f"{k}={v}" for k, v in e["trace"]["args"].items() if k != "n_cores") for e in jobs]
+    pages = -(-max(parse_synth_spec(sp, cfg.n_cores, True).max_len for sp in specs)
+              // PAGE_EVENTS)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_repl_")
+    children = []
+    try:
+        t0 = time.perf_counter()
+        started = round(t0 - T0, 1)
+        cfg_path = os.path.join(tmp, "headline.json")
+        with open(cfg_path, "w") as f:
+            f.write(cfg.to_json())
+        r_dirs = [os.path.join(tmp, f"replica{i}") for i in range(2)]
+        reps = [Child(["replica", "--dir", d, "--tcp", "127.0.0.1:0"]) for d in r_dirs]
+        children += reps
+        replicas = ",".join(target(r.wait_line("replica: listening on")[1]) for r in reps)
+        serve = [cfg_path, "--tcp", "127.0.0.1:0", "--replicas", replicas, "--buckets",
+                 f"{len(specs)}x{pages}", "--chunk-steps", str(sfx["chunk_steps"]),
+                 "--attest", "chain", "--checkpoint-wall", "3600"]
+        a_dir, b_dir = os.path.join(tmp, "primary"), os.path.join(tmp, "standby")
+        prim = Child(["serve", "--state-dir", a_dir, *serve])
+        children.append(prim)
+        _, a_line = prim.wait_line("serve: listening on")
+        if "replicated x2 quorum=2 epoch=1" not in a_line:
+            fail(f"replicated_headline: the primary's readiness line: {a_line}")
+        stby = Child(["serve", "--state-dir", b_dir, *serve, "--standby-of", target(a_line),
+                      "--takeover-grace", "1.0"])
+        children.append(stby)
+        stby.wait_line("serve: standby of")
+        cli = ServeClient(target(a_line), timeout_s=60.0)
+        t_sub = time.perf_counter()
+        # all three at once, so that they are admitted together (one at a
+        # time, each would wait out a chunk of the jobs before it)
+        with ThreadPoolExecutor(len(specs)) as ex:
+            ids = [f.result()["job_id"] for f in [ex.submit(
+                ServeClient(target(a_line), timeout_s=60.0).submit, synth=sp,
+                overrides=e["overrides"], fold=True) for sp, e in zip(specs, jobs)]]
+        # kill once both replicas hold every accept and a chunk is committed
+        deadline = time.time() + 600
+        while True:
+            accepts = [sum(r.get("t") == "accept" for r in _check_journal_dir(d, d)[0])
+                       for d in r_dirs]
+            health = cli.health()
+            if min(accepts) == len(ids) and health["device"]["fleet_steps"] >= sfx["chunk_steps"]:
+                break
+            if time.time() > deadline:
+                fail(f"replicated_headline: accepts {accepts}, health {health}")
+            time.sleep(0.1)
+        a_repl, a_dev, a_journal = health["replication"], health["device"], health["journal"]
+        a_jobs = {k: v for k, v in health["jobs"].items() if v}
+        t_kill = time.perf_counter()
+        prim.proc.send_signal(signal.SIGKILL)
+        prim.finish(timeout=60)
+        shutil.rmtree(a_dir)
+        t_promote, _ = stby.wait_line("serve: PROMOTING", timeout=120)
+        t_ready, b_line = stby.wait_line("serve: listening on", timeout=300)
+        cli2 = ServeClient(target(b_line), timeout_s=60.0)
+        results = [cli2.wait(i, timeout_s=900.0) for i in ids]
+        t_done = time.perf_counter()
+        health = cli2.health()
+        cli2.drain()
+        rc = stby.finish()
+        compares = [run_compare(b_dir, d) for d in r_dirs]  # no device: in this process
+        fk = run_fsck(b_dir)
+        for r in reps:
+            r.proc.send_signal(signal.SIGTERM)
+        rep_rcs = [r.finish(timeout=60) for r in reps]
+    finally:
+        for c in children:
+            c.kill()
+        shutil.rmtree(tmp, ignore_errors=True)
+    dstats, repl = health["device"], health["replication"]
+    launches = dstats["kernel_launches"]
+    same = [r["state"] == "DONE" and served(r["result"]) == e["digest"]
+            for r, e in zip(results, jobs)]
+    chains = [r.get("result", {}).get("attest") == e["attest"] for r, e in zip(results, jobs)]
+    epoch = int(b_line.split("epoch=", 1)[1].split(",")[0].split(" ")[0].rstrip(")"))
+    cmp = [c.checked for c in compares]
+    line = {"phase": "replicated_headline", "replicas": 2, "quorum": repl["quorum"],
+            "bucket": f"{len(specs)}x{pages}", "chunk_steps": sfx["chunk_steps"],
+            "elements": [e["element"] for e in jobs],
+            "primary_at_kill": {"fleet_steps": a_dev["fleet_steps"], "jobs": a_jobs,
+                                "journal_appends": a_journal["appends"],
+                                "acks": [x["acks"] for x in a_repl["replicas"]],
+                                "epoch": a_repl["epoch"]},
+            "takeover_wall_s": t_promote - t_kill, "kill_to_ready_s": t_ready - t_kill,
+            "epoch": epoch, "jobs_wall_s": t_done - t_ready,
+            "submit_to_done_s": t_done - t_sub,
+            "job_steps": [r.get("result", {}).get("steps") for r in results],
+            "frames_shipped": health["journal"]["appends"],
+            "frames_acked": [x["acks"] for x in repl["replicas"]], "resyncs": repl["resyncs"],
+            "quorum_losses": repl["quorum_losses"], "fleet_steps": dstats["fleet_steps"],
+            "launches": launches, "fsck_compare": cmp, "fsck_checked": fk.checked,
+            "results_equal_jax": same, "heads_equal_jax": chains, "daemon_returncode": rc,
+            "replica_returncodes": rep_rcs, "started_t_s": started,
+            "ended_t_s": round(time.perf_counter() - T0, 1), "gpu": smi_line}
+    if not all(same) or not all(chains):
+        fail(f"replicated_headline: results {same}, chain heads {chains} against the JAX runs")
+    if epoch <= a_repl["epoch"] or "replicated x2 quorum=2" not in b_line:
+        fail(f"replicated_headline: the standby's readiness line: {b_line}")
+    if rc != 0 or any(rep_rcs):
+        fail(f"replicated_headline: the promoted daemon exited {rc}, the replicas {rep_rcs}: "
+             f"{[ln for _, ln in stby.lines][-10:]}")
+    if not all(c.clean for c in compares) or not fk.clean:
+        fail(f"replicated_headline: fsck --compare {[c.findings for c in compares]}, "
+             f"fsck {fk.findings}")
+    n = dstats["fleet_steps"]
+    if n < max(r["result"]["steps"] for r in results) or any(
+            c != (n if k in STEP_KERNELS else 0) for k, c in launches.items()):
+        fail(f"replicated_headline: {launches} launches in {n} fleet steps")
+    return [line], {"replicated_headline": launches}
+
+
 def main() -> int:
     import torch
 
@@ -1978,9 +2300,10 @@ def main() -> int:
         lines, launches_of = pool_phase("dispatch_rung2", smi_line, (hfx, cfg, trace))
         return lines + cli_supervised_phase(), launches_of
 
-    pool_ex = ThreadPoolExecutor(2)
+    pool_ex = ThreadPoolExecutor(3)
     pool_fs = [pool_ex.submit(pool_phase, "pool_headline", smi_line, (hfx, cfg, trace)),
-               pool_ex.submit(dispatch_then_cli)]
+               pool_ex.submit(dispatch_then_cli),
+               pool_ex.submit(replicated_phase, smi_line, (hfx, cfg, trace))]
     r3fx, cfg3, trace3 = fixture("rung3_headline")
     if trace3.events.tobytes() != trace.events.tobytes():
         fail("rung 3's fixture names another trace than the headline's")

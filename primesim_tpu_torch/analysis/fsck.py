@@ -1,0 +1,984 @@
+"""`fsck` — static verification of durable state, the JAX package's
+`analysis/fsck.py` for the port: the journal, ledger, checkpoint,
+warm-entry and executable-entry formats are the JAX package's, so it
+reads directories either package wrote, and its findings are the JAX
+package's word for word.
+
+Walks a directory tree and validates every durable artifact the repo
+writes, with ZERO simulation and without mutating anything it checks:
+
+  - journal/ledger segment chains (serve/journal.py): per-line frame
+    CRCs, torn-tail-only-in-the-newest-segment, header seq agreement,
+    sequence contiguity, the rolled-segment prev-CRC back-links, and
+    base-segment restarts — a read-only reimplementation of
+    `JobJournal.replay()` that reports findings instead of raising
+    (and, crucially, never instantiates JobJournal: its constructor
+    repairs crash debris, which would destroy the evidence)
+  - serve job records: state-machine legality of the journaled
+    transition stream under the fold's documented tolerances
+    (duplicate accepts, post-terminal duplicates, RUNNING->PENDING
+    crash re-admission)
+  - pool ledger records: unit-key consistency — every lease/ack/spec
+    key for one unit must agree, and a `unit` spec must hash to its
+    own stamped key
+  - checkpoints (*.npz): CRC manifest via `load_verified_npz`,
+    `_FORMAT` version, per-kind required members, counter-row counts
+  - warm-cache entries: sidecar↔filename↔npz agreement (key stem,
+    steps, trace_sha); orphan sidecars and mkstemp leftovers are
+    reported as notes, not corruption (they are expected kill -9
+    debris)
+  - AOT executable entries (exec/*.bin, DESIGN.md §23) that the JAX
+    package writes into a cache tree the two may share: magic + CRC of
+    the serialized executable, sidecar key↔content agreement (the
+    payload must re-hash to its own filename), required toolchain
+    version fields; an entry lowered under another jax/jaxlib than the
+    one installed here (read from the distribution metadata, never
+    imported) is a note (the cache treats it as a plain miss), a
+    tampered one is corrupt. The port keeps its own copy of that format
+    (`_EXEC_MAGIC`, `_exec_key`) and has no executable cache of its own
+
+`--repair quarantine` moves (never deletes) corrupt or orphaned FILES
+into `<root>/.fsck-quarantine/<relpath>`; logical findings that span a
+chain (an illegal transition inside an intact segment) are reported
+but not repairable. Exit codes ride the CLI contract: 0 clean (notes
+allowed — crash debris is normal), 2 with structured JSON when any
+corrupt finding exists.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import json
+import os
+import shutil
+
+from .errors import FsckCorrupt
+
+_JOURNAL_ACTIVE = "journal.jsonl"
+_SERVE_TYPES = {"accept", "state"}
+_POOL_TYPES = {"unit", "lease", "expire", "ack", "poison",
+               "ack_dup", "suspect", "verdict", "audit"}
+# pool record types that may carry a fingerprint-chain payload
+# (DESIGN.md §24), directly or inside a `held` evidence list
+_ATTEST_TYPES = {"ack", "ack_dup", "suspect", "verdict"}
+
+
+@dataclasses.dataclass
+class Finding:
+    kind: str        # "journal-chain" | "journal-record" | "job-transition"
+    #                  | "ledger-key" | "checkpoint" | "warm-cache" | "orphan"
+    path: str        # root-relative
+    detail: str
+    corrupt: bool    # True -> fsck exits 2
+    repairable: bool = False  # a file quarantine can move aside
+
+    def as_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+@dataclasses.dataclass
+class FsckResult:
+    root: str
+    findings: list
+    checked: dict      # category -> count
+    quarantined: list  # root-relative paths moved aside
+
+    @property
+    def corrupt(self) -> list:
+        return [f for f in self.findings if f.corrupt]
+
+    @property
+    def clean(self) -> bool:
+        return not self.corrupt
+
+
+# ---- journal chain ------------------------------------------------------
+
+
+def _scan_lines_ro(path: str) -> list:
+    """Like journal._scan_lines but byte-tolerant: undecodable bytes
+    (media rot inside a segment) must surface as CRC findings, not
+    crash the checker. Replacement characters guarantee the framed
+    line's CRC fails, which is exactly the right diagnosis."""
+    if not os.path.exists(path):
+        return []
+    with open(path, encoding="utf-8", errors="replace") as f:
+        return [ln for ln in f.read().splitlines() if ln.strip()]
+
+
+def _parse_segment_ro(path: str, rel: str, newest: bool):
+    """Read-only mirror of JobJournal._parse_segment: one segment ->
+    (header, records, last_line_crc, findings, torn_dropped)."""
+    from ..serve.journal import _line_crc, _unframe
+
+    lines = _scan_lines_ro(path)
+    header = None
+    records: list = []
+    last_crc = 0
+    bad_at = None
+    findings: list = []
+    for n, line in enumerate(lines):
+        rec = _unframe(line)
+        if rec is None:
+            if not newest:
+                findings.append(Finding(
+                    "journal-record", rel,
+                    f"line {n + 1} fails its frame CRC in a CLOSED "
+                    "segment — media rot, not a torn append",
+                    corrupt=True, repairable=True,
+                ))
+                continue
+            if bad_at is None:
+                bad_at = n
+            continue
+        if bad_at is not None:
+            findings.append(Finding(
+                "journal-record", rel,
+                f"line {bad_at + 1} fails its frame CRC but line "
+                f"{n + 1} is valid — mid-file corruption, not a torn "
+                "tail", corrupt=True, repairable=True,
+            ))
+            bad_at = None
+        if n == 0 and isinstance(rec, dict) and rec.get("t") == "seg":
+            header = rec
+        elif isinstance(rec, dict):
+            records.append(rec)
+        last_crc = _line_crc(line)
+    dropped = 0
+    if bad_at is not None:
+        dropped = len(lines) - bad_at
+        findings.append(Finding(
+            "journal-record", rel,
+            f"torn tail: {dropped} unfinished line(s) at the end of "
+            "the newest segment (normal kill -9 debris; replay drops "
+            "them)", corrupt=False,
+        ))
+    return header, records, last_crc, findings, dropped
+
+
+def _check_journal_dir(dirpath: str, root: str) -> tuple:
+    """Verify one journal directory's segment chain; returns
+    (records, findings). Mirrors JobJournal.replay() ordering/base
+    semantics without opening anything for write."""
+    from ..serve.journal import _SEG_RE
+
+    rel_dir = os.path.relpath(dirpath, root).replace(os.sep, "/")
+    findings: list = []
+    rolled = []
+    for name in os.listdir(dirpath):
+        m = _SEG_RE.match(name)
+        if m:
+            rolled.append((int(m.group(1)), os.path.join(dirpath, name)))
+    rolled.sort()
+    segments = list(rolled)
+    active = os.path.join(dirpath, _JOURNAL_ACTIVE)
+    if os.path.exists(active):
+        from ..serve.journal import _unframe
+
+        active_seq = rolled[-1][0] + 1 if rolled else 0
+        lines = _scan_lines_ro(active)
+        if lines:
+            first = _unframe(lines[0])
+            if first is not None and first.get("t") == "seg":
+                active_seq = int(first.get("seq", active_seq))
+        segments.append((active_seq, active))
+    if not segments:
+        return [], findings
+
+    parsed = []
+    for seq, path in segments:
+        rel = os.path.relpath(path, root).replace(os.sep, "/")
+        newest = path == segments[-1][1]
+        header, records, last_crc, segfinds, dropped = _parse_segment_ro(
+            path, rel, newest
+        )
+        findings.extend(segfinds)
+        if header is not None and int(header.get("seq", seq)) != seq:
+            findings.append(Finding(
+                "journal-chain", rel,
+                f"segment header claims seq {header.get('seq')} but "
+                f"sits at chain position {seq} (renamed or transplanted "
+                "segment)", corrupt=True, repairable=True,
+            ))
+        parsed.append((seq, path, rel, header, records, last_crc))
+
+    # replay starts at the newest BASE segment (compaction snapshot)
+    start = 0
+    for i, (_, _, _, header, _, _) in enumerate(parsed):
+        if header is not None and header.get("base"):
+            start = i
+    parsed = parsed[start:]
+
+    for k in range(1, len(parsed)):
+        prev_seq, _, _, _, _, prev_crc = parsed[k - 1]
+        seq, _, rel, header, _, _ = parsed[k]
+        if seq != prev_seq + 1:
+            findings.append(Finding(
+                "journal-chain", rel_dir,
+                f"segment {prev_seq + 1} is missing from the chain "
+                f"(found {seq} after {prev_seq})", corrupt=True,
+            ))
+        if header is None:
+            findings.append(Finding(
+                "journal-chain", rel,
+                f"segment {seq} has no header but is not the base of "
+                "the chain", corrupt=True, repairable=True,
+            ))
+        elif int(header.get("prev", -1)) != prev_crc:
+            findings.append(Finding(
+                "journal-chain", rel,
+                f"segment {seq} back-link CRC mismatch — the preceding "
+                "segment is not the one this was rolled from (tampered "
+                "or transplanted chain)", corrupt=True, repairable=True,
+            ))
+
+    records: list = []
+    for _, _, _, _, recs, _ in parsed:
+        records.extend(recs)
+    return records, findings
+
+
+# ---- chain comparison (fsck --compare) ----------------------------------
+
+
+def _flatten_chain(dirpath: str):
+    """One journal directory -> (base_seq, [(seq, raw_line), ...],
+    findings): every valid framed line from the newest BASE onward, in
+    append order, torn tail in the newest segment excluded (it is by
+    definition not durable). Raw LINES, not records — replication ships
+    bytes, so agreement is judged on bytes."""
+    from ..serve.journal import _SEG_RE, _unframe
+
+    segments = []
+    for name in os.listdir(dirpath):
+        m = _SEG_RE.match(name)
+        if m:
+            segments.append((int(m.group(1)),
+                             os.path.join(dirpath, name)))
+    segments.sort()
+    active = os.path.join(dirpath, _JOURNAL_ACTIVE)
+    if os.path.exists(active):
+        seq = segments[-1][0] + 1 if segments else 0
+        lines = _scan_lines_ro(active)
+        if lines:
+            first = _unframe(lines[0])
+            if first is not None and first.get("t") == "seg":
+                seq = int(first.get("seq", seq))
+        segments.append((seq, active))
+
+    parsed = []
+    findings: list = []
+    base_seq = segments[0][0] if segments else 0
+    for seq, path in segments:
+        rel = os.path.basename(path)
+        newest = path == segments[-1][1]
+        lines = _scan_lines_ro(path)
+        kept = []
+        for line in lines:
+            rec = _unframe(line)
+            if rec is None:
+                if not newest:
+                    findings.append(Finding(
+                        "journal-record", rel,
+                        "bad line in a closed segment (compare runs on "
+                        "top of a chain fsck — fix that first)",
+                        corrupt=True,
+                    ))
+                break  # torn tail: everything after is not durable
+            if rec.get("t") == "seg" and kept == [] \
+                    and rec.get("base"):
+                base_seq = max(base_seq, seq)
+            kept.append((seq, line))
+        parsed.extend(kept)
+    return base_seq, [p for p in parsed if p[0] >= base_seq], findings
+
+
+def run_compare(dir_a: str, dir_b: str) -> FsckResult:
+    """`fsck --compare A B`: frame-for-frame agreement of two
+    journal chains up to the SHORTER one's durable point — the offline
+    proof that a primary and a replica really are bit-identical
+    (DESIGN.md §21). Chains are aligned at the newer of the two
+    compaction BASEs; a divergent frame is corrupt (exit 2), one chain
+    being a strict prefix of the other is clean (a follower mid
+    catch-up is behind, not wrong)."""
+    from ..serve.journal import _line_crc
+
+    for d in (dir_a, dir_b):
+        if not os.path.isdir(d):
+            raise FsckCorrupt(f"not a directory: {d}", path=d)
+    findings: list = []
+    base_a, chain_a, fa = _flatten_chain(dir_a)
+    base_b, chain_b, fb = _flatten_chain(dir_b)
+    findings.extend(fa)
+    findings.extend(fb)
+
+    # align at the newer BASE: the chain with the older base still
+    # carries pre-compaction history the other one folded away
+    base = max(base_a, base_b)
+    chain_a = [p for p in chain_a if p[0] >= base]
+    chain_b = [p for p in chain_b if p[0] >= base]
+    label = f"{dir_a} <> {dir_b}"
+    checked = {"frames_a": len(chain_a), "frames_b": len(chain_b),
+               "frames_compared": 0, "base_seq": base}
+
+    if not chain_a or not chain_b:
+        findings.append(Finding(
+            "journal-compare", label,
+            f"no overlapping segments at or past base {base} "
+            f"(A starts at base {base_a}, B at {base_b}) — one side is "
+            "behind a compaction it never resynced from; nothing is "
+            "comparable", corrupt=False,
+        ))
+    else:
+        n = min(len(chain_a), len(chain_b))
+        checked["frames_compared"] = n
+        for i in range(n):
+            seq_a, line_a = chain_a[i]
+            seq_b, line_b = chain_b[i]
+            if seq_a != seq_b or line_a != line_b:
+                findings.append(Finding(
+                    "journal-compare", label,
+                    f"frame {i} diverges: A seg {seq_a} crc "
+                    f"{_line_crc(line_a)} vs B seg {seq_b} crc "
+                    f"{_line_crc(line_b)} — the chains are not copies "
+                    "of one history", corrupt=True,
+                ))
+                break
+
+    findings.sort(key=lambda f: (f.path, f.kind, f.detail))
+    return FsckResult(root=label, findings=findings, checked=checked,
+                      quarantined=[])
+
+
+# ---- record-stream legality --------------------------------------------
+
+
+def _check_serve_records(records: list, rel_dir: str) -> list:
+    """Job state-machine legality under the fold's tolerances."""
+    from ..serve.jobs import _LEGAL, STATES, TERMINAL_STATES, Job
+
+    findings: list = []
+    state: dict = {}
+    for rec in records:
+        t = rec.get("t")
+        if t == "accept":
+            job = rec.get("job") or {}
+            try:
+                Job.from_accept_record(dict(job))
+            except (TypeError, ValueError) as e:
+                findings.append(Finding(
+                    "job-transition", rel_dir,
+                    f"unparseable accept record "
+                    f"({job.get('job_id', '?')}): {e}", corrupt=True,
+                ))
+                continue
+            state.setdefault(str(job.get("job_id")), "PENDING")
+        elif t == "state":
+            jid = str(rec.get("job_id"))
+            new = rec.get("state")
+            if new not in STATES:
+                findings.append(Finding(
+                    "job-transition", rel_dir,
+                    f"job {jid}: unknown state {new!r}", corrupt=True,
+                ))
+                continue
+            cur = state.get(jid)
+            if cur is None:
+                findings.append(Finding(
+                    "job-transition", rel_dir,
+                    f"job {jid}: state record with no accept record in "
+                    "the chain (lost acceptance)", corrupt=True,
+                ))
+                state[jid] = new
+                continue
+            # fold tolerances: terminal-is-forever swallows everything
+            # after the first terminal; exact-duplicate states are
+            # redispatch/hedge echoes
+            if cur in TERMINAL_STATES or new == cur:
+                continue
+            if new not in _LEGAL.get(cur, ()):
+                findings.append(Finding(
+                    "job-transition", rel_dir,
+                    f"job {jid}: illegal transition {cur} -> {new}",
+                    corrupt=True,
+                ))
+            state[jid] = new
+    return findings
+
+
+def _check_pool_records(records: list, rel_dir: str) -> list:
+    """Pool-ledger unit-key consistency (DESIGN.md §17)."""
+    from ..pool.units import unit_key
+
+    findings: list = []
+    keys: dict = {}  # unit_id -> {key: first-source}
+
+    def note_key(uid: str, key, source: str):
+        if not key:
+            return
+        seen = keys.setdefault(uid, {})
+        if key not in seen:
+            seen[key] = source
+            if len(seen) > 1:
+                srcs = ", ".join(
+                    f"{k[:8]}… from {v}" for k, v in seen.items()
+                )
+                findings.append(Finding(
+                    "ledger-key", rel_dir,
+                    f"unit {uid}: conflicting unit keys in one ledger "
+                    f"({srcs}) — the campaign definition changed under "
+                    "a live ledger", corrupt=True,
+                ))
+
+    for rec in records:
+        t = rec.get("t")
+        if t == "unit":
+            spec = rec.get("unit") or {}
+            uid = str(spec.get("unit_id", "?"))
+            stamped = spec.get("key")
+            recomputed = unit_key(spec)
+            if stamped and stamped != recomputed:
+                findings.append(Finding(
+                    "ledger-key", rel_dir,
+                    f"unit {uid}: spec record does not hash to its own "
+                    f"stamped key (stamped {str(stamped)[:8]}…, content "
+                    f"hashes to {recomputed[:8]}…) — edited spec",
+                    corrupt=True,
+                ))
+            note_key(uid, stamped, "unit spec")
+        elif t in ("lease", "ack", "poison", "ack_dup", "suspect",
+                   "verdict"):
+            note_key(str(rec.get("unit_id", "?")), rec.get("key"), t)
+    return findings
+
+
+# ---- attestation records (DESIGN.md §24) -------------------------------
+
+
+def _attest_shape(at) -> str:
+    """'' when `at` is a well-formed chain payload, else what's wrong."""
+    if not isinstance(at, dict):
+        return f"payload is {type(at).__name__}, not a dict"
+    head = at.get("head")
+    if not (isinstance(head, str) and len(head) == 64
+            and all(c in "0123456789abcdef" for c in head)):
+        return "head is not a 64-hex sha256 digest"
+    for field, lo in (("chunks", 1), ("start", 0), ("chunk_steps", 1)):
+        v = at.get(field)
+        if not isinstance(v, int) or isinstance(v, bool) or v < lo:
+            return f"{field} is not an int >= {lo}"
+    return ""
+
+
+def _check_attest_records(records: list, rel_dir: str,
+                          dirpath: str, root: str) -> list:
+    """Attestation-record legality: payload shapes, ack->suspect chain
+    continuity, suspect->verdict ordering, and static ack-vs-checkpoint
+    agreement against the unit's surviving units/<uid>.npz. Purely
+    structural — the `audit` verb is the dynamic (re-execution) half."""
+    findings: list = []
+    last_ack: dict = {}       # unit_id -> attest of the winning ack
+    open_suspect: set = set()  # units with a held divergence pending
+
+    def bad(uid: str, t: str, why: str):
+        findings.append(Finding(
+            "attest-record", rel_dir,
+            f"unit {uid}: {t} record carries a malformed chain payload "
+            f"({why})", corrupt=True,
+        ))
+
+    for rec in records:
+        t = rec.get("t")
+        if t not in _ATTEST_TYPES and t != "audit":
+            continue
+        uid = str(rec.get("unit_id", "?"))
+        at = rec.get("attest")
+        if at is not None:
+            why = _attest_shape(at)
+            if why:
+                bad(uid, t, why)
+                at = None
+        for h in (rec.get("held") or []):
+            ha = h.get("attest") if isinstance(h, dict) else None
+            if ha is not None:
+                why = _attest_shape(ha)
+                if why:
+                    bad(uid, f"{t}.held", why)
+        if t == "ack":
+            last_ack[uid] = at
+        elif t == "suspect":
+            held = rec.get("held") or []
+            prior = last_ack.get(uid)
+            if prior is not None and held:
+                first = held[0].get("attest") \
+                    if isinstance(held[0], dict) else None
+                if first != prior:
+                    findings.append(Finding(
+                        "attest-record", rel_dir,
+                        f"unit {uid}: suspect record's first held "
+                        "payload is not the chain the preceding ack "
+                        "journaled — retained evidence was rewritten",
+                        corrupt=True,
+                    ))
+            open_suspect.add(uid)
+            last_ack.pop(uid, None)
+        elif t == "verdict":
+            if uid not in open_suspect:
+                findings.append(Finding(
+                    "attest-record", rel_dir,
+                    f"unit {uid}: verdict record with no preceding "
+                    "suspect record in the chain — a tiebreak for a "
+                    "divergence nobody journaled", corrupt=True,
+                ))
+            open_suspect.discard(uid)
+            if rec.get("outcome") == "resolved":
+                last_ack[uid] = at
+        elif t == "audit" and uid not in last_ack \
+                and uid not in open_suspect:
+            findings.append(Finding(
+                "attest-record", rel_dir,
+                f"unit {uid}: audit record for a unit with no acked "
+                "result in the chain", corrupt=True,
+            ))
+
+    # static ack-vs-checkpoint agreement: a surviving unit checkpoint
+    # must be a plausible PREFIX of the acked chain — same cadence and
+    # origin, no more chunks than the ack, identical head when equal
+    for uid, at in sorted(last_ack.items()):
+        if at is None:
+            continue
+        path = os.path.join(dirpath, "units", f"{uid}.npz")
+        if not os.path.isfile(path):
+            continue
+        rel = os.path.relpath(path, root).replace(os.sep, "/")
+        try:
+            from ..sim.checkpoint import _attest_from, load_verified_npz
+
+            ca = _attest_from(load_verified_npz(path))
+        except Exception:  # noqa: BLE001 — _check_npz owns that finding
+            continue
+        if not (ca and ca.get("head")) or _attest_shape(ca):
+            continue
+        if (int(ca["start"]) != int(at["start"])
+                or int(ca["chunk_steps"]) != int(at["chunk_steps"])):
+            continue  # resumed/halved cadence — incomparable, not wrong
+        if int(ca["chunks"]) > int(at["chunks"]):
+            findings.append(Finding(
+                "attest-checkpoint", rel,
+                f"unit {uid}: checkpoint chain claims "
+                f"{int(ca['chunks'])} chunk(s) but the acked result "
+                f"committed only {int(at['chunks'])} — the checkpoint "
+                "holds progress past the journaled truth",
+                corrupt=True, repairable=True,
+            ))
+        elif int(ca["chunks"]) == int(at["chunks"]) \
+                and ca["head"] != at["head"]:
+            findings.append(Finding(
+                "attest-checkpoint", rel,
+                f"unit {uid}: checkpoint chain head disagrees with the "
+                "acked result at the same chunk count — one of them "
+                "was not produced by the committed execution",
+                corrupt=True, repairable=True,
+            ))
+    return findings
+
+
+# ---- checkpoints + warm cache ------------------------------------------
+
+_CKPT_REQUIRED = {
+    # kind -> members beyond the common {format, cycle_base, steps_run}
+    "warm": ("steps", "trace_sha", "state_counters", "host_counters"),
+    "fleet": ("configs_json", "trace_shas", "state_counters"),
+    "element": ("config_json", "trace_sha", "state_counters"),
+    "stream": ("config_json", "trace_sha", "state_counters"),
+    "solo": ("config_json", "trace_sha", "state_counters"),
+}
+
+
+def _npz_kind(z: dict) -> str:
+    for kind in ("warm", "fleet", "element", "stream"):
+        if kind in z:
+            return kind
+    return "solo"
+
+
+def _check_npz(path: str, rel: str) -> list:
+    from ..sim.checkpoint import (
+        _FORMAT,
+        CheckpointCorrupt,
+        load_verified_npz,
+    )
+    from ..stats.counters import COUNTER_NAMES
+
+    try:
+        z = load_verified_npz(path)
+    except CheckpointCorrupt as e:
+        return [Finding("checkpoint", rel, str(e), corrupt=True,
+                        repairable=True)]
+    findings: list = []
+    got = int(z["format"]) if "format" in z else None
+    if got != _FORMAT:
+        findings.append(Finding(
+            "checkpoint", rel,
+            f"unsupported format {got} (this build reads {_FORMAT})",
+            corrupt=True, repairable=True,
+        ))
+        return findings
+    kind = _npz_kind(z)
+    missing = [
+        m for m in ("cycle_base", "steps_run") + _CKPT_REQUIRED[kind]
+        if m not in z
+    ]
+    if missing:
+        findings.append(Finding(
+            "checkpoint", rel,
+            f"{kind} checkpoint is missing member(s): "
+            f"{', '.join(missing)}", corrupt=True, repairable=True,
+        ))
+        return findings
+    axis = 1 if kind == "fleet" else 0
+    rows = z["state_counters"].shape[axis]
+    if rows != len(COUNTER_NAMES):
+        findings.append(Finding(
+            "checkpoint", rel,
+            f"{kind} checkpoint carries {rows} counter rows but this "
+            f"build defines {len(COUNTER_NAMES)}", corrupt=True,
+            repairable=True,
+        ))
+    if kind == "warm":
+        findings.extend(_check_warm(path, rel, z))
+    return findings
+
+
+# ---- AOT executable cache (DESIGN.md §23) ------------------------------
+
+_EXEC_VERSION_FIELDS = ("exec_format", "ckpt_format", "jax", "jaxlib",
+                        "backend", "devices")
+# the JAX package's executable-entry framing (its sim/exec_cache.py): the
+# magic, then the body's CRC-32, then the body; an entry's address is the
+# sha256 of its key payload as sorted JSON
+_EXEC_MAGIC = b"PTEXEC01"
+
+
+def _exec_key(payload: dict) -> str:
+    return hashlib.sha256(
+        json.dumps(payload, sort_keys=True).encode()
+    ).hexdigest()
+
+
+def _installed_version(dist: str):
+    """The installed distribution's version, from its metadata (the
+    package is never imported), or None where it is not installed: then
+    every JAX executable entry is a dead address."""
+    from importlib import metadata
+
+    try:
+        return metadata.version(dist)
+    except metadata.PackageNotFoundError:
+        return None
+
+
+
+def _check_exec_bin(path: str, rel: str) -> list:
+    """One exec/*.bin entry: framing, then sidecar↔content agreement.
+    The runtime degrades any of these to miss-and-recompile, so every
+    finding here is about a cache that silently stopped paying, not a
+    wrong simulation."""
+    import struct
+    import zlib
+
+    findings: list = []
+    stem = os.path.basename(path)[:-len(".bin")]
+    try:
+        with open(path, "rb") as f:
+            record = f.read()
+    except OSError as e:
+        return [Finding("exec-cache", rel, f"unreadable entry: {e}",
+                        corrupt=True, repairable=True)]
+    head = len(_EXEC_MAGIC) + 4
+    if len(record) < head or record[:len(_EXEC_MAGIC)] != _EXEC_MAGIC:
+        return [Finding(
+            "exec-cache", rel,
+            "bad magic / truncated — not a serialized executable (the "
+            "cache misses-and-recompiles; safe to quarantine)",
+            corrupt=True, repairable=True,
+        )]
+    (crc,) = struct.unpack("<I", record[len(_EXEC_MAGIC):head])
+    if zlib.crc32(record[head:]) & 0xFFFFFFFF != crc:
+        return [Finding(
+            "exec-cache", rel,
+            "body fails its CRC — torn write or media rot (the cache "
+            "misses-and-recompiles; safe to quarantine)",
+            corrupt=True, repairable=True,
+        )]
+
+    meta_path = path[:-len(".bin")] + ".json"
+    if not os.path.exists(meta_path):
+        findings.append(Finding(
+            "exec-cache", rel,
+            "exec entry has no JSON sidecar — key↔content agreement "
+            "unverifiable (interrupted save; the entry itself is "
+            "loadable)", corrupt=False, repairable=True,
+        ))
+        return findings
+    try:
+        with open(meta_path) as f:
+            meta = json.load(f)
+    except (OSError, json.JSONDecodeError) as e:
+        findings.append(Finding(
+            "exec-cache", rel, f"unreadable sidecar: {e}",
+            corrupt=True, repairable=True,
+        ))
+        return findings
+    payload = meta.get("payload")
+    if meta.get("key") != stem:
+        findings.append(Finding(
+            "exec-cache", rel,
+            f"sidecar key {str(meta.get('key'))[:12]}… does not match "
+            f"filename stem {stem[:12]}… (renamed entry)",
+            corrupt=True, repairable=True,
+        ))
+    elif not isinstance(payload, dict):
+        findings.append(Finding(
+            "exec-cache", rel, "sidecar carries no key payload",
+            corrupt=True, repairable=True,
+        ))
+    elif _exec_key(payload) != stem:
+        findings.append(Finding(
+            "exec-cache", rel,
+            "sidecar payload does not hash to the entry's address — "
+            "edited payload or mismatched sidecar",
+            corrupt=True, repairable=True,
+        ))
+    else:
+        missing = [k for k in _EXEC_VERSION_FIELDS if k not in payload]
+        if missing:
+            findings.append(Finding(
+                "exec-cache", rel,
+                f"payload is missing version field(s): "
+                f"{', '.join(missing)}", corrupt=True, repairable=True,
+            ))
+        else:
+            jax_v, jaxlib_v = _installed_version("jax"), \
+                _installed_version("jaxlib")
+            if payload["jax"] != jax_v or payload["jaxlib"] != jaxlib_v:
+                findings.append(Finding(
+                    "exec-cache", rel,
+                    f"entry was lowered under jax {payload['jax']}/"
+                    f"jaxlib {payload['jaxlib']}; this toolchain is "
+                    f"{jax_v}/{jaxlib_v} — a dead "
+                    "address the cache will never read again (prunable, "
+                    "not corrupt)", corrupt=False, repairable=True,
+                ))
+    return findings
+
+
+def _check_warm(path: str, rel: str, z: dict) -> list:
+    """Sidecar ↔ filename ↔ npz agreement for one warm entry."""
+    findings: list = []
+    stem = os.path.basename(path)[:-len(".npz")]
+    meta_path = path[:-len(".npz")] + ".json"
+    if not os.path.exists(meta_path):
+        findings.append(Finding(
+            "warm-cache", rel,
+            "warm entry has no JSON sidecar — unreachable by "
+            "find_warm_states (interrupted save; safe to quarantine)",
+            corrupt=False, repairable=True,
+        ))
+        return findings
+    try:
+        with open(meta_path) as f:
+            meta = json.load(f)
+    except (OSError, json.JSONDecodeError) as e:
+        findings.append(Finding(
+            "warm-cache", rel, f"unreadable sidecar: {e}", corrupt=True,
+            repairable=True,
+        ))
+        return findings
+    if meta.get("key") != stem:
+        findings.append(Finding(
+            "warm-cache", rel,
+            f"sidecar key {str(meta.get('key'))[:12]}… does not match "
+            f"filename stem {stem[:12]}… (renamed entry)", corrupt=True,
+            repairable=True,
+        ))
+    if int(meta.get("steps", -1)) != int(z["steps"]):
+        findings.append(Finding(
+            "warm-cache", rel,
+            f"sidecar claims {meta.get('steps')} steps but the entry "
+            f"holds {int(z['steps'])}", corrupt=True, repairable=True,
+        ))
+    if str(meta.get("trace_sha")) != bytes(z["trace_sha"]).decode():
+        findings.append(Finding(
+            "warm-cache", rel,
+            "sidecar trace fingerprint disagrees with the entry",
+            corrupt=True, repairable=True,
+        ))
+    return findings
+
+
+# ---- the walk -----------------------------------------------------------
+
+
+def run_fsck(root: str, repair: str = "none") -> FsckResult:
+    """Verify every durable artifact under `root`. `repair` is "none"
+    (default, purely read-only) or "quarantine" (move — never delete —
+    repairable corrupt/orphan FILES into `<root>/.fsck-quarantine/`)."""
+    if repair not in ("none", "quarantine"):
+        raise FsckCorrupt(f"unknown --repair mode {repair!r}")
+    root = os.path.abspath(root)
+    if not os.path.isdir(root):
+        raise FsckCorrupt(f"not a directory: {root}", path=root)
+
+    from ..serve.journal import _SEG_RE
+
+    findings: list = []
+    checked = {"journals": 0, "records": 0, "checkpoints": 0,
+               "warm_entries": 0, "exec_entries": 0, "orphans": 0}
+
+    for dirpath, dirnames, filenames in os.walk(root):
+        dirnames[:] = [d for d in dirnames if d != ".fsck-quarantine"]
+        names = set(filenames)
+        is_journal_dir = _JOURNAL_ACTIVE in names or any(
+            _SEG_RE.match(n) for n in names
+        )
+        journal_files = {
+            n for n in names
+            if n == _JOURNAL_ACTIVE or _SEG_RE.match(n)
+        }
+        if is_journal_dir:
+            checked["journals"] += 1
+            rel_dir = os.path.relpath(dirpath, root).replace(os.sep, "/")
+            records, jfinds = _check_journal_dir(dirpath, root)
+            findings.extend(jfinds)
+            checked["records"] += len(records)
+            types = {r.get("t") for r in records}
+            if types & _SERVE_TYPES:
+                findings.extend(_check_serve_records(records, rel_dir))
+            if types & _POOL_TYPES:
+                findings.extend(_check_pool_records(records, rel_dir))
+            if types & (_ATTEST_TYPES | {"audit"}):
+                findings.extend(_check_attest_records(
+                    records, rel_dir, dirpath, root))
+        for name in sorted(names - journal_files):
+            path = os.path.join(dirpath, name)
+            rel = os.path.relpath(path, root).replace(os.sep, "/")
+            if name.endswith(".tmp"):
+                checked["orphans"] += 1
+                findings.append(Finding(
+                    "orphan", rel,
+                    "leftover atomic-write temp file (normal kill -9 "
+                    "debris; safe to quarantine)", corrupt=False,
+                    repairable=True,
+                ))
+            elif (name.endswith((".npz", ".bin", ".json"))
+                    and os.path.getsize(path) == 0):
+                checked["orphans"] += 1
+                findings.append(Finding(
+                    "orphan", rel,
+                    "zero-length artifact (ENOSPC-starved or "
+                    "interrupted write; safe to quarantine)",
+                    corrupt=False, repairable=True,
+                ))
+            elif name.endswith(".npz"):
+                checked["checkpoints"] += 1
+                nf = _check_npz(path, rel)
+                if any(f.kind == "warm-cache" or "warm" in f.detail
+                       for f in nf) or _is_warm_file(path):
+                    checked["warm_entries"] += 1
+                findings.extend(nf)
+            elif name.endswith(".bin") and _is_exec_file(path):
+                checked["exec_entries"] += 1
+                findings.extend(_check_exec_bin(path, rel))
+            elif name.endswith(".json") and _looks_like_sidecar(name):
+                stem_path = path[:-len(".json")]
+                if not (os.path.exists(stem_path + ".npz")
+                        or os.path.exists(stem_path + ".bin")):
+                    checked["orphans"] += 1
+                    findings.append(Finding(
+                        "orphan", rel,
+                        "cache sidecar with no npz/bin entry (the "
+                        "entry was pruned or its save was interrupted)",
+                        corrupt=False, repairable=True,
+                    ))
+
+    quarantined: list = []
+    if repair == "quarantine":
+        qroot = os.path.join(root, ".fsck-quarantine")
+        for f in findings:
+            if not f.repairable or not (f.corrupt or f.kind == "orphan"):
+                continue
+            src = os.path.join(root, f.path)
+            if not os.path.isfile(src):
+                continue
+            dst = os.path.join(qroot, f.path)
+            os.makedirs(os.path.dirname(dst), exist_ok=True)
+            shutil.move(src, dst)
+            quarantined.append(f.path)
+
+    findings.sort(key=lambda f: (f.path, f.kind, f.detail))
+    return FsckResult(root=root, findings=findings, checked=checked,
+                      quarantined=quarantined)
+
+
+def _is_warm_file(path: str) -> bool:
+    stem = os.path.basename(path)[:-len(".npz")]
+    return len(stem) == 64 and all(c in "0123456789abcdef" for c in stem)
+
+
+def _is_exec_file(path: str) -> bool:
+    stem = os.path.basename(path)[:-len(".bin")]
+    return len(stem) == 64 and all(c in "0123456789abcdef" for c in stem)
+
+
+def _looks_like_sidecar(name: str) -> bool:
+    stem = name[:-len(".json")]
+    return len(stem) == 64 and all(c in "0123456789abcdef" for c in stem)
+
+
+# ---- rendering ----------------------------------------------------------
+
+
+def render_human(res: FsckResult) -> str:
+    out = []
+    for f in res.findings:
+        tag = "CORRUPT" if f.corrupt else "note"
+        out.append(f"{tag}: {f.path}: [{f.kind}] {f.detail}")
+    for p in res.quarantined:
+        out.append(f"quarantined: {p} -> .fsck-quarantine/{p}")
+    c = res.checked
+    if "frames_compared" in c:  # --compare mode
+        out.append(
+            f"compared {c['frames_compared']} frame(s) from base seg "
+            f"{c['base_seq']} (A holds {c['frames_a']}, B holds "
+            f"{c['frames_b']}): {len(res.corrupt)} corrupt, "
+            f"{len(res.findings) - len(res.corrupt)} note(s)"
+        )
+    else:
+        out.append(
+            f"checked {c['journals']} journal(s) / {c['records']} "
+            f"record(s), {c['checkpoints']} checkpoint(s), "
+            f"{c['warm_entries']} warm entr(ies), "
+            f"{c.get('exec_entries', 0)} exec entr(ies), {c['orphans']} "
+            f"orphan(s): {len(res.corrupt)} corrupt, "
+            f"{len(res.findings) - len(res.corrupt)} note(s)"
+        )
+    return "\n".join(out)
+
+
+def render_json(res: FsckResult) -> str:
+    return json.dumps(
+        {
+            "root": res.root,
+            "findings": [f.as_dict() for f in res.findings],
+            "quarantined": res.quarantined,
+            "checked": res.checked,
+            "summary": {
+                "corrupt": len(res.corrupt),
+                "notes": len(res.findings) - len(res.corrupt),
+            },
+        },
+        indent=2,
+        sort_keys=True,
+    )

@@ -10,8 +10,10 @@ the port:
   verification.
 - `AttestationError` — typed error on the CLI's exit-2 contract.
 
-The offline audit (`attest/audit.py`, the `audit` verb) needs the pool
-and is not ported yet.
+- `audit.run_audit` — the offline replay audit of a pool directory (the
+  `audit` verb): every DONE unit re-executed on the device and its chain
+  head held against the ledger's (imported on its own: it pulls in the
+  fleet).
 """
 
 from .chain import (AttestChain, FleetAttest, SoloAttest, chunk_digest,

@@ -24,12 +24,13 @@ simulated crash that the process survives. In `mode="kill"` (subprocess
 trials, env activation) the hook delivers a real SIGKILL instead.
 
 The catalog holds the sites the port threads: the durable writes of the
-journal and of checkpoints, the client's socket, the serving daemon's
-and the pool's crashpoints, the pool's lease and heartbeat clocks, the
-two silent-corruption sites and the disk-space probe. The JAX package's
-other sites (the executable cache, replication, device revocation) and
-their hooks (`replication`, `device_revoke`) belong to parts of it the
-port does not have yet.
+journal and of checkpoints, the client's socket, the serving daemon's,
+the pool's and the replica's crashpoints, the replication stream
+(`replication`, serve/replicate.py), the pool's lease and heartbeat
+clocks, the two silent-corruption sites and the disk-space probe. The
+JAX package's other sites (the executable cache, device revocation) and
+their hook (`device_revoke`) belong to parts of it the port does not
+have yet.
 """
 
 from __future__ import annotations
@@ -61,6 +62,9 @@ SITES = {
     # clock-skew sites on the lease/heartbeat timers
     "coordinator.clock": "clock",
     "worker.heartbeat.interval": "clock",
+    # replication stream (primary -> replica orders; serve/replicate.py)
+    "replicate.send": "replication",
+    "replica.pre-fsync-ack": "crashpoint",
     # silent-data-corruption sites (DESIGN.md §24): perturb committed
     # values in place with NO crash; only attestation cross-checks tell
     "fleet.counters": "silent_corruption",      # sim/fleet.py post-drain
@@ -285,6 +289,23 @@ def clock_skew(site: str, value: float) -> float:
             _RT.clock_offsets.get(site, 0.0) + float(ev.arg("offset_s", 1.0))
         )
     return value + _RT.clock_offsets.get(site, 0.0)
+
+
+def replication(site: str):
+    """Replication-stream site (primary side, before the order goes on
+    the wire). `delay` stalls in place and is consumed here; `partition`
+    and `duplicate` return the event for the ReplicaLink to enact — a
+    partition must close the link AND suppress reconnection for its
+    window, which only the link's own state can express."""
+    if _RT is None:
+        return None
+    ev = _RT.hit(site)
+    if ev is None:
+        return None
+    if ev.action == "delay":
+        time.sleep(float(ev.arg("s", 0.005)))
+        return None
+    return ev
 
 
 def corrupt(site: str, arrays: dict) -> bool:

@@ -23,6 +23,11 @@
         --stream-window 128 --ingest-workers 2 --seg-events 256
     python -m primesim_tpu_torch serve cfg.json --state-dir D --pool-dir P \
         --workers 2 --attest chain --audit-rate 1.0
+    python -m primesim_tpu_torch replica --dir R0 --tcp 127.0.0.1:7101
+    python -m primesim_tpu_torch serve cfg.json --state-dir D \
+        --replicas 127.0.0.1:7101,127.0.0.1:7102 [--standby-of PRIMARY]
+    python -m primesim_tpu_torch fsck D [--compare D R0]
+    python -m primesim_tpu_torch audit P
 
 `run` simulates a trace (PTPU files or a named synthetic generator) on a
 JSON or reference-schema XML machine config, prints the one-line JSON
@@ -68,14 +73,22 @@ segments K `worker` processes write ahead (ingest/pipeline.py), and
 `serve --pool-dir` dispatches jobs to an autoscaled pool of `worker`
 processes behind a spawned or adopted `coordinator` (serve/dispatch.py).
 Every one of those children is a `python -m primesim_tpu_torch` process,
-given `--device cpu` when its parent runs on the CPU. A run, sweep,
+given `--device cpu` when its parent runs on the CPU. `serve --replicas`
+replicates the daemon's journal to `replica` followers and ACKs a submit
+once a quorum of them holds it (serve/replicate.py); `serve --standby-of`
+waits for a primary to die and promotes itself off the replicas with a
+fencing epoch. `fsck` verifies durable state without simulating (and
+`--compare` two journal chains frame for frame), `audit` replays a pool
+directory's finished units and holds their chain heads to the ledger's;
+replica and fsck processes touch no device. A run, sweep,
 worker or daemon is on the card unless `--device cpu` is given.
 `synth` writes
 a generator's trace as a PTPU file, `info` prints a config as JSON: both
 as `primetpu` does. A malformed schedule, trace or config exits 2 with
 one `{"error": {type, location, detail}}` JSON line on stderr, as do a
 malformed `--vary` spec, a `--resume` whose snapshots are all corrupt
-(`CheckpointCorrupt`) and a failed attestation check (`AttestationError`).
+(`CheckpointCorrupt`), a failed attestation check (`AttestationError`)
+and corruption found by `fsck` (`FsckCorrupt`).
 A plan file named by `PRIMETPU_CHAOS_PLAN` is installed before anything
 runs (chaos/sites.py).
 """
@@ -1043,6 +1056,32 @@ def cmd_serve(ns) -> int:
     if device.type == "cuda" and not ns.pool_dir:
         for k in build.KERNELS:  # build and load before the first job
             build.library(k)
+    replicas = [t.strip() for t in (ns.replicas or "").split(",")
+                if t.strip()]
+    if ns.standby_of:
+        # hot standby (DESIGN.md §21): tail the replicas while the
+        # incumbent lives; once it stays dead past the grace window,
+        # adopt the highest-epoch replica chain and fall through to serve
+        # as the new primary — whose begin_epoch() fences the old one
+        if not replicas:
+            raise SystemExit("--standby-of requires --replicas")
+        from .serve.replicate import Standby
+
+        sb = Standby(ns.standby_of, replicas, ns.state_dir,
+                     grace_s=ns.takeover_grace)
+        print(
+            f"serve: standby of {ns.standby_of} "
+            f"(replicas={','.join(replicas)}, "
+            f"grace={ns.takeover_grace}s)",
+            file=sys.stderr, flush=True,
+        )
+        report = sb.wait_for_takeover()
+        print(
+            f"serve: PROMOTING — adopted chain from {report['source']} "
+            f"(tip seq={report['tip']['seq']}, "
+            f"{report['reachable']} replica(s) reachable)",
+            file=sys.stderr, flush=True,
+        )
     server = PrimeServer(
         cfg,
         state_dir=ns.state_dir,
@@ -1062,11 +1101,18 @@ def cmd_serve(ns) -> int:
         max_workers=ns.workers,
         lease_ttl_s=ns.lease_ttl,
         audit_rate=ns.audit_rate,
+        replicas=replicas or None,
+        quorum=ns.quorum,
+        quorum_policy=ns.quorum_policy,
     )
     # bind before the readiness line so `--tcp HOST:0` prints the real
     # kernel-assigned port (tests and scripts scrape this line)
     target = server.bind()
     mode = f"dispatch->{ns.pool_dir}" if ns.pool_dir else "local"
+    if server.repl is not None:
+        mode += (f", replicated x{len(server.repl.links)} "
+                 f"quorum={server.repl.quorum} "
+                 f"epoch={server.repl.epoch}")
     print(
         f"serve: listening on {target} ({mode}, "
         f"recovered={server.recovered['jobs_requeued']} job(s))",
@@ -1098,6 +1144,117 @@ def cmd_serve(ns) -> int:
         file=sys.stderr,
     )
     return rc
+
+
+def cmd_replica(ns) -> int:
+    """Run one journal follower (DESIGN.md §21): a byte-blind segment
+    store behind a `repl.*` listener. Point a primary's `--replicas` at
+    it; a standby promotes from it. SIGTERM stops cleanly — the chain
+    on disk IS the durable state, there is nothing to drain. It touches
+    no device."""
+    import signal as _signal
+
+    from .serve.replicate import ReplicaServer
+
+    if ns.tcp and ns.socket:
+        raise SystemExit("--tcp and --socket are mutually exclusive")
+    server = ReplicaServer(ns.dir, ns.tcp or ns.socket
+                           or os.path.join(ns.dir, "replica.sock"))
+    target = server.bind()
+    tip = server.store.tip()
+    print(
+        f"replica: listening on {target} (dir={ns.dir}, "
+        f"epoch={server.epoch}, tip seq={tip['seq']})",
+        file=sys.stderr, flush=True,
+    )
+
+    def _stop(signum, frame):
+        server.die()
+
+    try:
+        _signal.signal(_signal.SIGTERM, _stop)
+        _signal.signal(_signal.SIGINT, _stop)
+    except ValueError:
+        pass
+    server.serve_forever()
+    server.shutdown()
+    return 0
+
+
+def cmd_fsck(ns) -> int:
+    """Verify the durable artifacts under DIR (journals, ledgers,
+    checkpoints, warm and executable cache entries) with no simulation,
+    or with --compare hold two journal chains to frame-for-frame
+    agreement. Exit 0 clean (notes allowed), 2 with one structured JSON
+    line on corruption. It touches no device."""
+    from .analysis.errors import FsckCorrupt
+    from .analysis.fsck import (render_human, render_json, run_compare,
+                                run_fsck)
+
+    if ns.compare:
+        res = run_compare(ns.compare[0], ns.compare[1])
+        where = res.root
+    else:
+        if not ns.dir:
+            raise FsckCorrupt("fsck needs DIR (or --compare DIR_A DIR_B)")
+        res = run_fsck(ns.dir, repair=ns.repair)
+        where = ns.dir
+    if ns.format == "json":
+        print(render_json(res))
+    else:
+        print(render_human(res))
+    if not res.clean:
+        first = res.corrupt[0]
+        raise FsckCorrupt(
+            f"{len(res.corrupt)} corrupt artifact finding(s) under "
+            f"{where} (first: {first.path}: {first.detail})",
+            path=first.path, n_corrupt=len(res.corrupt),
+        )
+    return 0
+
+
+def cmd_audit(ns) -> int:
+    """Offline replay audit (DESIGN.md §24): re-execute a pool
+    campaign's DONE units from their journaled specs on the device and
+    compare the recomputed fingerprint-chain heads against the ledger's
+    acked heads, its retained evidence and the surviving element
+    checkpoints. One JSON verdict line per unit on stdout, `primetpu
+    audit`'s summary line on stderr, then the port's own line: the
+    device, each replay's wall and the kernel launches."""
+    from .attest.audit import run_audit
+    from .attest.errors import AttestationError
+    from .kernels import build
+    from .sim.engine import resolve_device
+
+    device = resolve_device(ns.device)
+    if device.type == "cuda":
+        for k in build.KERNELS:  # build and load before the first replay
+            build.library(k)
+    build.LAUNCHES.update(dict.fromkeys(build.LAUNCHES, 0))
+    res = run_audit(ns.dir, unit_ids=ns.unit, device=device)
+    for v in res["units"]:
+        print(json.dumps(v))
+    s = res["summary"]
+    print(
+        f"audit: {s['audited']} unit(s) replayed — {s['ok']} ok, "
+        f"{s['mismatch']} mismatch, {s['adjudicated']} adjudicated, "
+        f"{s['incomparable']} incomparable, {s['skipped']} skipped",
+        file=sys.stderr,
+    )
+    print(
+        f"audit: device {device}, " + json.dumps(
+            {"replay_wall_s": res["replay_wall_s"],
+             "launches": dict(build.LAUNCHES)}),
+        file=sys.stderr, flush=True,
+    )
+    if s["mismatch"]:
+        first = next(v for v in res["units"] if v["status"] == "mismatch")
+        raise AttestationError(
+            f"{s['mismatch']} unit(s) fail offline replay audit under "
+            f"{ns.dir} (first: {first['unit_id']})",
+            site="audit.replay", unit=first["unit_id"],
+        )
+    return 0
 
 
 def cmd_submit(ns) -> int:
@@ -1673,9 +1830,61 @@ def build_parser() -> argparse.ArgumentParser:
              "resubmitted (trace, config) job starts from the deepest "
              "matching cached state instead of step 0",
     )
+    v.add_argument(
+        "--replicas", default="", metavar="TARGET[,TARGET...]",
+        help="replicate the journal to these follower daemons "
+             "(`replica` targets, host:port or socket paths); "
+             "'' (default) = replication off, bit-exact with today",
+    )
+    v.add_argument(
+        "--quorum", type=int, default=None, metavar="K",
+        help="replica ACKs required per frame (default: strict "
+             "majority of the N replicas, N//2+1; any explicit K must "
+             "satisfy 2K > N or quorums stop intersecting and fencing "
+             "cannot be guaranteed)",
+    )
+    v.add_argument(
+        "--quorum-policy", choices=("block", "degrade"), default="block",
+        help="below quorum: block admission with ReplicaQuorumLost + "
+             "retry_after_s (default), or degrade — keep ACKing on "
+             "local fsync while flagging health/metrics",
+    )
+    v.add_argument(
+        "--standby-of", default=None, metavar="TARGET",
+        help="hot standby: tail --replicas while this primary target "
+             "answers; once it stays dead past --takeover-grace, adopt "
+             "the highest-epoch replica chain and promote (a fresh fencing "
+             "epoch deposes the old primary)",
+    )
+    v.add_argument(
+        "--takeover-grace", type=float, default=3.0, metavar="SEC",
+        help="--standby-of: how long the primary must stay dead before "
+             "promotion (default 3.0)",
+    )
     _add_attest_flag(v, audit=True)
     _add_shared_flags(v, resilience=False)
     v.set_defaults(fn=cmd_serve)
+
+    rp = sub.add_parser(
+        "replica",
+        help="run one journal follower for replicated serving "
+             "(DESIGN.md §21): byte-identical segment chain, fsynced "
+             "before ACK, fencing-epoch aware",
+    )
+    rp.add_argument(
+        "--dir", required=True, metavar="DIR",
+        help="this follower's journal directory (its durability domain)",
+    )
+    rp.add_argument(
+        "--socket", default=None, metavar="PATH",
+        help="unix socket to listen on (default: DIR/replica.sock)",
+    )
+    rp.add_argument(
+        "--tcp", default=None, metavar="HOST:PORT",
+        help="listen on TCP instead (port 0 = kernel-assigned; the "
+             "readiness line prints the real one)",
+    )
+    rp.set_defaults(fn=cmd_replica)
 
     b = sub.add_parser(
         "submit",
@@ -1741,6 +1950,54 @@ def build_parser() -> argparse.ArgumentParser:
         help="--watch: stop after N lines (default 0 = forever)",
     )
     t.set_defaults(fn=cmd_serve_status)
+
+    fk = sub.add_parser(
+        "fsck",
+        help="statically verify durable artifacts (journals, ledgers, "
+             "checkpoints, warm cache) under a directory; exit 2 with "
+             "structured JSON on corruption",
+    )
+    fk.add_argument("dir", metavar="DIR", nargs="?",
+                    help="artifact root to verify")
+    fk.add_argument(
+        "--compare", nargs=2, metavar=("DIR_A", "DIR_B"),
+        help="instead of verifying one root, check two journal chains "
+             "(primary vs replica) frame-for-frame up to the shorter "
+             "one's durable point; divergence exits 2",
+    )
+    fk.add_argument(
+        "--repair", choices=("none", "quarantine"), default="none",
+        help="quarantine moves (never deletes) corrupt/orphaned files "
+             "into DIR/.fsck-quarantine/",
+    )
+    fk.add_argument(
+        "--format", choices=("human", "json"), default="human",
+    )
+    fk.set_defaults(fn=cmd_fsck)
+
+    au = sub.add_parser(
+        "audit",
+        help="offline replay audit of a pool directory (DESIGN.md §24): "
+             "re-execute DONE units from their journaled specs and "
+             "compare fingerprint-chain heads against the ledger and "
+             "the surviving checkpoints; exit 2 with structured JSON on "
+             "divergence",
+    )
+    au.add_argument(
+        "dir", metavar="DIR",
+        help="pool directory (unit ledger + element checkpoints)",
+    )
+    au.add_argument(
+        "--unit", action="append", metavar="ID",
+        help="audit only this unit id (repeatable; default: every "
+             "replayable unit)",
+    )
+    au.add_argument(
+        "--device", choices=("cuda", "cpu"), default=None,
+        help="where the replays run (default: cuda, an error when there "
+             "is no card)",
+    )
+    au.set_defaults(fn=cmd_audit)
     return p
 
 
@@ -1751,13 +2008,14 @@ def main(argv=None) -> int:
 
     install_from_env()
     ns = build_parser().parse_args(argv)
+    from .analysis.errors import FsckCorrupt
     from .attest.errors import AttestationError
     from .sim.checkpoint import CheckpointCorrupt
 
     try:
         return ns.fn(ns)
     except (TraceError, ConfigError, FaultConfigError, CheckpointCorrupt,
-            VarySpecError, AttestationError) as e:
+            VarySpecError, AttestationError, FsckCorrupt) as e:
         # typed errors exit 2 with ONE structured JSON line on stderr, as
         # `primetpu` prints them
         print(json.dumps(_error_obj(e)), file=sys.stderr)

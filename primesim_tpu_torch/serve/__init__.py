@@ -13,7 +13,8 @@ written by one replays in the other.
 Light modules (jobs, journal, protocol, quota, client) import eagerly;
 the scheduler and server (which pull in torch and the fleet) resolve
 lazily so `import primesim_tpu_torch.serve` stays cheap for clients.
-Not ported yet: the replicated journal (`replicate.py`).
+The replicated journal (`replicate.py`: replicas, quorum, fencing, the
+hot standby) touches no device and imports on its own.
 """
 
 from .client import ServeClient, ServeError

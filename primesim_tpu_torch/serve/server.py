@@ -27,7 +27,12 @@ ACKed job is either terminal (kept for STATUS/RESULT) or re-enqueued,
 resuming from its newest per-job element checkpoint when one exists —
 `kill -9` at ANY instant loses no accepted job.
 
-Not ported yet: the replicated journal (`replicas`, `quorum`, fencing).
+Replication (DESIGN.md §21, `replicate.py`): with `replicas` the
+journal streams every frame to follower `replica` daemons, a submit is
+ACKed only once its accept record reached the quorum, the serve loop
+sends a heartbeat every 0.25 s, and a primary fenced by a promoted
+standby's higher epoch stops serving and exits 75. It works alike in
+the local and the dispatch mode.
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ from .protocol import (
 )
 from ..util.diskpressure import DiskPressureError
 from .quota import QuotaExceeded, TenantQuota
+from .replicate import PrimaryFenced, ReplicaQuorumLost
 from .scheduler import DEFAULT_BUCKETS, QueueFull, Scheduler
 
 EX_TEMPFAIL = 75  # drained with work remaining; restart to continue
@@ -87,6 +93,10 @@ class PrimeServer:
         lease_ttl_s: float = 10.0,
         spawn_pool: bool = True,
         audit_rate: float = 0.0,
+        replicas: list[str] | tuple[str, ...] | None = None,
+        quorum: int | None = None,
+        quorum_policy: str = "block",
+        node: str | None = None,
     ):
         self.state_dir = str(state_dir)
         os.makedirs(self.state_dir, exist_ok=True)
@@ -99,6 +109,21 @@ class PrimeServer:
         self.quota = quota
         self.journal = JobJournal(self.state_dir, compactor=serve_compactor)
         self.journal.obs = obs
+        self.repl = None
+        if replicas:
+            # replicated journal + fencing (DESIGN.md §21): attach the
+            # sink BEFORE recovery so the epoch frame that opens this
+            # reign is both the first record of the reign and the first
+            # frame the followers see from us
+            from .replicate import ReplicationSink
+
+            self.repl = ReplicationSink(
+                self.journal, list(replicas), quorum=quorum,
+                policy=quorum_policy, obs=obs,
+                node=node or f"serve-{os.getpid()}",
+            )
+            self.journal.sink = self.repl
+            self.repl.begin_epoch()
         if pool_dir:
             # dispatch mode: jobs run on an autoscaling worker fleet via
             # a (spawned or adopted) pool coordinator — DESIGN.md §18
@@ -194,8 +219,15 @@ class PrimeServer:
                 self._draining = True
                 return {"ok": True, "draining": True}
             raise ValueError(f"unknown verb {verb!r}")
-        except (QueueFull, QuotaExceeded, DiskPressureError) as e:
+        except (QueueFull, QuotaExceeded, ReplicaQuorumLost,
+                DiskPressureError) as e:
             out = {"ok": False, "retry_after_s": round(e.retry_after_s, 1)}
+            out.update(error_obj(e))
+            return out
+        except PrimaryFenced as e:
+            # a standby promoted past us: refuse, and let the serve
+            # loop turn the fence into exit 75 on its next pass
+            out = {"ok": False, "fenced": True}
             out.update(error_obj(e))
             return out
         except Exception as e:  # noqa: BLE001 — protocol boundary
@@ -208,6 +240,11 @@ class PrimeServer:
             out = {"ok": False, "retry_after_s": 5.0}
             out.update(error_obj(RuntimeError("server is draining")))
             return out
+        if self.repl is not None:
+            # quorum gate BEFORE a job id exists: under `block`, a
+            # below-quorum primary refuses admission (typed
+            # backpressure); a fenced one refuses, period
+            self.repl.check_admission()
         idem = req.get("idem")
         if idem:
             # idempotent resubmit: a client retrying after a lost ACK
@@ -239,6 +276,18 @@ class PrimeServer:
             priority=int(req.get("priority", 0)),
         )
         self.sched.submit(job)  # fsyncs the accept record before returning
+        if self.repl is not None and not self.repl.quorum_ok() \
+                and self.repl.policy == "block":
+            # the accept record is on OUR disk but missed quorum: do
+            # not ACK a frame a host-loss failover would forget. The
+            # job stays admitted locally; the client's idempotent retry
+            # dedups to it once quorum is back (and if we die first,
+            # "never ACKed" and "not on the replicas" agree).
+            raise ReplicaQuorumLost(
+                f"accept record for {job.job_id} missed the replication "
+                f"quorum of {self.repl.quorum}; retry with the same "
+                "idempotency token", self.repl.retry_after_s,
+            )
         return {"ok": True, "job": job.public()}
 
     def _h_status(self, req: dict) -> dict:
@@ -276,6 +325,8 @@ class PrimeServer:
             "fsync_count": self.journal.fsync_hist.count,
             "fsync_total_s": round(self.journal.fsync_hist.sum, 6),
         }
+        if self.repl is not None:
+            out["replication"] = self.repl.status()
         # the port's own: the device work behind the service
         out["device"] = self.sched.device_stats()
         return out
@@ -289,7 +340,7 @@ class PrimeServer:
         text = render_prometheus(
             self.sched, journal=self.journal,
             draining=self._draining, recovered=self.recovered,
-            quota=self.quota,
+            quota=self.quota, repl=self.repl,
         )
         return {"ok": True, "content_type":
                 "text/plain; version=0.0.4", "text": text}
@@ -444,11 +495,30 @@ class PrimeServer:
         t = threading.Thread(target=self._srv.serve_forever, daemon=True)
         t.start()
         idle_since = time.time()
+        fenced = False
+        last_hb = 0.0
         try:
             while not self._stop:
                 if self._reload_requested:
                     self._reload_requested = False
                     self.reload_config()
+                if self.repl is not None:
+                    now = time.time()
+                    if now - last_hb >= 0.25:
+                        last_hb = now
+                        self.repl.heartbeat()
+                    if self.repl.fenced:
+                        # a higher epoch ACKed: self-fence. Stop ACKing
+                        # NOW and leave with the supervisor contract's
+                        # "rerun to continue" code — except rerunning
+                        # this node rejoins as a follower, not a primary
+                        fenced = True
+                        self.journal.note(
+                            "fenced by epoch "
+                            f"{getattr(self.repl, 'fenced_by', 0)}; "
+                            "self-deposing"
+                        )
+                        break
                 self._drain_inbox()
                 worked = self.sched.tick()
                 busy = worked or self.sched.pending_work()
@@ -475,5 +545,9 @@ class PrimeServer:
         if hasattr(self.sched, "shutdown_children"):
             self.sched.shutdown_children()
         self._drain_inbox()  # flush replies so clients aren't left hanging
+        if self.repl is not None:
+            self.repl.close()
         self.journal.close()
-        return EX_TEMPFAIL if unfinished else 0
+        # a fenced primary always exits 75: its remaining work belongs
+        # to the new primary's reign, never to a local rerun as primary
+        return EX_TEMPFAIL if (unfinished or fenced) else 0

@@ -29,8 +29,9 @@ headline at chunks of 256, each with its head after every chunk
 solo runs with their chains, four of fleet_headline's elements and four
 small jobs on the shipped rung-2 machine (`serve_headline.json`,
 `serve_rung2.json`); and digests at a cut depth for the card phases that
-run shallower than the whole run (`fleet_rung3_cut.json`,
-`multiprog_rung3_cut.json`, both at step 1536; `headline_cut.json`,
+run shallower than the whole run (`fleet_rung3_cut.json` at step 1024,
+`multiprog_rung3_cut.json` at step 1536, `fleet_fork_cut.json` 512
+steps past its fork; `headline_cut.json`,
 `rung3_headline_cut.json`, at step 64 in chunks of 64, where the capture
 phase's CPU repeat stops). The small ones are
 re-derived from JAX in tier 1, the full-width ones by slow tests.
@@ -106,10 +107,12 @@ def test_import_leaves_jax_and_the_jax_package_out():
 def test_the_rules_cover_every_module_of_the_port():
     """The import and AST rules walk the whole package: the telemetry,
     checkpoint, XML, fleet, supervision, disk-governance, ingest,
-    attestation, chaos, serving and pool modules are among the modules
-    they check (the serving daemon's Prometheus renderer `obs/prom.py`,
-    the dispatcher and the pipelined ingest included), and the JAX
-    package's unported modules are not in the port."""
+    attestation, chaos, serving, pool, replication and offline
+    verification modules are among the modules they check (the serving
+    daemon's Prometheus renderer `obs/prom.py`, the dispatcher, the
+    pipelined ingest, the replicated journal, fsck and the audit
+    included), and the JAX package's unported modules are not in the
+    port."""
     rel = {os.path.relpath(p, PKG) for p in _modules()}
     for m in ("obs/__init__.py", "obs/metrics.py", "obs/recorder.py", "obs/trace.py",
               "obs/prom.py", "sim/checkpoint.py", "config/xml_compat.py", "cli.py",
@@ -122,9 +125,10 @@ def test_the_rules_cover_every_module_of_the_port():
               "serve/journal.py", "serve/client.py", "serve/scheduler.py",
               "serve/server.py", "serve/dispatch.py", "pool/__init__.py", "pool/units.py",
               "pool/coordinator.py", "pool/worker.py", "pool/campaign.py",
-              "ingest/pipeline.py"):
+              "ingest/pipeline.py", "serve/replicate.py", "analysis/__init__.py",
+              "analysis/errors.py", "analysis/fsck.py", "attest/audit.py"):
         assert m in rel, m
-    for m in ("serve/replicate.py", "attest/audit.py", "chaos/campaign.py"):
+    for m in ("chaos/campaign.py", "analysis/lint.py", "calib/fit.py"):
         assert m not in rel, m
 
 
@@ -167,6 +171,64 @@ def test_no_string_of_the_port_names_the_jax_package():
         assert _JAX_PACKAGE_NAME.search(bad)
     for good in ("primesim_tpu_torch", "-m primesim_tpu_torch worker", "primesim_tpu_torch.pool"):
         assert not _JAX_PACKAGE_NAME.search(good)
+
+
+# a child that fails loudly the moment anything initialises CUDA or asks
+# for a card, then runs the port's CLI with the given arguments
+_NO_CUDA_CHILD = (
+    "import sys, torch\n"
+    "def touched(*a, **k):\n"
+    "    raise SystemExit('CUDA touched')\n"
+    "for name in ('_lazy_init', 'init', 'is_available', 'device_count',\n"
+    "             'current_device', 'set_device', 'get_device_name'):\n"
+    "    setattr(torch.cuda, name, touched)\n"
+    "from primesim_tpu_torch.cli import main\n"
+    "rc = main(sys.argv[1:])\n"
+    "assert not torch.cuda.is_initialized()\n"
+    "sys.exit(rc)\n"
+)
+
+
+def test_replica_and_fsck_processes_never_initialise_cuda(tmp_path):
+    """A `replica` process (fed a replicated journal, then stopped with
+    SIGTERM) and an `fsck`/`fsck --compare` process touch no CUDA call at
+    all: they run with every device entry point of torch.cuda replaced by
+    one that exits the process."""
+    import signal
+
+    from primesim_tpu_torch.serve.journal import JobJournal
+    from primesim_tpu_torch.serve.replicate import ReplicationSink
+
+    env = dict(os.environ, PYTHONPATH=REPO)
+    rdir = str(tmp_path / "replica")
+    proc = subprocess.Popen([sys.executable, "-c", _NO_CUDA_CHILD, "replica", "--dir", rdir,
+                             "--tcp", "127.0.0.1:0"], cwd=REPO, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        line = proc.stderr.readline()
+        assert "replica: listening on" in line, line + proc.stderr.read()
+        target = line.split("listening on ", 1)[1].split(" ", 1)[0]
+        pdir = str(tmp_path / "primary")
+        j = JobJournal(pdir, segment_records=2)
+        sink = ReplicationSink(j, [target], node="A")
+        j.sink = sink
+        sink.begin_epoch()
+        for i in range(5):
+            j.append({"t": "note", "msg": f"n{i}"})
+        assert sink.quorum_ok()
+        sink.close()
+        j.close()
+        proc.send_signal(signal.SIGTERM)
+        _, err = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    assert proc.returncode == 0, err
+    for args in (["fsck", str(tmp_path)], ["fsck", "--compare", pdir, rdir]):
+        r = subprocess.run([sys.executable, "-c", _NO_CUDA_CHILD, *args], cwd=REPO, env=env,
+                           capture_output=True, text=True, timeout=120)
+        assert r.returncode == 0, r.stdout + r.stderr
+        assert "0 corrupt" in r.stdout
 
 
 def _tiny():
@@ -886,9 +948,13 @@ SERVE_RUNG2 = {
     ],
 }
 # name -> (base fixture, steps, chunk_steps): JAX's run_steps rounds up
-# to whole chunks, so a cut shallower than 512 steps names its chunk
-CUT_SPECS = {"fleet_rung3_cut": ("fleet_rung3", 1536, 512),
+# to whole chunks, so a cut shallower than 512 steps names its chunk; a
+# fleet whose elements stand at different steps at the cut (fleet_fork:
+# three forked from a 1024-step prefix, one from step 0) names each
+# element's
+CUT_SPECS = {"fleet_rung3_cut": ("fleet_rung3", 1024, 512),
              "multiprog_rung3_cut": ("multiprog_rung3", 1536, 512),
+             "fleet_fork_cut": ("fleet_fork", (1536, 1536, 1536, 512), 512),
              "headline_cut": ("headline", 64, 64),
              "rung3_headline_cut": ("rung3_headline", 64, 64)}
 ATTEST_FIXTURES = (*ATTEST_SPECS, "serve_headline", "serve_rung2", *CUT_SPECS)
@@ -984,14 +1050,14 @@ def cut_digest_of_jax(name, i=0) -> dict:
     from primesim_tpu.sim.fleet import apply_overrides
 
     base, steps, chunk = CUT_SPECS[name]
-    if base in FLEET_SPECS:
-        machine, elements = FLEET_SPECS[base]
+    if base in ALL_FLEET_SPECS:
+        machine, elements = ALL_FLEET_SPECS[base]
         spec, ov = elements[i]
     else:
         (machine, spec), ov = FULL_WIDTH_SPECS[base], {}
     cfg = _jax_cfg(machine)
     eng = JEngine(apply_overrides(cfg, ov), jax_trace(spec, cfg.line_bits), chunk_steps=chunk)
-    eng.run_steps(steps)
+    eng.run_steps(steps[i] if isinstance(steps, tuple) else steps)
     return digest_of_jax_engine(eng)
 
 
@@ -1018,7 +1084,7 @@ def _write_attest_fixtures(names, workers=6):
             jobs += [(n, serve_rung2_job, (i,)) for i in range(len(SERVE_RUNG2["jobs"]))]
         elif n in CUT_SPECS:
             base = CUT_SPECS[n][0]
-            count = len(FLEET_SPECS[base][1]) if base in FLEET_SPECS else 1
+            count = len(ALL_FLEET_SPECS[base][1]) if base in ALL_FLEET_SPECS else 1
             jobs += [(n, cut_digest_of_jax, (n, i)) for i in range(count)]
     with mp.get_context("spawn").Pool(workers) as pool:
         outs = pool.starmap(_call, [(fn, args) for _, fn, args in jobs])
@@ -1042,7 +1108,8 @@ def _write_attest_fixtures(names, workers=6):
                 "jobs": outs})
         else:
             base, steps, chunk = CUT_SPECS[n]
-            _write_json(n, {"base": base, "steps": steps,
+            _write_json(n, {"base": base, "steps": list(steps) if isinstance(steps, tuple)
+                            else steps,
                             **({"chunk_steps": chunk} if chunk != 512 else {}),
                             "made_with": "JAX Engine.run_steps(steps) of the base fixture's "
                                          "run(s) (tests/test_torch_rules.py::cut_digest_of_jax)",
@@ -1100,14 +1167,16 @@ def test_serve_fixtures_name_their_jobs():
 def test_cut_fixtures_stop_short_of_their_full_runs(name):
     fx = _attest_fixture(name)
     base, steps, chunk = CUT_SPECS[name]
-    assert (fx["base"], fx["steps"], fx.get("chunk_steps", 512)) == (base, steps, chunk)
+    assert (fx["base"], fx["steps"], fx.get("chunk_steps", 512)) == (
+        base, list(steps) if isinstance(steps, tuple) else steps, chunk)
     full = _attest_fixture(base)
     fulls = ([e["digest"] for e in full["elements"]] if "elements" in full
              else [full["digest"]])
     assert len(fx["digests"]) == len(fulls)
-    for cut, whole in zip(fx["digests"], fulls):
-        assert cut["steps"] == min(steps, whole["steps"])
-        assert (cut["instructions"] < whole["instructions"]) == (whole["steps"] > steps)
+    for i, (cut, whole) in enumerate(zip(fx["digests"], fulls)):
+        at = steps[i] if isinstance(steps, tuple) else steps
+        assert cut["steps"] == min(at, whole["steps"])
+        assert (cut["instructions"] < whole["instructions"]) == (whole["steps"] > at)
 
 
 def test_serve_rung2_fixture_matches_the_jax_engine():
