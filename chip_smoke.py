@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Phases, each printing one JSON line; any failure exits non-zero before
-the final line:
+the final line (`chip_smoke.py --child PATH` runs one phase of 14 in a
+process of its own: the script starts it so):
 
 1. device    -- a CUDA card is required; prints nvidia-smi's name and
                 power limit.
@@ -450,6 +451,49 @@ the final line:
                 steps, 29 windows) and each step kernel launched once per
                 step; prints the segments, the stalls and the wall beside
                 stream_rung5's.
+
+14. calibrate_rung1 (in a background thread from phase 3 on, beside the
+                next four in another; printed before phase 5; they time
+                nothing another phase compares) -- `python -m
+                primesim_tpu_torch calibrate configs/rung1_64core_fft.json
+                --table configs/calib_ipu_microbench.json --rounds 10 --out
+                F`: the default six fit keys, every candidate set a B = 20
+                fleet, 61 dispatches (the verb's 24 rounds, 145 dispatches,
+                took 308 s: the round cap is the fixture's).
+                Fails unless every calibrate_residual line and
+                calibrate_fit's knobs, start, cost, rounds, fleet_runs and
+                batch equal the JAX fit's (fixtures/calib_rung1.json), the
+                --out report equals it float for float, and each step kernel
+                launched once per fleet step of the fit (router_cascade
+                never). Prints the fit's wall, dispatches, fleet steps and
+                MIPS.
+   calibrate_zoo_selftest -- `calibrate
+                configs/zoo_smoke_16core_torus_moesi.json --table ...
+                --selftest --truth llc_lat=16,dram_lat=151 --fit
+                llc_lat,dram_lat`: exit 0, recovered, and the same checks
+                against fixtures/calib_zoo_selftest.json.
+   calib_ipu_matrix -- (`chip_smoke.py --child calib_ipu_matrix`, a
+                process of its own) the calibrate evaluator at the widest
+                shipped machine: the table's four entries at the 1472-tile
+                IPU profile's own knobs as one B = 4 fleet (sharer_reductions'
+                torus mode batched), equal to the JAX simulate_matrix
+                (fixtures/calib_ipu_matrix.json), each step kernel once per
+                fleet step.
+   chaos_rung2 -- `chaos --config configs/rung2_256core_parsec.json
+                --trials 6 --seed 900 --classes durable,crashpoint
+                --verbose`: exit 0, the report (trials, fired events, ok,
+                classes, seed0) and every per-trial line (seed, ok, fired,
+                restarts) equal to the JAX campaign's
+                (fixtures/chaos_rung2.json), the step kernels launched.
+   chaos_classes -- (`--child chaos_classes`) the campaign's golden run
+                on the card equal to JAX's golden_run, then one trial of
+                each opt-in class at its fixture seed: socket (a real
+                server and a reconnecting client), replication (primary,
+                two replicas, a promoted standby), silent_corruption (the
+                attested pool: no corrupted unit ends DONE) and
+                capacity_loss (a disk-only plan whose fired events equal
+                JAX's). Fails unless each plan is JAX's, each trial is ok
+                with an event fired, and the step kernels launched.
 
 Then a line of every phase's elapsed seconds ("phase_times"), the kernel
 summary line (each kernel's batched figures under "batched", the launches
@@ -1496,10 +1540,6 @@ def attest_serve_phases(dev, smi_line: str, headline, baselines: dict, made: dic
 
     launches = {}
 
-    def fixture_json(name):
-        with open(os.path.join(ROOT, "primesim_tpu_torch", "fixtures", f"{name}.json")) as f:
-            return json.load(f)
-
     def served(result):
         """A result record's digest: the fixture digest's fields but the
         link and controller clocks, which a result does not carry."""
@@ -1880,10 +1920,6 @@ def pool_phase(path: str, smi_line: str, headline) -> tuple[list, dict]:
     from primesim_tpu_torch.pool.units import fold_unit_records
     from primesim_tpu_torch.stats.digest import run_digest
 
-    def fixture_json(name):
-        with open(os.path.join(ROOT, "primesim_tpu_torch", "fixtures", f"{name}.json")) as f:
-            return json.load(f)
-
     def served(result):
         d = run_digest(result["steps"], result["core_cycles"],
                        {k: np.asarray(v) for k, v in result["counters"].items()}, [], [])
@@ -2098,6 +2134,220 @@ class Child:
             self.proc.wait()
 
 
+def fixture_json(name: str) -> dict:
+    with open(os.path.join(ROOT, "primesim_tpu_torch", "fixtures", f"{name}.json")) as f:
+        return json.load(f)
+
+
+def run_child(args: list[str], timeout: float = 900.0) -> tuple[int, str, str, float]:
+    """`python <args>` from the checkout's root: (returncode, stdout,
+    stderr, wall s)."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, *args], cwd=ROOT, capture_output=True, text=True,
+                       timeout=timeout)
+    return r.returncode, r.stdout, r.stderr, time.perf_counter() - t0
+
+
+def port_line(err: str, verb: str) -> dict:
+    """The record of the port's `<verb>: device D, {...}` stderr line,
+    which must name the card."""
+    for ln in err.splitlines():
+        if ln.startswith(f"{verb}: device "):
+            dev, _, rec = ln[len(f"{verb}: device "):].partition(", ")
+            if not dev.startswith("cuda"):
+                fail(f"{verb}: ran on {dev}, not the card")
+            return json.loads(rec)
+    fail(f"{verb}: no device line on stderr: {err[-2000:]}")
+
+
+def step_launches(path: str, launches: dict, per: int | None) -> dict:
+    """Each step kernel launched `per` times (as often as the others and
+    at least once when `per` is None), router_cascade never."""
+    n = {launches[k] for k in STEP_KERNELS}
+    if launches["router_cascade"] or len(n) != 1 or (per is None and not min(n)) \
+            or (per is not None and n != {per}):
+        fail(f"{path}: launches {launches}, want {per if per is not None else 'n > 0'} "
+             "of each step kernel and no router_cascade")
+    return dict(launches)
+
+
+def calibrate_phase(path: str, smi_line: str) -> tuple[dict, dict]:
+    """calibrate_rung1 / calibrate_zoo_selftest (module docstring): the
+    `calibrate` verb in a child process, its lines and report held to the
+    JAX fit's (fixtures/calib_rung1.json, calib_zoo_selftest.json).
+    Returns (its phase line, {path: launches})."""
+    fx = fixture_json(path.replace("calibrate_", "calib_"))
+    want = fx["report"]
+    with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{path}_") as tmp:
+        out_file = os.path.join(tmp, "fit.json")
+        args = ["-m", "primesim_tpu_torch", "calibrate", fx["config"], "--table", fx["table"],
+                "--rounds", str(fx["rounds"]), "--chunk-steps", str(fx["chunk_steps"]),
+                "--out", out_file]
+        if fx["fit"]:
+            args += ["--fit", ",".join(fx["fit"])]
+        if fx["truth"]:
+            args += ["--selftest", "--truth", ",".join(f"{k}={v}" for k, v in fx["truth"].items())]
+        rc, out, err, wall = run_child(args)
+        if rc != 0:
+            fail(f"{path}: calibrate exited {rc}: {err[-2000:]}")
+        with open(out_file) as f:
+            report = json.load(f)
+    rows = [json.loads(ln) for ln in out.splitlines()]
+    residuals = [{"metric": "calibrate_residual", "value": round(r["residual"], 6),
+                  "unit": "relative",
+                  "detail": {"entry": r["entry"], "simulated": round(r["simulated"], 4),
+                             "observed": round(r["observed"], 4), "table": fx["table_name"]}}
+                 for r in want["residuals"]]
+    if rows[:-1] != residuals:
+        fail(f"{path}: residual lines {rows[:-1]} != the JAX fit's {residuals}")
+    fit_line = rows[-1]
+    got = {k: fit_line["detail"][k] for k in ("knobs", "start", "rounds", "fleet_runs", "batch")}
+    if fit_line["value"] != round(want["cost"], 8) or got != {k: want[k] for k in got}:
+        fail(f"{path}: calibrate_fit {fit_line} != the JAX fit's {want}")
+    if fx["truth"] and not (fit_line["detail"]["recovered"] and fit_line["detail"]["selftest_ok"]):
+        fail(f"{path}: the self-test did not recover {fx['truth']}: {fit_line}")
+    if {k: report[k] for k in want} != want:
+        fail(f"{path}: the --out report differs from the JAX fit's")
+    stats = port_line(err, "calibrate")
+    launches = step_launches(path, stats["launches"], stats["fleet_steps"])
+    if stats["fleet_runs"] != want["fleet_runs"]:
+        fail(f"{path}: {stats['fleet_runs']} dispatches, the report says {want['fleet_runs']}")
+    line = {"phase": path, "config": fx["config"], "fit_keys": fit_line["detail"]["fit_keys"],
+            "knobs": got["knobs"], "cost": want["cost"], "rounds": got["rounds"],
+            "fleet_runs": stats["fleet_runs"], "batch": got["batch"],
+            "fleet_steps": stats["fleet_steps"], "instructions": stats["instructions"],
+            "fit_wall_s": stats["wall_s"],
+            "MIPS": stats["instructions"] / stats["wall_s"] / 1e6,
+            "ms_per_dispatch": 1e3 * stats["wall_s"] / stats["fleet_runs"],
+            "process_wall_s": wall, "launches": launches, "equal_to_jax": True,
+            "gpu": smi_line}
+    return line, {path: launches}
+
+
+def chaos_rung2_phase(smi_line: str) -> tuple[dict, dict]:
+    """chaos_rung2 (module docstring): the `chaos` verb in a child
+    process on the shipped rung-2 machine, its report and per-trial lines
+    held to the JAX campaign's."""
+    fx = fixture_json("chaos_rung2")
+    rc, out, err, wall = run_child(
+        ["-m", "primesim_tpu_torch", "chaos", "--config", fx["config"], "--trials",
+         str(fx["trials"]), "--seed", str(fx["seed0"]), "--classes", ",".join(fx["classes"]),
+         "--verbose"])
+    if rc != 0:
+        fail(f"chaos_rung2: chaos exited {rc}: {out[-1000:]} {err[-2000:]}")
+    report = json.loads(out)
+    if report != fx["report"]:
+        fail(f"chaos_rung2: report {report} != the JAX campaign's {fx['report']}")
+    trials = [ln for ln in err.splitlines() if ln.startswith("trial ")]
+    want = [f"trial seed={t['seed']} {'ok' if t['ok'] else 'VIOLATION'} "
+            f"fired={len(t['injected'])} restarts={t['restarts']}" for t in fx["trial_results"]]
+    if trials != want:
+        fail(f"chaos_rung2: trial lines {trials} != the JAX campaign's {want}")
+    stats = port_line(err, "chaos")
+    launches = step_launches("chaos_rung2", stats["launches"], None)
+    return {"phase": "chaos_rung2", "config": fx["config"], "trials": report["trials"],
+            "fired_events": report["fired_events"], "ok": report["ok"],
+            "restarts": [t["restarts"] for t in fx["trial_results"]],
+            "campaign_wall_s": stats["wall_s"], "process_wall_s": wall,
+            "launches": launches, "equal_to_jax": True, "gpu": smi_line}, \
+        {"chaos_rung2": launches}
+
+
+def child_phase(path: str, smi_line: str) -> tuple[dict, dict]:
+    """calib_ipu_matrix / chaos_classes: this script's `--child PATH` mode
+    in a process of its own (its launches are its own). Returns (its
+    phase line, {path: launches})."""
+    rc, out, err, wall = run_child([os.path.join(ROOT, "chip_smoke.py"), "--child", path])
+    if rc != 0:
+        fail(f"{path}: the child exited {rc}: {err[-3000:]}")
+    line = json.loads(out.strip().splitlines()[-1])
+    return {**line, "process_wall_s": wall, "gpu": smi_line}, {path: line["launches"]}
+
+
+def calib_chaos_phases(smi_line: str) -> tuple[list, dict]:
+    """The calibrate and chaos paths after calibrate_rung1 (module
+    docstring), one after another in one background thread."""
+    lines, launches = [], {}
+    for fn, args in ((calibrate_phase, ("calibrate_zoo_selftest", smi_line)),
+                     (child_phase, ("calib_ipu_matrix", smi_line)),
+                     (chaos_rung2_phase, (smi_line,)),
+                     (child_phase, ("chaos_classes", smi_line))):
+        line, of = fn(*args)
+        lines.append(line)
+        launches.update(of)
+    return lines, launches
+
+
+def child_main(path: str) -> int:
+    """`chip_smoke.py --child PATH`: one phase in this process, its line
+    last on stdout (calib_ipu_matrix, chaos_classes: module docstring)."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from primesim_tpu_torch.kernels import build
+
+    dev = torch.device("cuda")
+    for k in build.KERNELS:
+        build.library(k)
+    build.LAUNCHES.update(dict.fromkeys(build.LAUNCHES, 0))
+    fx = fixture_json(path)
+    t0 = time.perf_counter()
+    if path == "calib_ipu_matrix":
+        import importlib
+
+        from primesim_tpu_torch.calib.table import load_table
+        from primesim_tpu_torch.config.machine import MachineConfig
+
+        F = importlib.import_module("primesim_tpu_torch.calib.fit")
+        with open(os.path.join(ROOT, fx["config"])) as f:
+            mcfg = MachineConfig.from_json(f.read())
+        table = load_table(os.path.join(ROOT, fx["table"]))
+        ev = F._FleetEvaluator(mcfg, table, F.build_traces(mcfg, table), fx["chunk_steps"], dev)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        values = ev(fx["knob_sets"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if values != fx["values"]:
+            fail(f"calib_ipu_matrix: {values} != the JAX matrix {fx['values']}")
+        line = {"phase": path, "config": fx["config"], "cores": mcfg.n_cores,
+                "topology": mcfg.noc.topology, "B": len(fx["knob_sets"]) * len(table.entries),
+                "values": values, "fleet_steps": ev.steps, "instructions": ev.instructions,
+                "wall_s": wall, "MIPS": ev.instructions / wall / 1e6,
+                "peak_device_bytes": torch.cuda.max_memory_allocated() - base,
+                "launches": step_launches(path, build.LAUNCHES, ev.steps),
+                "equal_to_jax": True}
+    else:
+        from primesim_tpu_torch.chaos import campaign as C
+        from primesim_tpu_torch.chaos import plan as P
+
+        golden = C.golden_run(device=dev)
+        if [C._canon(golden[i]) for i in sorted(golden)] != fx["golden"]:
+            fail("chaos_classes: the card's golden results differ from JAX's golden_run")
+        trials = {}
+        for cls, want in fx["trials"].items():
+            plan = P.generate(want["seed"], classes=C._gen_classes((cls,)),
+                              sites=C._trial_sites((cls,))[0])
+            if plan.as_dict() != want["plan"]:
+                fail(f"chaos_classes: {cls} seed {want['seed']} expands to {plan.as_dict()}, "
+                     f"JAX's to {want['plan']}")
+            t1 = time.perf_counter()
+            res = C.run_trial(plan, golden=golden, device=dev)
+            if not res.ok or not res.injected:
+                fail(f"chaos_classes: {cls} trial ok={res.ok} fired={res.injected}: "
+                     f"{res.violations}")
+            if cls == "capacity_loss" and res.injected != want["injected"]:
+                fail(f"chaos_classes: the capacity trial fired {res.injected}, "
+                     f"JAX's {want['injected']}")
+            trials[cls] = {"seed": want["seed"], "ok": res.ok, "injected": res.injected,
+                           "restarts": res.restarts, "wall_s": time.perf_counter() - t1}
+        line = {"phase": path, "golden_equal_to_jax": True, "trials": trials,
+                "wall_s": time.perf_counter() - t0,
+                "launches": step_launches(path, build.LAUNCHES, None)}
+    print(json.dumps(line), flush=True)
+    return 0
+
+
 def replicated_phase(smi_line: str, headline) -> tuple[list, dict]:
     """replicated_headline (module docstring), for a background thread
     beside phases 3 and 4: two `replica` daemons, a primary `serve
@@ -2289,6 +2539,16 @@ def main() -> int:
         build.library(k)
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "ptxas": {k: build.ptxas_report(k) for k in build.KERNELS}})
+
+    # ---- 14. the calibrate and chaos paths: child processes sharing the
+    # card, in two background threads from here on (their checks time
+    # nothing); their lines are printed before phase 5
+    def calibrate_rung1():
+        line, launches_of = calibrate_phase("calibrate_rung1", smi_line)
+        return [line], launches_of
+
+    calib_ex = ThreadPoolExecutor(2)
+    calib_fs = [calib_ex.submit(calibrate_rung1), calib_ex.submit(calib_chaos_phases, smi_line)]
 
     t0 = time.perf_counter()
     hfx, cfg, trace = fixture("headline")
@@ -2936,12 +3196,13 @@ def main() -> int:
           "machines": faulted})
 
     pool_launches = {}
-    for f in pool_fs:
+    for f in pool_fs + calib_fs:
         pool_lines, launches_of = f.result()  # a failure there exits here
         pool_launches.update(launches_of)
         for line in pool_lines:
             emit(line)
     pool_ex.shutdown()
+    calib_ex.shutdown()
 
     # ---- 5. capture: the first chunk of each main path, card == CPU, and
     # the kernel inputs it stages
@@ -3612,7 +3873,7 @@ def main() -> int:
 
     # ---- 12. the attested and served paths, before any profiler session
     fleet_launches.update(attest_serve_phases(dev, smi_line, (hfx, cfg, trace), baselines, made))
-    fleet_launches.update(pool_launches)  # the pooled paths' (phase 13)
+    fleet_launches.update(pool_launches)  # the pooled (13), calibrate and chaos (14) paths
     fleet_launches["serve_recover"] = recover_launches
 
     # ---- 8. profile. First the profiler's device time per launch of the
@@ -4037,4 +4298,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(child_main(sys.argv[2]) if sys.argv[1:2] == ["--child"] else main())

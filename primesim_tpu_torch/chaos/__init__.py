@@ -5,19 +5,20 @@
 injects faults into the machinery that runs the simulation (journals,
 checkpoints, sockets, process lifetimes, committed host values):
 
-- `plan`  — `FaultPlan`: a seeded, JSON-serializable schedule of fault
-            events keyed by site name + occurrence index, so any failing
-            trial is a one-line repro.
-- `sites` — the fault-site registry threaded through the real I/O paths
-            (journal append, checkpoint replace, protocol send/recv,
-            named crashpoints, silent corruption, the disk-space probe).
-            With no plan installed every hook is one branch and the
-            stack stays bit-exact.
+- `plan`     — `FaultPlan`: a seeded, JSON-serializable schedule of
+               fault events keyed by site name + occurrence index, so
+               any failing trial is a one-line repro.
+- `sites`    — the fault-site registry threaded through the real I/O
+               paths (journal append, checkpoint replace, protocol
+               send/recv, named crashpoints, silent corruption, device
+               revocation, the disk-space probe). With no plan installed
+               every hook is one branch and the stack stays bit-exact.
+- `campaign` — seeded trial runner + invariant checks + plan shrinker
+               behind the `chaos` CLI verb.
 
 `PRIMETPU_CHAOS_PLAN=<plan.json>` (and `PRIMETPU_CHAOS_MODE=kill|raise`)
 installs a plan in any CLI process: `cli.main` calls `install_from_env`
-first. The JAX package's campaign runner (`chaos/campaign.py`, the
-`chaos` verb) is not ported yet.
+first.
 """
 
 from .plan import FaultEvent, FaultPlan

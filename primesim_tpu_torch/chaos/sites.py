@@ -23,14 +23,18 @@ replies, and a fault that those boundaries could swallow would be a
 simulated crash that the process survives. In `mode="kill"` (subprocess
 trials, env activation) the hook delivers a real SIGKILL instead.
 
-The catalog holds the sites the port threads: the durable writes of the
-journal and of checkpoints, the client's socket, the serving daemon's,
-the pool's and the replica's crashpoints, the replication stream
-(`replication`, serve/replicate.py), the pool's lease and heartbeat
-clocks, the two silent-corruption sites and the disk-space probe. The
-JAX package's other sites (the executable cache, device revocation) and
-their hook (`device_revoke`) belong to parts of it the port does not
-have yet.
+The catalog is the JAX package's, site for site, so a seed expands to
+the same plan in both packages and a plan file of either names sites the
+other knows. The port threads all of them but one: the durable writes of
+the journal and of checkpoints, the client's socket, the serving
+daemon's, the pool's and the replica's crashpoints, the replication
+stream (`replication`, serve/replicate.py), the pool's lease and
+heartbeat clocks, the two silent-corruption sites, the supervisor's
+device revocation (`device_revoke`, sim/supervisor.py: on one card
+there is no device to lose, so an event there is counted and logged and
+changes nothing) and the disk-space probe. Nothing in the port reaches
+`exec_cache.write` yet: the port has no executable cache, so an event
+there stays inert.
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ SITES = {
     # durable-write sites
     "journal.append": "durable",       # serve/journal.py append fsync
     "checkpoint.write": "durable",     # sim/checkpoint.py atomic replace
+    "exec_cache.write": "durable",     # no executable cache yet: inert
     # socket sites (client side of the JSON-lines protocol)
     "protocol.send": "socket",
     "protocol.recv": "socket",
@@ -69,7 +74,9 @@ SITES = {
     # values in place with NO crash; only attestation cross-checks tell
     "fleet.counters": "silent_corruption",      # sim/fleet.py post-drain
     "checkpoint.payload": "silent_corruption",  # element checkpoint arrays
-    # capacity loss: a filesystem that stops taking bytes for a while
+    # capacity loss: a device revoked under a live run, and a filesystem
+    # that stops taking bytes for a while
+    "devices.revoke": "capacity_loss",  # sim/supervisor.py chunk boundary
     "disk.preflight": "capacity_loss",  # util/diskpressure.py space gate
 }
 
@@ -362,3 +369,16 @@ def wrap_clock(site: str, clock):
         return clock_skew(site, clock())
 
     return skewed
+
+
+def device_revoke(site: str):
+    """Capacity-loss site at a supervised chunk boundary: returns the
+    plan's `revoke` event (whose `n` arg says how many devices vanish) or
+    None. The caller, the supervisor, enacts it, because only it knows
+    which devices its engine holds."""
+    if _RT is None:
+        return None
+    ev = _RT.hit(site)
+    if ev is not None and ev.action == "revoke":
+        return ev
+    return None

@@ -28,6 +28,9 @@
         --replicas 127.0.0.1:7101,127.0.0.1:7102 [--standby-of PRIMARY]
     python -m primesim_tpu_torch fsck D [--compare D R0]
     python -m primesim_tpu_torch audit P
+    python -m primesim_tpu_torch chaos --trials 20 --seed 0 [--plan F]
+    python -m primesim_tpu_torch calibrate configs/rung1_64core_fft.json \
+        --table configs/calib_ipu_microbench.json
 
 `run` simulates a trace (PTPU files or a named synthetic generator) on a
 JSON or reference-schema XML machine config, prints the one-line JSON
@@ -80,15 +83,21 @@ waits for a primary to die and promotes itself off the replicas with a
 fencing epoch. `fsck` verifies durable state without simulating (and
 `--compare` two journal chains frame for frame), `audit` replays a pool
 directory's finished units and holds their chain heads to the ledger's;
-replica and fsck processes touch no device. A run, sweep,
-worker or daemon is on the card unless `--device cpu` is given.
+replica and fsck processes touch no device. `chaos` runs seeded crash
+campaigns over the serving stack and machine-checks its durability
+invariants (chaos/campaign.py; exit 3 on a violation, shrunk to a repro
+artifact that `--plan` replays), and `calibrate` fits the timing knobs to
+a microbenchmark table with one fleet per candidate set (calib/), both
+with `primetpu`'s output. A run, sweep, worker, daemon, campaign or fit
+is on the card unless `--device cpu` is given.
 `synth` writes
 a generator's trace as a PTPU file, `info` prints a config as JSON: both
 as `primetpu` does. A malformed schedule, trace or config exits 2 with
 one `{"error": {type, location, detail}}` JSON line on stderr, as do a
 malformed `--vary` spec, a `--resume` whose snapshots are all corrupt
-(`CheckpointCorrupt`), a failed attestation check (`AttestationError`)
-and corruption found by `fsck` (`FsckCorrupt`).
+(`CheckpointCorrupt`), a failed attestation check (`AttestationError`),
+corruption found by `fsck` (`FsckCorrupt`) and a malformed calibration
+table or fit key (`CalibError`).
 A plan file named by `PRIMETPU_CHAOS_PLAN` is installed before anything
 runs (chaos/sites.py).
 """
@@ -1213,6 +1222,17 @@ def cmd_fsck(ns) -> int:
     return 0
 
 
+def _load_kernels(device) -> None:
+    """On a card, build and load every kernel before the first dispatch
+    and count launches from 0 (the port's stderr line reports them)."""
+    from .kernels import build
+
+    if device.type == "cuda":
+        for k in build.KERNELS:
+            build.library(k)
+    build.LAUNCHES.update(dict.fromkeys(build.LAUNCHES, 0))
+
+
 def cmd_audit(ns) -> int:
     """Offline replay audit (DESIGN.md §24): re-execute a pool
     campaign's DONE units from their journaled specs on the device and
@@ -1227,10 +1247,7 @@ def cmd_audit(ns) -> int:
     from .sim.engine import resolve_device
 
     device = resolve_device(ns.device)
-    if device.type == "cuda":
-        for k in build.KERNELS:  # build and load before the first replay
-            build.library(k)
-    build.LAUNCHES.update(dict.fromkeys(build.LAUNCHES, 0))
+    _load_kernels(device)  # before the first replay
     res = run_audit(ns.dir, unit_ids=ns.unit, device=device)
     for v in res["units"]:
         print(json.dumps(v))
@@ -1255,6 +1272,188 @@ def cmd_audit(ns) -> int:
             site="audit.replay", unit=first["unit_id"],
         )
     return 0
+
+
+def cmd_calibrate(ns) -> int:
+    """Fit timing knobs to a published microbenchmark table (DESIGN.md
+    §25): coordinate-descent pattern search where every candidate set
+    runs as ONE constant-shape fleet on the device. Emits `primetpu
+    calibrate`'s lines: one `calibrate_residual` JSON line per table
+    entry plus a final `calibrate_fit` line; `--selftest` replaces the
+    observed column with values simulated at ground-truth knobs and
+    asserts the fit recovers them (exit 1 if not). Then the port's own
+    stderr line: the device, the fit's fleet dispatches, fleet steps and
+    retired instructions, the kernel launches it made and its wall."""
+    from .calib.fit import (
+        FIT_KEYS_DEFAULT, _FleetEvaluator, apply_fit, build_traces,
+        check_fit_keys, fit, knob_start, synthesize_observed,
+    )
+    from .calib.table import load_table
+    from .kernels import build
+    from .sim.engine import resolve_device
+
+    cfg = _load_config(ns.config)
+    table = load_table(ns.table)
+    fit_keys = (
+        check_fit_keys(k.strip() for k in ns.fit.split(","))
+        if ns.fit else FIT_KEYS_DEFAULT
+    )
+    device = resolve_device(ns.device)
+    _load_kernels(device)
+    truth = None
+    if ns.selftest:
+        # ground truth: explicit --truth overrides, else a deterministic
+        # perturbation of the config's own knobs (so the search must
+        # genuinely move to recover them)
+        truth = (
+            {k: int(v) for k, v in _parse_vary(ns.truth).items()}
+            if ns.truth
+            else {
+                k: v + max(1, v // 2)
+                for k, v in knob_start(cfg, fit_keys).items()
+            }
+        )
+        check_fit_keys(truth.keys())
+        table = synthesize_observed(
+            cfg, table, truth, chunk_steps=ns.chunk_steps, device=device
+        )
+    ev = _FleetEvaluator(cfg, table, build_traces(cfg, table),
+                         ns.chunk_steps, device)
+    build.LAUNCHES.update(dict.fromkeys(build.LAUNCHES, 0))
+    t0 = time.perf_counter()
+    res = fit(
+        cfg, table, fit_keys=fit_keys, max_rounds=ns.rounds,
+        chunk_steps=ns.chunk_steps,
+        log=(lambda s: print(f"calibrate: {s}", file=sys.stderr))
+        if ns.verbose else None,
+        evaluator=ev,
+    )
+    wall = time.perf_counter() - t0
+    for name, sim, obs, r in res.residuals:
+        print(
+            json.dumps(
+                {
+                    "metric": "calibrate_residual",
+                    "value": round(r, 6),
+                    "unit": "relative",
+                    "detail": {
+                        "entry": name,
+                        "simulated": round(sim, 4),
+                        "observed": round(obs, 4),
+                        "table": table.name,
+                    },
+                }
+            )
+        )
+    detail = {
+        "table": table.name,
+        "fit_keys": list(fit_keys),
+        "knobs": res.knobs,
+        "start": res.start,
+        "rounds": res.rounds,
+        "fleet_runs": res.fleet_runs,
+        "batch": res.batch,
+        "wall_s": round(wall, 3),
+    }
+    if truth is not None:
+        detail["truth"] = truth
+        # exact knob equality is informational (latency knobs can trade
+        # off degenerately, e.g. link vs router on fixed-hop entries);
+        # the self-test CONTRACT is ~zero residual at the fitted point
+        detail["recovered"] = all(
+            res.knobs[k] == v for k, v in truth.items()
+        )
+        detail["selftest_ok"] = res.cost <= ns.tol
+    print(
+        json.dumps(
+            {
+                "metric": "calibrate_fit",
+                "value": round(res.cost, 8),
+                "unit": "sum_sq_rel_residual",
+                "detail": detail,
+            }
+        )
+    )
+    if ns.out:
+        report = res.report()
+        report["table"] = table.name
+        report["config"] = apply_fit(cfg, res.knobs).to_json()
+        if truth is not None:
+            report["truth"] = truth
+        with open(ns.out, "w") as f:
+            json.dump(report, f, indent=2)
+            f.write("\n")
+        print(f"calibration report written to {ns.out}", file=sys.stderr)
+    print(
+        f"calibrate: device {device}, " + json.dumps(
+            {"fleet_runs": ev.runs, "fleet_steps": ev.steps,
+             "instructions": ev.instructions,
+             "launches": dict(build.LAUNCHES), "wall_s": wall}),
+        file=sys.stderr, flush=True,
+    )
+    if truth is not None and not detail["selftest_ok"]:
+        print(
+            f"calibrate: SELFTEST FAILED — residual cost {res.cost:.3g} "
+            f"> tol {ns.tol:.3g} (truth {truth}, fitted "
+            f"{ {k: res.knobs[k] for k in truth} })",
+            file=sys.stderr,
+        )
+        return 1
+    return 0
+
+
+def cmd_chaos(ns) -> int:
+    """Seeded crash campaign (DESIGN.md §20): N trials of the serve
+    stack on the device under generated fault plans, invariants
+    machine-checked after each; violations shrink to a minimal
+    replayable artifact. Exit 0 clean, 3 on any violation. After
+    `primetpu chaos`'s output, the port's stderr line: the device, the
+    campaign's wall and the kernel launches its trials made."""
+    from .chaos import campaign as C
+    from .kernels import build
+    from .sim.engine import resolve_device
+
+    cfg = _load_config(ns.config) if ns.config else None
+    device = resolve_device(ns.device)
+    _load_kernels(device)
+    t0 = time.perf_counter()
+
+    def device_line():
+        print(
+            f"chaos: device {device}, " + json.dumps(
+                {"launches": dict(build.LAUNCHES),
+                 "wall_s": time.perf_counter() - t0}),
+            file=sys.stderr, flush=True,
+        )
+
+    if ns.plan:
+        res = C.replay_artifact(ns.plan, cfg=cfg, device=device)
+        print(json.dumps(res.as_dict(), indent=2, sort_keys=True))
+        device_line()
+        return 0 if res.ok else 3
+
+    def progress(seed, res):
+        if ns.verbose:
+            print(
+                f"trial seed={seed} "
+                f"{'ok' if res.ok else 'VIOLATION'} "
+                f"fired={len(res.injected)} restarts={res.restarts}",
+                file=sys.stderr,
+            )
+
+    report = C.run_campaign(
+        n_trials=ns.trials,
+        seed0=ns.seed,
+        classes=tuple(ns.classes.split(",")),
+        cfg=cfg,
+        artifact_dir=ns.out,
+        max_events=ns.max_events,
+        progress=progress,
+        device=device,
+    )
+    print(json.dumps(report, indent=2, sort_keys=True))
+    device_line()
+    return 0 if report["ok"] else 3
 
 
 def cmd_submit(ns) -> int:
@@ -1998,6 +2197,117 @@ def build_parser() -> argparse.ArgumentParser:
              "is no card)",
     )
     au.set_defaults(fn=cmd_audit)
+
+    ch = sub.add_parser(
+        "chaos",
+        help="seeded crash campaign over the serve stack: generate "
+             "fault plans, inject, machine-check durability invariants, "
+             "shrink violations to a minimal repro artifact (DESIGN.md "
+             "§20); exit 3 on violation",
+    )
+    ch.add_argument(
+        "--trials", type=int, default=20,
+        help="number of seeded trials (default 20)",
+    )
+    ch.add_argument(
+        "--seed", type=int, default=0,
+        help="first trial seed; trial k uses seed+k (default 0)",
+    )
+    ch.add_argument(
+        "--classes", default="durable,crashpoint",
+        help="comma list of fault classes to draw from: durable, "
+             "crashpoint, socket, replication, silent_corruption, "
+             "capacity_loss "
+             "(default durable,crashpoint; replication runs the primary+"
+             "replicas+standby failover trial and implies replica-kill "
+             "crashpoints; silent_corruption flips committed counter "
+             "bits on a pooled attested campaign and checks that no "
+             "corrupted result reaches DONE unflagged; capacity_loss "
+             "revokes devices from supervised runs (one card: nothing "
+             "to take) and opens sustained-ENOSPC windows, checking "
+             "invariant G — no ACKed job lost, no bit-exactness "
+             "violation)",
+    )
+    ch.add_argument(
+        "--max-events", type=int, default=3,
+        help="max fault events per generated plan (default 3)",
+    )
+    ch.add_argument(
+        "--out", default=None, metavar="DIR",
+        help="write chaos-repro-<seed>.json artifacts here on violation",
+    )
+    ch.add_argument(
+        "--plan", default=None, metavar="FILE",
+        help="replay one plan/artifact JSON instead of generating "
+             "(the repro loop)",
+    )
+    ch.add_argument(
+        "--config", default=None,
+        help="machine config JSON (default: small test config)",
+    )
+    ch.add_argument("--verbose", action="store_true",
+                    help="per-trial progress on stderr")
+    ch.add_argument(
+        "--device", choices=("cuda", "cpu"), default=None,
+        help="where the trials simulate (default: cuda, an error when "
+             "there is no card)",
+    )
+    ch.set_defaults(fn=cmd_chaos)
+
+    ca = sub.add_parser(
+        "calibrate",
+        help="fit timing knobs to a published microbenchmark "
+             "latency/bandwidth table (DESIGN.md §25): coordinate-"
+             "descent pattern search run as constant-shape fleets",
+    )
+    ca.add_argument("config", help="machine config JSON/XML")
+    ca.add_argument(
+        "--table", required=True, metavar="FILE",
+        help="calibration table JSON (e.g. "
+             "configs/calib_ipu_microbench.json)",
+    )
+    ca.add_argument(
+        "--fit", default=None, metavar="K1,K2,...",
+        help="comma list of knobs to fit (default cpi,l1_lat,llc_lat,"
+             "link_lat,router_lat,dram_lat)",
+    )
+    ca.add_argument(
+        "--rounds", type=int, default=24,
+        help="max coordinate-descent rounds (default 24)",
+    )
+    ca.add_argument(
+        "--chunk-steps", type=int, default=256,
+        help="fleet chunk size in steps (default 256)",
+    )
+    ca.add_argument(
+        "--out", default=None, metavar="FILE",
+        help="write the full fit report (knobs, residuals, fitted "
+             "config) as JSON",
+    )
+    ca.add_argument(
+        "--selftest", action="store_true",
+        help="replace the observed column with values simulated at "
+             "ground-truth knobs and require the fit to recover them "
+             "with ~zero residual (exit 1 otherwise)",
+    )
+    ca.add_argument(
+        "--truth", default=None, metavar="K=V,...",
+        help="selftest ground-truth knobs (default: a deterministic "
+             "perturbation of the config's own values)",
+    )
+    ca.add_argument(
+        "--tol", type=float, default=1e-6,
+        help="selftest pass threshold on the summed squared relative "
+             "residual (default 1e-6)",
+    )
+    ca.add_argument("--verbose", action="store_true",
+                    help="per-coordinate-step progress on stderr")
+    ca.add_argument(
+        "--device", choices=("cuda", "cpu"), default=None,
+        help="where the fleets run (default: cuda, an error when there "
+             "is no card)",
+    )
+    ca.set_defaults(fn=cmd_calibrate)
     return p
 
 
@@ -2010,12 +2320,13 @@ def main(argv=None) -> int:
     ns = build_parser().parse_args(argv)
     from .analysis.errors import FsckCorrupt
     from .attest.errors import AttestationError
+    from .calib.table import CalibError
     from .sim.checkpoint import CheckpointCorrupt
 
     try:
         return ns.fn(ns)
     except (TraceError, ConfigError, FaultConfigError, CheckpointCorrupt,
-            VarySpecError, AttestationError, FsckCorrupt) as e:
+            VarySpecError, AttestationError, FsckCorrupt, CalibError) as e:
         # typed errors exit 2 with ONE structured JSON line on stderr, as
         # `primetpu` prints them
         print(json.dumps(_error_obj(e)), file=sys.stderr)

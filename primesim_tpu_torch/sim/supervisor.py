@@ -48,9 +48,13 @@ count, so a retried chunk is never linked twice, and an OOM halving
 records the new cadence on the chain (`note_cadence`), which makes it
 incomparable to a full-cadence chain instead of falsely divergent.
 
-Not ported yet: the device-loss reshard ladder (a `device_loss` failure
-takes the transient path, as the JAX supervisor does when there is
-nothing to demote), the chaos revocation site and the overlapped-dispatch
+The chaos revocation site (`devices.revoke`) is reached at every chunk
+boundary, as in the JAX supervisor; the port runs on one card, so its
+pool of healthy devices is that card alone, a revocation has nothing to
+take, and the event is counted and logged but changes nothing, as on a
+one-device JAX backend. Not ported yet: the device-loss reshard ladder
+(a `device_loss` failure takes the transient path, as the JAX supervisor
+does when there is nothing to demote) and the overlapped-dispatch
 discard.
 
 `validate_fleet_element` and `build_fleet_isolated` quarantine a sweep's
@@ -67,6 +71,7 @@ import time
 import numpy as np
 import torch
 
+from ..chaos import sites as chaos_sites
 from ..trace.format import validate_sync
 from .checkpoint import CheckpointCorrupt
 from .state import leaves, map_state
@@ -458,9 +463,18 @@ class RunSupervisor:
             eng.attest.restore(snap["attest"])
         eng._stepped = None
 
+    def _chaos_revoke_check(self) -> None:
+        """Chaos `capacity_loss` site at a chunk boundary: a revocation
+        takes `min(n, len(pool) - 1)` devices, always leaving one. The
+        port's pool is the engine's one card, so that is 0 and nothing is
+        lost; the site's arrival is still counted and a fired event
+        logged, as on a one-device JAX backend."""
+        chaos_sites.device_revoke("devices.revoke")
+
     def _advance_chunk(self, budget_left: int) -> int:
         """Advance the engine by one committed chunk; returns steps run
         (a stream: the window's device loop's count)."""
+        self._chaos_revoke_check()
         if self.kind == "stream":
             k, finished = self.engine._advance_window(budget_left)
             self._stream_finished = finished

@@ -33,8 +33,13 @@ run shallower than the whole run (`fleet_rung3_cut.json` at step 1024,
 `multiprog_rung3_cut.json` at step 1536, `fleet_fork_cut.json` 512
 steps past its fork; `headline_cut.json`,
 `rung3_headline_cut.json`, at step 64 in chunks of 64, where the capture
-phase's CPU repeat stops). The small ones are
-re-derived from JAX in tier 1, the full-width ones by slow tests.
+phase's CPU repeat stops); and the calibrate and chaos paths' JAX
+results: two `fit` reports (`calib_rung1.json`, rung 1 cut to 10 rounds;
+`calib_zoo_selftest.json`), a 1472-tile `simulate_matrix`
+(`calib_ipu_matrix.json`), a rung-2 campaign (`chaos_rung2.json`) and
+one trial of each opt-in fault class (`chaos_classes.json`). The small
+ones are re-derived from JAX in tier 1, the full-width ones and the
+rung-1 fit by slow tests.
 Regenerate them (after a deliberate change of
 the simulated model) with:
     PYTHONPATH=. python tests/test_torch_rules.py --write-fixture [name ...]
@@ -110,9 +115,9 @@ def test_the_rules_cover_every_module_of_the_port():
     attestation, chaos, serving, pool, replication and offline
     verification modules are among the modules they check (the serving
     daemon's Prometheus renderer `obs/prom.py`, the dispatcher, the
-    pipelined ingest, the replicated journal, fsck and the audit
-    included), and the JAX package's unported modules are not in the
-    port."""
+    pipelined ingest, the replicated journal, fsck, the audit, the crash
+    campaigns and the knob calibration included), and the JAX package's
+    unported module (the linter) is not in the port."""
     rel = {os.path.relpath(p, PKG) for p in _modules()}
     for m in ("obs/__init__.py", "obs/metrics.py", "obs/recorder.py", "obs/trace.py",
               "obs/prom.py", "sim/checkpoint.py", "config/xml_compat.py", "cli.py",
@@ -126,9 +131,11 @@ def test_the_rules_cover_every_module_of_the_port():
               "serve/server.py", "serve/dispatch.py", "pool/__init__.py", "pool/units.py",
               "pool/coordinator.py", "pool/worker.py", "pool/campaign.py",
               "ingest/pipeline.py", "serve/replicate.py", "analysis/__init__.py",
-              "analysis/errors.py", "analysis/fsck.py", "attest/audit.py"):
+              "analysis/errors.py", "analysis/fsck.py", "attest/audit.py",
+              "chaos/campaign.py", "calib/__init__.py", "calib/table.py",
+              "calib/fit.py"):
         assert m in rel, m
-    for m in ("chaos/campaign.py", "analysis/lint.py", "calib/fit.py"):
+    for m in ("analysis/lint.py",):
         assert m not in rel, m
 
 
@@ -1201,6 +1208,182 @@ def test_attest_and_serve_fixtures_match_the_jax_engine(name):
         assert [cut_digest_of_jax(name, i) for i in range(len(fx["digests"]))] == fx["digests"]
 
 
+# the calibrate and chaos fixtures chip_smoke.py holds the card to: JAX
+# `fit` runs of the calibrate verb's two paths (the README's machine with
+# the default fit keys; the zoo machine's self-test at ground-truth knobs),
+# a JAX `simulate_matrix` of the 1472-tile IPU profile at its own knobs
+# (one candidate set: B = 4 entries), a JAX campaign on the shipped rung-2
+# machine with every trial's result, and one JAX trial of each opt-in
+# fault class at the campaign's default small machine (each seed chosen so
+# that an event fires; the capacity-loss plan touches only the disk)
+CALIB_TABLE = "configs/calib_ipu_microbench.json"
+CALIB_SPECS = {
+    # rounds cut from the verb's default 24 (145 dispatches, 308 s on the
+    # card) to 10 (61), so that the card's fit ends beside phases 3-4
+    "calib_rung1": {"config": "configs/rung1_64core_fft.json", "table": CALIB_TABLE, "fit": None,
+                    "truth": None, "rounds": 10, "chunk_steps": 256},
+    "calib_zoo_selftest": {"config": "configs/zoo_smoke_16core_torus_moesi.json",
+                           "table": CALIB_TABLE, "fit": ["llc_lat", "dram_lat"],
+                           "truth": {"llc_lat": 16, "dram_lat": 151}, "rounds": 24,
+                           "chunk_steps": 256},
+}
+CALIB_MATRIX = {"config": "configs/zoo_ipu_1472tile_bsp.json", "table": CALIB_TABLE,
+                "knob_sets": [{}], "chunk_steps": 256}
+CHAOS_RUNG2 = {"config": "configs/rung2_256core_parsec.json", "trials": 6, "seed0": 900,
+               "classes": ["durable", "crashpoint"]}
+CHAOS_CLASSES = {"socket": 2, "replication": 1, "silent_corruption": 1, "capacity_loss": 8}
+CALIB_CHAOS_FIXTURES = (*CALIB_SPECS, "calib_ipu_matrix", "chaos_rung2", "chaos_classes")
+
+
+def _jax_calib():
+    """The JAX package's calib/fit.py module (its package re-exports a
+    function of the same name)."""
+    import importlib
+
+    return importlib.import_module("primesim_tpu.calib.fit")
+
+
+def calib_fixture_of_jax(name) -> dict:
+    from primesim_tpu.calib.table import load_table
+
+    F, spec = _jax_calib(), CALIB_SPECS[name]
+    with open(os.path.join(REPO, spec["config"])) as f:
+        cfg = JCfg.from_json(f.read())
+    table = load_table(os.path.join(REPO, spec["table"]))
+    if spec["truth"]:
+        table = F.synthesize_observed(cfg, table, spec["truth"],
+                                      chunk_steps=spec["chunk_steps"])
+    res = F.fit(cfg, table, fit_keys=tuple(spec["fit"] or F.FIT_KEYS_DEFAULT),
+                max_rounds=spec["rounds"], chunk_steps=spec["chunk_steps"])
+    return {**spec, "made_with": "JAX calib.fit.fit on the CPU "
+                                 "(tests/test_torch_rules.py::calib_fixture_of_jax)",
+            "table_name": table.name, "report": res.report()}
+
+
+def calib_matrix_of_jax() -> dict:
+    from primesim_tpu.calib.table import load_table
+
+    spec = CALIB_MATRIX
+    with open(os.path.join(REPO, spec["config"])) as f:
+        cfg = JCfg.from_json(f.read())
+    values = _jax_calib().simulate_matrix(
+        cfg, load_table(os.path.join(REPO, spec["table"])), spec["knob_sets"],
+        chunk_steps=spec["chunk_steps"])
+    return {**spec, "made_with": "JAX calib.fit.simulate_matrix on the CPU "
+                                 "(tests/test_torch_rules.py::calib_matrix_of_jax)",
+            "values": values}
+
+
+def chaos_rung2_of_jax() -> dict:
+    from primesim_tpu.chaos import campaign as JC
+
+    spec = CHAOS_RUNG2
+    with open(os.path.join(REPO, spec["config"])) as f:
+        cfg = JCfg.from_json(f.read())
+    trials = []
+    report = JC.run_campaign(n_trials=spec["trials"], seed0=spec["seed0"],
+                             classes=tuple(spec["classes"]), cfg=cfg,
+                             progress=lambda seed, res: trials.append(res.as_dict()))
+    return {**spec, "made_with": "JAX chaos.campaign.run_campaign on the CPU "
+                                 "(tests/test_torch_rules.py::chaos_rung2_of_jax)",
+            "report": report, "trial_results": trials}
+
+
+def chaos_class_plan(P, JC, cls):
+    """The plan `run_campaign(classes=(cls,))` draws for CHAOS_CLASSES'
+    seed, made with either package's plan and campaign modules."""
+    return P.generate(CHAOS_CLASSES[cls], classes=JC._gen_classes((cls,)),
+                      sites=JC._trial_sites((cls,))[0])
+
+
+def chaos_classes_of_jax() -> dict:
+    from primesim_tpu.chaos import campaign as JC
+    from primesim_tpu.chaos import plan as P
+
+    golden = JC.golden_run()
+    trials = {cls: JC.run_trial(chaos_class_plan(P, JC, cls), golden=golden).as_dict()
+              for cls in CHAOS_CLASSES}
+    return {"made_with": "JAX chaos.campaign golden_run and run_trial at the campaign's "
+                         "default machine (tests/test_torch_rules.py::chaos_classes_of_jax)",
+            "golden": [JC._canon(golden[i]) for i in sorted(golden)], "trials": trials}
+
+
+def calib_chaos_fixture_of_jax(name) -> dict:
+    if name in CALIB_SPECS:
+        return calib_fixture_of_jax(name)
+    return {"calib_ipu_matrix": calib_matrix_of_jax, "chaos_rung2": chaos_rung2_of_jax,
+            "chaos_classes": chaos_classes_of_jax}[name]()
+
+
+def _write_calib_chaos_fixtures(names, workers=4):
+    """Write the calibrate and chaos fixtures, their JAX runs in `workers`
+    processes at once."""
+    import multiprocessing as mp
+
+    with mp.get_context("spawn").Pool(workers) as pool:
+        outs = pool.starmap(_call, [(calib_chaos_fixture_of_jax, (n,)) for n in names])
+    for n, fx in zip(names, outs):
+        _write_json(n, fx)
+
+
+def test_calib_and_chaos_fixtures_name_their_runs():
+    """Each calibrate fixture records its machine, table, fit keys, truth,
+    round cap and chunk size, and a report whose batch is 5 candidates per
+    table entry; the matrix fixture one value per entry; the campaign
+    fixture its spec, a clean report and one result per trial whose fired
+    events sum to the report's; the class fixture the default machine's
+    three golden results and one clean trial per class, each with an
+    event fired, the capacity-loss plan on the disk only."""
+    with open(os.path.join(REPO, CALIB_TABLE)) as f:
+        n_entries = len(json.load(f)["entries"])
+    for name, spec in CALIB_SPECS.items():
+        fx = _attest_fixture(name)
+        assert {k: fx[k] for k in spec} == spec
+        assert fx["report"]["batch"] == 5 * n_entries
+        assert len(fx["report"]["residuals"]) == n_entries
+        assert fx["report"]["rounds"] <= spec["rounds"]
+    assert _attest_fixture("calib_zoo_selftest")["report"]["knobs"] == {"llc_lat": 16,
+                                                                       "dram_lat": 151}
+    mx = _attest_fixture("calib_ipu_matrix")
+    assert {k: mx[k] for k in CALIB_MATRIX} == CALIB_MATRIX
+    assert [len(v) for v in mx["values"]] == [n_entries]
+    cr = _attest_fixture("chaos_rung2")
+    assert {k: cr[k] for k in CHAOS_RUNG2} == CHAOS_RUNG2
+    rep, trials = cr["report"], cr["trial_results"]
+    assert rep["ok"] and rep["trials"] == CHAOS_RUNG2["trials"] == len(trials)
+    assert rep["fired_events"] == sum(len(t["injected"]) for t in trials) > 0
+    assert [t["seed"] for t in trials] == list(range(900, 906))
+    cc = _attest_fixture("chaos_classes")
+    assert len(cc["golden"]) == 3 and set(cc["trials"]) == set(CHAOS_CLASSES)
+    for cls, t in cc["trials"].items():
+        assert t["ok"] and t["injected"] and t["seed"] == CHAOS_CLASSES[cls]
+    assert {e["site"] for e in cc["trials"]["capacity_loss"]["plan"]["events"]} == {
+        "disk.preflight"}
+
+
+@pytest.mark.parametrize("name", ["calib_zoo_selftest", "chaos_rung2", "chaos_classes"])
+def test_small_calib_and_chaos_fixtures_match_the_jax_package(name):
+    """The small calibrate and chaos fixtures re-derived from JAX in tier 1
+    (the rung-1 fit, 61 dispatches, and the 1472-tile matrix by the slow
+    test below)."""
+    fx = _attest_fixture(name)
+    got = calib_chaos_fixture_of_jax(name)
+    if name == "chaos_classes":  # which events fire may hang on thread timing
+        assert got["golden"] == fx["golden"]
+        for cls, t in got["trials"].items():
+            assert t["injected"]
+            assert {k: t[k] for k in ("ok", "seed", "plan", "restarts")} == {
+                k: fx["trials"][cls][k] for k in ("ok", "seed", "plan", "restarts")}
+        return
+    assert got == fx
+
+
+@pytest.mark.slow  # ~3.5 min of JAX (rung 1); a 1472-tile fleet of 4
+@pytest.mark.parametrize("name", ["calib_rung1", "calib_ipu_matrix"])
+def test_large_calib_fixtures_match_the_jax_package(name):
+    assert calib_chaos_fixture_of_jax(name) == _attest_fixture(name)
+
+
 def write_fixtures(names=()):
     import jax
 
@@ -1209,13 +1392,15 @@ def write_fixtures(names=()):
 
     if names:
         _write_full_width([n for n in names if n not in ALL_FLEET_SPECS
-                           and n not in STREAM_SPECS and n not in ATTEST_FIXTURES])
+                           and n not in STREAM_SPECS and n not in ATTEST_FIXTURES
+                           and n not in CALIB_CHAOS_FIXTURES])
         for n in names:
             if n in ALL_FLEET_SPECS:
                 _write_fleet(n)
             if n in STREAM_SPECS:
                 _write_stream(n)
         _write_attest_fixtures([n for n in names if n in ATTEST_FIXTURES])
+        _write_calib_chaos_fixtures([n for n in names if n in CALIB_CHAOS_FIXTURES])
         return
     spec = {
         "config": "configs/rung1_64core_fft.json",
@@ -1241,6 +1426,7 @@ def write_fixtures(names=()):
     for n in STREAM_SPECS:
         _write_stream(n)
     _write_attest_fixtures(ATTEST_FIXTURES)
+    _write_calib_chaos_fixtures(CALIB_CHAOS_FIXTURES)
 
 
 def _write_full_width(names):
