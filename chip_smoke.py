@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases, each printing one JSON line; any failure exits non-zero before
-the final line (`chip_smoke.py --child PATH` runs one phase of 14 in a
+the final line (`chip_smoke.py --child PATH` runs one phase of 14 or 15 in a
 process of its own: the script starts it so):
 
 1. device    -- a CUDA card is required; prints nvidia-smi's name and
@@ -456,10 +456,12 @@ process of its own: the script starts it so):
                 next four in another; printed before phase 5; they time
                 nothing another phase compares) -- `python -m
                 primesim_tpu_torch calibrate configs/rung1_64core_fft.json
-                --table configs/calib_ipu_microbench.json --rounds 10 --out
+                --table configs/calib_ipu_microbench.json --rounds 6 --out
                 F`: the default six fit keys, every candidate set a B = 20
-                fleet, 61 dispatches (the verb's 24 rounds, 145 dispatches,
-                took 308 s: the round cap is the fixture's).
+                fleet, 37 dispatches (the verb's 24 rounds, 145 dispatches,
+                took 308 s, and 10 rounds, 61, up to 289 s of process
+                beside the other children: the round cap is the
+                fixture's).
                 Fails unless every calibrate_residual line and
                 calibrate_fit's knobs, start, cost, rounds, fleet_runs and
                 batch equal the JAX fit's (fixtures/calib_rung1.json), the
@@ -494,6 +496,46 @@ process of its own: the script starts it so):
                 capacity_loss (a disk-only plan whose fired events equal
                 JAX's). Fails unless each plan is JAX's, each trial is ok
                 with an event fired, and the step kernels launched.
+
+15. cache_cold (in a third background thread from phase 3 on, beside the
+                others; printed before phase 5; child processes that time
+                nothing another phase compares) -- `python -m
+                primesim_tpu_torch run configs/rung2_256core_parsec.json
+                --synth <serve_rung2.json's first job> --fold --chunk-steps
+                64 --attest chain --exec-cache on` on a fresh
+                PRIMETPU_CACHE_DIR: the kernel build cache misses all four
+                kernels (nvcc builds them into the cache, not into
+                _build/). Fails unless its exec_cache line shows 4 misses,
+                0 hits and no warning, the summary's instructions,
+                max_core_cycles, noc_msgs and steps equal the job's JAX
+                digest and its chain equals the JAX chain, and each step
+                kernel launched once per step. Prints its
+                time_to_first_step and exec_cache lines.
+   cache_warm -- the same command again on the same directory: 4 hits, 0
+                misses, 0.0 s of nvcc, the same checks.
+   overlap_fleet -- `sweep` of serve_rung2's four jobs (their traces and
+                overrides: a B = 4 fleet) with `--overlap on --exec-cache
+                on`, supervised with one final snapshot: 4 hits; each
+                element's digest from the snapshot equals its job's JAX
+                digest; each step kernel launched once per fleet step.
+   overlap_supervised -- (`chip_smoke.py --child overlap_supervised`) the
+                first job under RunSupervisor with a snapshot after every
+                chunk of 64 and a chain, its third attempt failing after
+                its chunk ran on the card (one rollback), once without and
+                once with overlapped dispatch, in one process: every
+                snapshot of the overlap run equal, array for array, to
+                the plain run's, the chain heads after every chunk equal,
+                the chain and the digest equal the job's JAX ones, and
+                each step kernel launched once per enqueued step
+                (speculated chunks, the discarded one included). Prints
+                both walls, each snapshot's save seconds, and for each
+                snapshot under overlap whether the speculated chunk was
+                still running when the snapshot began and after its first
+                read of the committed state; then three chunks whose
+                speculation ends in a ~50 ms device sleep on its stream,
+                with the time of a read of the committed state while it
+                runs, against the same read behind the same sleep on the
+                current stream.
 
 Then a line of every phase's elapsed seconds ("phase_times"), the kernel
 summary line (each kernel's batched figures under "batched", the launches
@@ -641,6 +683,14 @@ OCEAN_ARGS = ("4", "2", "2")
 SERVE_ELEMENTS = (0, 1, 7)
 POOL_CRASH, POOL_TTL = "w0:1", 5
 PIPE_SEG, PIPE_WORKERS = 256, 2
+# phase 15: the serve_rung2 job the cache and supervised overlap paths run
+# (rung 2, 384 steps in chunks of 64), and the supervised attempt that
+# fails after its chunk ran (one rollback)
+CACHE_JOB = 0
+OVERLAP_FAIL_CALL = 3
+# a device sleep (~50 ms at the H100's 1.98 GHz) that holds a speculated
+# chunk on the card while a read of the committed state is timed
+HELD_SLEEP_CYCLES = 100_000_000
 
 
 # operators the profiler drops before it builds its operator tree
@@ -2139,12 +2189,13 @@ def fixture_json(name: str) -> dict:
         return json.load(f)
 
 
-def run_child(args: list[str], timeout: float = 900.0) -> tuple[int, str, str, float]:
-    """`python <args>` from the checkout's root: (returncode, stdout,
-    stderr, wall s)."""
+def run_child(args: list[str], timeout: float = 900.0,
+              env: dict | None = None) -> tuple[int, str, str, float]:
+    """`python <args>` from the checkout's root, with `env` added to this
+    process's environment: (returncode, stdout, stderr, wall s)."""
     t0 = time.perf_counter()
     r = subprocess.run([sys.executable, *args], cwd=ROOT, capture_output=True, text=True,
-                       timeout=timeout)
+                       timeout=timeout, env={**os.environ, **(env or {})})
     return r.returncode, r.stdout, r.stderr, time.perf_counter() - t0
 
 
@@ -2278,6 +2329,237 @@ def calib_chaos_phases(smi_line: str) -> tuple[list, dict]:
     return lines, launches
 
 
+def cache_overlap_phases(smi_line: str) -> tuple[list, dict]:
+    """Phase 15 (module docstring): cache_cold, cache_warm and
+    overlap_fleet as `python -m primesim_tpu_torch` children on one fresh
+    cache directory, then overlap_supervised in a child of its own.
+    Returns (their phase lines, {path: launches})."""
+    fx = fixture_json("serve_rung2")
+    job, chunk = fx["jobs"][CACHE_JOB], fx["chunk_steps"]
+    with open(os.path.join(ROOT, fx["config"])) as f:
+        llc_lat = json.load(f)["llc"]["latency"]
+    cdir = tempfile.mkdtemp(prefix="chip_smoke_cache_")
+    env = {"PRIMETPU_CACHE_DIR": os.path.join(cdir, "cache")}
+    lines, launches = [], {}
+
+    def metric_lines(out):
+        return {ln["metric"]: ln for ln in map(json.loads, out.splitlines())}
+
+    def cache_stats(path, got, want):
+        ec = got["exec_cache"]["detail"]
+        if (ec["hits"], ec["misses"], ec["errors"]) != want or ec.get("warnings"):
+            fail(f"{path}: exec_cache {ec}, want hits, misses, errors {want}")
+        if not ec["misses"] and ec["compile_wall_s"] != 0.0:
+            fail(f"{path}: a warm process ran nvcc for {ec['compile_wall_s']} s")
+        return ec
+
+    try:
+        run = ["-m", "primesim_tpu_torch", "run", fx["config"], "--synth", job["synth"],
+               "--fold", "--chunk-steps", str(chunk), "--attest", "chain",
+               "--exec-cache", "on"]
+        want_sum = {"instructions": job["digest"]["instructions"],
+                    "max_core_cycles": job["digest"]["max_core_cycles"],
+                    "noc_msgs": job["digest"]["counter_sums"]["noc_msgs"],
+                    "steps": job["digest"]["steps"], "attest": job["attest"]}
+        for path, want in (("cache_cold", (0, 4, 0)), ("cache_warm", (4, 0, 0))):
+            rc, out, err, wall = run_child(run, env=env)
+            if rc != 0:
+                fail(f"{path}: run exited {rc}: {err[-2000:]}")
+            got = metric_lines(out)
+            ec = cache_stats(path, got, want)
+            summ = got["simulated_MIPS"]["detail"]
+            if {k: summ[k] for k in want_sum} != want_sum:
+                fail(f"{path}: summary {summ} != the JAX job's {want_sum}")
+            stats = port_line(err, "exec_cache")
+            launches[path] = step_launches(path, stats["launches"], summ["steps"])
+            lines.append({"phase": path, "config": fx["config"], "synth": job["synth"],
+                          "time_to_first_step": got["time_to_first_step"],
+                          "exec_cache": got["exec_cache"], "entries": stats["keys"],
+                          "run_wall_s": summ["wall_s"], "steps": summ["steps"],
+                          "process_wall_s": wall, "equal_to_jax": True,
+                          "launches": launches[path], "gpu": smi_line})
+
+        # overlap_fleet: the four jobs as one B = 4 sweep, one final snapshot
+        ck = os.path.join(cdir, "ck")
+        varies = [",".join(f"{k}={v}" for k, v in j["overrides"].items())
+                  or f"llc_lat={llc_lat}" for j in fx["jobs"]]
+        sweep = ["-m", "primesim_tpu_torch", "sweep", fx["config"],
+                 *[a for j in fx["jobs"] for a in ("--synth", j["synth"])], "--fold",
+                 *[a for v in varies for a in ("--vary", v)], "--chunk-steps", str(chunk),
+                 "--overlap", "on", "--exec-cache", "on", "--checkpoint-dir", ck,
+                 "--checkpoint-every", "1000"]
+        rc, out, err, wall = run_child(sweep, env=env)
+        if rc != 0:
+            fail(f"overlap_fleet: sweep exited {rc}: {err[-2000:]}")
+        got = [json.loads(ln) for ln in out.splitlines()]
+        ec = cache_stats("overlap_fleet", {ln["metric"]: ln for ln in got}, (4, 0, 0))
+        from primesim_tpu_torch.sim.checkpoint import load_verified_npz
+        from primesim_tpu_torch.stats.counters import COUNTER_NAMES
+        from primesim_tpu_torch.stats.digest import run_digest
+
+        z = load_verified_npz(os.path.join(ck, sorted(os.listdir(ck))[-1]))
+        digests = []
+        for i, j in enumerate(fx["jobs"]):
+            d = run_digest(z["steps_run"][i], z["state_cycles"][i].astype(np.int64)
+                           + z["cycle_base"][i],
+                           {k: z["host_counters"][n, i] for n, k in enumerate(COUNTER_NAMES)},
+                           [], [])
+            d = {k: v for k, v in d.items() if k in j["digest"]}
+            if d != j["digest"]:
+                fail(f"overlap_fleet: element {i} {d} != the JAX job's {j['digest']}")
+            digests.append(d["cycles_sha256"][:16])
+        stats = port_line(err, "exec_cache")
+        fleet_steps = int(z["steps_run"].max())
+        launches["overlap_fleet"] = step_launches("overlap_fleet", stats["launches"],
+                                                  fleet_steps)
+        agg = [ln for ln in got if ln["metric"] == "fleet_aggregate_MIPS"][0]
+        lines.append({"phase": "overlap_fleet", "B": len(fx["jobs"]), "varies": varies,
+                      "fleet_steps": fleet_steps, "steps": z["steps_run"].tolist(),
+                      "exec_cache": ec, "aggregate_MIPS": agg["value"],
+                      "fleet_wall_s": agg["detail"]["wall_s"], "process_wall_s": wall,
+                      "digests_equal_to_jax": True, "cycles_sha256": digests,
+                      "launches": launches["overlap_fleet"], "gpu": smi_line})
+    finally:
+        shutil.rmtree(cdir, ignore_errors=True)
+    line, of = child_phase("overlap_supervised", smi_line)
+    lines.append(line)
+    launches.update(of)
+    return lines, launches
+
+
+def overlap_supervised_child(dev) -> dict:
+    """`--child overlap_supervised` (module docstring): the supervised
+    job without and with overlap in this process; its phase line."""
+    import torch
+
+    from primesim_tpu_torch.attest import SoloAttest
+    from primesim_tpu_torch.config.machine import MachineConfig
+    from primesim_tpu_torch.kernels import build
+    from primesim_tpu_torch.serve.scheduler import parse_synth_spec
+    from primesim_tpu_torch.sim.checkpoint import load_verified_npz
+    from primesim_tpu_torch.sim.engine import Engine
+    from primesim_tpu_torch.sim.supervisor import RunSupervisor
+    from primesim_tpu_torch.stats.digest import run_digest
+
+    fx = fixture_json("serve_rung2")
+    job, chunk = fx["jobs"][CACHE_JOB], fx["chunk_steps"]
+    with open(os.path.join(ROOT, fx["config"])) as f:
+        cfg = MachineConfig.from_json(f.read())
+    trace = parse_synth_spec(job["synth"], cfg.n_cores, True)
+    runs = {}
+    for overlap in (False, True):
+        snap_dir = tempfile.mkdtemp(prefix="chip_smoke_ovsup_")
+        eng = Engine(cfg, trace, chunk_steps=chunk, device=dev)
+        eng.overlap = overlap
+        eng.attest = SoloAttest(chunk)
+        enq, heads, saves, probes = [0], [], [], []
+        real_enq, real_save, real_steps = eng._enqueue_chunk, eng.save_checkpoint, eng.run_steps
+
+        def counted(*a, _real=real_enq, _n=enq, **k):
+            _n[0] += 1
+            return _real(*a, **k)
+
+        def probed_save(path, _eng=eng, _real=real_save, _saves=saves, _probes=probes):
+            # was the speculated chunk still running when the snapshot
+            # began, and after the snapshot's first read of the state?
+            pend = _eng._pending
+            done = pend.done if pend is not None else None
+            before = done is not None and not done.query()
+            t0 = time.perf_counter()
+            _eng.state.cycles.cpu()
+            t1 = time.perf_counter()
+            after = done is not None and not done.query()
+            _real(path)
+            _saves.append(time.perf_counter() - t0)
+            if done is not None:
+                _probes.append({"running_at_start": before, "running_after_first_read": after,
+                                "first_read_ms": 1e3 * (t1 - t0)})
+
+        calls = [0]
+
+        def fails_once(n, _real=real_steps, _calls=calls):
+            _calls[0] += 1
+            done = _real(n)
+            if _calls[0] == OVERLAP_FAIL_CALL:
+                torch.cuda.synchronize()
+                raise RuntimeError("UNAVAILABLE: injected after a real chunk on the card")
+            return done
+
+        eng._enqueue_chunk, eng.save_checkpoint, eng.run_steps = counted, probed_save, fails_once
+        sup = RunSupervisor(eng, snapshot_dir=snap_dir, checkpoint_every_chunks=1,
+                            keep_snapshots=1000, guard="off", backoff_s=0.01,
+                            on_chunk=lambda s, _e=eng, _h=heads: _h.append(
+                                _e.attest.payload()["head"]))
+        build.LAUNCHES.update(dict.fromkeys(build.LAUNCHES, 0))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sup.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        names = sorted(os.listdir(snap_dir))
+        snaps = [load_verified_npz(os.path.join(snap_dir, n)) for n in names]
+        shutil.rmtree(snap_dir, ignore_errors=True)
+        d = run_digest(eng.steps_run, eng.cycles, eng.counters, [], [])
+        runs[overlap] = {"wall_s": wall, "heads": heads, "snaps": snaps, "names": names,
+                         "saves": saves, "probes": probes, "enqueued": enq[0],
+                         "retries": sup.retries, "launches": dict(build.LAUNCHES),
+                         "attest": eng.attest.payload(),
+                         "digest": {k: v for k, v in d.items() if k in job["digest"]}}
+        del eng, sup
+    # a speculation held on the card by a device sleep at its end (on its
+    # stream): does a read of the committed state wait for it? Then the
+    # same sleep on the current stream, which the read must wait for
+    eng = Engine(cfg, trace, chunk_steps=chunk, device=dev)
+    eng.overlap = True
+    main, real_enq = torch.cuda.current_stream(dev), eng._enqueue_chunk
+
+    def held(*a, _real=real_enq, **k):
+        out = _real(*a, **k)
+        if torch.cuda.current_stream(dev) != main:
+            torch.cuda._sleep(HELD_SLEEP_CYCLES)
+        return out
+
+    eng._enqueue_chunk, held_probes = held, []
+    for _ in range(3):
+        eng.run_steps(chunk)
+        main.synchronize()
+        pend = eng._pending
+        before = not pend.done.query()
+        t0 = time.perf_counter()
+        eng.state.cycles.cpu()
+        t1 = time.perf_counter()
+        after = not pend.done.query()
+        torch.cuda._sleep(HELD_SLEEP_CYCLES)
+        t2 = time.perf_counter()
+        eng.state.cycles.cpu()
+        held_probes.append({"running_at_start": before, "running_after_first_read": after,
+                            "first_read_ms": 1e3 * (t1 - t0),
+                            "same_stream_read_ms": 1e3 * (time.perf_counter() - t2)})
+    del eng
+    off, on = runs[False], runs[True]
+    for r in (off, on):
+        if r["retries"] != 1 or r["attest"] != job["attest"] or r["digest"] != job["digest"]:
+            fail(f"overlap_supervised: retries {r['retries']}, chain {r['attest']}, digest "
+                 f"{r['digest']} (the JAX job's: {job['attest']}, {job['digest']})")
+        step_launches("overlap_supervised", r["launches"], r["enqueued"] * chunk)
+    if on["heads"] != off["heads"] or on["names"] != off["names"]:
+        fail(f"overlap_supervised: heads or snapshots differ: {on['heads']} {off['heads']}")
+    for name, a, b in zip(on["names"], on["snaps"], off["snaps"]):
+        for k in b:
+            if k not in a or not np.array_equal(a[k], b[k]) or a[k].dtype != b[k].dtype:
+                fail(f"overlap_supervised: snapshot {name} member {k} differs under overlap")
+    return {"phase": "overlap_supervised", "config": fx["config"], "synth": job["synth"],
+            "chunk_steps": chunk, "steps": job["digest"]["steps"],
+            "snapshots": len(on["names"]), "snapshots_equal_to_overlap_off": True,
+            "heads_equal": True, "attest_equals_jax": True, "digest_equals_jax": True,
+            "retries": on["retries"], "wall_s": {"off": off["wall_s"], "on": on["wall_s"]},
+            "save_s": {"off": off["saves"], "on": on["saves"]},
+            "enqueued_chunks": {"off": off["enqueued"], "on": on["enqueued"]},
+            "snapshot_probes": on["probes"], "held_speculation_probes": held_probes,
+            "launches": step_launches("overlap_supervised", on["launches"],
+                                      on["enqueued"] * chunk)}
+
+
 def child_main(path: str) -> int:
     """`chip_smoke.py --child PATH`: one phase in this process, its line
     last on stdout (calib_ipu_matrix, chaos_classes: module docstring)."""
@@ -2290,6 +2572,9 @@ def child_main(path: str) -> int:
     for k in build.KERNELS:
         build.library(k)
     build.LAUNCHES.update(dict.fromkeys(build.LAUNCHES, 0))
+    if path == "overlap_supervised":
+        print(json.dumps(overlap_supervised_child(dev)), flush=True)
+        return 0
     fx = fixture_json(path)
     t0 = time.perf_counter()
     if path == "calib_ipu_matrix":
@@ -2547,8 +2832,11 @@ def main() -> int:
         line, launches_of = calibrate_phase("calibrate_rung1", smi_line)
         return [line], launches_of
 
-    calib_ex = ThreadPoolExecutor(2)
-    calib_fs = [calib_ex.submit(calibrate_rung1), calib_ex.submit(calib_chaos_phases, smi_line)]
+    calib_ex = ThreadPoolExecutor(3)
+    calib_fs = [calib_ex.submit(calibrate_rung1), calib_ex.submit(calib_chaos_phases, smi_line),
+                # ---- 15. the kernel build cache and overlapped dispatch:
+                # child processes in a third thread
+                calib_ex.submit(cache_overlap_phases, smi_line)]
 
     t0 = time.perf_counter()
     hfx, cfg, trace = fixture("headline")

@@ -35,7 +35,14 @@ writes, with ZERO simulation and without mutating anything it checks:
     one installed here (read from the distribution metadata, never
     imported) is a note (the cache treats it as a plain miss), a
     tampered one is corrupt. The port keeps its own copy of that format
-    (`_EXEC_MAGIC`, `_exec_key`) and has no executable cache of its own
+    (`_EXEC_MAGIC`, `_exec_key`)
+  - the port's own kernel build cache entries (sim/exec_cache.py) in
+    the same framing and the same directory, told apart by their
+    payload's `torch` field: the framing, the sidecar↔address
+    agreement, a body that holds the library its sidecar names, and the
+    version fields `torch`, `cuda`, `nvcc` and `kernels` against this
+    installation (another toolchain's entry is a dead address: a note,
+    not corruption)
 
 `--repair quarantine` moves (never deletes) corrupt or orphaned FILES
 into `<root>/.fsck-quarantine/<relpath>`; logical findings that span a
@@ -52,6 +59,7 @@ import hashlib
 import json
 import os
 import shutil
+import subprocess
 
 from .errors import FsckCorrupt
 
@@ -751,6 +759,8 @@ def _check_exec_bin(path: str, rel: str) -> list:
             "edited payload or mismatched sidecar",
             corrupt=True, repairable=True,
         ))
+    elif "torch" in payload:
+        findings.extend(_check_port_exec(path, rel, payload))
     else:
         missing = [k for k in _EXEC_VERSION_FIELDS if k not in payload]
         if missing:
@@ -772,6 +782,69 @@ def _check_exec_bin(path: str, rel: str) -> list:
                     "not corrupt)", corrupt=False, repairable=True,
                 ))
     return findings
+
+
+_PORT_EXEC_FIELDS = ("exec_format", "ckpt_format", "backend", "devices", "entry",
+                     "torch", "cuda", "nvcc", "arch", "kernels")
+
+
+def _port_toolchain(entry: str) -> dict:
+    """This installation's values of an entry's toolchain fields (None
+    where the compiler is missing); never initialises CUDA."""
+    import torch
+
+    here = {"torch": str(torch.__version__), "cuda": str(torch.version.cuda or "none")}
+    try:
+        if entry == "capture":
+            from ..ingest import capture
+
+            here["nvcc"], here["kernels"] = capture.compiler_version(), capture.shim_source_key()
+        else:
+            from ..kernels import build
+
+            here["kernels"] = build.source_key()
+            here["nvcc"] = build.nvcc_version()
+    except (OSError, RuntimeError, subprocess.SubprocessError):
+        here.setdefault("nvcc", None)
+    return here
+
+
+def _check_port_exec(path: str, rel: str, payload: dict) -> list:
+    """A port kernel build cache entry whose sidecar hashes to its
+    address: the body holds the library the sidecar names, and the
+    toolchain fields are this installation's (else a dead address)."""
+    from ..sim.exec_cache import read_entry
+
+    missing = [k for k in _PORT_EXEC_FIELDS if k not in payload]
+    if missing:
+        return [Finding("exec-cache", rel,
+                        f"payload is missing version field(s): {', '.join(missing)}",
+                        corrupt=True, repairable=True)]
+    stem = os.path.basename(path)[:-len(".bin")]
+    try:
+        blob = read_entry(path)
+    except Exception as e:  # noqa: BLE001 — an undecodable body
+        return [Finding("exec-cache", rel, f"unreadable library entry: {e}",
+                        corrupt=True, repairable=True)]
+    if blob.get("entry") != payload["entry"] or blob.get("key") != stem:
+        return [Finding(
+            "exec-cache", rel,
+            f"body holds {blob.get('entry')!r} under {str(blob.get('key'))[:12]}…, "
+            f"the sidecar names {payload['entry']!r} at {stem[:12]}… "
+            "(the cache rebuilds it; safe to quarantine)",
+            corrupt=True, repairable=True,
+        )]
+    here = _port_toolchain(payload["entry"])
+    stale = [f"{k} {payload[k]!r} (here {here[k]!r})" for k in ("torch", "cuda", "nvcc", "kernels")
+             if str(payload[k]) != str(here[k])]
+    if stale:
+        return [Finding(
+            "exec-cache", rel,
+            f"{payload['entry']} library built under another toolchain: "
+            f"{'; '.join(stale)} — a dead address the cache will never "
+            "read again (prunable, not corrupt)", corrupt=False, repairable=True,
+        )]
+    return []
 
 
 def _check_warm(path: str, rel: str, z: dict) -> list:

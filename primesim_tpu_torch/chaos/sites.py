@@ -25,16 +25,16 @@ trials, env activation) the hook delivers a real SIGKILL instead.
 
 The catalog is the JAX package's, site for site, so a seed expands to
 the same plan in both packages and a plan file of either names sites the
-other knows. The port threads all of them but one: the durable writes of
-the journal and of checkpoints, the client's socket, the serving
+other knows. The port threads all of them: the durable writes of the
+journal, of checkpoints and of the kernel build cache's entries
+(`exec_cache.write`, sim/exec_cache.py: a fault there costs the entry,
+never the run), the client's socket, the serving
 daemon's, the pool's and the replica's crashpoints, the replication
 stream (`replication`, serve/replicate.py), the pool's lease and
 heartbeat clocks, the two silent-corruption sites, the supervisor's
 device revocation (`device_revoke`, sim/supervisor.py: on one card
 there is no device to lose, so an event there is counted and logged and
-changes nothing) and the disk-space probe. Nothing in the port reaches
-`exec_cache.write` yet: the port has no executable cache, so an event
-there stays inert.
+changes nothing) and the disk-space probe.
 """
 
 from __future__ import annotations
@@ -51,7 +51,7 @@ SITES = {
     # durable-write sites
     "journal.append": "durable",       # serve/journal.py append fsync
     "checkpoint.write": "durable",     # sim/checkpoint.py atomic replace
-    "exec_cache.write": "durable",     # no executable cache yet: inert
+    "exec_cache.write": "durable",     # sim/exec_cache.py atomic replace
     # socket sites (client side of the JSON-lines protocol)
     "protocol.send": "socket",
     "protocol.recv": "socket",

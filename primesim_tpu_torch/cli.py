@@ -89,7 +89,15 @@ invariants (chaos/campaign.py; exit 3 on a violation, shrunk to a repro
 artifact that `--plan` replays), and `calibrate` fits the timing knobs to
 a microbenchmark table with one fleet per candidate set (calib/), both
 with `primetpu`'s output. A run, sweep, worker, daemon, campaign or fit
-is on the card unless `--device cpu` is given.
+is on the card unless `--device cpu` is given. `--exec-cache on`
+(run, sweep, worker, serve) takes the kernel libraries from the kernel
+build cache under $PRIMETPU_CACHE_DIR/exec, building and persisting the
+missing ones (sim/exec_cache.py), and then prints `primetpu`'s
+`time_to_first_step` and `exec_cache` lines (and the port's
+`exec_cache: device D, {...}` stderr line); `--overlap on` (run, sweep,
+worker) enqueues each next chunk before the host's work on the committed
+one (sim/engine.py: overlapped dispatch), bit-exact. Both are off by
+default, and off prints exactly what the port printed before them.
 `synth` writes
 a generator's trace as a PTPU file, `info` prints a config as JSON: both
 as `primetpu` does. A malformed schedule, trace or config exits 2 with
@@ -289,6 +297,57 @@ def _configure_disk(ns) -> None:
         diskpressure.configure(budget_bytes=ns.cache_budget)
 
 
+def _activate_exec_cache(ns):
+    """--exec-cache on: the process-global kernel build cache (every
+    kernel load of the process, the engines', a worker's and a serve
+    bucket's, consults `exec_cache.active()`); None when off."""
+    from .sim import exec_cache
+
+    return exec_cache.configure(getattr(ns, "exec_cache", "off") == "on")
+
+
+def _emit_exec_cache_line(cache, device=None) -> None:
+    """`primetpu`'s `exec_cache` line (hits, misses, walls and the
+    structured warnings), and on stderr the port's `exec_cache: device D,
+    {...}` line: the kernels' launches and the entries' keys. Printed only
+    when --exec-cache on."""
+    if cache is None:
+        return
+    from .kernels import build
+
+    detail = dict(cache.stats)
+    detail["compile_wall_s"] = round(detail["compile_wall_s"], 3)
+    detail["load_wall_s"] = round(detail["load_wall_s"], 3)
+    if cache.warnings:
+        detail["warnings"] = cache.warnings
+    print(json.dumps({"metric": "exec_cache", "value": detail["hits"],
+                      "unit": "hits", "detail": detail}))
+    print(f"exec_cache: device {device}, " + json.dumps({
+        "launches": dict(build.LAUNCHES),
+        "keys": {k: v[:16] for k, v in cache.keys.items()},
+    }), file=sys.stderr)
+
+
+def _emit_ttfs_line(cache, t_start: float) -> None:
+    """`primetpu`'s `time_to_first_step` line: the wall from the command's
+    start to where the first step can be dispatched (the kernels built or
+    loaded, the engine's state on the device; the port compiles nothing
+    at its first step), split into the compiler's and the loads' walls.
+    Printed only when --exec-cache on."""
+    if cache is None:
+        return
+    print(json.dumps({
+        "metric": "time_to_first_step",
+        "value": round(time.perf_counter() - t_start, 3),
+        "unit": "s",
+        "detail": {
+            "cold": cache.stats["misses"] > 0,
+            "compile_wall_s": round(cache.stats["compile_wall_s"], 3),
+            "load_wall_s": round(cache.stats["load_wall_s"], 3),
+        },
+    }))
+
+
 def _build_supervisor(ns, eng, obs=None):
     from .sim.supervisor import RunSupervisor
 
@@ -346,10 +405,12 @@ def _run_supervised(ns, cfg, eng, device, rec=None) -> int:
 
 
 def cmd_run(ns) -> int:
+    t_start = time.perf_counter()  # time_to_first_step's epoch
     from .ingest.stream import FAULTS_REFUSED
     from .kernels import build
     from .sim.engine import Engine, resolve_device
 
+    cache = _activate_exec_cache(ns)
     cfg = _apply_faults(ns, _apply_step_impl(ns, _load_config(ns.config)))
     if cfg.faults_enabled and ns.stream_window:
         raise SystemExit(FAULTS_REFUSED)
@@ -373,20 +434,23 @@ def cmd_run(ns) -> int:
             "recorder OR the XLA profiler for a given run)"
         )
     if ns.stream_window:
-        return _run_stream(ns, cfg, tr, supervised, rec)
+        return _run_stream(ns, cfg, tr, supervised, rec, cache, t_start)
     device = resolve_device(ns.device)
     if device.type == "cuda":
-        for k in build.KERNELS:  # build and load before the clock starts
-            build.library(k)
+        build.libraries(build.KERNELS)  # build or load before the clock starts
     eng = Engine(cfg, tr, chunk_steps=ns.chunk_steps, device=device)
+    eng.overlap = ns.overlap == "on"
     if ns.attest == "chain":
         # the chain covers every committed chunk of the host loop (the
         # JAX package's chunked dispatch, which attestation forces there)
         from .attest import SoloAttest
 
         eng.attest = SoloAttest(ns.chunk_steps)
+    _emit_ttfs_line(cache, t_start)
     if supervised:
-        return _run_supervised(ns, cfg, eng, device, rec=rec)
+        rc = _run_supervised(ns, cfg, eng, device, rec=rec)
+        _emit_exec_cache_line(cache, device)
+        return rc
     if rec is not None:
         rec.attach(eng)
     max_steps = ns.max_steps or 10_000_000
@@ -409,6 +473,7 @@ def cmd_run(ns) -> int:
         {"device": str(device), "steps": eng.steps_run, **_attest_extra(eng)},
         timeline=rec.timeline_summary() if rec is not None else None,
     )
+    _emit_exec_cache_line(cache, device)
     _finalize_obs(rec)
     return 0
 
@@ -417,7 +482,7 @@ def _attest_extra(eng) -> dict:
     return {} if eng.attest is None else {"attest": eng.attest.payload()}
 
 
-def _run_stream(ns, cfg, tr, supervised, rec) -> int:
+def _run_stream(ns, cfg, tr, supervised, rec, cache=None, t_start=None) -> int:
     """`run --stream-window N`: bounded-memory windowed ingest (device
     memory O(C * N), host O(1) beyond the file with --mmap), bit-exact
     with the preloaded run."""
@@ -439,9 +504,19 @@ def _run_stream(ns, cfg, tr, supervised, rec) -> int:
         from .attest import SoloAttest
 
         eng.attest = SoloAttest(ns.stream_window)
+    if ns.overlap == "on":
+        print(
+            "overlap: the stream engine's next window is produced by "
+            "the host fill/absorb cycle itself — nothing to "
+            "speculate; running without overlap",
+            file=sys.stderr,
+        )
     eng.warmup()  # the kernels build before the clock starts
+    _emit_ttfs_line(cache, t_start)
     if supervised:
-        return _run_supervised(ns, cfg, eng, eng.device, rec=rec)
+        rc = _run_supervised(ns, cfg, eng, eng.device, rec=rec)
+        _emit_exec_cache_line(cache, eng.device)
+        return rc
     if rec is not None:
         rec.attach(eng)
     t0 = time.perf_counter()
@@ -452,6 +527,7 @@ def _run_stream(ns, cfg, tr, supervised, rec) -> int:
         {"device": str(eng.device), "steps": eng.steps_run, **_attest_extra(eng)},
         timeline=rec.timeline_summary() if rec is not None else None,
     )
+    _emit_exec_cache_line(cache, eng.device)
     _finalize_obs(rec)
     return 0
 
@@ -684,6 +760,7 @@ def cmd_sweep(ns) -> int:
     from .sim.supervisor import Preempted, build_fleet_isolated
     from .stats.report import write_report
 
+    t_start = time.perf_counter()  # time_to_first_step's epoch
     if ns.fork_prefix not in ("auto", "off"):
         try:
             int(ns.fork_prefix)
@@ -692,6 +769,7 @@ def cmd_sweep(ns) -> int:
                 f"sweep: --fork-prefix must be auto, off, or an integer "
                 f"step cap (got {ns.fork_prefix!r})"
             ) from None
+    cache = _activate_exec_cache(ns)
     cfg = _apply_faults(ns, _apply_step_impl(ns, _load_config(ns.config)))
     _check_supervision_flags(ns)
     _configure_disk(ns)
@@ -739,8 +817,7 @@ def cmd_sweep(ns) -> int:
     rec = _build_recorder(ns)
     device = resolve_device(ns.device)
     if device.type == "cuda":
-        for k in build.KERNELS:  # build and load before the clock starts
-            build.library(k)
+        build.libraries(build.KERNELS)  # build or load before the clock starts
     if ns.strict:
         traces = [s() if callable(s) else s for s in sources]
         fleet = FleetEngine(cfg, traces, ovs, chunk_steps=ns.chunk_steps, device=device)
@@ -788,6 +865,8 @@ def cmd_sweep(ns) -> int:
                 chunk_steps=ns.chunk_steps, device=device,
             )
             fleet.element_ids = kept_ids
+    _emit_ttfs_line(cache, t_start)
+    fleet.overlap = ns.overlap == "on"
     fleet.block_until_ready()
     if rec is not None:
         rec.attach(fleet)
@@ -899,6 +978,7 @@ def cmd_sweep(ns) -> int:
             print(json.dumps({"metric": "obs_timeline", "value": tl["chunks"],
                               "unit": "chunks", "detail": tl}))
         _finalize_obs(rec)
+    _emit_exec_cache_line(cache, device)
     if quarantined or stalled:
         # partial success is its own exit code: the healthy elements'
         # results are real
@@ -920,6 +1000,8 @@ def cmd_worker(ns) -> int:
     in-flight campaign (that is the elastic part)."""
     from .pool.worker import run_worker
 
+    _configure_disk(ns)
+    _activate_exec_cache(ns)  # every kernel load of the worker consults it
     return run_worker(
         ns.connect,
         ns.worker_id,
@@ -928,6 +1010,7 @@ def cmd_worker(ns) -> int:
         crash_after_chunks=ns.crash_after_chunks,
         idle_exit_s=ns.idle_exit,
         device=ns.device,
+        overlap=ns.overlap == "on",
     )
 
 
@@ -1058,13 +1141,15 @@ def cmd_serve(ns) -> int:
 
     cfg = _apply_faults(ns, _apply_step_impl(ns, _load_config(ns.config)))
     _configure_disk(ns)
+    # the buckets' kernel loads (and, in dispatch mode, the autoscaled
+    # workers' argv) consult the process-global kernel build cache
+    _activate_exec_cache(ns)
     rec = _build_recorder(ns)
     if ns.tcp and ns.socket:
         raise SystemExit("--tcp and --socket are mutually exclusive")
     device = resolve_device(ns.device)
     if device.type == "cuda" and not ns.pool_dir:
-        for k in build.KERNELS:  # build and load before the first job
-            build.library(k)
+        build.libraries(build.KERNELS)  # build or load before the first job
     replicas = [t.strip() for t in (ns.replicas or "").split(",")
                 if t.strip()]
     if ns.standby_of:
@@ -1228,8 +1313,7 @@ def _load_kernels(device) -> None:
     from .kernels import build
 
     if device.type == "cuda":
-        for k in build.KERNELS:
-            build.library(k)
+        build.libraries(build.KERNELS)
     build.LAUNCHES.update(dict.fromkeys(build.LAUNCHES, 0))
 
 
@@ -1596,19 +1680,44 @@ def _add_shared_flags(sp, resilience: bool = True) -> None:
         help="seed of the counter-based fault PRNG (default 0)",
     )
     _add_obs_flags(sp)
-    sp.add_argument(
-        "--cache-budget", type=int, default=None, metavar="BYTES",
-        help="byte budget of the governed artifact pool (the warm-state "
-             "cache; DESIGN.md §26): LRU pruning and the disk-pressure "
-             "evict ladder both honor it; takes precedence over "
-             "$PRIMETPU_CACHE_MAX_BYTES (default: env var, then 2 GiB)",
-    )
+    _add_cache_budget_flag(sp)
     sp.add_argument(
         "--device", choices=("cuda", "cpu"), default=None,
         help="default: cuda (an error when there is no card)",
     )
     if resilience:
         _add_resilience_flags(sp)
+
+
+def _add_cache_budget_flag(sp) -> None:
+    sp.add_argument(
+        "--cache-budget", type=int, default=None, metavar="BYTES",
+        help="shared byte budget of the governed artifact pool (the "
+             "warm-state cache and the kernel build cache; DESIGN.md §26): "
+             "LRU pruning and the disk-pressure evict ladder both honor it; "
+             "takes precedence over $PRIMETPU_CACHE_MAX_BYTES (default: env "
+             "var, then 2 GiB)",
+    )
+
+
+def _add_exec_flags(sp, overlap: bool = True) -> None:
+    """run's, sweep's and worker's (serve's without --overlap) build-once
+    and overlap flags, `primetpu`'s choices and defaults: both off, and
+    off prints exactly what the port printed without them."""
+    sp.add_argument(
+        "--exec-cache", choices=("on", "off"), default="off",
+        help="consult and populate the kernel build cache "
+             "($PRIMETPU_CACHE_DIR/exec): a warm process loads the kernel "
+             "libraries instead of running nvcc; corrupt or stale entries "
+             "degrade to a rebuild",
+    )
+    if overlap:
+        sp.add_argument(
+            "--overlap", choices=("on", "off"), default="off",
+            help="overlapped chunk dispatch: enqueue chunk k+1 before the "
+                 "host's work on chunk k (journal, checkpoint write, chain, "
+                 "obs commit), on a copy of the committed state; bit-exact",
+        )
 
 
 def _add_obs_flags(sp) -> None:
@@ -1786,6 +1895,7 @@ def build_parser() -> argparse.ArgumentParser:
     )
     _add_attest_flag(r)
     _add_shared_flags(r)
+    _add_exec_flags(r)
     r.set_defaults(fn=cmd_run)
 
     w = sub.add_parser(
@@ -1863,6 +1973,7 @@ def build_parser() -> argparse.ArgumentParser:
     )
     _add_attest_flag(w, audit=True)
     _add_shared_flags(w)
+    _add_exec_flags(w)
     w.set_defaults(fn=cmd_sweep)
 
     k = sub.add_parser(
@@ -1897,6 +2008,8 @@ def build_parser() -> argparse.ArgumentParser:
         help="where units simulate, resolved at the first one: cuda "
              "(default; no card is an error, never a run on the CPU)",
     )
+    _add_exec_flags(k)
+    _add_cache_budget_flag(k)
     k.set_defaults(fn=cmd_worker)
 
     co = sub.add_parser(
@@ -2062,6 +2175,9 @@ def build_parser() -> argparse.ArgumentParser:
     )
     _add_attest_flag(v, audit=True)
     _add_shared_flags(v, resilience=False)
+    # no --overlap: the serving tick splices and retires slots between
+    # chunks, so there is no next chunk to speculate
+    _add_exec_flags(v, overlap=False)
     v.set_defaults(fn=cmd_serve)
 
     rp = sub.add_parser(

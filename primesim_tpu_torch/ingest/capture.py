@@ -16,6 +16,7 @@ the shim's shared-memory ring mode and hands back the `RingSource` that
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import os
 import subprocess
@@ -29,23 +30,50 @@ BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
 CXX_FLAGS = ("-O2", "-shared", "-fPIC")
 
 
+def shim_source_key(cxx: str = "g++") -> str:
+    """sha256 of the compiler's name, the flags and the shim's source:
+    what a build of the shim is keyed by."""
+    src = FRONTEND / "ptpu_capture.cpp"
+    return hashlib.sha256(" ".join((cxx, *CXX_FLAGS)).encode() + src.read_bytes()).hexdigest()
+
+
+@functools.lru_cache(maxsize=None)
+def compiler_version(cxx: str = "g++") -> str:
+    """The first line of `<cxx> --version` (a field of the build cache's
+    key for the shim)."""
+    out = subprocess.run([cxx, "--version"], capture_output=True, text=True,
+                         check=True).stdout
+    return (out.strip().splitlines() or ["unknown"])[0].strip()
+
+
+def compile_shim(so: str, cxx: str = "g++") -> None:
+    """Compile the capture shim to `so`, under a temporary name renamed
+    into place, so two processes building at once never load a
+    half-written file."""
+    tmp = f"{so}.{os.getpid()}.tmp"
+    cmd = [cxx, *CXX_FLAGS, "-o", tmp, str(FRONTEND / "ptpu_capture.cpp"), "-ldl", "-lpthread"]
+    subprocess.run(cmd, check=True, capture_output=True, text=True)
+    os.replace(tmp, so)
+
+
 def build_shim(out_dir: str | None = None, cxx: str = "g++") -> str:
     """Compile the capture shim unless a build of this source with these
-    flags exists; returns the .so path. The library is written under a
-    temporary name and renamed into place, so two processes building at
-    once never load a half-written file."""
-    src = FRONTEND / "ptpu_capture.cpp"
+    flags exists; returns the .so path. With the kernel build cache on
+    (`sim/exec_cache.py`) and no `out_dir`, the shim is the cache's
+    `capture` entry instead, written out to a file private to this
+    process."""
     if out_dir is None:
-        h = hashlib.sha256(" ".join((cxx, *CXX_FLAGS)).encode() + src.read_bytes())
-        out_dir = str(BUILD_ROOT / f"capture-{h.hexdigest()[:16]}")
+        from ..sim import exec_cache
+
+        cache = exec_cache.active()
+        if cache is not None:
+            return cache.shim_path(cxx)
+        out_dir = str(BUILD_ROOT / f"capture-{shim_source_key(cxx)[:16]}")
     so = os.path.join(out_dir, "libptpu_capture.so")
     if os.path.exists(so):
         return so
     os.makedirs(out_dir, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [cxx, *CXX_FLAGS, "-o", tmp, str(src), "-ldl", "-lpthread"]
-    subprocess.run(cmd, check=True, capture_output=True, text=True)
-    os.replace(tmp, so)
+    compile_shim(so, cxx)
     return so
 
 

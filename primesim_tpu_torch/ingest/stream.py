@@ -80,8 +80,7 @@ def warm_kernels(cfg: MachineConfig, device: torch.device) -> None:
     """Build and load every kernel on the card, and upload a coarse
     vector's group tables, before a timed region (no step runs)."""
     if device.type == "cuda":
-        for k in build.KERNELS:
-            build.library(k)
+        build.libraries(build.KERNELS)
     if cfg.sharer_group > 1:  # keyed by the device as the step names it (cuda:0)
         group_tables(cfg, torch.empty(0, device=device).device)
 

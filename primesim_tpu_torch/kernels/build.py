@@ -14,11 +14,18 @@ library as `<name>.log`. Every C entry point returns `cudaGetLastError()`
 after its launch; `launch` raises on a non-zero code and otherwise adds
 one to the kernel's count in `LAUNCHES`. A missing `nvcc`, a failed build
 or a failed load raises: nothing falls back.
+
+With the kernel build cache on (`sim/exec_cache.py`, `--exec-cache on`)
+`libraries` and `library` take each library from the cache's entry
+under `$PRIMETPU_CACHE_DIR/exec` instead, building the missing ones
+with the same `nvcc` command into a private directory; `_build/` is not
+touched then.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -64,17 +71,28 @@ def build_dir() -> Path:
     return BUILD_ROOT / source_key()[:16]
 
 
-def build() -> Path:
-    """Compile every kernel whose library is not built yet, in parallel;
-    returns the build directory."""
-    out = build_dir()
-    todo = [k for k in KERNELS if not (out / f"lib{k}.so").exists()]
-    if not todo:
-        return out
+@functools.lru_cache(maxsize=None)
+def nvcc_version() -> str:
+    """The `release` line of `nvcc --version` (the toolchain a library
+    was built with: a field of the build cache's key)."""
+    out = subprocess.run([_nvcc(), "--version"], capture_output=True, text=True,
+                         check=True).stdout
+    lines = [ln.strip() for ln in out.splitlines() if ln.strip()]
+    rel = [ln for ln in lines if "release" in ln]
+    return (rel or lines or ["unknown"])[-1]
+
+
+def compile_into(out: Path, names) -> float:
+    """Compile the kernels `names` into `out` with one `nvcc` per source,
+    all started together: `out/lib<name>.so` and `out/<name>.log` (the
+    ptxas report). Returns the wall seconds; raises if one failed."""
+    import time
+
+    t0 = time.perf_counter()
     out.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = []
-    for k in todo:
+    for k in names:
         tmp = out / f"lib{k}.so.{os.getpid()}.tmp"
         log = open(out / f"{k}.log", "w")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{k}.cu")]
@@ -91,20 +109,54 @@ def build() -> Path:
     if failed:
         logs = "\n".join((out / f"{k}.log").read_text() for k in failed)
         raise RuntimeError(f"nvcc failed for {failed}:\n{logs}")
+    return time.perf_counter() - t0
+
+
+def build() -> Path:
+    """Compile every kernel whose library is not built yet, in parallel;
+    returns the build directory."""
+    out = build_dir()
+    todo = [k for k in KERNELS if not (out / f"lib{k}.so").exists()]
+    if todo:
+        compile_into(out, todo)
     return out
+
+
+def libraries(names=KERNELS) -> dict[str, ctypes.CDLL]:
+    """Load the kernels `names` (building what is missing, in parallel):
+    from `_build/`, or through the kernel build cache when one is on."""
+    from ..sim import exec_cache
+
+    cache = exec_cache.active()
+    if cache is not None:
+        _libs.update(cache.kernel_libraries(names))
+    else:
+        todo = [k for k in names if k not in _libs]
+        if todo:
+            out = build()
+            for k in todo:
+                _libs[k] = ctypes.CDLL(str(out / f"lib{k}.so"))
+    return {k: _libs[k] for k in names}
 
 
 def library(name: str) -> ctypes.CDLL:
     if name not in _libs:
-        _libs[name] = ctypes.CDLL(str(build() / f"lib{name}.so"))
+        libraries([name])
     return _libs[name]
 
 
 def ptxas_report(name: str) -> str:
-    """The `-Xptxas -v` lines of a built kernel (registers, spills)."""
-    log = build_dir() / f"{name}.log"
-    lines = log.read_text().splitlines() if log.exists() else []
-    return "; ".join(ln.strip() for ln in lines if "ptxas info" in ln)
+    """The `-Xptxas -v` lines of a built kernel (registers, spills): from
+    its cache entry when the build cache is on."""
+    from ..sim import exec_cache
+
+    cache = exec_cache.active()
+    if cache is not None and name in cache.reports:
+        text = cache.reports[name]
+    else:
+        log = build_dir() / f"{name}.log"
+        text = log.read_text() if log.exists() else ""
+    return "; ".join(ln.strip() for ln in text.splitlines() if "ptxas info" in ln)
 
 
 def launch(name: str, pointers, ints, stream) -> None:

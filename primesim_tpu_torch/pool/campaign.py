@@ -119,6 +119,8 @@ def _spawn_worker(ns, socket_path: str, worker_id: str, device):
         "--connect", socket_path,
         "--worker-id", worker_id,
         "--warm-cache", ns.warm_cache,
+        "--exec-cache", getattr(ns, "exec_cache", "off"),
+        "--overlap", getattr(ns, "overlap", "off"),
         "--reconnect-timeout", str(ns.lease_ttl * 6.0),
         *device_flag(device),
         *_crash_flag(worker_id),

@@ -40,9 +40,12 @@ dead process by simply not acking).
 
 Not ported: the JAX worker's sharded units (`devices` > 0, its
 `_unit_mesh`) wait for the port's multi-device layer; such a unit is
-quarantined with `MultiDeviceNotPorted`. The AOT warm-up at a grant
-(`fleet.warm_exec()`) and overlapped dispatch wait for the port's build
-cache.
+quarantined with `MultiDeviceNotPorted`.
+
+At a grant the unit's fleet loads (or builds) its kernels through the
+kernel build cache when `--exec-cache on` made one active
+(`fleet.warm_exec()`, before the first chunk, so no build eats into the
+lease), and runs with overlapped dispatch under `--overlap on`.
 """
 
 from __future__ import annotations
@@ -168,8 +171,10 @@ class PoolWorker:
         rng=None,
         idle_exit_s: float | None = None,
         device=None,
+        overlap: bool = False,
     ):
         self.socket_path = str(socket_path)
+        self.overlap = bool(overlap)
         self.worker_id = str(worker_id)
         self.warm_cache = bool(warm_cache)
         self.reconnect_timeout_s = float(reconnect_timeout_s)
@@ -231,8 +236,7 @@ class PoolWorker:
         dev = resolve_device(self.device_arg)
         t0 = time.perf_counter()
         if dev.type == "cuda":
-            for k in build.KERNELS:
-                build.library(k)
+            build.libraries(build.KERNELS)
             name = torch.cuda.get_device_name(dev)
         else:
             name = "cpu"
@@ -428,6 +432,10 @@ class PoolWorker:
                 chunk_steps=int(unit["chunk_steps"]),
                 device=self.device,
             )
+        fleet.overlap = self.overlap
+        # the kernels from the build cache now, under the grant's
+        # heartbeat, so no build eats into the lease (a no-op without one)
+        fleet.warm_exec()
 
         attest_on = grant.get("attest") == "chain"
         # tiebreak / audit re-runs are granted `fresh`: no checkpoint
@@ -649,6 +657,7 @@ def run_worker(
     crash_after_chunks: int | None = None,
     idle_exit_s: float | None = None,
     device=None,
+    overlap: bool = False,
 ) -> int:
     """The `worker` verb: one stderr line when the worker starts (its id
     and the device it was asked for), one when it resolves the device
@@ -677,6 +686,7 @@ def run_worker(
         crash_after_chunks=crash_after_chunks,
         idle_exit_s=idle_exit_s,
         device=device,
+        overlap=overlap,
     )
     rc = "raised"  # the device could not be had, or a signal
     try:

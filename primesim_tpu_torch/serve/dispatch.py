@@ -350,6 +350,12 @@ class DispatchScheduler:
                 "--idle-exit", "10",
                 *device_flag(self.device),
             ]
+            # `serve --exec-cache on` passes on: the autoscaled workers
+            # load their kernels from the build cache at the lease grant
+            from ..sim import exec_cache
+
+            if exec_cache.active() is not None:
+                argv += ["--exec-cache", "on"]
             proc = subprocess.Popen(argv, stdout=subprocess.DEVNULL)
             self._workers.append(proc)
             self._serve_event("spawn_worker", worker=wid, pid=proc.pid)

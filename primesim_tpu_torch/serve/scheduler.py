@@ -36,9 +36,10 @@ launches and its one host transfer, plus, for a tick that splices or
 retires, one transfer to re-read the bucket's live flags and the copy of
 the spliced event rows (`upload_events`). A job's result record is
 JAX's: cycles, per-core cycles, steps, instructions, all counters, and
-its chain payload under `--attest chain`. The JAX bucket's executable
-warm-up (`warm_exec`, the AOT cache) has nothing to do in the port: its
-kernels build once per process.
+its chain payload under `--attest chain`. A bucket's bring-up loads
+(or builds) the kernels its fleet launches through the kernel build
+cache when `--exec-cache on` made one active (`fleet.warm_exec()`, as
+the JAX bucket warms its executable), before its first job.
 """
 
 from __future__ import annotations
@@ -186,6 +187,7 @@ class SlotBucket:
             self.cfg, self.n_slots, self.capacity,
             chunk_steps=self.chunk_steps, device=self.device,
         )
+        fleet.warm_exec()  # the kernels from the build cache, if one is on
         if self.attest_on:
             # per-slot fingerprint chains (DESIGN.md §24): slots are
             # tracked at splice and dropped at retire, so a job's chain

@@ -843,9 +843,10 @@ def prune_warm_cache(root: str, max_bytes: int | None = None) -> int:
     `max_bytes`. Returns the number of entries removed. Hits refresh
     mtime, so mtime order is use order.
 
-    The JAX package's executable cache shares this budget
-    (`root/exec/*.bin`, one LRU pool with the warm `.npz` entries); the
-    port prunes that pool too when it finds one. Budget resolution:
+    The kernel build cache (sim/exec_cache.py) shares this budget: its
+    `root/exec/*.bin` entries, the port's and any the JAX package's
+    executable cache wrote there, are one LRU pool with the warm `.npz`
+    entries. Budget resolution:
     explicit `max_bytes` > the process-wide `--cache-budget`
     (diskpressure.budget()) > $PRIMETPU_CACHE_MAX_BYTES > 2 GiB."""
     if max_bytes is None:

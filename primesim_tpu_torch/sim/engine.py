@@ -41,6 +41,18 @@ number on the host and, from the fault schedule and seed, the steps on
 which a core can die (`faults.inject.kill_possible`): the scrub runs on
 those steps only.
 
+Overlapped dispatch (`Engine.overlap`, `FleetEngine.overlap`): after a
+committed chunk k the engine enqueues chunk k+1 (`prefetch`) before the
+caller's host work (snapshots, chains, journal records) reads chunk k's
+state. The port's step is not functional (the commit and the scrub
+write the L1, the directory and the counters in place), so the
+speculated chunk runs on a device copy of the committed state; on a card
+it runs on a side stream, ordered after the committed work, so that a
+read of chunk k's state does not queue behind it. The next chunk adopts
+the result only when the committed state is still the object it was
+speculated from (and the chunk size the same): state surgery replaces
+the state or drops the speculation (`discard_prefetch`).
+
 `stream_loop` is the device loop of one window of a streamed trace
 (`ingest/stream.py`): chunks sized on the host from the buffered events
 so that the window ends at the step where the JAX package's
@@ -1058,6 +1070,77 @@ def stream_loop(cfg: MachineConfig, events, st: MachineState, exhausted,
         chunks += 1
 
 
+def kernels_of(cfg: MachineConfig) -> tuple[str, ...]:
+    """The kernels a step of `cfg` launches on a card: the three step
+    kernels, and `router_cascade` under the router contention model."""
+    from ..kernels.build import KERNELS
+
+    router = cfg.noc.contention and cfg.noc.contention_model == "router"
+    return KERNELS if router else tuple(k for k in KERNELS if k != "router_cascade")
+
+
+# ---- overlapped dispatch (Engine.overlap, FleetEngine.overlap)
+
+
+class Prefetch(NamedTuple):
+    """A speculated chunk: the committed state it was made from (its
+    identity is what validates it), the device results of the chunk
+    (nothing of them read by the host yet), the chunk size and any other
+    inputs that must match (`key`), and, on a card, the event recorded
+    after its work on the side stream."""
+
+    source: MachineState
+    out: tuple
+    chunk_steps: int
+    key: object
+    done: object
+
+
+def prefetch(src: MachineState, chunk_steps: int, key, work, side=None,
+             keep=()) -> Prefetch:
+    """`work` applied to a device copy of `src`, never to `src` itself
+    (the step writes in place). On a card the copy and the work run on
+    the caller's `side` stream, which first waits for everything already
+    queued, and `src` and the other inputs `keep` are marked in use
+    there, so that their memory outlives the speculation whoever frees
+    them."""
+    dev = src.cycles.device
+    if dev.type != "cuda":
+        return Prefetch(src, work(map_state(torch.clone, src)), chunk_steps, key, None)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        out = work(map_state(torch.clone, src))
+        done = torch.cuda.Event()
+        done.record(side)
+    for x in (*leaves(src), *keep):
+        x.record_stream(side)
+    return Prefetch(src, out, chunk_steps, key, done)
+
+
+def _out_tensors(out) -> list:
+    return [y for x in out for y in (leaves(x) if isinstance(x, MachineState) else (x,))]
+
+
+def adopt(p: Prefetch) -> tuple:
+    """A speculated chunk's results, usable on the current stream: it
+    waits for the side stream's work, and the results' memory is marked
+    in use here."""
+    if p.done is not None:
+        main = torch.cuda.current_stream(p.source.cycles.device)
+        main.wait_event(p.done)
+        for x in _out_tensors(p.out):
+            x.record_stream(main)
+    return p.out
+
+
+def drop(p: Prefetch | None) -> None:
+    """Forget a speculated chunk; work queued after this on the current
+    stream (say, surgery that writes the state's rows in place) waits
+    until the speculation has read its source."""
+    if p is not None and p.done is not None:
+        torch.cuda.current_stream(p.source.cycles.device).wait_event(p.done)
+
+
 class Engine:
     """Host runner with the JAX `Engine`'s interface and semantics for a
     single device: `run`, `run_chunked`, `run_steps`, `cycles`,
@@ -1065,7 +1148,9 @@ class Engine:
     telemetry sink `obs` (an `obs.Recorder` or None) with its `obs_label`,
     and `save_checkpoint`/`load_checkpoint` (`sim/checkpoint.py`: the JAX
     package's file format, so a snapshot of either engine resumes in the
-    other)."""
+    other). `overlap` (default False) speculates each next chunk as the
+    JAX engine's does (`_pending`, `discard_prefetch`; module
+    docstring)."""
 
     def __init__(
         self, cfg: MachineConfig, trace: Trace, chunk_steps: int = 256,
@@ -1123,6 +1208,13 @@ class Engine:
         # that prefix (0 and None: the run simulated from step 0 itself)
         self.prefix_steps = 0
         self.prefix_cache_key = None
+        self._drained = None  # a state whose device counters are zero
+        # overlapped dispatch: after a committed chunk, the next one runs
+        # on a copy of the state (a `Prefetch`), adopted by the next
+        # `_chunk` only if `self.state` is still its source
+        self.overlap = False
+        self._pending = None
+        self._side = None  # the speculation's CUDA stream, made at its first use
 
     def _not_done(self, st: MachineState):
         """[C] bool on the device: cores neither at END nor dead."""
@@ -1147,7 +1239,9 @@ class Engine:
     def _chunk(self) -> bool:
         """One chunk, then the drain and the rebase by whole quanta (the JAX
         package's `_drain_and_rebase`), with ONE host transfer for the
-        counters, the rebase delta and the done flag. Returns done.
+        counters, the rebase delta and the done flag. Returns done. A
+        speculated chunk made from this very state is adopted instead of
+        dispatching one.
 
         The recorder `obs`, when set, gets the host's seconds in the JAX
         package's three phase names, cut where the port's chunk allows:
@@ -1157,22 +1251,24 @@ class Engine:
         holds the device's tail, and "rebase" is the host's folding of the
         transferred counters, delta and flag."""
         t0 = time.perf_counter()
-        st = run_chunk(
-            self.cfg, self.chunk_steps, self.events, self.state, self.has_sync,
-            scrub_at=self.scrub_offsets(),
-        )
-        t1 = time.perf_counter()
-        new, cnt, delta, live = drain_rebase(self.cfg, self.events[None], batch_state(st))
-        self.state = solo_state(new)
-        host = torch.cat(
-            [cnt.flatten(), delta, (~live).to(_i32)]
-        ).cpu().numpy()
+        cut = []
+        pend, self._pending = self._pending, None
+        if pend is not None and pend.source is self.state \
+                and pend.chunk_steps == self.chunk_steps:
+            new, host = adopt(pend)
+        else:
+            drop(pend)
+            new, host = self._enqueue_chunk(self.state, self.scrub_offsets(), cut)
+        t1 = cut[0] if cut else time.perf_counter()
+        self.state = new
+        host = host.cpu().numpy()
         t2 = time.perf_counter()
         cnt = host[:-2].reshape(len(COUNTER_NAMES), -1)
         for i, k in enumerate(COUNTER_NAMES):
             self.host_counters[k] += cnt[i].astype(np.int64)
         self.cycle_base += int(host[-2])
         self.steps_run += self.chunk_steps
+        self._drained = self.state
         if self.cfg.faults_enabled:
             self._host_step += self.chunk_steps
             self._stepped = self.state
@@ -1183,6 +1279,38 @@ class Engine:
                 phases={"dispatch": t1 - t0, "drain": t2 - t1, "rebase": t3 - t2},
             )
         return bool(host[-1])
+
+    def _enqueue_chunk(self, st: MachineState, scrub_at, cut=None):
+        """A chunk of `st` and its drain and rebase, enqueued: (the new
+        state, one int32 device tensor of the drained counters, the delta
+        and the done flag), nothing read by the host. `cut` gets the time
+        the chunk's own launches were enqueued."""
+        st = run_chunk(
+            self.cfg, self.chunk_steps, self.events, st, self.has_sync,
+            scrub_at=scrub_at,
+        )
+        if cut is not None:
+            cut.append(time.perf_counter())
+        new, cnt, delta, live = drain_rebase(self.cfg, self.events[None], batch_state(st))
+        return solo_state(new), torch.cat([cnt.flatten(), delta, (~live).to(_i32)])
+
+    def _prefetch_chunk(self) -> None:
+        """Speculate the next chunk from the committed state (the JAX
+        engine's `_prefetch_chunk`) on a copy of it, with the next chunk's
+        scrub steps (the host's step number is already past this one)."""
+        scrub_at = self.scrub_offsets()
+        if self._side is None and self.device.type == "cuda":
+            self._side = torch.cuda.Stream(self.device)
+        self._pending = prefetch(
+            self.state, self.chunk_steps, None,
+            lambda st: self._enqueue_chunk(st, scrub_at), self._side, keep=(self.events,),
+        )
+
+    def discard_prefetch(self) -> None:
+        """Drop any speculated chunk (state surgery makes it moot; the
+        identity check would reject it anyway: this frees it)."""
+        drop(self._pending)
+        self._pending = None
 
     def run(self, max_steps: int = 10_000_000, debug_invariants: bool = False) -> None:
         """Run to completion; `max_steps` is a deadlock guard rounded up to
@@ -1208,6 +1336,8 @@ class Engine:
         done = self.done()
         while self.steps_run < target and not done:
             done = self._chunk()
+            if self.overlap and not done:
+                self._prefetch_chunk()
             if self.attest is not None:
                 # after the drain and the rebase: the committed values
                 self.attest.observe(self)
@@ -1262,10 +1392,15 @@ class Engine:
     def load_checkpoint(self, path: str) -> None:
         from .checkpoint import load_checkpoint
 
+        self.discard_prefetch()
         load_checkpoint(path, self)
 
     def _drain(self) -> None:
-        """Fold the device counters into the host's int64 totals."""
+        """Fold the device counters into the host's int64 totals. Free
+        after a chunk (its drain zeroed them on the card): no transfer
+        then, and the state stays the object a speculation was made from."""
+        if self.state is self._drained:
+            return
         cnt = self.state.counters.cpu().numpy()
         for i, k in enumerate(COUNTER_NAMES):
             self.host_counters[k] += cnt[i].astype(np.int64)

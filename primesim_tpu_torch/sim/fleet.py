@@ -51,7 +51,15 @@ chunk's drain and rebase, the elements live at the chunk's start advance
 their chains, so a fleet element's head equals its solo run's. The chaos
 site `fleet.counters` may flip a drained host counter just before that.
 
-Not ported: the shard x vmap mesh and overlapped dispatch.
+Overlapped dispatch (`overlap`, the JAX fleet's): after a committed
+chunk the next one is speculated on a copy of the batched state (on a
+card, on a side stream: `sim/engine.py::prefetch`) and adopted by the
+next chunk if the state is still its source and the run mode the same;
+every splice, overlay, fork, event upload and checkpoint load drops it
+first. `warm_exec` loads (or builds) the kernels the fleet launches
+through the kernel build cache, without running a step.
+
+Not ported: the shard x vmap mesh.
 """
 
 from __future__ import annotations
@@ -72,9 +80,13 @@ from ..trace.format import EV_BARRIER, EV_END, EV_LOCK, EV_UNLOCK, Trace, valida
 from .engine import (
     _ACC_BITS,
     _iotas,
+    adopt,
     drain_rebase,
+    drop,
     group_tables,
+    kernels_of,
     not_done,
+    prefetch,
     resolve_device,
     run_chunk,
 )
@@ -312,6 +324,11 @@ class FleetEngine:
         self.attest = None
         self._stepped = None  # the state the last chunk left (see _host)
         self._drained = None  # a state whose device counters are zero
+        # overlapped dispatch (engine.Prefetch): the next chunk speculated
+        # from the committed state, adopted only if that is still the state
+        self.overlap = False
+        self._pending = None
+        self._side = None  # the speculation's CUDA stream, made at its first use
 
     @property
     def n_elements(self) -> int:
@@ -444,16 +461,20 @@ class FleetEngine:
         live, host_step = self._host()
         stepping = live if freeze else np.ones_like(live)
         t0 = time.perf_counter()
-        st = run_chunk(
-            self.geom_cfg, self.chunk_steps, self.events, self.state, self.has_sync,
-            scrub_at=self._scrub_offsets(stepping),
-            live=self._live_dev if freeze else None,
-        )
-        t1 = time.perf_counter()
-        new, cnt, delta, nd_any = drain_rebase(self.geom_cfg, self.events, st)
+        cut = []
+        pend, self._pending = self._pending, None
+        if pend is not None and pend.source is self.state \
+                and pend.chunk_steps == self.chunk_steps and pend.key == freeze:
+            new, host, live_dev = adopt(pend)
+        else:
+            drop(pend)
+            new, host, live_dev = self._enqueue_chunk(
+                self.state, self._scrub_offsets(stepping),
+                self._live_dev if freeze else None, cut)
+        t1 = cut[0] if cut else time.perf_counter()
         self.state = new
         B = self.n_elements
-        host = torch.cat([cnt.flatten(), delta, nd_any.to(_i32)]).cpu().numpy()
+        host = host.cpu().numpy()
         t2 = time.perf_counter()
         cnt = host[: -2 * B].reshape(B, len(COUNTER_NAMES), -1)
         for i, k in enumerate(COUNTER_NAMES):
@@ -462,11 +483,13 @@ class FleetEngine:
         self.steps_run += np.where(live, self.chunk_steps, 0)
         self._host_step = host_step + np.where(stepping, self.chunk_steps, 0)
         self._live = host[-B:] != 0
-        self._live_dev = nd_any.to(_i32)
+        self._live_dev = live_dev
         self._stepped = self._drained = self.state
         self._corrupt_hook()
         if self.attest is not None:
             self.attest.observe(self, live)
+        if self.overlap and self._live.any():
+            self._prefetch_chunk(freeze)
         if self.obs is not None:
             t3 = time.perf_counter()
             self.obs.chunk_committed(
@@ -474,6 +497,59 @@ class FleetEngine:
                 phases={"dispatch": t1 - t0, "drain": t2 - t1, "rebase": t3 - t2},
             )
         return self._live
+
+    def _enqueue_chunk(self, st, scrub_at, live_dev, cut=None):
+        """A chunk of the batched state `st` and its drain and rebase,
+        enqueued: (the new state, one int32 device tensor of the drained
+        counters, the deltas and the live flags, the live flags as int32
+        on the device), nothing read by the host. `live_dev` freezes the
+        finished elements (`run`); `cut` gets the time the chunk's own
+        launches were enqueued."""
+        st = run_chunk(
+            self.geom_cfg, self.chunk_steps, self.events, st, self.has_sync,
+            scrub_at=scrub_at, live=live_dev,
+        )
+        if cut is not None:
+            cut.append(time.perf_counter())
+        new, cnt, delta, nd_any = drain_rebase(self.geom_cfg, self.events, st)
+        live = nd_any.to(_i32)
+        return new, torch.cat([cnt.flatten(), delta, live]), live
+
+    def _prefetch_chunk(self, freeze: bool) -> None:
+        """Speculate the next chunk from the committed state on a copy of
+        it (the JAX fleet's `_prefetch_chunk`), in the same run mode, with
+        the next chunk's scrub steps and live flags."""
+        live, _ = self._host()
+        scrub_at = self._scrub_offsets(live if freeze else np.ones_like(live))
+        live_dev = self._live_dev if freeze else None
+        if self._side is None and self.device.type == "cuda":
+            self._side = torch.cuda.Stream(self.device)
+        self._pending = prefetch(
+            self.state, self.chunk_steps, freeze,
+            lambda st: self._enqueue_chunk(st, scrub_at, live_dev), self._side,
+            keep=(self.events,) if live_dev is None else (self.events, live_dev),
+        )
+
+    def discard_prefetch(self) -> None:
+        """Drop any speculated chunk (the identity check would reject it
+        after state surgery anyway: this frees it)."""
+        drop(self._pending)
+        self._pending = None
+
+    def warm_exec(self) -> bool:
+        """Load, or build, every kernel this fleet's mode launches through
+        the active kernel build cache, without running a step (the JAX
+        fleet's `warm_exec`: the pool worker calls it at a lease grant and
+        a serve bucket at its bring-up, so no build eats into a lease or
+        a first job). False when no cache is active or the fleet runs on
+        the CPU, where it launches no kernel."""
+        from ..kernels import build
+        from . import exec_cache
+
+        if exec_cache.active() is None or self.device.type != "cuda":
+            return False
+        build.libraries(kernels_of(self.geom_cfg))
+        return True
 
     def _corrupt_hook(self) -> None:
         """Silent-corruption site `fleet.counters` (DESIGN.md §24): a flip
@@ -554,6 +630,7 @@ class FleetEngine:
         config (e.g. a SIGHUP-refreshed fault schedule); it must share the
         fleet's geometry. `upload=False` defers the row's copy to the card
         so that a tick's splices share one `upload_events()`."""
+        self.discard_prefetch()  # the row is rewritten in place below
         ov = dict(override or {})
         ecfg = apply_overrides(base_cfg or self.cfg, ov)
         if ecfg.timing_normalized() != self.geom_cfg:
@@ -616,6 +693,8 @@ class FleetEngine:
     def upload_events(self) -> None:
         """Copy the event rows spliced since the last call to the card.
         One call covers any number of `upload=False` splices."""
+        if self._dirty:
+            self.discard_prefetch()
         for i in sorted(self._dirty):
             self.events[i].copy_(torch.from_numpy(self._events_np[i]))
         self._dirty.clear()
@@ -630,6 +709,7 @@ class FleetEngine:
         first; the resumed element is then bit-exact with one never
         interrupted. The host's cached live flags and step numbers are
         re-read at the next chunk."""
+        self.discard_prefetch()
         for o, x in zip(leaves(self.state), leaves(snap["state"])):
             o[i].copy_(x)
         self.cycle_base[i] = snap["cycle_base"]
@@ -651,6 +731,7 @@ class FleetEngine:
         could not have influenced any state the snapshot carries: the
         forked element is bit-exact with an unforked run. Events with step
         < steps_run never re-fire (firing matches the absolute step)."""
+        self.discard_prefetch()
         self.restore_element(i, snap)
         ecfg = self.elem_cfgs[i]
         fresh = fault_state_from_config(ecfg, self.device)
@@ -672,4 +753,5 @@ class FleetEngine:
     def load_checkpoint(self, path: str) -> None:
         from .checkpoint import load_fleet_checkpoint
 
+        self.discard_prefetch()
         load_fleet_checkpoint(path, self)

@@ -54,8 +54,12 @@ pool of healthy devices is that card alone, a revocation has nothing to
 take, and the event is counted and logged but changes nothing, as on a
 one-device JAX backend. Not ported yet: the device-loss reshard ladder
 (a `device_loss` failure takes the transient path, as the JAX supervisor
-does when there is nothing to demote) and the overlapped-dispatch
-discard.
+does when there is nothing to demote).
+
+Under overlapped dispatch (`engine.overlap`) the speculated next chunk
+runs on a copy of the committed state, so snapshots and the guard read
+the committed chunk's values; it is dropped after a rollback, on resume
+and before the final snapshot, as in the JAX supervisor.
 
 `validate_fleet_element` and `build_fleet_isolated` quarantine a sweep's
 malformed elements before batching.
@@ -76,6 +80,12 @@ from ..trace.format import validate_sync
 from .checkpoint import CheckpointCorrupt
 from .state import leaves, map_state
 from .validate import check_chunk_invariants
+
+
+def _discard_prefetch(engine) -> None:
+    """Drop an engine's overlapped speculation (a stream engine has
+    none)."""
+    getattr(engine, "discard_prefetch", lambda: None)()
 
 
 class Preempted(RuntimeError):
@@ -357,6 +367,7 @@ class RunSupervisor:
         if not snaps:
             self._log("resume", "no snapshots found; starting fresh")
             return None
+        _discard_prefetch(self.engine)
         for path in snaps:
             try:
                 self.engine.load_checkpoint(path)
@@ -462,6 +473,9 @@ class RunSupervisor:
         if "attest" in snap and getattr(eng, "attest", None) is not None:
             eng.attest.restore(snap["attest"])
         eng._stepped = None
+        # any overlapped speculation was made from the state rolled away
+        # from; the identity check would reject it, this frees it
+        _discard_prefetch(eng)
 
     def _chaos_revoke_check(self) -> None:
         """Chaos `capacity_loss` site at a chunk boundary: a revocation
@@ -705,6 +719,7 @@ class RunSupervisor:
                         "exhausted with the stream unfinished"
                     )
             if self.store is not None:
+                _discard_prefetch(self.engine)  # nothing runs after this
                 self.checkpoint()  # final snapshot: resume == no-op rerun
         finally:
             self._restore_signals()

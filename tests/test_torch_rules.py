@@ -34,7 +34,7 @@ run shallower than the whole run (`fleet_rung3_cut.json` at step 1024,
 steps past its fork; `headline_cut.json`,
 `rung3_headline_cut.json`, at step 64 in chunks of 64, where the capture
 phase's CPU repeat stops); and the calibrate and chaos paths' JAX
-results: two `fit` reports (`calib_rung1.json`, rung 1 cut to 10 rounds;
+results: two `fit` reports (`calib_rung1.json`, rung 1 cut to 6 rounds;
 `calib_zoo_selftest.json`), a 1472-tile `simulate_matrix`
 (`calib_ipu_matrix.json`), a rung-2 campaign (`chaos_rung2.json`) and
 one trial of each opt-in fault class (`chaos_classes.json`). The small
@@ -116,8 +116,9 @@ def test_the_rules_cover_every_module_of_the_port():
     verification modules are among the modules they check (the serving
     daemon's Prometheus renderer `obs/prom.py`, the dispatcher, the
     pipelined ingest, the replicated journal, fsck, the audit, the crash
-    campaigns and the knob calibration included), and the JAX package's
-    unported module (the linter) is not in the port."""
+    campaigns, the knob calibration and the kernel build cache included),
+    and the JAX package's unported module (the linter) is not in the
+    port."""
     rel = {os.path.relpath(p, PKG) for p in _modules()}
     for m in ("obs/__init__.py", "obs/metrics.py", "obs/recorder.py", "obs/trace.py",
               "obs/prom.py", "sim/checkpoint.py", "config/xml_compat.py", "cli.py",
@@ -133,7 +134,7 @@ def test_the_rules_cover_every_module_of_the_port():
               "ingest/pipeline.py", "serve/replicate.py", "analysis/__init__.py",
               "analysis/errors.py", "analysis/fsck.py", "attest/audit.py",
               "chaos/campaign.py", "calib/__init__.py", "calib/table.py",
-              "calib/fit.py"):
+              "calib/fit.py", "sim/exec_cache.py"):
         assert m in rel, m
     for m in ("analysis/lint.py",):
         assert m not in rel, m
@@ -152,6 +153,55 @@ def test_no_module_of_the_port_imports_jax():
             for n in names:
                 top = n.split(".")[0]
                 assert top not in ("jax", "jaxlib", "primesim_tpu"), (path, n)
+
+
+def _is_cpu_test(test) -> bool:
+    """`<x>.type == "cpu"`: the wrappers' test for a CPU tensor."""
+    return (isinstance(test, ast.Compare) and isinstance(test.left, ast.Attribute)
+            and test.left.attr == "type" and len(test.ops) == 1
+            and isinstance(test.ops[0], ast.Eq)
+            and isinstance(test.comparators[0], ast.Constant)
+            and test.comparators[0].value == "cpu")
+
+
+def test_no_path_hands_a_card_tensor_to_a_plain_version(tmp_path):
+    """A plain torch version of a kernel (`*_plain`) is called only in
+    `kernels/`, and there only under a wrapper's `dev.type == "cpu"`
+    branch or from inside another plain version: no module of the port,
+    the kernel build cache and the overlapped dispatch included, can
+    hand it a tensor on the card. And on a device that is neither, with
+    the build cache on, a wrapper raises rather than falling back."""
+    calls = 0
+    for path in _modules():
+        tree = ast.parse(open(path).read(), path)
+        parents = {c: n for n in ast.walk(tree) for c in ast.iter_child_nodes(n)}
+        for node in ast.walk(tree):
+            if not (isinstance(node, ast.Call) and isinstance(node.func, ast.Name)
+                    and node.func.id.endswith("_plain")):
+                continue
+            calls += 1
+            assert os.path.relpath(path, PKG).startswith("kernels" + os.sep), (path, node.lineno)
+            up, ok = node, False
+            while up in parents and not ok:
+                up = parents[up]
+                ok = (isinstance(up, ast.If) and _is_cpu_test(up.test)) or (
+                    isinstance(up, ast.FunctionDef) and up.name.endswith("_plain"))
+                if isinstance(up, ast.FunctionDef):
+                    break
+            assert ok, (path, node.lineno)
+    assert calls >= 4
+    from primesim_tpu_torch.kernels import reductions
+    from primesim_tpu_torch.sim import exec_cache
+
+    exec_cache.configure(True, root=str(tmp_path))
+    try:
+        cfg = TCfg.from_json(small_test_config(8, n_banks=4).to_json())
+        t = torch.zeros((8, 1), dtype=torch.int32, device="meta")
+        with pytest.raises(ValueError, match="unsupported device"):
+            reductions.sharer_reductions(cfg, t, t, t[:, 0], t[:, 0], t[:, 0].bool(),
+                                         t[:, 0].bool(), t[:, 0], 1, 1)
+    finally:
+        exec_cache.configure(False)
 
 
 # a module path of the JAX package, or a command that runs it
@@ -1219,9 +1269,10 @@ def test_attest_and_serve_fixtures_match_the_jax_engine(name):
 CALIB_TABLE = "configs/calib_ipu_microbench.json"
 CALIB_SPECS = {
     # rounds cut from the verb's default 24 (145 dispatches, 308 s on the
-    # card) to 10 (61), so that the card's fit ends beside phases 3-4
+    # card) to 10 (61), then to 6, so that the card's fit ends beside
+    # phases 3-4 on a slow host too
     "calib_rung1": {"config": "configs/rung1_64core_fft.json", "table": CALIB_TABLE, "fit": None,
-                    "truth": None, "rounds": 10, "chunk_steps": 256},
+                    "truth": None, "rounds": 6, "chunk_steps": 256},
     "calib_zoo_selftest": {"config": "configs/zoo_smoke_16core_torus_moesi.json",
                            "table": CALIB_TABLE, "fit": ["llc_lat", "dram_lat"],
                            "truth": {"llc_lat": 16, "dram_lat": 151}, "rounds": 24,
@@ -1364,7 +1415,7 @@ def test_calib_and_chaos_fixtures_name_their_runs():
 @pytest.mark.parametrize("name", ["calib_zoo_selftest", "chaos_rung2", "chaos_classes"])
 def test_small_calib_and_chaos_fixtures_match_the_jax_package(name):
     """The small calibrate and chaos fixtures re-derived from JAX in tier 1
-    (the rung-1 fit, 61 dispatches, and the 1472-tile matrix by the slow
+    (the rung-1 fit, 37 dispatches, and the 1472-tile matrix by the slow
     test below)."""
     fx = _attest_fixture(name)
     got = calib_chaos_fixture_of_jax(name)
