@@ -121,9 +121,10 @@ process of its own: the script starts it so):
                 the process held before the engine was made.
 7. rung3     -- the second main path: the shipped
                 configs/rung3_1024core_o3.json (router NoC, DRAM queue, O3)
-                on the same trace, likewise: all four kernels once per
-                step, instructions, the digest against
-                fixtures/rung3_headline.json, invariants.
+                on the same trace to step 1024 (MAIN_CUT), likewise: all
+                four kernels once per step, the
+                digest against the JAX package's there
+                (fixtures/rung3_headline_cut1024.json), invariants.
    rung4     -- the shipped configs/rung4_4096core_biglittle.json (4096
                 cores and banks, 64x64 mesh, chunked full map: 128 sharer
                 words, a 9.66 GB directory) at full geometry on the folded
@@ -146,7 +147,8 @@ process of its own: the script starts it so):
                 64 banks, 32x46 torus, 512 KiB L1s, quantum 50000, stride
                 prefetcher) at full geometry on a folded
                 barrier_phases(1472, 32 phases, 32 lines, 2 INS per
-                memory op, seed 42) trace, against fixtures/ipu_full.json:
+                memory op, seed 42) trace to step 1024 (MAIN_CUT), against
+                fixtures/ipu_cut.json there:
                 the step kernels once per step, router_cascade never; the
                 phase fails unless barrier waits and prefetch hits are
                 both nonzero (the first card path with sync events).
@@ -274,14 +276,14 @@ process of its own: the script starts it so):
                 a snapshot directory in a temporary folder, a snapshot every
                 two chunks, two kept, the guard off, and a SoloAttest chain:
                 a SIGTERM sent from the
-                on_chunk callback at committed chunk 3 preempts it (a
-                snapshot at step 768); a fresh engine resumes from that
+                on_chunk callback at committed chunk 2 preempts it (a
+                snapshot at step 512); a fresh engine resumes from that
                 snapshot, and its first chunk runs on the card and then
                 raises UNAVAILABLE, so the supervisor rolls the device state
                 and the chain back and retries; a second SIGTERM preempts it
-                after that chunk (SUP_STOP_CHUNK, step 1024). Fails unless
-                the resumed chain is the JAX run's after chunk 3 and the
-                head after chunk 4 the uninterrupted JAX run's there
+                after that chunk (SUP_STOP_CHUNK, step 768). Fails unless
+                the resumed chain is the JAX run's after chunk 2 and the
+                head after chunk 3 the uninterrupted JAX run's there
                 (fixtures/attest_faults.json: a hash of every state field),
                 and each step kernel
                 launched once per step run, the failed chunk's included. Prints the
@@ -352,8 +354,8 @@ process of its own: the script starts it so):
                 the card and the CPU simulate alike.
 
 12. attest_headline (after online, before phase 8) -- the headline run
-                to step 1024 (ATTEST_DEPTH: two chunks of 512; the whole
-                run until PR 14) with a SoloAttest chain: the head after
+                to step 512 (ATTEST_DEPTH: one chunk of 512) with a
+                SoloAttest chain: the head after
                 every chunk, a hash of every state field, equal to the JAX
                 package's (fixtures/attest_headline.json; a mismatch names
                 the first chunk whose committed state differs), each step
@@ -537,6 +539,40 @@ process of its own: the script starts it so):
                 runs, against the same read behind the same sleep on the
                 current stream.
 
+16. sharded_headline (after reduced_faults, before the join: it runs
+                beside the background threads; it checks parity, not speed)
+                -- the headline machine on a tile mesh of SHARDS = 4 shards,
+                all on cuda:0 (`--devices 4` on one card is a
+                DeviceMeshError, as in JAX), through the Python API, to
+                step 512 in chunks of 64: each step kernel launched 4
+                times a step (one per core shard: the staged-rows probe,
+                the delta-row commit, the reductions on a 256-lane block),
+                router_cascade never; the digest equal to the JAX
+                package's at step 512 (fixtures/sharded_headline_cut.json)
+                and to the unsharded port's run to 512 in this call.
+                Prints the launches a step, the bytes a step of each
+                named cross-shard move (parallel.sharding.MOVES: the
+                directory rows staged in, the delta rows out), the peak
+                device memory and the wall beside the unsharded run's.
+                Each mode's shard-0 inputs of step 300 are kept; after
+                phase 5 (its timing helpers) each is held to its plain
+                version, timed alone by events and bounded (a "mode"
+                line, path sharded_headline). Then 64 more steps under
+                CUDA's sync debug mode: the phase fails on any
+                synchronising call.
+   sharded_rung3 -- rung 3 likewise to step 256
+                (fixtures/sharded_rung3_cut.json): router_cascade once a
+                step over every shard's legs.
+   reshard_rung2 -- configs/rung2_256core_parsec.json on 4 shards (four
+                virtual device ids on the card) under RunSupervisor with a
+                snapshot every chunk of 128; a chaos plan revokes one shard
+                at the second chunk boundary: the run reshards 4 -> 2 from
+                the snapshot at step 128 (degrade_rungs "reshard:4->2") and
+                finishes with fixtures/rung2_full.json's digest but for its
+                steps (chunks of 128 end before 512's); each step kernel
+                launched 4 times a step before, 2 after. Prints the
+                supervisor's log.
+
 Then a line of every phase's elapsed seconds ("phase_times"), the kernel
 summary line (each kernel's batched figures under "batched", the launches
 of every path under "launches_by_path") and, last, the result line
@@ -581,15 +617,19 @@ STEP_KERNELS = ("probe_classify", "commit_step", "sharer_reductions")
 # each kernel's launch-argument modes, every one held to its plain version
 # in the kernels phase
 KERNEL_MODES = {
-    "probe_classify": ["full map", "coarse (logG > 0: group bits, epoch guard)"],
-    "commit_step": ["MESI", "MOESI (moesi = 1)", "group words (logG > 0)"],
+    "probe_classify": ["full map", "coarse (logG > 0: group bits, epoch guard)",
+                       "staged rows (staged = 1: a core shard)"],
+    "commit_step": ["MESI", "MOESI (moesi = 1)", "group words (logG > 0)",
+                    "delta rows (rows_mode = 1: a core shard)"],
     "sharer_reductions": ["full map", "group (logG > 0)",
-                          "mesh, torus, ring (topology = 0, 1, 2)"],
+                          "mesh, torus, ring (topology = 0, 1, 2)",
+                          "a block of the lanes (C < CT: a core shard)"],
     "router_cascade": ["2 legs", "3 legs (has_sync)"],
 }
 # argument positions of what a kernel updates in place: commit_step's l1,
 # dirm and counters, router_cascade's link_free_out
-INPLACE = {"commit_step": (0, 1, 9), "router_cascade": (12,)}
+INPLACE = {"commit_step": (0, 1, 9), "router_cascade": (12,),
+           "commit_step_rows": (0, 8)}
 # argument position of the core ids, which a batch of elements shares
 SHARED_ARG = {"probe_classify": 4, "commit_step": 7, "sharer_reductions": 6}
 # (link, router) latency of each element in the batched kernels phase:
@@ -623,6 +663,9 @@ LARGE = (("rung4", "rung4_full"), ("rung5", "rung5_full"))
 ZOO = (("zoo_smoke", "zoo_smoke"), ("ipu", "ipu_full"),
        ("headline_moesi", "headline_moesi"))
 MODE_PATHS = ("rung4", "rung5", "ipu", "headline_moesi")
+# main paths run to a cut depth, held to the JAX digest there: path ->
+# (cut fixture, steps)
+MAIN_CUT = {"rung3": ("rung3_headline_cut1024", 1024), "ipu": ("ipu_cut", 1024)}
 FAULT_COUNTERS = ("core_failstops", "noc_reroutes", "ecc_corrected", "ecc_due")
 # the reduced fault machines (256 cores, 16x16): (step, core) of the torus's
 # kill while 214 other cores wait at a barrier, and (step, core, lock slot)
@@ -642,20 +685,20 @@ MP_CUT = 1024  # the multiprogrammed path's checkpoint step
 # snapshotted, and finished by the CLI from that snapshot (cli_multiprog)
 MP_DEPTH = 1536
 # supervised_faults: its chunk, and the committed chunk whose SIGTERM
-# preempts it (step 768 of the faulted headline)
+# preempts it (step 512 of the faulted headline)
 SUP_CHUNK = 256
-SUP_KILL_CHUNK = 3
+SUP_KILL_CHUNK = 2
 # the resumed run is preempted again after this committed chunk and held to
-# the JAX chain head there (it ran on to step 1536 until PR 14)
-SUP_STOP_CHUNK = 4
+# the JAX chain head there
+SUP_STOP_CHUNK = 3
 FORK_PREFIX = 1024  # fleet_fork's shared prefix: its schedule's first event
 # fleet_fork and fleet_fork_warm run this many steps after the fork and are
 # held to the JAX digests there (fixtures/fleet_fork_cut.json; fleet_fork
 # ran on to the end until PR 14)
 FORK_CHECK = 512
-# attest_headline's depth: two chunks of 512, each head held to the JAX
-# run's (it ran the whole 1536 steps until PR 14)
-ATTEST_DEPTH = 1024
+# attest_headline's depth: one chunk of 512, its head held to the JAX
+# run's
+ATTEST_DEPTH = 512
 # cli_supervised: rung 1's trace (64 steps, four chunks of 16) and the
 # sweep's rates-0 schedule, whose first event (step 40) puts the fork at 32
 CLI_SUP_SPEC = "fft_like:n_phases=2,points_per_core=64"
@@ -691,6 +734,21 @@ OVERLAP_FAIL_CALL = 3
 # a device sleep (~50 ms at the H100's 1.98 GHz) that holds a speculated
 # chunk on the card while a read of the committed state is timed
 HELD_SLEEP_CYCLES = 100_000_000
+# phase 16, the sharded machine: shards of the tile mesh (all on this
+# card), the depths of the sharded headline and rung 3 (held to
+# fixtures/sharded_headline_cut.json and sharded_rung3_cut.json, chunks of
+# 64), the headline step whose shard-0 kernel inputs are staged and timed
+# in the new modes, and reshard_rung2's chunk and the chunk boundary at
+# whose arrival one shard is revoked (the second: a snapshot at step 128)
+SHARDS = 4
+SHARD_DEPTH = {"sharded_headline": 512, "sharded_rung3": 256}
+SHARD_STAGE = 300
+RESHARD_CHUNK, RESHARD_AT = 128, 2
+# the kernels' launch modes on a core shard, held to their plain versions
+# and timed alone in phase 16's "mode" line
+SHARD_MODES = {"probe_classify": "probe_classify_staged",
+               "commit_step": "commit_step_rows",
+               "sharer_reductions": "sharer_reductions"}
 
 
 # operators the profiler drops before it builds its operator tree
@@ -1397,7 +1455,9 @@ def resilience_phases(dev, smi_line: str, hf, made: dict, baseline: dict | None 
         fail(f"supervised_faults: preempted at {cut}, resumed from {resumed}")
     if failed != [cut + SUP_CHUNK] or second["retries"] != 1:
         fail(f"supervised_faults: failed chunk {failed}, retries {second['retries']}")
-    if first["checkpoints_written"] != 2 or second["checkpoints_written"] != 1 \
+    # the snapshots every two chunks before the preempted one, and its own
+    if first["checkpoints_written"] != (SUP_KILL_CHUNK - 1) // 2 + 1 \
+            or second["checkpoints_written"] != 1 \
             or eng.steps_run != SUP_STOP_CHUNK * SUP_CHUNK:
         fail(f"supervised_faults: checkpoints {first}, {second}, stopped at {eng.steps_run}")
     check_launches("supervised_faults", executed, STEP_KERNELS)
@@ -2803,6 +2863,16 @@ def main() -> int:
             "sharer_reductions": reductions, "router_cascade": router_kernels}
     wrappers = {k: getattr(m, k) for k, m in mods.items()}
     plains = {k: getattr(m, f"{k}_plain") for k, m in mods.items()}
+    # the launch modes of a core shard (phase 16) that have wrappers of
+    # their own
+    shard_fns = {m: (getattr(step_kernels, m), getattr(step_kernels, f"{m}_plain"))
+                 for m in ("probe_classify_staged", "commit_step_rows")}
+
+    def wrapper_of(name):
+        return shard_fns[name][0] if name in shard_fns else wrappers[name]
+
+    def plain_of(name):
+        return shard_fns[name][1] if name in shard_fns else plains[name]
 
     fixture = load_fixture
 
@@ -2876,7 +2946,7 @@ def main() -> int:
         """A wrapper or plain version on staged arguments (the step
         kernels take a machine's config first, the headline's unless
         `mcfg` names another)."""
-        if name in STEP_KERNELS:
+        if name in STEP_KERNELS or name in shard_fns:
             return fn(mcfg or cfg, *args, **(kw or {}))
         return fn(*args, **(kw or {}))
 
@@ -2944,8 +3014,8 @@ def main() -> int:
         difference goes to `errs` (the solo record `max_err` unless a
         batched phase names its own)."""
         errs = max_err if errs is None else errs
-        got = outputs(wrappers[name], name, args, kw, mcfg)
-        want = outputs(plains[name], name, args, kw, mcfg)
+        got = outputs(wrapper_of(name), name, args, kw, mcfg)
+        want = outputs(plain_of(name), name, args, kw, mcfg)
         torch.cuda.synchronize()
         err = 0
         for g, w in zip(got, want):
@@ -2953,7 +3023,7 @@ def main() -> int:
                 fail(f"{name}: the kernel and its plain version return different outputs")
             if g is not None and not torch.equal(g, w):
                 err = max(err, int((g.to(torch.int64) - w.to(torch.int64)).abs().max()))
-        errs[name] = max(errs[name], err)
+        errs[name] = max(errs.get(name, 0), err)
         if err != 0:
             fail(f"{name}: kernel differs from its plain version by {err}")
         return got
@@ -3483,6 +3553,154 @@ def main() -> int:
     emit({"phase": "reduced_faults", "card_equals_cpu": True, "fault_state_equal": True,
           "machines": faulted})
 
+    # ---- 16. the sharded machine (parallel/sharding.py): SHARDS shards of
+    # a tile mesh, all on this card (one card: parity, not speed), through
+    # the Python API (`--devices 4` on one card is a DeviceMeshError, as in
+    # JAX). sharded_headline and sharded_rung3 to their depths, each held
+    # to the JAX digest there and to the unsharded port's in this call;
+    # the headline's shard-0 kernel inputs of step SHARD_STAGE held to the
+    # plain versions, timed alone and bounded (a "mode" line); then
+    # reshard_rung2: rung 2 under RunSupervisor loses a shard and finishes
+    # on the largest valid smaller mesh.
+    from primesim_tpu_torch.chaos import plan as chaos_plan
+    from primesim_tpu_torch.chaos import sites as chaos_sites
+    from primesim_tpu_torch.parallel import sharding
+    from primesim_tpu_torch.sim.supervisor import RunSupervisor
+
+    def digest_of(eng):
+        return run_digest(eng.steps_run, eng.cycles, eng.counters,
+                          eng.state.link_free.cpu().numpy(), eng.state.dram_free.cpu().numpy())
+
+    shard_staged, max_err_shard, shard_launches = {}, {}, {}
+
+    def stage_at(name, at):
+        """Keep clones of the arguments of the `at`-th call of a shard
+        mode's wrapper (call s * SHARDS + k is step s's shard k)."""
+        module = reductions if name == "sharer_reductions" else step_kernels
+        real, calls = getattr(module, name), [0]
+
+        def rec(mcfg, *args, **kw):
+            if calls[0] == at:
+                shard_staged[name] = ([x.clone() if torch.is_tensor(x) else x for x in args], kw)
+            calls[0] += 1
+            return real(mcfg, *args, **kw)
+        setattr(module, name, rec)
+        return lambda: setattr(module, name, real)
+
+    for path, pcfg, ptrace, ran in (("sharded_headline", cfg, trace, STEP_KERNELS),
+                                    ("sharded_rung3", cfg3, trace3, tuple(wrappers))):
+        depth = SHARD_DEPTH[path]
+        want = load_cut(f"{path}_cut", depth)["digests"][0]
+        ref = Engine(pcfg, ptrace, chunk_steps=64, device=dev)
+        t0 = time.perf_counter()
+        ref.run_steps(depth)
+        torch.cuda.synchronize()
+        ref_s = time.perf_counter() - t0
+        ref_digest = digest_of(ref)
+        del ref
+        torch.cuda.empty_cache()
+        mesh = sharding.tile_mesh(devices=[dev] * SHARDS)
+        held = torch.cuda.memory_allocated()
+        eng = Engine(pcfg, ptrace, chunk_steps=64, mesh=mesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        undo = ([stage_at(n, SHARD_STAGE * SHARDS) for n in SHARD_MODES.values()]
+                if path == "sharded_headline" else [])
+        reset_launches()
+        sharding.reset_moves()
+        t0 = time.perf_counter()
+        try:
+            eng.run_steps(depth)
+            torch.cuda.synchronize()
+        finally:
+            for u in undo:
+                u()
+        wall = time.perf_counter() - t0
+        n_launch = shard_launches[path] = dict(build.LAUNCHES)
+        moves = {k: dict(v) for k, v in sharding.MOVES.items()}
+        peak = torch.cuda.max_memory_allocated() - held
+        got, steps = digest_of(eng), eng.steps_run
+        for k, n in n_launch.items():
+            if n != ((SHARDS if k in STEP_KERNELS else 1) * steps if k in ran else 0):
+                fail(f"{path}: {k} launched {n} times in {steps} steps on {SHARDS} shards")
+        for k, v in want.items():
+            if got[k] != v:
+                fail(f"{path}: {k} {got[k]} != the JAX package's {v} at step {depth}")
+        if got != ref_digest:
+            fail(f"{path}: the sharded digest differs from the unsharded port's")
+        syncs = None
+        if path == "sharded_headline":  # 64 more steps under CUDA's sync debug mode
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    run_chunk(pcfg, 64, eng.events, eng.state, eng.has_sync)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            syncs = [str(w.message)[:200] for w in caught if "synchroniz" in str(w.message)
+                     and "prototype feature" not in str(w.message)]
+            if syncs:
+                fail(f"{path}: {len(syncs)} synchronising calls in 64 sharded steps: {syncs[:3]}")
+
+        def per_step(names):
+            return sum(moves[n]["bytes"] for n in names if n in moves) / steps
+
+        emit({"phase": path, "shards": SHARDS, "mesh_ids": mesh.ids, "steps": steps,
+              "chunk_steps": 64, "wall_s": wall, "simulated_mips": got["instructions"] / wall / 1e6,
+              "unsharded_wall_s": ref_s, "peak_memory_bytes": peak, "launches": n_launch,
+              "launches_per_step": {k: n / steps for k, n in n_launch.items()},
+              "staged_in_bytes_per_step": per_step(("probe.vrows", "probe.mrows", "run.rows")),
+              "delta_out_bytes_per_step": per_step(("commit.rows",)),
+              "moved_bytes_per_step": per_step(moves),
+              "moves": {k: {"per_step": m["moves"] / steps, "bytes_per_step": m["bytes"] / steps,
+                            "largest": m["shape"]} for k, m in sorted(moves.items())},
+              "directory_bytes": sum(p.numel() * p.element_size() for p in eng.state.dirm),
+              "instructions": got["instructions"], "max_core_cycles": got["max_core_cycles"],
+              "syncs_in_64_steps": None if syncs is None else len(syncs),
+              "equals_jax_digest": True, "equals_unsharded_port": True, "gpu": smi_line})
+        del eng
+        torch.cuda.empty_cache()
+
+    sharding.virtual_devices(SHARDS, dev)  # SHARDS ids on this card: one can be lost
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            eng = Engine(cfg2, trace2, chunk_steps=RESHARD_CHUNK, mesh=sharding.tile_mesh(SHARDS))
+            sup = RunSupervisor(eng, snapshot_dir=os.path.join(tmp, "snaps"),
+                                checkpoint_every_chunks=1, handle_signals=False)
+            chaos_sites.install(chaos_plan.FaultPlan(seed=0, events=(chaos_plan.FaultEvent(
+                site="devices.revoke", occurrence=RESHARD_AT, action="revoke",
+                args=(("n", 1),)),)))
+            reset_launches()
+            t0 = time.perf_counter()
+            try:
+                sup.run()
+                torch.cuda.synchronize()
+            finally:
+                chaos_sites.deactivate()
+            wall = time.perf_counter() - t0
+            n_launch = shard_launches["reshard_rung2"] = dict(build.LAUNCHES)
+            got, steps, to = digest_of(eng), eng.steps_run, eng.mesh.size
+    finally:
+        sharding.restore_devices()
+        sharding.virtual_devices(None)
+    before = RESHARD_CHUNK * (RESHARD_AT - 1)  # on SHARDS shards, then `to` from the snapshot
+    if sup.degrade_rungs != [f"reshard:{SHARDS}->2"] or to != 2:
+        fail(f"reshard_rung2: degrade rungs {sup.degrade_rungs}, mesh of {to}")
+    for k, n in n_launch.items():
+        if n != (SHARDS * before + to * (steps - before) if k in STEP_KERNELS else 0):
+            fail(f"reshard_rung2: {k} launched {n} times")
+    for k, v in r2fx["digest"].items():
+        if k != "steps" and got[k] != v:  # the chunk of 128 may stop short of 512's
+            fail(f"reshard_rung2: {k} {got[k]} != the JAX package's {v}")
+    emit({"phase": "reshard_rung2", "shards": SHARDS, "to_shards": to,
+          "degrade_rungs": sup.degrade_rungs, "summary": sup.summary(),
+          "log": sup.log_lines(), "steps": steps, "chunk_steps": RESHARD_CHUNK,
+          "revoked_at_chunk_boundary": RESHARD_AT, "wall_s": wall, "launches": n_launch,
+          "equals_jax_digest": True, "gpu": smi_line})
+    del eng, sup
+    torch.cuda.empty_cache()
+
     pool_launches = {}
     for f in pool_fs + calib_fs:
         pool_lines, launches_of = f.result()  # a failure there exits here
@@ -3627,8 +3845,8 @@ def main() -> int:
         inputs."""
         launch, prep = timed_call(k, args, kw, mcfg)
         return {
-            "ms": device_ms(lambda: launch(wrappers[k]), 4_000_000, prep),
-            "plain_ms": device_ms(lambda: launch(plains[k]), 100_000_000, prep),
+            "ms": device_ms(lambda: launch(wrapper_of(k)), 4_000_000, prep),
+            "plain_ms": device_ms(lambda: launch(plain_of(k)), 100_000_000, prep),
         }
 
     timing = {k: time_alone(k, *captured[k]) for k in wrappers}
@@ -3782,6 +4000,57 @@ def main() -> int:
           "gpu": smi_line}
     del staged  # the other staged steps, before the main paths' peaks
 
+    # ---- 16, continued: the shard-0 kernel inputs of the sharded
+    # headline's step SHARD_STAGE, each mode alone against its plain
+    # version, timed by events and bounded (a "mode" line)
+    def shard_bound(k, a, kw, mcfg):
+        """((ms, bound_by), detail, bytes) of a shard mode on its staged
+        inputs, counted as the whole-directory modes are: every word it
+        needs read once, every word it writes once."""
+        if k == "sharer_reductions":
+            return sharer_bound(a, kw, mcfg)
+        W1, W2, NW = mcfg.l1.ways, mcfg.llc.ways, mcfg.n_sharer_words
+        if k == "probe_classify":  # l1 vrows mrows line cid step hm wm cm
+            C = a[3].numel()
+            coarse = mcfg.sharer_group > 1
+            b = (4 * C * (4 * W1 + 3 * W1 + (2 * W1 if coarse else 0) + 2 * W2 + 4 + 2 * NW)
+                 + nbytes(*a[3:])
+                 + 4 * C * (3 * W1 + 2 * NW + step_kernels.PROBE_LANES))
+            return (b / HBM_BYTES_PER_S * 1e3, "bytes"), {"bytes": b, "lanes": C}, b
+        # l1 tag shw vic_shw lanes pc cid step counters delta hm wm cm
+        C = a[4][..., 0].numel()
+        rows, _, new_l1, _ = outputs(wrapper_of("commit_step_rows"), "commit_step_rows", a,
+                                     mcfg=mcfg)
+        l1_words, row_words = int((new_l1 != a[0]).sum()), int((rows != 0).sum())
+        win = a[4][..., step_kernels.CL_WINNER] != 0
+        n_win = int(win.sum())
+        n_join = int(((a[4][..., step_kernels.CL_JOIN] != 0) & ~win).sum())
+        b = (4 * (l1_words + row_words + C)  # L1 words, delta words, target slots
+             + 3 * nbytes(a[8])  # counters in and out, delta in
+             + nbytes(a[1], a[4], *a[6:8], *a[10:])  # tag rows, lanes, cid, step, patch
+             + 4 * C * 8  # the home-row words of the probe's lanes
+             + 4 * (n_win * NW + n_join))  # old sharer words, a joiner's own word
+        return (b / HBM_BYTES_PER_S * 1e3, "bytes"), {
+            "bytes": b, "winners": n_win, "joiners": n_join,
+            "words_written": {"l1": l1_words, "delta_rows": row_words}}, b
+
+    shard_mode = {}
+    for k, name in SHARD_MODES.items():
+        if name not in shard_staged:
+            fail(f"sharded_headline: {name}'s inputs of step {SHARD_STAGE} were not staged")
+        args, kw = shard_staged[name]
+        compare(name, args, kw, mcfg=cfg, errs=max_err_shard)
+        bnd, info, nb = shard_bound(k, args, kw, cfg)
+        shard_mode[k] = {"mode": name, **time_alone(name, args, kw, cfg),
+                         "launches": shard_launches["sharded_headline"][k],
+                         "bound_ms": bnd[0], "bound_by": bnd[1], "bytes": nb, "detail": info,
+                         "max_abs_err": max_err_shard[name], "lanes": cfg.n_cores // SHARDS}
+    shard_staged.clear()
+    torch.cuda.empty_cache()
+    emit({"phase": "mode", "path": "sharded_headline", "shard": 0, "staged_step": SHARD_STAGE,
+          "kernels": shard_mode, "max_abs_err": max_err_shard,
+          "event_floor_ms": event_floor_ms, "gpu": smi_line})
+
     # ---- 6./7. the main paths, each with the counts set to 0 just before
     launches = {}
     main_paths = [("headline", cfg, hfx, trace, STEP_KERNELS),
@@ -3806,13 +4075,16 @@ def main() -> int:
         reset_launches()
         scrubs.clear()
         inject.scrub_dead = counted_scrub
+        cut_of = MAIN_CUT.get(path)
         t0 = time.perf_counter()
         try:
-            eng.run()
+            eng.run_steps(cut_of[1]) if cut_of else eng.run()
             torch.cuda.synchronize()
         finally:
             inject.scrub_dead = real_scrub
         wall = time.perf_counter() - t0
+        if cut_of:  # held to the JAX digest at the cut
+            fx = {**fx, "digest": load_cut(*cut_of)["digests"][0]}
         launches[path] = dict(build.LAUNCHES)
         peak = torch.cuda.max_memory_allocated() - held
         baselines[path] = {"wall_s": wall, "peak_memory_bytes": peak}
@@ -3834,11 +4106,12 @@ def main() -> int:
               "dram_queue_cycles": sums["dram_queue_cycles"],
               **{k: sums[k] for k in ("probes", "barrier_waits", "prefetch_hits")},
               "digest": {k: v for k, v in got.items() if k.endswith("sha256")},
-              "equals_jax_digest": got == fx["digest"], "gpu": smi_line})
+              "equals_jax_digest": got == fx["digest"],
+              "cut": list(cut_of) if cut_of else None, "gpu": smi_line})
         for k, n in launches[path].items():
             if n != (eng.steps_run if k in ran else 0):
                 fail(f"{path}: {k} launched {n} times in {eng.steps_run} steps")
-        if not pcfg.faults_enabled and ins != ptrace.total_instructions():
+        if not (pcfg.faults_enabled or cut_of) and ins != ptrace.total_instructions():
             fail(f"{path}: {ins} instructions retired, trace has {ptrace.total_instructions()}")
         if pcfg.faults_enabled and not all(sums[k] for k in FAULT_COUNTERS):
             fail(f"{path}: a fault counter sums to 0: {fault_info}")
@@ -3847,7 +4120,7 @@ def main() -> int:
         for k, want in fx["digest"].items():
             if got[k] != want:
                 fail(f"{path}: {k} {got[k]} != the JAX package's {want}")
-        if not eng.done():
+        if not (cut_of or eng.done()):
             fail(f"{path}: not every core reached END")
         if path == "ipu" and not (sums["barrier_waits"] and sums["prefetch_hits"]):
             fail(f"ipu: {sums['barrier_waits']} barrier waits and "
@@ -4161,7 +4434,9 @@ def main() -> int:
 
     # ---- 12. the attested and served paths, before any profiler session
     fleet_launches.update(attest_serve_phases(dev, smi_line, (hfx, cfg, trace), baselines, made))
+
     fleet_launches.update(pool_launches)  # the pooled (13), calibrate and chaos (14) paths
+    fleet_launches.update(shard_launches)  # the sharded paths (16)
     fleet_launches["serve_recover"] = recover_launches
 
     # ---- 8. profile. First the profiler's device time per launch of the
@@ -4559,6 +4834,11 @@ def main() -> int:
     machine_of = {p: {"topology": c.noc.topology, "coherence": c.coherence,
                       "sharer_group": c.sharer_group, "sharer_words": c.n_sharer_words}
                   for p, c in mode_cfg.items()}
+    shard_machine = {**machine_of.get("headline", {"topology": cfg.noc.topology,
+                                                   "coherence": cfg.coherence,
+                                                   "sharer_group": cfg.sharer_group,
+                                                   "sharer_words": cfg.n_sharer_words}),
+                     "shards": SHARDS}
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": KERNEL_META[k][0],
          "replaces": KERNEL_META[k][1],
@@ -4572,11 +4852,15 @@ def main() -> int:
          "bound_by": bounds[k][1], "library_ms": None,
          "kernel_modes": KERNEL_MODES[k],
          "batched": fleet_timing[k],
-         "modes": {p: {"machine": machine_of[p],
-                       **{f: m[k][f] for f in ("launches", "ms", "plain_ms",
-                                               "profiler_us_in_step", "bound_ms",
-                                               "bound_by")}}
-                   for p, m in modes.items() if k in m}}
+         "modes": {**{p: {"machine": machine_of[p],
+                          **{f: m[k][f] for f in ("launches", "ms", "plain_ms",
+                                                  "profiler_us_in_step", "bound_ms",
+                                                  "bound_by")}}
+                      for p, m in modes.items() if k in m},
+                   **({"sharded_headline": {"machine": shard_machine, **{
+                       f: shard_mode[k][f] for f in ("mode", "launches", "ms", "plain_ms",
+                                                     "bound_ms", "bound_by", "max_abs_err")}}}
+                      if k in shard_mode else {})}}
         for k in wrappers
     ]})
     emit({"ok": True, "device": {"platform": "gpu",

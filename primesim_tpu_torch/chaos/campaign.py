@@ -39,10 +39,12 @@ Every harness simulates on one device, `cuda` unless the caller passes
 `device` (the tests pass "cpu"): the schedulers, the server, the pool's
 worker threads and the capacity trial's engine all run there, and with
 no card and no device named every entry point raises before it starts.
-The capacity trial's supervised engine holds that one device, so a
-`devices.revoke` event there is counted and logged and takes nothing (a
-JAX 8-device mesh really reshards); its result is held to the fault-free
-reference all the same.
+The capacity trial's supervised engine holds that one device unsharded:
+a `devices.revoke` event there takes a visible device from the pool
+when there are several (the CPU's `XLA_FLAGS` count), the run has no
+mesh to shrink and retries, and on one card it takes nothing; its result
+is held to the fault-free reference all the same. The trial on a mesh
+(the JAX 8-device one reshards) is not ported yet.
 """
 
 from __future__ import annotations
@@ -965,7 +967,10 @@ def _capacity_supervisor_half(tmp: str, violations: list, ref: dict,
     from ..sim.engine import Engine
     from ..sim.supervisor import RunSupervisor
 
+    from ..parallel import sharding
+
     cfg, trace = _capacity_workload()
+    sharding.restore_devices()  # every trial starts from a healthy pool
     eng = Engine(cfg, trace, chunk_steps=32, device=device)
     sup = RunSupervisor(
         eng, snapshot_dir=os.path.join(tmp, "snaps"),
@@ -978,6 +983,8 @@ def _capacity_supervisor_half(tmp: str, violations: list, ref: dict,
             f"invariant G: supervised run died under device loss: {e!r}"
         )
         return
+    finally:
+        sharding.restore_devices()
     if not np.array_equal(eng.cycles, ref["cycles"]):
         violations.append(
             "invariant G: cycles diverged after device-loss recovery"

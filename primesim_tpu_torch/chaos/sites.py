@@ -32,9 +32,10 @@ never the run), the client's socket, the serving
 daemon's, the pool's and the replica's crashpoints, the replication
 stream (`replication`, serve/replicate.py), the pool's lease and
 heartbeat clocks, the two silent-corruption sites, the supervisor's
-device revocation (`device_revoke`, sim/supervisor.py: on one card
-there is no device to lose, so an event there is counted and logged and
-changes nothing) and the disk-space probe.
+device revocation (`device_revoke`, sim/supervisor.py: it revokes
+devices of the engine's mesh and the run reshards; on one device there
+is nothing to lose, so an event there is counted and logged and changes
+nothing) and the disk-space probe.
 """
 
 from __future__ import annotations

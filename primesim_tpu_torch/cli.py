@@ -376,6 +376,23 @@ def _emit_preempted(e, sup) -> int:
     return 75
 
 
+def _build_mesh(ns, cfg, device):
+    """--devices N: a validated tile mesh over the first N visible devices
+    of the run's platform (or None without the flag). Cores and L1s shard
+    by core, the directory by bank (`parallel/sharding.py`); a bad N (not
+    dividing the cores or banks, or more devices than visible) raises the
+    typed DeviceMeshError, exit 2, before anything is placed."""
+    if not getattr(ns, "devices", 0):
+        return None
+    from .parallel.sharding import tile_mesh, validate_devices, visible_devices
+
+    platform = "gpu" if device.type == "cuda" else "cpu"
+    validate_devices(cfg, ns.devices, platform)
+    mesh = tile_mesh(devices=visible_devices(platform)[: ns.devices])
+    print(f"mesh: {ns.devices} devices ({mesh.platform})", file=sys.stderr)
+    return mesh
+
+
 def _run_supervised(ns, cfg, eng, device, rec=None) -> int:
     """Supervised `run` path: chunk-committed execution under a
     RunSupervisor (auto-checkpoint, preemption, retry, guard)."""
@@ -434,11 +451,16 @@ def cmd_run(ns) -> int:
             "recorder OR the XLA profiler for a given run)"
         )
     if ns.stream_window:
+        if ns.devices:
+            from .pool.worker import MultiDeviceNotPorted
+
+            raise MultiDeviceNotPorted(ns.devices)  # the sharded stream
         return _run_stream(ns, cfg, tr, supervised, rec, cache, t_start)
     device = resolve_device(ns.device)
+    mesh = _build_mesh(ns, cfg, device)
     if device.type == "cuda":
         build.libraries(build.KERNELS)  # build or load before the clock starts
-    eng = Engine(cfg, tr, chunk_steps=ns.chunk_steps, device=device)
+    eng = Engine(cfg, tr, chunk_steps=ns.chunk_steps, device=device, mesh=mesh)
     eng.overlap = ns.overlap == "on"
     if ns.attest == "chain":
         # the chain covers every committed chunk of the host loop (the
@@ -778,6 +800,11 @@ def cmd_sweep(ns) -> int:
         # worker subprocesses leasing units over the serve protocol
         from .pool.campaign import run_pooled_sweep
 
+        if ns.devices:
+            from .pool.worker import MultiDeviceNotPorted
+
+            raise MultiDeviceNotPorted(ns.devices)  # the pool's sharded units
+
         return run_pooled_sweep(ns, cfg)
     if ns.report:
         raise SystemExit(
@@ -816,15 +843,17 @@ def cmd_sweep(ns) -> int:
         )
     rec = _build_recorder(ns)
     device = resolve_device(ns.device)
+    mesh = _build_mesh(ns, cfg, device)
     if device.type == "cuda":
         build.libraries(build.KERNELS)  # build or load before the clock starts
     if ns.strict:
         traces = [s() if callable(s) else s for s in sources]
-        fleet = FleetEngine(cfg, traces, ovs, chunk_steps=ns.chunk_steps, device=device)
+        fleet = FleetEngine(cfg, traces, ovs, chunk_steps=ns.chunk_steps, device=device,
+                            mesh=mesh)
         quarantined: list = []
     else:
         fleet, quarantined = build_fleet_isolated(
-            cfg, sources, ovs, chunk_steps=ns.chunk_steps, device=device
+            cfg, sources, ovs, chunk_steps=ns.chunk_steps, device=device, mesh=mesh
         )
     for i, err in quarantined:
         detail = {
@@ -862,7 +891,7 @@ def cmd_sweep(ns) -> int:
             fleet = FleetEngine(
                 cfg, [fleet.traces[j] for j in keep],
                 [fleet.element_overrides[j] for j in keep],
-                chunk_steps=ns.chunk_steps, device=device,
+                chunk_steps=ns.chunk_steps, device=device, mesh=mesh,
             )
             fleet.element_ids = kept_ids
     _emit_ttfs_line(cache, t_start)
@@ -1147,6 +1176,10 @@ def cmd_serve(ns) -> int:
     rec = _build_recorder(ns)
     if ns.tcp and ns.socket:
         raise SystemExit("--tcp and --socket are mutually exclusive")
+    if ns.devices:
+        from .pool.worker import MultiDeviceNotPorted
+
+        raise MultiDeviceNotPorted(ns.devices)  # sharded serving buckets
     device = resolve_device(ns.device)
     if device.type == "cuda" and not ns.pool_dir:
         build.libraries(build.KERNELS)  # build or load before the first job
@@ -1876,6 +1909,13 @@ def build_parser() -> argparse.ArgumentParser:
              "traces larger than host memory)",
     )
     r.add_argument(
+        "--devices", type=int, default=0, metavar="N",
+        help="shard the simulated machine over the first N devices "
+             "(cores/L1s by core, LLC/directory by bank; on the CPU the "
+             "devices are XLA_FLAGS=--xla_force_host_platform_device_"
+             "count's)",
+    )
+    r.add_argument(
         "--ingest-workers", type=int, default=0, metavar="K",
         help="(--stream-window) pipeline the window fill MPMD-style: K "
              "`python -m primesim_tpu_torch worker` processes ingest "
@@ -1951,6 +1991,12 @@ def build_parser() -> argparse.ArgumentParser:
         help="disable fleet fault isolation: any malformed element "
              "(unreadable trace, bad overrides) aborts the whole sweep "
              "instead of being quarantined into its own JSON line",
+    )
+    w.add_argument(
+        "--devices", type=int, default=0, metavar="N",
+        help="shard EVERY fleet element over the first N devices (shard "
+             "x vmap, DESIGN.md §22: cores/L1s by core, LLC/directory by "
+             "bank, under the element batch); not yet with --workers",
     )
     w.add_argument(
         "--workers", type=int, default=0, metavar="N",
@@ -2101,6 +2147,11 @@ def build_parser() -> argparse.ArgumentParser:
     v.add_argument(
         "--lease-ttl", type=float, default=10.0, metavar="SEC",
         help="dispatch mode: pool lease TTL (default 10)",
+    )
+    v.add_argument(
+        "--devices", type=int, default=0, metavar="N",
+        help="dispatch mode: every leased unit runs on a fleet sharded "
+             "over N devices (not ported yet: refused, exit 2)",
     )
     v.add_argument(
         "--quota", default=None, metavar="RATE[:BURST]",
@@ -2437,12 +2488,15 @@ def main(argv=None) -> int:
     from .analysis.errors import FsckCorrupt
     from .attest.errors import AttestationError
     from .calib.table import CalibError
+    from .parallel.sharding import DeviceMeshError
+    from .pool.worker import MultiDeviceNotPorted
     from .sim.checkpoint import CheckpointCorrupt
 
     try:
         return ns.fn(ns)
     except (TraceError, ConfigError, FaultConfigError, CheckpointCorrupt,
-            VarySpecError, AttestationError, FsckCorrupt, CalibError) as e:
+            VarySpecError, AttestationError, FsckCorrupt, CalibError,
+            DeviceMeshError, MultiDeviceNotPorted) as e:
         # typed errors exit 2 with ONE structured JSON line on stderr, as
         # `primetpu` prints them
         print(json.dumps(_error_obj(e)), file=sys.stderr)

@@ -22,7 +22,7 @@ import torch
 
 from .config.machine import MachineConfig
 from .faults.schedule import FaultState
-from .sim.state import MachineState, TimingKnobs, init_state
+from .sim.state import MachineState, Shards, TimingKnobs, init_state
 
 _NESTED = {"knobs": TimingKnobs, "faults": FaultState}
 _FIELDS = tuple(f for f in MachineState._fields if f not in _NESTED)
@@ -68,8 +68,11 @@ def to_host(tensors) -> list[np.ndarray]:
     synchronisation: on a card each tensor is queued into its own 8-byte
     aligned slice of one pinned buffer, then the stream is waited on once
     (a `.cpu()` per tensor waits once per tensor, from pageable memory).
-    On the CPU the arrays are views of the tensors themselves."""
-    tensors = list(tensors)
+    On the CPU the arrays are views of the tensors themselves. A sharded
+    field (`sim.state.Shards`) is gathered whole on its mesh's lead
+    device first."""
+    tensors = [t.mesh.exchange.full(t, t.mesh.lead) if isinstance(t, Shards) else t
+               for t in tensors]
     if not tensors or tensors[0].device.type != "cuda":
         return [t.detach().numpy() for t in tensors]
     sizes = [t.numel() * t.element_size() for t in tensors]

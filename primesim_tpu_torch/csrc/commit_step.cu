@@ -39,6 +39,13 @@
 // are disjoint); lanes 0-3 add the winner's pair, LRU and epoch words and
 // lane n < NW (in strides of 32) sharer word n. The block folds the
 // counters of its 8 cores, each of the NC rows as 8 contiguous words.
+// Delta-row mode (rows_mode = 1, a core shard of a tile mesh, whose
+// directory rows live on other shards): as the Pallas kernel's contract
+// has it, the deltas go to drows[c] (zeroed by the caller; each word of a
+// lane's row is written by one thread) and the target slot to
+// upd_slot[c] (slot for winners and joiners, NS otherwise), and the owner
+// of the row adds them; dirm is not touched. The launch's C lanes are
+// then a block of the machine's cores, cid[] their global ids.
 // Batch: one launch serves B simulations of one geometry (the fleet's).
 // Warp g is core c = g % C of element b = g / C: its L1 row, lanes and
 // probe outputs sit at g, its directory at dirm + b*NS*DW (a 64-bit
@@ -80,9 +87,10 @@ __global__ void __launch_bounds__(WARPS * 32) commit_step_kernel(
     const int* __restrict__ pc_lanes, const int* __restrict__ cid_v,
     const int* __restrict__ step_p, int* __restrict__ counters,
     const int* __restrict__ delta, const uint8_t* __restrict__ hm,
-    const uint8_t* __restrict__ wm, const int* __restrict__ cm, int B,
-    int C, int NS, int S1, int W1, int W2, int NW, int MW, int DW, int NC,
-    int rl, int cm_ld, int logG, int moesi) {
+    const uint8_t* __restrict__ wm, const int* __restrict__ cm,
+    int* __restrict__ drows, int* __restrict__ upd_slot, int B, int C,
+    int NS, int S1, int W1, int W2, int NW, int MW, int DW, int NC, int rl,
+    int cm_ld, int logG, int moesi, int rows_mode) {
   const int c0 = blockIdx.x * WARPS;  // warps run over B*C
   for (int t = threadIdx.x; t < NC * WARPS; t += blockDim.x) {
     const int g = c0 + t % WARPS;
@@ -180,9 +188,10 @@ __global__ void __launch_bounds__(WARPS * 32) commit_step_kernel(
     }
   }
 
-  // ---- directory deltas, added to row `slot`
+  // ---- directory deltas, added to row `slot` (or written out)
+  if (rows_mode && lane == 0) upd_slot[c] = wj ? slot : NS;
   if (!wj) return;
-  int* drow = dirm + ((size_t)b * NS + slot) * DW;
+  int* drow = rows_mode ? drows + (size_t)c * DW : dirm + ((size_t)b * NS + slot) * DW;
   const int grp = cid >> logG;  // the core's sharer bit: itself or its group
   const int self_w = grp >> 5, self_b = grp & 31;
   if (winner) {
@@ -221,12 +230,12 @@ extern "C" int commit_step_launch(
     int* l1, int* dirm, const int* tag_rows, const int* shw, const int* vshw,
     const int* lanes, const int* pc_lanes, const int* cid, const int* step,
     int* counters, const int* delta, const uint8_t* hm, const uint8_t* wm,
-    const int* cm, int B, int C, int NS, int S1, int W1, int W2, int NW,
-    int MW, int DW, int NC, int rl, int cm_ld, int logG, int moesi,
-    cudaStream_t stream) {
+    const int* cm, int* drows, int* upd_slot, int B, int C, int NS, int S1,
+    int W1, int W2, int NW, int MW, int DW, int NC, int rl, int cm_ld,
+    int logG, int moesi, int rows_mode, cudaStream_t stream) {
   commit_step_kernel<<<(B * C + WARPS - 1) / WARPS, WARPS * 32, 0, stream>>>(
       l1, dirm, tag_rows, shw, vshw, lanes, pc_lanes, cid, step, counters,
-      delta, hm, wm, cm, B, C, NS, S1, W1, W2, NW, MW, DW, NC, rl, cm_ld,
-      logG, moesi);
+      delta, hm, wm, cm, drows, upd_slot, B, C, NS, S1, W1, W2, NW, MW, DW,
+      NC, rl, cm_ld, logG, moesi, rows_mode);
   return (int)cudaGetLastError();
 }

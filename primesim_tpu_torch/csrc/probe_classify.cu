@@ -41,6 +41,12 @@
 // launch argument logG, the same for every thread: its two extra words
 // per way (the L1 epoch in round 2, the entry's epoch in round 3) ride
 // the existing rounds, and the full-map path loads nothing more.
+// Staged-rows mode (staged = 1, a core shard of a tile mesh, whose
+// directory rows live on other shards): the caller stages the rows, as the
+// Pallas kernel's contract has it, vrows[c][w] the row at way w's pointer
+// and mrows[c] the home row, and the kernel reads those instead of dirm.
+// Nothing else changes; the launch's C lanes are then a block of the
+// machine's cores, cid[] their global ids.
 // Batch: one launch serves B simulations of one geometry (the fleet's).
 // Warp g is core c = g % C of element b = g / C: its L1 row, lanes and
 // outputs sit at g (the batch is [B, C]-major), its directory at
@@ -67,8 +73,9 @@ __global__ void __launch_bounds__(WARPS * 32) probe_classify_kernel(
     const int* __restrict__ cm, int* __restrict__ tag_out,
     int* __restrict__ lru_out, int* __restrict__ weff_out,
     int* __restrict__ shw_out, int* __restrict__ vshw_out,
-    int* __restrict__ lanes_out, int B, int C, int NS, int S1, int W1,
-    int W2, int NW, int MW, int DW, int rl, int cm_ld, int logG) {
+    int* __restrict__ lanes_out, const int* __restrict__ vrows,
+    const int* __restrict__ mrows, int B, int C, int NS, int S1, int W1,
+    int W2, int NW, int MW, int DW, int rl, int cm_ld, int logG, int staged) {
   const int lane = threadIdx.x & 31;
   const int c = blockIdx.x * WARPS + (threadIdx.x >> 5);  // over B*C
   if (c >= B * C) return;  // the whole warp
@@ -77,7 +84,7 @@ __global__ void __launch_bounds__(WARPS * 32) probe_classify_kernel(
   const int line = line_v[c];
   const int cid = cid_v[c - b * C];
   dirm += (size_t)b * NS * DW;  // the element's directory
-  const int* mr = dirm + (size_t)slot_v[c] * DW;
+  const int* mr = staged ? mrows + (size_t)c * DW : dirm + (size_t)slot_v[c] * DW;
   const int step = step_p[b];
   const int l1s = line & (S1 - 1);
   const bool coarse = logG > 0;  // uniform across the launch
@@ -129,7 +136,8 @@ __global__ void __launch_bounds__(WARPS * 32) probe_classify_kernel(
   int weff = I;
   if (is_way) {
     const int pway = floor_mod(ptr, W2);
-    const int* pr = dirm + (size_t)floor_div(ptr, W2) * DW;
+    const int* pr = staged ? vrows + ((size_t)c * W1 + lane) * DW
+                           : dirm + (size_t)floor_div(ptr, W2) * DW;
     const int vtag = pr[2 * pway];
     const int vown = pr[2 * pway + 1];
     const int vsh = pr[MW + pway * NW + u_w];
@@ -196,13 +204,13 @@ extern "C" int probe_classify_launch(
     const int* l1, const int* dirm, const int* slot, const int* line,
     const int* cid, const int* step, const uint8_t* hm, const uint8_t* wm,
     const int* cm, int* tag_out, int* lru_out, int* weff_out, int* shw_out,
-    int* vshw_out, int* lanes_out, int B, int C, int NS, int S1, int W1,
-    int W2, int NW, int MW, int DW, int rl, int cm_ld, int logG,
-    cudaStream_t stream) {
+    int* vshw_out, int* lanes_out, const int* vrows, const int* mrows, int B,
+    int C, int NS, int S1, int W1, int W2, int NW, int MW, int DW, int rl,
+    int cm_ld, int logG, int staged, cudaStream_t stream) {
   probe_classify_kernel<<<(B * C + WARPS - 1) / WARPS, WARPS * 32, 0,
                           stream>>>(
       l1, dirm, slot, line, cid, step, hm, wm, cm, tag_out, lru_out,
-      weff_out, shw_out, vshw_out, lanes_out, B, C, NS, S1, W1, W2, NW, MW,
-      DW, rl, cm_ld, logG);
+      weff_out, shw_out, vshw_out, lanes_out, vrows, mrows, B, C, NS, S1, W1,
+      W2, NW, MW, DW, rl, cm_ld, logG, staged);
   return (int)cudaGetLastError();
 }

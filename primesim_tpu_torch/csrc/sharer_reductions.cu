@@ -59,6 +59,9 @@
 // builds. The requester's and the owner's group bits are tested by the
 // lane that holds their word and OR-reduced. Which mode runs is the
 // launch argument logG, the same for every thread.
+// Lanes and targets: the launch's C lanes may be a block of the CT cores
+// of the machine (a core shard of a tile mesh, cid[] their global ids);
+// the sharer bits name targets below CT.
 // Batch: one launch serves B simulations of one geometry (the fleet's).
 // Warp g is core c = g % C of element b = g / C: its rows, flags, lanes
 // and outputs sit at g, its link and router latencies at link[b] and
@@ -74,9 +77,9 @@ namespace {
 constexpr int WARPS = 8;  // cores per block
 constexpr unsigned FULL = 0xffffffffu;
 
-// the bits of word w that name targets below C
-__device__ __forceinline__ uint32_t valid_bits(int w, int C) {
-  const int n = C - 32 * w;
+// the bits of word w that name targets below n
+__device__ __forceinline__ uint32_t valid_bits(int w, int n_targets) {
+  const int n = n_targets - 32 * w;
   return n >= 32 ? FULL : (n <= 0 ? 0u : (1u << n) - 1u);
 }
 
@@ -94,8 +97,9 @@ __global__ void __launch_bounds__(WARPS * 32) sharer_reductions_kernel(
     int* __restrict__ inv_cnt, int* __restrict__ inv_hops,
     int* __restrict__ back_cnt, int* __restrict__ back_hops,
     const int* __restrict__ memb, const int* __restrict__ max2hops,
-    const int* __restrict__ sum2hops, int B, int C, int NW, int n_tiles,
-    int mesh_x, int mesh_y, int topology, int vo_ld, int logG, int n_grp) {
+    const int* __restrict__ sum2hops, int B, int C, int CT, int NW,
+    int n_tiles, int mesh_x, int mesh_y, int topology, int vo_ld, int logG,
+    int n_grp) {
   const int c = blockIdx.x * WARPS + (threadIdx.x >> 5);  // over B*C
   const int lane = threadIdx.x & 31;
   if (c >= B * C) return;  // the whole warp leaves together
@@ -189,7 +193,7 @@ __global__ void __launch_bounds__(WARPS * 32) sharer_reductions_kernel(
     return;
   }
   for (int w = lane; w < NW; w += 32) {
-    const uint32_t valid = valid_bits(w, C);
+    const uint32_t valid = valid_bits(w, CT);
     if (irow) {
       uint32_t m = (uint32_t)sw[w] & valid;
       if (self >= 0 && (self >> 5) == w) m &= ~(1u << (self & 31));
@@ -236,13 +240,13 @@ extern "C" int sharer_reductions_launch(
     const int* cid, const int* link, const int* router, int* inv_lat,
     int* inv_cnt, int* inv_hops, int* back_cnt, int* back_hops,
     const int* memb, const int* max2hops, const int* sum2hops, int B, int C,
-    int NW, int n_tiles, int mesh_x, int mesh_y, int topology, int vo_ld,
-    int logG, int n_grp, cudaStream_t stream) {
+    int CT, int NW, int n_tiles, int mesh_x, int mesh_y, int topology,
+    int vo_ld, int logG, int n_grp, cudaStream_t stream) {
   const int blocks = (B * C + WARPS - 1) / WARPS;
   sharer_reductions_kernel<<<blocks, WARPS * 32, 0, stream>>>(
       shw, vic_shw, btile, vic_owner, inv_row, vic_valid, cid, link, router,
       inv_lat, inv_cnt, inv_hops, back_cnt, back_hops, memb, max2hops,
-      sum2hops, B, C, NW, n_tiles, mesh_x, mesh_y, topology, vo_ld, logG,
-      n_grp);
+      sum2hops, B, C, CT, NW, n_tiles, mesh_x, mesh_y, topology, vo_ld,
+      logG, n_grp);
   return (int)cudaGetLastError();
 }

@@ -18,6 +18,10 @@ branch in torch. Both modes take the NoC topology's hop count (mesh,
 torus or ring: `noc.topology.coord_hops`), in the kernel through the
 launch argument `topology` (`TOPOLOGY_CODE`).
 
+The lanes may be a block of the machine's cores (a core shard of a
+tile mesh, `parallel/sharding.py`): `cid` then holds the block's global
+core ids, and the sharer bits still name every core of the machine.
+
 Batched, one launch serves the B simulations of a fleet: the rows and
 lanes are [B, C, ...], and `link_lat`/`router_lat` are [B] (the elements'
 own latency knobs); the core ids and the group tables are shared. Solo
@@ -54,14 +58,13 @@ def sharer_reductions_plain(
             cfg, shw, vic_shw, btile, vic_owner, inv_row, vic_valid, cid,
             link_lat, router_lat, tables,
         )
-    C = shw.shape[1]
     NW = cfg.n_sharer_words
     mx, my = cfg.noc.mesh_x, cfg.noc.mesh_y
     t = torch.arange(NW * 32, dtype=torch.int32, device=shw.device)
     word = (t >> 5).long()
     bits = ((shw[..., word] >> (t & 31)) & 1) != 0  # [B, C, 32*NW]
     vbits = ((vic_shw[..., word] >> (t & 31)) & 1) != 0
-    tvalid = t < C
+    tvalid = t < cfg.n_cores  # the targets: every core of the machine
     tt = t % cfg.n_tiles
     bt = btile[..., None]
     hops = topology.coord_hops(
@@ -170,7 +173,7 @@ def sharer_reductions(
             cfg, *unsqueeze_all(shw, vic_shw, btile, vic_owner, inv_row, vic_valid),
             cid, *unsqueeze_all(link_lat, router_lat), tables,
         ))
-    Bn, C, NW = shw.shape[0], cfg.n_cores, cfg.n_sharer_words
+    Bn, C, NW = shw.shape[0], shw.shape[1], cfg.n_sharer_words
     n_grp = cfg.n_sharer_groups
     check_tensor("shw", shw, (Bn, C, NW), dev)
     check_tensor("vic_shw", vic_shw, (Bn, C, NW), dev)
@@ -200,7 +203,7 @@ def sharer_reductions(
         "sharer_reductions",
         [shw, vic_shw, btile, vic_owner, inv_row, vic_valid, cid, link_lat,
          router_lat, *outs, memb, max2hops, sum2hops],
-        [Bn, C, NW, cfg.n_tiles, cfg.noc.mesh_x, cfg.noc.mesh_y,
+        [Bn, C, cfg.n_cores, NW, cfg.n_tiles, cfg.noc.mesh_x, cfg.noc.mesh_y,
          TOPOLOGY_CODE[cfg.noc.topology], vic_owner.stride(1),
          cfg.sharer_group.bit_length() - 1, n_grp],
         torch.cuda.current_stream(dev),

@@ -18,6 +18,14 @@ Mosaic could not:
   `dirm.at[upd_slot].add(delta_row, mode="drop")`; other lanes add
   nothing) and `counters += delta`.
 
+On a tile mesh (`parallel/sharding.py`) a core shard's directory rows
+live on other shards, so each kernel has a second launch mode that keeps
+the JAX Pallas kernel's contract: `probe_classify_staged` takes the rows
+staged ([B, C, W1, DW] at each way's pointer, [B, C, DW] at the home
+slot) and `commit_step_rows` returns each lane's delta row and target
+slot instead of adding them; the owner bank shard adds them. Both serve
+a block of the cores, with their global ids in `cid`.
+
 Each wrapper runs the CUDA kernel (`csrc/probe_classify.cu`,
 `csrc/commit_step.cu`) on CUDA tensors and the plain torch version below
 on CPU tensors. Under the coarse sharer vector (`cfg.sharer_group` =
@@ -126,9 +134,39 @@ def probe_classify_plain(
             cfg, *unsqueeze_all(l1, dirm, slot, line), cid,
             *unsqueeze_all(step_no, hm, wm, cm),
         ))
+    Bn, W2, DW = l1.shape[0], cfg.llc.ways, dirm_width(cfg)
+    flat = dirm.view(Bn, -1)
+
+    def vword(ptr_w, col):  # word `col` of row ptr // W2, per way
+        idx = (ptr_w // W2).long() * DW + col
+        return flat.gather(1, idx.reshape(Bn, -1)).view(idx.shape)
+
+    ib = torch.arange(Bn, device=l1.device)[:, None]
+    return _probe_plain(cfg, l1, vword, dirm[ib, slot.long()], line, cid, step_no,
+                        hm, wm, cm)
+
+
+def probe_classify_staged_plain(
+    cfg: MachineConfig, l1, vrows, mrows, line, cid, step_no,
+    hm=None, wm=None, cm=None,
+):
+    """Plain version of the staged-rows mode: the directory rows come in
+    staged, `vrows` [B, C, W1, DW] the rows at each way's pointer
+    (ptr // W2) and `mrows` [B, C, DW] the home rows, as the JAX Pallas
+    kernel takes them. Same outputs as `probe_classify_plain`."""
+    def vword(ptr_w, col):  # word `col` of way w's staged row
+        return vrows.gather(3, col.expand(ptr_w.shape).long()[..., None])[..., 0]
+
+    return _probe_plain(cfg, l1, vword, mrows, line, cid, step_no, hm, wm, cm)
+
+
+def _probe_plain(cfg, l1, vword, mrows, line, cid, step_no, hm, wm, cm):
+    """Phase 1 from the L1 rows, a reader of the validation words
+    (`vword(ptr_w, col)`: word col of each way's directory row) and the
+    home rows `mrows` [B, C, DW]."""
     Bn, C = l1.shape[:2]
     S1, W1, W2 = cfg.l1.sets, cfg.l1.ways, cfg.llc.ways
-    NW, MW, DW = cfg.n_sharer_words, llc_meta_width(cfg), dirm_width(cfg)
+    NW, MW = cfg.n_sharer_words, llc_meta_width(cfg)
     FS = W1 * S1
     coarse = cfg.sharer_group > 1
     g = cid >> (cfg.sharer_group.bit_length() - 1)  # the core's sharer bit
@@ -153,18 +191,12 @@ def probe_classify_plain(
     # words (tag, owner, own sharer word) of row ptr // W2 at way ptr % W2;
     # under Dir-G the group bit also needs the entry's epoch unchanged
     pway = ptr_w % W2
-    prow = (ptr_w // W2).long() * DW
-    flat = dirm.view(Bn, -1)
-
-    def word(idx):  # flat[b, idx[b, ...]]
-        return flat.gather(1, idx.reshape(Bn, -1)).view(idx.shape)
-
-    vtag = word(prow + 2 * pway)
-    vown = word(prow + 2 * pway + 1)
-    vsh = word(prow + MW + pway * NW + (g[:, None] >> 5))
+    vtag = vword(ptr_w, 2 * pway)
+    vown = vword(ptr_w, 2 * pway + 1)
+    vsh = vword(ptr_w, MW + pway * NW + (g[:, None] >> 5))
     vbit = ((vsh >> (g[:, None] & 31)) & 1) != 0
     if coarse:
-        vbit = vbit & (word(prow + 3 * W2 + pway) == planes[4])
+        vbit = vbit & (vword(ptr_w, 3 * W2 + pway) == planes[4])
     weff = torch.where(
         (st_w == I) | (vtag != tag_w),
         I,
@@ -175,8 +207,6 @@ def probe_classify_plain(
     hit_state = take(weff, hit_way)
 
     # LLC home-row parse
-    ib = torch.arange(Bn, device=dev)[:, None]
-    mrows = dirm[ib, slot.long()]  # [B, C, DW]
     ltag = mrows[..., 0 : 2 * W2 : 2]
     lown = mrows[..., 1 : 2 * W2 : 2]
     llru = mrows[..., 2 * W2 : 3 * W2]
@@ -229,9 +259,41 @@ def commit_step_plain(
             cfg, *unsqueeze_all(l1, dirm, tag_rows, shw, vic_shw, lanes, pc_lanes),
             cid, *unsqueeze_all(step_no, counters, delta, hm, wm, cm),
         )
-    Bn = l1.shape[0]
+    Bn, DW = l1.shape[0], dirm_width(cfg)
+    slot, cols, vals = _commit_plain(cfg, l1, tag_rows, shw, vic_shw, lanes,
+                                     pc_lanes, cid, step_no, counters, delta,
+                                     hm, wm, cm)
+    dirm.view(Bn, -1).scatter_add_(
+        1, (slot.long()[..., None] * DW + cols).view(Bn, -1), vals.reshape(Bn, -1)
+    )
+
+
+def commit_step_rows_plain(
+    cfg: MachineConfig, l1, tag_rows, shw, vic_shw, lanes, pc_lanes,
+    cid, step_no, counters, delta, hm=None, wm=None, cm=None,
+):
+    """Plain version of the delta-row mode: in place on `l1` and
+    `counters`, and, instead of adding into a directory, returns each
+    lane's delta row [B, C, DW] and its target slot [B, C] (CL_SLOT for
+    winners and joiners, NS for the others: the JAX package's
+    `upd_slot`), which the caller adds to the owner's rows."""
+    Bn, C = l1.shape[:2]
+    DW, NS = dirm_width(cfg), cfg.n_banks * cfg.llc.sets
+    slot, cols, vals = _commit_plain(cfg, l1, tag_rows, shw, vic_shw, lanes,
+                                     pc_lanes, cid, step_no, counters, delta,
+                                     hm, wm, cm)
+    rows = torch.zeros(Bn, C, DW, dtype=_i32, device=l1.device)
+    rows.scatter_(2, cols.long(), vals)  # a lane's columns are distinct
+    wj = (lanes[..., CL_WINNER] != 0) | (lanes[..., CL_JOIN] != 0)
+    return rows, torch.where(wj, slot, NS).to(_i32)
+
+
+def _commit_plain(cfg, l1, tag_rows, shw, vic_shw, lanes, pc_lanes, cid,
+                  step_no, counters, delta, hm, wm, cm):
+    """The L1 writes and the counter fold in place; returns each lane's
+    directory slot, delta columns and delta words [B, C, 4 + NW]."""
     S1, W1, W2 = cfg.l1.sets, cfg.l1.ways, cfg.llc.ways
-    NW, MW, DW = cfg.n_sharer_words, llc_meta_width(cfg), dirm_width(cfg)
+    NW, MW = cfg.n_sharer_words, llc_meta_width(cfg)
     FS = W1 * S1
     dev = l1.device
     lane = lanes.unbind(-1)
@@ -323,10 +385,8 @@ def commit_step_plain(
     )
     # lanes neither winner nor joiner add zeros (the JAX package drops them)
     vals = torch.where(winner[..., None], win_d, torch.where(join[..., None], join_d, 0))
-    dirm.view(Bn, -1).scatter_add_(
-        1, (slot.long()[..., None] * DW + cols).view(Bn, -1), vals.reshape(Bn, -1)
-    )
     counters += delta
+    return slot, cols, vals
 
 
 def _check_widths(name: str, cfg: MachineConfig, hm) -> int:
@@ -386,8 +446,7 @@ def probe_classify(
             *unsqueeze_all(step_no, hm, wm, cm),
         ))
     Bn, C = l1.shape[0], cfg.n_cores
-    S1, W1, W2 = cfg.l1.sets, cfg.l1.ways, cfg.llc.ways
-    NW, MW, DW = cfg.n_sharer_words, llc_meta_width(cfg), dirm_width(cfg)
+    S1, W1, DW = cfg.l1.sets, cfg.l1.ways, dirm_width(cfg)
     NS = cfg.n_banks * cfg.llc.sets
     check_tensor("l1", l1, (Bn, C, 5 * W1 * S1), dev)
     check_tensor("dirm", dirm, (Bn, NS, DW), dev)
@@ -395,15 +454,53 @@ def probe_classify(
         check_tensor(name, x, (Bn, C), dev)
     check_tensor("cid", cid, (C,), dev)
     check_tensor("step_no", step_no, (Bn,), dev)
+    return _launch_probe(cfg, l1, dirm, slot, line, cid, step_no, hm, wm, cm,
+                         dirm, dirm, NS, rl, dev, staged=0)
+
+
+def probe_classify_staged(
+    cfg: MachineConfig, l1, vrows, mrows, line, cid, step_no,
+    hm=None, wm=None, cm=None,
+):
+    """Phase 1 in the staged-rows mode, the JAX Pallas kernel's contract:
+    the caller stages the directory rows the probe reads, `vrows`
+    [B, C, W1, DW] (the row at each way's pointer ptr // W2) and `mrows`
+    [B, C, DW] (the home row at `slot`), so `l1` [B, C, 5*W1*S1] may be a
+    block of the machine's cores (a core shard of a tile mesh, whose
+    rows live on other shards), with `cid` [C] their global ids. Batched
+    shapes only. The CUDA kernel on CUDA tensors, the plain version on
+    CPU tensors; the outputs are `probe_classify`'s."""
+    rl = _check_widths("probe_classify", cfg, hm)
+    dev = _device("probe_classify", l1)
+    if dev.type == "cpu":
+        return probe_classify_staged_plain(cfg, l1, vrows, mrows, line, cid,
+                                           step_no, hm, wm, cm)
+    Bn, C = l1.shape[:2]
+    W1, DW = cfg.l1.ways, dirm_width(cfg)
+    check_tensor("l1", l1, (Bn, C, 5 * W1 * cfg.l1.sets), dev)
+    check_tensor("vrows", vrows, (Bn, C, W1, DW), dev)
+    check_tensor("mrows", mrows, (Bn, C, DW), dev)
+    check_tensor("line", line, (Bn, C), dev)
+    check_tensor("cid", cid, (C,), dev)
+    check_tensor("step_no", step_no, (Bn,), dev)
+    return _launch_probe(cfg, l1, vrows, line, line, cid, step_no, hm, wm, cm,
+                         vrows, mrows, 0, rl, dev, staged=1)
+
+
+def _launch_probe(cfg, l1, dirm, slot, line, cid, step_no, hm, wm, cm, vrows,
+                  mrows, NS, rl, dev, staged):
+    Bn, C = l1.shape[:2]
+    S1, W1, W2 = cfg.l1.sets, cfg.l1.ways, cfg.llc.ways
+    NW, MW, DW = cfg.n_sharer_words, llc_meta_width(cfg), dirm_width(cfg)
     patch, cm_ld = _run_patch(hm, wm, cm, Bn, C, rl, dev, line)
     outs = [torch.empty(Bn, C, W1, dtype=_i32, device=dev) for _ in range(3)]
     outs += [torch.empty(Bn, C, NW, dtype=_i32, device=dev) for _ in range(2)]
     outs.append(torch.empty(Bn, C, PROBE_LANES, dtype=_i32, device=dev))
     build.launch(
         "probe_classify",
-        [l1, dirm, slot, line, cid, step_no, *patch, *outs],
+        [l1, dirm, slot, line, cid, step_no, *patch, *outs, vrows, mrows],
         [Bn, C, NS, S1, W1, W2, NW, MW, DW, rl, cm_ld,
-         cfg.sharer_group.bit_length() - 1],
+         cfg.sharer_group.bit_length() - 1, staged],
         torch.cuda.current_stream(dev),
     )
     return tuple(outs)
@@ -434,13 +531,50 @@ def commit_step(
             cfg, *unsqueeze_all(l1, dirm, tag_rows, shw, vic_shw, lanes, pc_lanes),
             cid, *unsqueeze_all(step_no, counters, delta, hm, wm, cm),
         )
-    Bn, C = l1.shape[0], cfg.n_cores
+    NS = cfg.n_banks * cfg.llc.sets
+    check_tensor("l1", l1, (l1.shape[0], cfg.n_cores, 5 * cfg.l1.ways * cfg.l1.sets), dev)
+    check_tensor("dirm", dirm, (l1.shape[0], NS, dirm_width(cfg)), dev)
+    _launch_commit(cfg, l1, dirm, tag_rows, shw, vic_shw, lanes, pc_lanes, cid,
+                   step_no, counters, delta, hm, wm, cm, rl, dev, dirm, dirm, 0)
+
+
+def commit_step_rows(
+    cfg: MachineConfig, l1, tag_rows, shw, vic_shw, lanes, pc_lanes,
+    cid, step_no, counters, delta, hm=None, wm=None, cm=None,
+):
+    """Phase 4.A + counter fold in the delta-row mode, the JAX Pallas
+    kernel's contract: in place on `l1` and `counters`, and instead of
+    adding into the directory it returns each lane's delta row [B, C, DW]
+    (zeros for lanes neither winner nor joiner) and its target slot
+    [B, C] (CL_SLOT, or NS where nothing is added), for the owner of the
+    row to add (`dirm.at[upd_slot].add(delta_row, mode="drop")`). `l1`
+    may be a block of the machine's cores with `cid` their global ids.
+    Batched shapes only."""
+    rl = _check_widths("commit_step", cfg, hm)
+    dev = _device("commit_step", l1)
+    if cfg.coherence == "moesi" and cfg.sharer_group != 1:
+        raise ValueError("commit_step: MOESI needs sharer_group == 1")
+    if dev.type == "cpu":
+        return commit_step_rows_plain(cfg, l1, tag_rows, shw, vic_shw, lanes,
+                                      pc_lanes, cid, step_no, counters, delta,
+                                      hm, wm, cm)
+    Bn, C = l1.shape[:2]
+    rows = torch.zeros(Bn, C, dirm_width(cfg), dtype=_i32, device=dev)
+    upd_slot = torch.empty(Bn, C, dtype=_i32, device=dev)
+    _launch_commit(cfg, l1, rows, tag_rows, shw, vic_shw, lanes, pc_lanes, cid,
+                   step_no, counters, delta, hm, wm, cm, rl, dev, rows, upd_slot, 1)
+    return rows, upd_slot
+
+
+def _launch_commit(cfg, l1, dirm, tag_rows, shw, vic_shw, lanes, pc_lanes, cid,
+                   step_no, counters, delta, hm, wm, cm, rl, dev, drows, upd_slot,
+                   rows_mode):
+    Bn, C = l1.shape[:2]
     S1, W1, W2 = cfg.l1.sets, cfg.l1.ways, cfg.llc.ways
     NW, MW, DW = cfg.n_sharer_words, llc_meta_width(cfg), dirm_width(cfg)
     NS = cfg.n_banks * cfg.llc.sets
     NC = counters.shape[1]
     check_tensor("l1", l1, (Bn, C, 5 * W1 * S1), dev)
-    check_tensor("dirm", dirm, (Bn, NS, DW), dev)
     check_tensor("tag_rows", tag_rows, (Bn, C, W1), dev)
     check_tensor("shw", shw, (Bn, C, NW), dev)
     check_tensor("vic_shw", vic_shw, (Bn, C, NW), dev)
@@ -454,8 +588,9 @@ def commit_step(
     build.launch(
         "commit_step",
         [l1, dirm, tag_rows, shw, vic_shw, lanes, pc_lanes, cid, step_no,
-         counters, delta, *patch],
+         counters, delta, *patch, drows, upd_slot],
         [Bn, C, NS, S1, W1, W2, NW, MW, DW, NC, rl, cm_ld,
-         cfg.sharer_group.bit_length() - 1, int(moesi)],
+         cfg.sharer_group.bit_length() - 1, int(cfg.coherence == "moesi"),
+         rows_mode],
         torch.cuda.current_stream(dev),
     )

@@ -39,8 +39,8 @@ tests use `simulate_crash=True`, which swaps the kill for a raised
 dead process by simply not acking).
 
 Not ported: the JAX worker's sharded units (`devices` > 0, its
-`_unit_mesh`) wait for the port's multi-device layer; such a unit is
-quarantined with `MultiDeviceNotPorted`.
+`_unit_mesh`) are not on the port's tile mesh (`parallel/sharding.py`)
+yet; such a unit is quarantined with `MultiDeviceNotPorted`.
 
 At a grant the unit's fleet loads (or builds) its kernels through the
 kernel build cache when `--exec-cache on` made one active
@@ -75,14 +75,16 @@ class SimulatedCrash(Exception):
 
 
 class MultiDeviceNotPorted(ValueError):
-    """A unit (or a dispatching daemon) asked for a machine sharded over
-    several devices: the port runs one device a unit until its
-    multi-device layer exists."""
+    """A unit, a serving daemon or a streamed run asked for a machine
+    sharded over several devices: the tile mesh drives `run` and `sweep`
+    (`parallel/sharding.py`), and these paths run one device until they
+    are ported onto it."""
 
     def __init__(self, devices: int):
         super().__init__(
-            f"devices={devices}: sharding a unit over several devices is "
-            "not ported (the port runs each unit on one device)"
+            f"devices={devices}: sharding a unit, a serving bucket or a "
+            "streamed run over several devices is not ported (they run "
+            "on one device; run and sweep take --devices)"
         )
         self.devices = int(devices)
 

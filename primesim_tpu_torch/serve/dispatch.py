@@ -37,8 +37,8 @@ job's result is identical whether it ran locally, remotely, or via a
 post-crash re-dispatch.
 
 Not ported: the JAX dispatcher's sharded geometry buckets (`devices`,
-and `_rebucket_devices` after a device loss) wait for the port's
-multi-device layer; `devices` > 0 is refused with the worker's
+and `_rebucket_devices` after a device loss) are not on the port's
+tile mesh (`parallel/sharding.py`) yet; `devices` > 0 is refused with the worker's
 `MultiDeviceNotPorted`, and a unit a worker quarantines stays
 quarantined.
 """

@@ -22,6 +22,11 @@ key. An element snapshot (one serving-fleet slot, solo-shaped, under the
 `element` key) is the serving daemon's per-job checkpoint: it splices
 into any slot of any serving fleet of the same geometry.
 
+A sharded state (`parallel/sharding.py`) is written whole, in the same
+format, so a snapshot taken on N shards loads on M shards, unsharded, or
+in the JAX package; the solo and fleet loaders lay the state out again
+over the engine's mesh.
+
 Attestation (DESIGN.md §24): when the engine carries a fingerprint chain
 (`engine.attest`), solo and stream snapshots add the chain's members
 (`attest_head`, `attest_chunks`, `attest_start`, `attest_chunk_steps`),
@@ -363,6 +368,10 @@ def load_checkpoint(path: str, engine) -> None:
             "incompatible version"
         )
     engine.state = _state_from(z, engine.cfg, engine.device)
+    if getattr(engine, "mesh", None) is not None:  # re-laid over the engine's mesh
+        from ..parallel.sharding import shard_state
+
+        engine.state = shard_state(engine.mesh, engine.state)
     engine._stepped = None  # scrub_offsets re-reads the loaded step
     engine.cycle_base = int(z["cycle_base"])
     engine.steps_run = int(z["steps_run"])
@@ -605,6 +614,10 @@ def load_fleet_checkpoint(path: str, fleet) -> None:
             "incompatible version"
         )
     fleet.state = _state_from(z, fleet.cfg, fleet.device, batch=len(cfgs))
+    if getattr(fleet, "mesh", None) is not None:
+        from ..parallel.sharding import shard_fleet_state
+
+        fleet.state = shard_fleet_state(fleet.mesh, fleet.state)
     fleet._stepped = None  # live flags and step numbers re-read from it
     fleet.cycle_base = z["cycle_base"].astype(np.int64)
     fleet.steps_run = z["steps_run"].astype(np.int64)

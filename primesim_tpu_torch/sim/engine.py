@@ -105,7 +105,9 @@ from .state import (
     O,
     MachineState,
     S,
+    Shards,
     batch_state,
+    is_sharded,
     init_state,
     leaves,
     llc_meta_width,
@@ -217,6 +219,278 @@ def _unbatch(out: MachineState, bst: MachineState, st: MachineState) -> MachineS
     return map_state(lambda x: same.get(id(x), x[0]), out)
 
 
+def _devices(x) -> list:
+    """The devices a tensor, or a field's shards, live on."""
+    return sorted({p.device for p in x}, key=str) if isinstance(x, Shards) else [x.device]
+
+
+def _batched(events):
+    """A solo trace [C, T, 4] (or its shards) as a batch of one."""
+    return events.map(lambda x: x[None]) if isinstance(events, Shards) else events[None]
+
+
+def _zeros_like(x):
+    return x.map(torch.zeros_like) if isinstance(x, Shards) else torch.zeros_like(x)
+
+
+def _run_states(cfg: MachineConfig, l1, pmrows, pline, cid):
+    """Phase 0.5's view of the run's events for a block of cores: the
+    effective L1 state of each of the rl + 1 lines `pline` [B, C, rl+1]
+    and the way it hits, from the cores' L1 rows `l1` [B, C, 5*W1*S1],
+    their home directory rows `pmrows` [B, C, rl+1, DW] and the cores'
+    global ids `cid` [C]. Returns (peff, plway), [B, C, rl+1] int32."""
+    Bn, C, K = pline.shape
+    S1, W1, W2 = cfg.l1.sets, cfg.l1.ways, cfg.llc.ways
+    NW, MW = cfg.n_sharer_words, llc_meta_width(cfg)
+    FS = W1 * S1
+    coarse = cfg.sharer_group > 1
+    dev = l1.device
+    g_c = cid >> (cfg.sharer_group.bit_length() - 1)  # sharer bit
+    ps = pline & (S1 - 1)
+    pcf = (torch.arange(W1, dtype=_i32, device=dev) * S1 + ps[..., None]).reshape(Bn, C, K * W1)
+    KW = K * W1
+    # tag and state planes, and under Dir-G the fill-time epoch plane
+    pl_cols = [pcf, pcf + FS] + ([pcf + 4 * FS] if coarse else [])
+    pts = l1.gather(2, torch.cat(pl_cols, -1).long())
+    ptagr = pts[..., :KW].reshape(Bn, C, K, W1)
+    pstater = pts[..., KW : 2 * KW].reshape(Bn, C, K, W1)
+    pmeta = pmrows[..., : 2 * W2].reshape(Bn, C, K, W2, 2)
+    pmhas, pmway = first_true(pmeta[..., 0] == pline[..., None])
+    pown = take(pmeta[..., 1], pmway)
+    pshw = take(pmrows[..., MW:], pmway * NW + (g_c[:, None] >> 5))
+    pbit = ((pshw >> (g_c[:, None] & 31)) & 1) != 0
+    plhit, plway = first_true((ptagr == pline[..., None]) & (pstater != I))
+    plstate = take(pstater, plway)
+    if coarse:
+        # epoch guard: the group bit keeps this core's S copy only if no
+        # sharer-clearing transition happened since its fill
+        pleph = take(pts[..., 2 * KW :].reshape(Bn, C, K, W1), plway)
+        pveph = take(pmrows[..., 3 * W2 : 4 * W2], pmway)
+        pbit = pbit & (pveph == pleph)
+    peff = torch.where(
+        ~(plhit & pmhas),
+        I,
+        torch.where(pown == cid[:, None], plstate, torch.where(pbit, S, I)),
+    )
+    if cfg.coherence == "moesi":
+        # derived Owned: this core owns the line at the home while other
+        # sharers are recorded, so a run's store must arbitrate and the
+        # effective E/M demotes to O. MOESI needs sharer_group == 1: pbit
+        # is the self bit, and the popcount of the matched way's words
+        # counts the sharers exactly.
+        pw_cols = MW + pmway[..., None] * NW + torch.arange(NW, dtype=_i32, device=dev)
+        ptot = popcount(pmrows.gather(3, pw_cols.long())).sum(-1, dtype=_i32)
+        pothers = (ptot - pbit.to(_i32)) > 0
+        peff = torch.where(
+            pothers & pmhas & (pown == cid[:, None]) & (peff >= E), O, peff
+        )
+    return peff, plway
+
+
+class _WholeStep:
+    """The step's reads and writes of the trace, the L1 and the directory
+    on one device: the whole arrays, in place, through the kernels'
+    first modes."""
+
+    def __init__(self, cfg, events, st):
+        self.cfg, self.events, self.st = cfg, events, st
+
+    def events_at(self, idx):
+        """events[b, c, idx[b, c, ...]]: [B, C, (K,) 4]."""
+        Bn, C = idx.shape[:2]
+        _, rows_c, ib = _iotas(C, Bn, idx.device)
+        if idx.dim() == 3:
+            ib, rows_c = ib[..., None], rows_c[:, None]
+        return self.events[ib, rows_c, idx.long()]
+
+    def scrub(self, lock_holder, kill_now):
+        return inject.scrub_dead(self.cfg, self.st.dirm, lock_holder, kill_now)
+
+    def run_states(self, pline, pslot):
+        _, _, ib = _iotas(1, pline.shape[0], pline.device)
+        pmrows = self.st.dirm[ib[..., None], pslot.long()]  # [B, C, rl+1, DW]
+        return _run_states(self.cfg, self.st.l1, pmrows, pline,
+                           _iotas(self.cfg.n_cores, 1, pline.device)[0])
+
+    def probe(self, slot, line, cid, step_no, run_patch, consumed):
+        return step_kernels.probe_classify(
+            self.cfg, self.st.l1, self.st.dirm, slot, line, cid, step_no, *run_patch
+        )
+
+    def sharer_reductions(self, shw, vic_shw, btile, vic_owner, inv_row, vic_valid,
+                          cid, kn):
+        cfg = self.cfg
+        return reductions.sharer_reductions(
+            cfg, shw, vic_shw, btile, vic_owner, inv_row, vic_valid, cid,
+            kn.link_lat, kn.router_lat,
+            group_tables(cfg, shw.device) if cfg.sharer_group > 1 else None,
+        )
+
+    def commit(self, tag_rows, shw, vic_shw, lanes, pc_lanes, cid, step_no, delta,
+               run_patch):
+        st = self.st
+        step_kernels.commit_step(
+            self.cfg, st.l1, st.dirm, tag_rows, shw, vic_shw, lanes, pc_lanes,
+            cid, step_no, st.counters, delta, *run_patch,
+        )
+
+    def finish(self, new):
+        return new
+
+
+# the core-sharded [B, C] int32 lanes the step gathers and splits again
+_CORE_LANES = ("cycles", "ptr", "sync_flag", "pf_line", "pf_stride", "pf_streak")
+
+
+class _ShardedStep:
+    """The same reads and writes on a tile mesh (`parallel/sharding.py`):
+    each core shard reads its own events and L1 rows and launches the
+    probe and the commit on them, in their second modes; directory rows
+    move only by request (the rl + 1 run rows, each way's validation row
+    and, without a local run, the home row), and each winning or joining
+    lane's delta row goes back to its owner bank shard. The [B, C] lanes
+    are gathered on the mesh's lead device for the lane logic, which
+    also holds the replicated fields (`link_free`, the lock and barrier
+    tables, ...), and are split back at the end. Every cross-shard
+    tensor goes through the mesh's exchange."""
+
+    def __init__(self, cfg, events, st):
+        self.cfg, self.events, self.orig = cfg, events, st
+        mesh = st.l1.mesh
+        self.ex = mesh.exchange
+        Cs = cfg.n_cores // mesh.size
+        self.cids = [torch.arange(k * Cs, (k + 1) * Cs, dtype=_i32,
+                                  device=mesh.shard_device(k)) for k in mesh.local]
+        lanes = self.ex.gather("lanes.in", [
+            torch.stack([getattr(st, f)[i] for f in _CORE_LANES]
+                        + [st.knobs.cpi[i], st.faults.core_dead[i]], -1)
+            for i in range(len(self.cids))
+        ]).unbind(-1)
+        self.st = st._replace(
+            **dict(zip(_CORE_LANES, lanes)),
+            dram_free=self.ex.gather("dram.in", list(st.dram_free)),
+            knobs=st.knobs._replace(cpi=lanes[-2]),
+            faults=st.faults._replace(core_dead=lanes[-1]),
+        )
+
+    def _split(self, name, x, axis=1):
+        return [p.contiguous() for p in self.ex.split(name, x, axis)]
+
+    def events_at(self, idx):
+        out = []
+        for ev, p in zip(self.events, self.ex.split("events.ids", idx)):
+            Bn, Cs = p.shape[:2]
+            _, rows_c, ib = _iotas(Cs, Bn, p.device)
+            if p.dim() == 3:
+                ib, rows_c = ib[..., None], rows_c[:, None]
+            out.append(ev[ib, rows_c, p.long()])
+        return self.ex.gather("events", out)
+
+    def scrub(self, lock_holder, kill_now):
+        wbs = []
+        for d, kill, lh in zip(self.orig.dirm, self.ex.bcast("scrub.kill", kill_now),
+                               self.ex.bcast("scrub.locks", lock_holder)):
+            lh_new, wb = inject.scrub_dead(self.cfg, d, lh, kill)
+            wbs.append(wb)
+        # every bank shard frees the same lock slots
+        return lh_new.to(lock_holder.device), self.ex.sum("scrub.wb", wbs)
+
+    def run_states(self, pline, pslot):
+        parts = self.ex.split("run.lines", torch.stack([pline, pslot], -1))
+        self.run_rows = self.ex.rows("run.rows", self.orig.dirm,
+                                     [p[..., 1] for p in parts])
+        out = [
+            torch.stack([x.to(_i32) for x in _run_states(
+                self.cfg, l1, rows, p[..., 0].contiguous(), cid)], -1)
+            for l1, rows, p, cid in zip(self.orig.l1, self.run_rows, parts, self.cids)
+        ]
+        g = self.ex.gather("run.states", out)
+        return g[..., 0], g[..., 1]
+
+    def probe(self, slot, line, cid, step_no, run_patch, consumed):
+        cfg = self.cfg
+        S1, W1, W2 = cfg.l1.sets, cfg.l1.ways, cfg.llc.ways
+        FS = W1 * S1
+        cols = [slot, line] + ([consumed.to(_i32)] if consumed is not None else [])
+        parts = self.ex.split("probe.lanes", torch.stack(cols, -1))
+        self.steps = self.ex.bcast("probe.step", step_no)
+        self.patches = [()] * len(parts)
+        if run_patch:
+            hm, wm, cm = run_patch
+            pp = self.ex.split("probe.patch", torch.stack(
+                [hm.to(_i32), wm.to(_i32), cm.to(_i32)], -1))
+            self.patches = [(p[..., 0] != 0, p[..., 1] != 0, p[..., 2].contiguous())
+                            for p in pp]
+        # each way's directory pointer, from the shard's own L1 rows (the
+        # local run's patch leaves the pointer plane alone)
+        vidx = []
+        for l1, p in zip(self.orig.l1, parts):
+            wcols = torch.arange(W1, dtype=_i32, device=l1.device) * S1 + (p[..., 1:2] & (S1 - 1))
+            vidx.append(l1.gather(2, (wcols + 3 * FS).long()) // W2)
+        vrows = [r.contiguous() for r in self.ex.rows("probe.vrows", self.orig.dirm, vidx)]
+        if consumed is None:
+            mrows = [r[:, :, 0] for r in self.ex.rows(
+                "probe.mrows", self.orig.dirm, [p[..., :1] for p in parts])]
+        else:  # the home row is one of the run's rows
+            mrows = []
+            for rows, p in zip(self.run_rows, parts):
+                _, rows_c, ib = _iotas(rows.shape[1], rows.shape[0], rows.device)
+                mrows.append(rows[ib, rows_c, p[..., 2].long()])
+        self.outs = [
+            step_kernels.probe_classify_staged(
+                cfg, l1, vr, mr.contiguous(), p[..., 1].contiguous(), c, s, *pt)
+            for l1, vr, mr, p, c, s, pt in zip(self.orig.l1, vrows, mrows, parts,
+                                                self.cids, self.steps, self.patches)
+        ]
+        g = self.ex.gather("probe.out", [torch.cat([o[1], o[2], o[5]], -1)
+                                         for o in self.outs])
+        return None, g[..., :W1], g[..., W1:2 * W1], None, None, g[..., 2 * W1:]
+
+    def sharer_reductions(self, shw, vic_shw, btile, vic_owner, inv_row, vic_valid,
+                          cid, kn):
+        cfg = self.cfg
+        lanes = torch.stack([btile, vic_owner, inv_row.to(_i32), vic_valid.to(_i32)], -1)
+        parts = self._split("reduce.lanes", lanes)
+        lats = self.ex.bcast("reduce.lat", torch.stack([kn.link_lat, kn.router_lat], -1))
+        out = []
+        for o, p, lat, c in zip(self.outs, parts, lats, self.cids):
+            r = reductions.sharer_reductions(
+                cfg, o[3], o[4], p[..., 0].contiguous(), p[..., 1], p[..., 2] != 0,
+                p[..., 3] != 0, c, lat[:, 0].contiguous(), lat[:, 1].contiguous(),
+                group_tables(cfg, p.device) if cfg.sharer_group > 1 else None,
+            )
+            out.append(torch.stack(r, -1))
+        return self.ex.gather("reduce.out", out).unbind(-1)
+
+    def commit(self, tag_rows, shw, vic_shw, lanes, pc_lanes, cid, step_no, delta,
+               run_patch):
+        rows, slots = [], []
+        for l1, o, ln, dl, cnt, c, s, pt in zip(
+                self.orig.l1, self.outs, self._split("commit.lanes", lanes),
+                self._split("commit.delta", delta, 2), self.orig.counters, self.cids,
+                self.steps, self.patches):
+            r, us = step_kernels.commit_step_rows(
+                self.cfg, l1, o[0], o[3], o[4], ln, o[5], c, s, cnt, dl, *pt)
+            rows.append(r)
+            slots.append(us)
+        self.ex.add_rows("commit.rows", self.orig.dirm, slots, rows)
+
+    def finish(self, new):
+        orig, ex = self.orig, self.ex
+        mesh = orig.l1.mesh
+        parts = ex.split("lanes.out", torch.stack(
+            [getattr(new, f) for f in _CORE_LANES] + [new.faults.core_dead], -1))
+        fields = [Shards([p[..., j] for p in parts], -1, mesh)
+                  for j in range(len(_CORE_LANES) + 1)]
+        dram = orig.dram_free if new.dram_free is self.st.dram_free else Shards(
+            ex.split("dram.out", new.dram_free), -1, mesh)
+        return new._replace(
+            **dict(zip(_CORE_LANES, fields)),
+            l1=orig.l1, dirm=orig.dirm, counters=orig.counters, dram_free=dram,
+            knobs=orig.knobs, faults=new.faults._replace(core_dead=fields[-1]),
+        )
+
+
 def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True,
          scrub: bool = True, live=None):
     """Advance every core of every element by one step. `events` is the
@@ -235,12 +509,13 @@ def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True,
     fleet's select-masked `run`); its scheduled faults do not fire."""
     if events.dim() == 3:
         bst = batch_state(st)
-        return _unbatch(step(cfg, events[None], bst, has_sync, scrub, live), bst, st)
+        return _unbatch(step(cfg, _batched(events), bst, has_sync, scrub, live), bst, st)
+    ax = (_ShardedStep if is_sharded(st) else _WholeStep)(cfg, events, st)
+    st = ax.st  # what the lane logic reads: on a mesh, the lanes gathered
     C, B = cfg.n_cores, cfg.n_banks
     Bn = events.shape[0]  # elements
-    S1, W1 = cfg.l1.sets, cfg.l1.ways
+    S1 = cfg.l1.sets
     S2, W2 = cfg.llc.sets, cfg.llc.ways
-    NW, MW = cfg.n_sharer_words, llc_meta_width(cfg)
     NS = B * S2  # directory rows
     T = events.shape[2]
     n_tiles = cfg.n_tiles
@@ -260,10 +535,10 @@ def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True,
     if rl:
         ioff = torch.arange(rl + 1, dtype=_i32, device=dev)
         pidx = (st.ptr[..., None] + ioff).clamp(max=T - 1)
-        pev = events[ib[..., None], rows_c[:, None], pidx.long()]  # [B, C, rl+1, 4]
+        pev = ax.events_at(pidx)  # [B, C, rl+1, 4]
         et0 = pev[:, :, 0, 0]
     else:
-        et0 = events[ib, rows_c, st.ptr.clamp(max=T - 1).long(), 0]
+        et0 = ax.events_at(st.ptr.clamp(max=T - 1))[..., 0]
 
     # ---- phase -1: fault injection (DESIGN.md §12). Only cores that have
     # not reached END absorb faults. The scrub rewrites the directory in
@@ -284,9 +559,7 @@ def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True,
         cadd("ecc_due", torch.where(alive0, ecc_due, 0))
         lock_holder_f = st.lock_holder
         if scrub:
-            lock_holder_f, wb_dead = inject.scrub_dead(
-                cfg, st.dirm, st.lock_holder, kill_now
-            )
+            lock_holder_f, wb_dead = ax.scrub(st.lock_holder, kill_now)
             if cfg.fault_dead_policy == "writeback":
                 cadd("l1_writebacks", wb_dead)
         fsf = fsf._replace(
@@ -311,61 +584,14 @@ def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True,
 
     # ---- phase 0.5: closed-form local runs (DESIGN.md §3)
     cycles_c, ptr_c = st.cycles, st.ptr
-    FS = W1 * S1
     logB = B.bit_length() - 1
     coarse = cfg.sharer_group > 1
     moesi = cfg.coherence == "moesi"
-    g_c = arange_c >> (cfg.sharer_group.bit_length() - 1)  # sharer bit
     if rl:
         pline = pev[..., 2]
         ps = pline & (S1 - 1)
-        pcf = (
-            torch.arange(W1, dtype=_i32, device=dev) * S1 + ps[..., None]
-        ).reshape(Bn, C, (rl + 1) * W1)
-        KW = (rl + 1) * W1
-        # tag and state planes, and under Dir-G the fill-time epoch plane
-        pl_cols = [pcf, pcf + FS] + ([pcf + 4 * FS] if coarse else [])
-        pts = st.l1.gather(2, torch.cat(pl_cols, -1).long())
-        ptagr = pts[..., :KW].reshape(Bn, C, rl + 1, W1)
-        pstater = pts[..., KW : 2 * KW].reshape(Bn, C, rl + 1, W1)
         pslot = (pline & (B - 1)) * S2 + ((pline >> logB) & (S2 - 1))
-        pmrows = st.dirm[ib[..., None], pslot.long()]  # [B, C, rl+1, DW]
-        pmeta = pmrows[..., : 2 * W2].reshape(Bn, C, rl + 1, W2, 2)
-        pmhas, pmway = first_true(pmeta[..., 0] == pline[..., None])
-        pown = take(pmeta[..., 1], pmway)
-        pshw = take(pmrows[..., MW:], pmway * NW + (g_c[:, None] >> 5))
-        pbit = ((pshw >> (g_c[:, None] & 31)) & 1) != 0
-        plhit, plway = first_true((ptagr == pline[..., None]) & (pstater != I))
-        plstate = take(pstater, plway)
-        if coarse:
-            # epoch guard: the group bit keeps this core's S copy only if
-            # no sharer-clearing transition happened since its fill
-            pleph = take(pts[..., 2 * KW :].reshape(Bn, C, rl + 1, W1), plway)
-            pveph = take(pmrows[..., 3 * W2 : 4 * W2], pmway)
-            pbit = pbit & (pveph == pleph)
-        peff = torch.where(
-            ~(plhit & pmhas),
-            I,
-            torch.where(
-                pown == arange_c[:, None], plstate, torch.where(pbit, S, I)
-            ),
-        )
-        if moesi:
-            # derived Owned: this core owns the line at the home while
-            # other sharers are recorded, so a run's store must arbitrate
-            # and the effective E/M demotes to O. MOESI needs
-            # sharer_group == 1: pbit is the self bit, and the popcount of
-            # the matched way's words counts the sharers exactly.
-            pw_cols = MW + pmway[..., None] * NW + torch.arange(
-                NW, dtype=_i32, device=dev
-            )
-            ptot = popcount(pmrows.gather(3, pw_cols.long())).sum(-1, dtype=_i32)
-            pothers = (ptot - pbit.to(_i32)) > 0
-            peff = torch.where(
-                pothers & pmhas & (pown == arange_c[:, None]) & (peff >= E),
-                O,
-                peff,
-            )
+        peff, plway = ax.run_states(pline, pslot)
         phitcol = plway * S1 + ps
         etr, eargr, eprer = pev[:, :, :rl, 0], pev[:, :, :rl, 1], pev[:, :, :rl, 3]
         peffr = peff[..., :rl]
@@ -402,13 +628,14 @@ def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True,
         consumed = (ptr_c - st.ptr).long()
         ev = pev[ib, rows_c, consumed]  # [B, C, 4]
     else:
-        ev = events[ib, rows_c, ptr_c.clamp(max=T - 1).long()]
+        ev = ax.events_at(ptr_c.clamp(max=T - 1))
     et, earg, eaddr, epre = ev.unbind(-1)
     line = eaddr.contiguous()
     bank = line & (B - 1)
     slot = bank * S2 + ((line >> logB) & (S2 - 1))
-    tag_rows, lru_rows, weff, shw, vic_shw, pc_lanes = step_kernels.probe_classify(
-        cfg, st.l1, st.dirm, slot, line, arange_c, step_no, *run_patch
+    # on a mesh the shards keep tag_rows, shw and vic_shw (None here)
+    tag_rows, lru_rows, weff, shw, vic_shw, pc_lanes = ax.probe(
+        slot, line, arange_c, step_no, run_patch, consumed if rl else None
     )
     hit_any = pc_lanes[..., PL_HIT_ANY] != 0
     hit_way = pc_lanes[..., PL_HIT_WAY]
@@ -560,9 +787,8 @@ def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True,
     llc_vway = pc_lanes[..., PL_LLC_VWAY]
     vic_valid = llc_miss & (vic_tag != -1)
     inv_row = write_w & llc_hit
-    inv_lat, inv_count, inv_hops, back_count, back_hops = reductions.sharer_reductions(
-        cfg, shw, vic_shw, btile, vic_owner, inv_row, vic_valid, arange_c,
-        kn.link_lat, kn.router_lat, group_tables(cfg, dev) if coarse else None,
+    inv_lat, inv_count, inv_hops, back_count, back_hops = ax.sharer_reductions(
+        shw, vic_shw, btile, vic_owner, inv_row, vic_valid, arange_c, kn
     )
 
     # ---- stride prefetcher: a per-core stride detector over the winners
@@ -891,12 +1117,10 @@ def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True,
     # deltas and the counter fold in one kernel, in place
     zero = torch.zeros(Bn, C, dtype=_i32, device=dev)
     delta = torch.stack([acc.get(k, zero) for k in COUNTER_NAMES], 1)  # [B, NC, C]
-    step_kernels.commit_step(
-        cfg, st.l1, st.dirm, tag_rows, shw, vic_shw, commit_lanes, pc_lanes,
-        arange_c, step_no, st.counters, delta, *run_patch,
-    )
+    ax.commit(tag_rows, shw, vic_shw, commit_lanes, pc_lanes, arange_c, step_no,
+              delta, run_patch)
 
-    return st._replace(
+    return ax.finish(st._replace(
         cycles=cycles,
         ptr=ptr,
         link_free=link_free_n,
@@ -911,7 +1135,7 @@ def step(cfg: MachineConfig, events, st: MachineState, has_sync: bool = True,
         pf_stride=pf_stride_n,
         pf_streak=pf_streak_n,
         faults=st.faults,  # post-injection (phase -1 rebound st)
-    )
+    ))
 
 
 def run_chunk(cfg, n_steps: int, events, st: MachineState, has_sync=True,
@@ -924,7 +1148,7 @@ def run_chunk(cfg, n_steps: int, events, st: MachineState, has_sync=True,
     solo = events.dim() == 3
     bst0 = batch_state(st) if solo else st
     if solo:
-        events = events[None]
+        events = _batched(events)
     bst = bst0
     for i in range(n_steps):
         bst = step(cfg, events, bst, has_sync=has_sync,
@@ -936,12 +1160,31 @@ def not_done(cfg: MachineConfig, events, st: MachineState):
     """[B, C] bool on the device: the cores of each element neither at
     END nor dead (a fail-stopped core never reaches END: it is done by
     decree)."""
-    T = events.shape[2]
-    _, rows_c, ib = _iotas(cfg.n_cores, events.shape[0], events.device)
-    nd = events[ib, rows_c, st.ptr.clamp(max=T - 1).long(), 0] != EV_END
+    nd = event_types(events, st.ptr) != EV_END
     if cfg.faults_enabled:
-        nd = nd & (st.faults.core_dead == 0)
+        nd = nd & (_lanes(st.faults.core_dead) == 0)
     return nd
+
+
+def _lanes(x, name="lanes.host"):
+    """A [B, C] field whole on the lead device: gathered from its shards
+    on a mesh, as it is otherwise."""
+    return x.mesh.exchange.gather(name, list(x)) if isinstance(x, Shards) else x
+
+
+def event_types(events, ptr):
+    """[B, C] int32: the event type under each core's trace pointer
+    (END padding included), read by each shard from its own events on a
+    mesh."""
+    T = events.shape[2]
+    if isinstance(events, Shards):
+        out = []
+        for ev, p in zip(events, ptr):
+            _, rows_c, ib = _iotas(p.shape[1], p.shape[0], p.device)
+            out.append(ev[ib, rows_c, p.clamp(max=T - 1).long(), 0])
+        return events.mesh.exchange.gather("events.types", out)
+    _, rows_c, ib = _iotas(ptr.shape[1], ptr.shape[0], ptr.device)
+    return events[ib, rows_c, ptr.clamp(max=T - 1).long(), 0]
 
 
 def drain_rebase(cfg: MachineConfig, events, st: MachineState, nd=None):
@@ -958,6 +1201,21 @@ def drain_rebase(cfg: MachineConfig, events, st: MachineState, nd=None):
     the delta)."""
     if nd is None:
         nd = not_done(cfg, events, st)
+    if is_sharded(st):  # the clocks and counters gathered, then split again
+        ex = st.l1.mesh.exchange
+        whole = st._replace(cycles=_lanes(st.cycles, "drain.lanes"),
+                            counters=ex.gather("drain.counters", list(st.counters), 2),
+                            dram_free=_lanes(st.dram_free, "drain.lanes"))
+        new, cnt, delta, live = _rebase(cfg, whole, nd)
+        return new._replace(
+            cycles=Shards(ex.split("drain.lanes", new.cycles), -1, st.l1.mesh),
+            counters=_zeros_like(st.counters),
+            dram_free=Shards(ex.split("drain.lanes", new.dram_free), -1, st.l1.mesh),
+        ), cnt, delta, live
+    return _rebase(cfg, st, nd)
+
+
+def _rebase(cfg: MachineConfig, st: MachineState, nd):
     live = nd.any(-1)
     Q = st.knobs.quantum
     m = torch.where(nd, st.cycles, INT32_MAX).amin(-1)
@@ -1150,14 +1408,20 @@ class Engine:
     package's file format, so a snapshot of either engine resumes in the
     other). `overlap` (default False) speculates each next chunk as the
     JAX engine's does (`_pending`, `discard_prefetch`; module
-    docstring)."""
+    docstring). `mesh` (a `parallel.sharding.TileMesh`) lays the machine
+    over a tile mesh, as the JAX `Engine(..., mesh=)` does: the state and
+    the events are sharded (`parallel.sharding.state_pspecs`), every step
+    runs on the shards (`_ShardedStep`) and the results are the
+    unsharded run's, bit for bit; host reads gather what they read."""
 
     def __init__(
         self, cfg: MachineConfig, trace: Trace, chunk_steps: int = 256,
-        device=None,
+        device=None, mesh=None,
     ):
         check_port_supported(cfg)
-        self.device = resolve_device(device)
+        # on a tile mesh the lead device holds the replicated fields
+        self.device = resolve_device(device) if mesh is None else mesh.lead
+        self.mesh = mesh
         if trace.n_cores != cfg.n_cores:
             raise ValueError(
                 f"trace has {trace.n_cores} cores but config has {cfg.n_cores}"
@@ -1188,8 +1452,14 @@ class Engine:
             np.ascontiguousarray(trace.line_events(cfg.line_bits), np.int32)
         ).to(self.device)
         self.state = init_state(cfg, self.device)
-        if cfg.sharer_group > 1:  # built and uploaded here, before any step
-            group_tables(cfg, self.events.device)
+        if mesh is not None:
+            from ..parallel.sharding import shard_events, shard_state
+
+            self.events = shard_events(mesh, self.events)
+            self.state = shard_state(mesh, self.state)
+        for d in _devices(self.events):  # built and uploaded here, before any step
+            if cfg.sharer_group > 1:
+                group_tables(cfg, d)
         if cfg.faults_enabled:
             inject.detour_table(cfg, self.state.faults.link_dead.device)
         self.chunk_steps = chunk_steps
@@ -1218,7 +1488,7 @@ class Engine:
 
     def _not_done(self, st: MachineState):
         """[C] bool on the device: cores neither at END nor dead."""
-        return not_done(self.cfg, self.events[None], batch_state(st))[0]
+        return not_done(self.cfg, _batched(self.events), batch_state(st))[0]
 
     def scrub_offsets(self) -> set[int] | None:
         """Offsets in the next chunk of the steps on which a core can die
@@ -1291,7 +1561,8 @@ class Engine:
         )
         if cut is not None:
             cut.append(time.perf_counter())
-        new, cnt, delta, live = drain_rebase(self.cfg, self.events[None], batch_state(st))
+        new, cnt, delta, live = drain_rebase(self.cfg, _batched(self.events),
+                                             batch_state(st))
         return solo_state(new), torch.cat([cnt.flatten(), delta, (~live).to(_i32)])
 
     def _prefetch_chunk(self) -> None:
@@ -1360,10 +1631,8 @@ class Engine:
         `quantum_end` until release) and not fail-stopped. The
         supervisor's clock-window guard reads it
         (validate.check_chunk_invariants)."""
-        T = self.events.shape[1]
-        p = self.state.ptr.clamp(max=T - 1).long()
-        cores = torch.arange(self.cfg.n_cores, device=self.events.device)
-        et = self.events[cores, p, 0].cpu().numpy()
+        bst = batch_state(self.state)
+        et = event_types(_batched(self.events), bst.ptr)[0].cpu().numpy()
         frozen = (et == EV_BARRIER) & (self.state.sync_flag.cpu().numpy() != 0)
         live = (et != EV_END) & ~frozen
         if self.cfg.faults_enabled:
@@ -1404,9 +1673,7 @@ class Engine:
         cnt = self.state.counters.cpu().numpy()
         for i, k in enumerate(COUNTER_NAMES):
             self.host_counters[k] += cnt[i].astype(np.int64)
-        self.state = self.state._replace(
-            counters=torch.zeros_like(self.state.counters)
-        )
+        self.state = self.state._replace(counters=_zeros_like(self.state.counters))
 
     @property
     def cycles(self) -> np.ndarray:

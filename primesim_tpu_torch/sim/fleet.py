@@ -59,7 +59,10 @@ every splice, overlay, fork, event upload and checkpoint load drops it
 first. `warm_exec` loads (or builds) the kernels the fleet launches
 through the kernel build cache, without running a step.
 
-Not ported: the shard x vmap mesh.
+On a tile mesh (`mesh=`, `parallel/sharding.py`) the batch axis stays
+whole and each element's cores and banks shard within it (the JAX
+fleet's shard x vmap): the step is the engine's sharded step, and slot
+surgery copies each shard's block of an element.
 """
 
 from __future__ import annotations
@@ -79,10 +82,12 @@ from ..stats.counters import COUNTER_NAMES
 from ..trace.format import EV_BARRIER, EV_END, EV_LOCK, EV_UNLOCK, Trace, validate_sync
 from .engine import (
     _ACC_BITS,
-    _iotas,
+    _devices,
+    _zeros_like,
     adopt,
     drain_rebase,
     drop,
+    event_types,
     group_tables,
     kernels_of,
     not_done,
@@ -92,10 +97,12 @@ from .engine import (
 )
 from .state import (
     MachineState,
+    Shards,
+    copy_slot,
     element_state,
+    field_leaves,
     init_state,
     knobs_from_config,
-    leaves,
     stack_states,
 )
 
@@ -225,6 +232,7 @@ class FleetEngine:
         device=None,
         min_events_capacity: int = 0,
         force_sync: bool = False,
+        mesh=None,
     ):
         if cfg.pallas_reduce:
             raise ValueError(
@@ -245,7 +253,9 @@ class FleetEngine:
                 "dicts (must match 1:1)"
             )
         check_port_supported(cfg)
-        self.device = resolve_device(device)
+        # on a tile mesh the lead device holds the replicated fields
+        self.device = resolve_device(device) if mesh is None else mesh.lead
+        self.mesh = mesh
         B = len(traces)
         C = cfg.n_cores
         self.cfg = cfg
@@ -297,10 +307,13 @@ class FleetEngine:
         self.state = stack_states(
             (init_state(c, self.device) for c in self.elem_cfgs), B
         )
+        if mesh is not None:
+            self._reshard()
         # built and uploaded here, before any step, under the device name
         # the step looks them up by (`cuda:0`, not `cuda`)
-        if cfg.sharer_group > 1:
-            group_tables(self.geom_cfg, self.events.device)
+        for d in _devices(self.events):
+            if cfg.sharer_group > 1:
+                group_tables(self.geom_cfg, d)
         if cfg.faults_enabled:
             inject.detour_table(self.geom_cfg, self.state.faults.link_dead.device)
         self.chunk_steps = chunk_steps
@@ -329,6 +342,22 @@ class FleetEngine:
         self.overlap = False
         self._pending = None
         self._side = None  # the speculation's CUDA stream, made at its first use
+
+    def _reshard(self) -> None:
+        """Lay the events and the state out over `self.mesh` (shard x
+        vmap: the batch axis whole, cores and banks sharded within each
+        element), or bring them whole onto `self.device` when it is None;
+        from either form."""
+        from ..parallel import sharding
+
+        if self.mesh is None:
+            if isinstance(self.events, Shards):
+                self.events = self.events.mesh.exchange.full(self.events, self.device)
+            self.state = sharding.unshard_state(self.state, self.device)
+        else:
+            self.events = sharding.shard_fleet_events(self.mesh, self.events)
+            self.state = sharding.shard_fleet_state(self.mesh, self.state)
+        self._stepped = self._drained = None
 
     @property
     def n_elements(self) -> int:
@@ -381,7 +410,7 @@ class FleetEngine:
         for i, k in enumerate(COUNTER_NAMES):
             self.host_counters[k] += cnt[:, i].astype(np.int64)
         kept = self.state is self._stepped  # a drain moves no clock or pointer
-        self.state = self.state._replace(counters=torch.zeros_like(self.state.counters))
+        self.state = self.state._replace(counters=_zeros_like(self.state.counters))
         if kept:
             self._stepped = self.state
         self._drained = self.state
@@ -389,10 +418,7 @@ class FleetEngine:
     def _event_types_at_ptr(self) -> np.ndarray:
         """[B, C] event type codes under each element's trace pointer
         (END padding included)."""
-        T = self.events.shape[2]
-        _, rows_c, ib = _iotas(self.cfg.n_cores, self.n_elements, self.device)
-        p = self.state.ptr.clamp(max=T - 1).long()
-        return self.events[ib, rows_c, p, 0].cpu().numpy()
+        return event_types(self.events, self.state.ptr).cpu().numpy()
 
     def _dead_mask(self) -> np.ndarray:
         """[B, C] bool: fail-stopped cores (all False with faults off)."""
@@ -668,8 +694,8 @@ class FleetEngine:
         # flush the previous occupant's device counters before its state
         # row is overwritten (harvest reads host_counters afterwards)
         self._drain()
-        for o, x in zip(leaves(self.state), leaves(init_state(ecfg, self.device))):
-            o[i].copy_(x)
+        for o, x in zip(field_leaves(self.state), field_leaves(init_state(ecfg, self.device))):
+            copy_slot(o, i, x)
         self.cycle_base[i] = 0
         self.steps_run[i] = 0
         self.prefix_steps[i] = 0
@@ -696,7 +722,7 @@ class FleetEngine:
         if self._dirty:
             self.discard_prefetch()
         for i in sorted(self._dirty):
-            self.events[i].copy_(torch.from_numpy(self._events_np[i]))
+            copy_slot(self.events, i, torch.from_numpy(self._events_np[i]).to(self.device))
         self._dirty.clear()
 
     def restore_element(self, i: int, snap: dict) -> None:
@@ -710,8 +736,8 @@ class FleetEngine:
         interrupted. The host's cached live flags and step numbers are
         re-read at the next chunk."""
         self.discard_prefetch()
-        for o, x in zip(leaves(self.state), leaves(snap["state"])):
-            o[i].copy_(x)
+        for o, x in zip(field_leaves(self.state), field_leaves(snap["state"])):
+            copy_slot(o, i, x)
         self.cycle_base[i] = snap["cycle_base"]
         self.steps_run[i] = snap["steps_run"]
         for k in COUNTER_NAMES:
@@ -739,7 +765,7 @@ class FleetEngine:
                   "flip_l1", "flip_llc", "due_rate"):
             getattr(self.state.faults, f)[i].copy_(getattr(fresh, f))
         for o, x in zip(self.state.knobs, knobs_from_config(ecfg, self.device)):
-            o[i].copy_(x)
+            copy_slot(o, i, x)
         self.prefix_steps[i] = int(snap["steps_run"])
         self.prefix_cache_keys[i] = cache_key
 

@@ -14,6 +14,13 @@ nested knobs and fault state included, gains a leading element axis
 state is one element: `batch_state` and `solo_state` turn one into the
 other as views (no copy), `stack_states` builds a batch from solo
 states and `element_state` slices element i back out.
+
+A SHARDED state (`parallel/sharding.py`) holds each core-axis and
+bank-axis field as a `Shards`: the per-shard tensors of one field, in
+shard order, with the axis they split (counted from the end, so it holds
+for solo and batched shapes alike) and the mesh they live on.
+`map_state` maps a function over every part and `leaves` lists the
+parts, so copies, batching and element views work on either form.
 """
 
 from __future__ import annotations
@@ -104,12 +111,51 @@ class MachineState(NamedTuple):
     faults: FaultState
 
 
+class Shards(tuple):
+    """One state field of a sharded state: its per-shard tensors (this
+    process's shards, in mesh order), the axis they split, counted from
+    the end (-1: the last), and the `parallel.sharding.TileMesh` they
+    live on. `cpu()` gathers the whole field to the host, so host reads
+    (`state.cycles.cpu().numpy()`) work on either form."""
+
+    def __new__(cls, parts, axis: int, mesh):
+        out = super().__new__(cls, parts)
+        out.axis = axis
+        out.mesh = mesh
+        return out
+
+    def map(self, fn) -> "Shards":
+        return Shards([fn(p) for p in self], self.axis, self.mesh)
+
+    @property
+    def device(self) -> torch.device:
+        return self[0].device
+
+    @property
+    def shape(self) -> torch.Size:
+        s = list(self[0].shape)
+        s[self.axis] *= self.mesh.size
+        return torch.Size(s)
+
+    def dim(self) -> int:
+        return self[0].dim()
+
+    def cpu(self) -> torch.Tensor:
+        return self.mesh.exchange.host(self)
+
+
+def _map(fn, v):
+    if isinstance(v, Shards):
+        return v.map(fn)
+    if isinstance(v, tuple):
+        return type(v)(*(_map(fn, x) for x in v))
+    return fn(v)
+
+
 def map_state(fn, st: MachineState) -> MachineState:
-    """`fn` applied to every tensor of the state, nested ones included."""
-    return MachineState(*(
-        type(v)(*(fn(x) for x in v)) if isinstance(v, tuple) else fn(v)
-        for v in st
-    ))
+    """`fn` applied to every tensor of the state, nested ones and every
+    shard of a sharded field included."""
+    return _map(fn, st)
 
 
 def batch_state(st: MachineState) -> MachineState:
@@ -127,9 +173,34 @@ def element_state(st: MachineState, i: int) -> MachineState:
     return map_state(lambda x: x[i], st)
 
 
-def leaves(st: MachineState) -> list:
-    """Every tensor of the state, nested ones included, in field order."""
-    return [x for v in st for x in (v if isinstance(v, tuple) else (v,))]
+def leaves(st) -> list:
+    """Every tensor of the state, nested ones and every shard of a
+    sharded field included, in field order."""
+    return [x for v in st for x in (leaves(v) if isinstance(v, tuple) else (v,))]
+
+
+def is_sharded(st: MachineState) -> bool:
+    return isinstance(st.l1, Shards)
+
+
+def field_leaves(st) -> list:
+    """Every field of the state, nested ones included, in field order: a
+    sharded field is one leaf (its Shards)."""
+    return [x for v in st for x in (
+        field_leaves(v) if isinstance(v, tuple) and not isinstance(v, Shards) else (v,))]
+
+
+def copy_slot(dst, i: int, src) -> None:
+    """Element i of the batched field `dst` (a tensor or a Shards) set to
+    the solo field `src` (a tensor or a Shards), in place."""
+    if isinstance(src, Shards):
+        src = src.mesh.exchange.full(src, src.device)
+    if isinstance(dst, Shards):
+        blocks = src.chunk(dst.mesh.size, dst.axis)
+        for part, k in zip(dst, dst.mesh.local):
+            part[i].copy_(blocks[k])
+    else:
+        dst[i].copy_(src)
 
 
 def stack_states(states, n: int) -> MachineState:

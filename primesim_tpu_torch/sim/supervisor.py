@@ -49,12 +49,13 @@ records the new cadence on the chain (`note_cadence`), which makes it
 incomparable to a full-cadence chain instead of falsely divergent.
 
 The chaos revocation site (`devices.revoke`) is reached at every chunk
-boundary, as in the JAX supervisor; the port runs on one card, so its
-pool of healthy devices is that card alone, a revocation has nothing to
-take, and the event is counted and logged but changes nothing, as on a
-one-device JAX backend. Not ported yet: the device-loss reshard ladder
-(a `device_loss` failure takes the transient path, as the JAX supervisor
-does when there is nothing to demote).
+boundary, as in the JAX supervisor: it revokes devices of the engine's
+mesh (`parallel.sharding`'s registry) and raises a synthetic
+DEVICE_LOST. The device-loss ladder then reshards the run onto the
+largest valid mesh of the healthy devices (`_reshard_after_device_loss`,
+`degrade_rungs` "reshard:N->M"), from the newest verified snapshot when
+there is one. With nothing to shrink (one device) a `device_loss`
+failure takes the transient path; the port has no CPU fallback rung.
 
 Under overlapped dispatch (`engine.overlap`) the speculated next chunk
 runs on a copy of the committed state, so snapshots and the guard read
@@ -67,9 +68,11 @@ malformed elements before batching.
 
 from __future__ import annotations
 
+import json
 import os
 import re
 import signal
+import sys
 import time
 
 import numpy as np
@@ -305,7 +308,7 @@ class RunSupervisor:
         self._preempt: int | None = None
         self._prev_handlers: dict = {}
         self._prev_totals: dict[str, int] | None = None
-        # the JAX package's device-loss ladder rungs; none in the port yet
+        # the device-loss ladder's rungs taken ("reshard:N->M")
         self.degrade_rungs: list[str] = []
         cfg = getattr(engine, "cfg", None)
         self._chaos = bool(getattr(cfg, "faults_enabled", False))
@@ -478,12 +481,29 @@ class RunSupervisor:
         _discard_prefetch(eng)
 
     def _chaos_revoke_check(self) -> None:
-        """Chaos `capacity_loss` site at a chunk boundary: a revocation
-        takes `min(n, len(pool) - 1)` devices, always leaving one. The
-        port's pool is the engine's one card, so that is 0 and nothing is
-        lost; the site's arrival is still counted and a fired event
-        logged, as on a one-device JAX backend."""
-        chaos_sites.device_revoke("devices.revoke")
+        """Chaos `capacity_loss` site at a chunk boundary: revoke devices
+        from the live pool (the engine's mesh, else the healthy visible
+        devices) and raise the synthetic DEVICE_LOST the reshard ladder
+        classifies. A revocation takes `min(n, len(pool) - 1)` devices,
+        always leaving one: on one device it takes nothing."""
+        ev = chaos_sites.device_revoke("devices.revoke")
+        if ev is None:
+            return
+        from ..parallel import sharding
+
+        mesh = getattr(self.engine, "mesh", None)
+        healthy = sharding.healthy_devices()
+        healthy_ids = {d.id for d in healthy}
+        pool = [d for d in (mesh.devices if mesh is not None else healthy)
+                if d.id in healthy_ids]
+        n = min(int(ev.arg("n", 1)), len(pool) - 1)
+        if n < 1:
+            return  # a single-device run has nothing left to lose
+        victims = [d.id for d in pool[-n:]]
+        sharding.revoke_devices(victims)
+        raise RuntimeError(
+            f"DEVICE_LOST: injected revocation of device id(s) {victims}"
+        )
 
     def _advance_chunk(self, budget_left: int) -> int:
         """Advance the engine by one committed chunk; returns steps run
@@ -498,6 +518,78 @@ class RunSupervisor:
         return self._steps_used() - before
 
     # ---- retry / degradation --------------------------------------------
+
+    def _reshard_after_device_loss(self, cause: BaseException) -> bool:
+        """First rung of the device-loss ladder (the JAX supervisor's):
+        shrink the mesh onto `largest_valid_submesh` of the healthy
+        devices and re-place the run there: the newest verified snapshot
+        through the checkpoint loader, which lays it over the engine's new
+        mesh (re-running from a committed boundary keeps the run
+        bit-exact), else the live state the rollback copy restored.
+        False when there is no mesh to shrink, no healthy landing mesh,
+        or the healthy set did not change."""
+        from ..parallel import sharding
+
+        mesh = getattr(self.engine, "mesh", None)
+        if mesh is None or self.kind == "stream":
+            return False
+        healthy = sharding.healthy_devices()
+        healthy_ids = {d.id for d in healthy}
+        cur = mesh.devices
+        lost = [d.id for d in cur if d.id not in healthy_ids]
+        if not lost and len(healthy) >= len(cur):
+            return False  # every mesh device still answers
+        try:
+            n = sharding.largest_valid_submesh(self.engine.cfg, len(healthy))
+        except sharding.DeviceMeshError as e:
+            self._log("degrade", f"device loss: no landing mesh ({e})")
+            return False
+        if n >= len(cur) and not lost:
+            return False
+        new_mesh = sharding.tile_mesh(devices=healthy[:n])
+        self.engine.mesh = new_mesh
+        restored = None
+        if self.store is not None:
+            for path in self.store.snapshots():
+                try:
+                    self.engine.load_checkpoint(path)
+                except (CheckpointCorrupt, ValueError, OSError) as e:
+                    self._log(
+                        "resume-skip",
+                        f"{os.path.basename(path)} unusable during "
+                        f"reshard, trying older ({e})",
+                    )
+                    continue
+                restored = path
+                break
+        # the events ride outside snapshots; the state too when no
+        # snapshot was restorable (a revoked shard id stays readable: the
+        # revocation is the registry's, as on a virtual JAX mesh)
+        if self.kind == "fleet":
+            self.engine._reshard()
+        else:
+            self.engine.events = sharding.shard_events(new_mesh, self.engine.events)
+            if restored is None:
+                self.engine.state = sharding.shard_state(new_mesh, self.engine.state)
+        self.engine._stepped = None
+        _discard_prefetch(self.engine)
+        rung = f"reshard:{len(cur)}->{n}"
+        self.degrade_rungs.append(rung)
+        self._log(
+            "degrade",
+            f"device loss ({cause}): mesh {len(cur)} -> {n} device(s)"
+            + (f", re-placed {os.path.basename(restored)}" if restored
+               else ", re-placed live state"),
+        )
+        print(json.dumps({
+            "event": "degraded",
+            "reason": "device_loss",
+            "lost_devices": lost,
+            "from_devices": len(cur),
+            "to_devices": n,
+            "restored": os.path.basename(restored) if restored else None,
+        }), file=sys.stderr, flush=True)
+        return True
 
     def _advance_with_retry(self, budget_left: int) -> int:
         from ..util.backoff import DecorrelatedJitter
@@ -516,8 +608,12 @@ class RunSupervisor:
                 if kind is None:
                     raise
                 if kind == "device_loss":
-                    # one device and no reshard ladder: nothing to demote,
-                    # so the bounded backoff-retry path below
+                    # the device-loss ladder: shrink the mesh onto healthy
+                    # devices; with nothing to shrink (one device, and no
+                    # CPU fallback in the port) the bounded backoff-retry
+                    # path below
+                    if self._reshard_after_device_loss(e):
+                        continue
                     kind = "transient"
                 if attempt >= self.max_retries:
                     self._log(
@@ -749,6 +845,7 @@ def build_fleet_isolated(
     overrides: list[dict] | None = None,
     chunk_steps: int = 256,
     device=None,
+    mesh=None,
 ):
     """Build a FleetEngine from per-element sources with fault isolation.
 
@@ -786,6 +883,7 @@ def build_fleet_isolated(
         ids.append(i)
     if not kept:
         return None, quarantined
-    fleet = FleetEngine(cfg, kept, kept_ovs, chunk_steps=chunk_steps, device=device)
+    fleet = FleetEngine(cfg, kept, kept_ovs, chunk_steps=chunk_steps, device=device,
+                        mesh=mesh)
     fleet.element_ids = ids
     return fleet, quarantined

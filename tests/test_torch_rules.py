@@ -116,9 +116,9 @@ def test_the_rules_cover_every_module_of_the_port():
     verification modules are among the modules they check (the serving
     daemon's Prometheus renderer `obs/prom.py`, the dispatcher, the
     pipelined ingest, the replicated journal, fsck, the audit, the crash
-    campaigns, the knob calibration and the kernel build cache included),
-    and the JAX package's unported module (the linter) is not in the
-    port."""
+    campaigns, the knob calibration, the kernel build cache and the tile
+    mesh's `parallel/` included), and the JAX package's unported module
+    (the linter) is not in the port."""
     rel = {os.path.relpath(p, PKG) for p in _modules()}
     for m in ("obs/__init__.py", "obs/metrics.py", "obs/recorder.py", "obs/trace.py",
               "obs/prom.py", "sim/checkpoint.py", "config/xml_compat.py", "cli.py",
@@ -134,7 +134,8 @@ def test_the_rules_cover_every_module_of_the_port():
               "ingest/pipeline.py", "serve/replicate.py", "analysis/__init__.py",
               "analysis/errors.py", "analysis/fsck.py", "attest/audit.py",
               "chaos/campaign.py", "calib/__init__.py", "calib/table.py",
-              "calib/fit.py", "sim/exec_cache.py"):
+              "calib/fit.py", "sim/exec_cache.py", "parallel/__init__.py",
+              "parallel/sharding.py", "parallel/distributed.py"):
         assert m in rel, m
     for m in ("analysis/lint.py",):
         assert m not in rel, m
@@ -153,6 +154,27 @@ def test_no_module_of_the_port_imports_jax():
             for n in names:
                 top = n.split(".")[0]
                 assert top not in ("jax", "jaxlib", "primesim_tpu"), (path, n)
+
+
+def test_parallel_imports_torch_distributed_and_nothing_of_jax():
+    """`parallel/` (the tile mesh and its process group) imports the
+    standard library, torch (`torch.distributed` among it) and the port's
+    own modules: never jax, jaxlib or the JAX package."""
+    allowed = {"__future__", "math", "os", "re", "typing", "torch"}
+    seen = set()
+    for name in ("__init__.py", "sharding.py", "distributed.py"):
+        path = os.path.join(PKG, "parallel", name)
+        for node in ast.walk(ast.parse(open(path).read(), path)):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                mods = [node.module]
+            else:
+                continue
+            for m in mods:
+                seen.add(m)
+                assert m.split(".")[0] in allowed, (name, m)
+    assert "torch.distributed" in seen
 
 
 def _is_cpu_test(test) -> bool:
@@ -1013,7 +1035,11 @@ CUT_SPECS = {"fleet_rung3_cut": ("fleet_rung3", 1024, 512),
              "multiprog_rung3_cut": ("multiprog_rung3", 1536, 512),
              "fleet_fork_cut": ("fleet_fork", (1536, 1536, 1536, 512), 512),
              "headline_cut": ("headline", 64, 64),
-             "rung3_headline_cut": ("rung3_headline", 64, 64)}
+             "rung3_headline_cut": ("rung3_headline", 64, 64),
+             "sharded_headline_cut": ("headline", 512, 64),
+             "sharded_rung3_cut": ("rung3_headline", 256, 64),
+             "rung3_headline_cut1024": ("rung3_headline", 1024, 512),
+             "ipu_cut": ("ipu_full", 1024, 512)}
 ATTEST_FIXTURES = (*ATTEST_SPECS, "serve_headline", "serve_rung2", *CUT_SPECS)
 
 
