@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Phases, each printing one JSON line; any failure exits non-zero before
-the final line (`chip_smoke.py --child PATH` runs one phase of 14 or 15 in a
-process of its own: the script starts it so):
+the final line (`chip_smoke.py --child PATH [SMI_LINE]` runs one phase of
+14, 15 or 17, or a group of phases started at the join, in a process of
+its own: the script starts it so):
 
 1. device    -- a CUDA card is required; prints nvidia-smi's name and
                 power limit.
@@ -125,7 +126,10 @@ process of its own: the script starts it so):
                 four kernels once per step, the
                 digest against the JAX package's there
                 (fixtures/rung3_headline_cut1024.json), invariants.
-   rung4     -- the shipped configs/rung4_4096core_biglittle.json (4096
+   rung4     -- (rung4, rung5, zoo_smoke and ipu, CHILD_MAIN_PATHS, run in
+                `--child main_paths`, a process started at the join beside
+                phases 5-9, their lines printed before phase 8) the
+                shipped configs/rung4_4096core_biglittle.json (4096
                 cores and banks, 64x64 mesh, chunked full map: 128 sharer
                 words, a 9.66 GB directory) at full geometry on the folded
                 fft_like(4096, 4 phases, 128 points, seed 42) trace,
@@ -166,7 +170,9 @@ process of its own: the script starts it so):
    rung2     -- the shipped configs/rung2_256core_parsec.json (256 cores,
                 16x16 mesh) on a folded fft_like(256, 4 phases, 128 points,
                 seed 42) trace, likewise against fixtures/rung2_full.json.
-   multiprog_rung3 -- rung 3's shipped machine on four 256-core programs
+   multiprog_rung3 -- (with cli_multiprog in `--child multiprog`, a
+                process started at the join, printed before phase 8)
+                rung 3's shipped machine on four 256-core programs
                 multiplexed into its 1024 cores (fixtures/multiprog_rung3.json:
                 an FFT, barrier_phases, lock_contention and readers_writer),
                 the programs written as PTPU files by the port's synth verb
@@ -235,7 +241,10 @@ process of its own: the script starts it so):
                 1 has no invalidating or evicting row), router_cascade at
                 rung 3's with B = 4, two legs and three (element 2 has no
                 live hop). Printed after phase 3.
-9. fleet_headline -- sim/fleet.py's FleetEngine on the headline machine,
+9. fleet_headline -- (with fleet_rung3 in `--child fleets`, a process
+                started at the join, printed before phase 8; phase 8's
+                fleet lines run in the main process) sim/fleet.py's
+                FleetEngine on the headline machine,
                 B = 8, chunk_steps 512: seven elements on the headline
                 trace with their own timing overrides, one on a two-phase
                 trace of seed 43 that finishes chunks early and freezes
@@ -269,8 +278,11 @@ process of its own: the script starts it so):
                 B = 8 window (step kernels) and after the rung-3 fleet's
                 window (router_cascade, B = 4), held to its plain version.
 
-10. supervised_faults (after cli_sweep, before phase 8: no profiler
-                session precedes it) -- the faulted headline (fixtures/
+10. supervised_faults (phases 10 and 12 in `--child post_served`, phase
+                11 in `--child post_streams`: processes started at the
+                join beside phases 5-9, their lines printed before phase
+                8, each beside the main thread's run of its machine) --
+                the faulted headline (fixtures/
                 headline_faults_schedule.json, seed 7, 1536 steps) in
                 chunks of 256 under sim/supervisor.py's RunSupervisor, with
                 a snapshot directory in a temporary folder, a snapshot every
@@ -305,8 +317,8 @@ process of its own: the script starts it so):
                 that simulates no prefix, run as far and equal there to the
                 JAX digests and to fleet_fork's. The launches count the
                 prefix's steps and the fleet's.
-   cli_supervised (in the background thread of dispatch_rung2, after
-                it; printed before phase 5) -- through
+   cli_supervised (in the background thread of replicated_headline,
+                after it; printed before phase 5) -- through
                 cli_side_by_side on rung 1: `run
                 --checkpoint-dir D --checkpoint-every 2 --guard fail
                 --attest chain`, then the same command with --resume (a
@@ -316,7 +328,7 @@ process of its own: the script starts it so):
                 three seeds) run twice against one cache per device: the
                 prefix_fork line reads cache_hits 0, then 1; card = CPU.
 
-11. stream_headline (after cli_supervised, before phase 8) -- the
+11. stream_headline (in `--child post_streams`, see 10) -- the
                 headline trace written as a PTPU file, memory-mapped and run
                 to completion by ingest/stream.py's StreamEngine through
                 256-event windows on the card: the digest (exact steps and
@@ -353,7 +365,8 @@ process of its own: the script starts it so):
                 equals it on the CPU; `capture --out` writes a trace that
                 the card and the CPU simulate alike.
 
-12. attest_headline (after online, before phase 8) -- the headline run
+12. attest_headline (in `--child post_served` after fleet_fork, see 10)
+                -- the headline run
                 to step 512 (ATTEST_DEPTH: one chunk of 512) with a
                 SoloAttest chain: the head after
                 every chunk, a hash of every state field, equal to the JAX
@@ -375,8 +388,8 @@ process of its own: the script starts it so):
                 health reports its fleet steps and kernel launches (each
                 step kernel once per fleet step) and its peak device
                 memory; prints the jobs' wall and aggregate MIPS.
-   serve_recover (run beside the CLI phases of step 4, printed after
-                cli_xml) -- the daemon on the shipped rung-2 machine (256
+   serve_recover (run beside the main thread from the CLI phases of
+                step 4 on, printed at the join) -- the daemon on the shipped rung-2 machine (256
                 cores), four jobs (fixtures/serve_rung2.json), started with
                 PRIMETPU_CHAOS_PLAN set to kill it (SIGKILL) at its first
                 `scheduler.post-checkpoint` (2 s of wall between
@@ -573,6 +586,44 @@ process of its own: the script starts it so):
                 launched 4 times a step before, 2 after. Prints the
                 supervisor's log.
 
+17. stream_sharded_headline (in `--child sharded_streams`, with
+                pipeline_rung5_sharded and capacity_sharded; the pool and
+                dispatch paths in `--child sharded_pool`: two processes in
+                background threads from phase 2 on, beside phases 13-15,
+                printed before phase 5. Each declares SHARDS virtual device
+                ids of the card in its own process, since a `python -m
+                primesim_tpu_torch` child sees one device; its coordinators,
+                workers and dispatcher run as threads) --
+                the headline streamed through a StreamEngine on 4 shards
+                at STREAM_W["stream_headline"]: its digest and windows
+                equal fixtures/stream_headline.json, each step kernel
+                launched 4 times a step, router_cascade never; a snapshot
+                taken at half its events is resumed unsharded to the same
+                digest; one window chunk of the sharded stream makes
+                exactly one synchronising call under CUDA's sync debug
+                mode (its one transfer).
+   pipeline_rung5_sharded -- rung 5 at full geometry (16384 cores) on 4
+                shards, pipelined with PIPE_WORKERS ingest processes and
+                supervised: fixtures/stream_rung5.json's digest, 4
+                launches of each step kernel a step.
+   pool_sharded_headline -- an in-process coordinator and two worker
+                threads on POOL_SHARD_UNITS headline units asking for 4
+                devices, cut to step 512 (one chunk, attested): each
+                result fixtures/sharded_headline_cut.json's; one shard
+                revoked before w0's second lease, so that unit runs on
+                2 shards (devices_granted 2, booked in the ledger) to the
+                same digest; then attest/audit.py replays every unit on
+                the mesh: every verdict ok with its ack confirmed.
+   dispatch_sharded_rung2 -- the dispatcher with a 4-device bucket
+                serving two serve_rung2 jobs through an in-process
+                coordinator and one worker thread that sees three devices
+                at its first lease (a DeviceMeshError quarantine): one
+                rebucket 4 -> 2, both results equal fixtures/
+                serve_rung2.json's digests and chains.
+   capacity_sharded -- the capacity trial's supervised half on the
+                virtual mesh with a shard revoked at its second chunk
+                boundary: degrade_rungs ["reshard:4->2"], no violations.
+
 Then a line of every phase's elapsed seconds ("phase_times"), the kernel
 summary line (each kernel's batched figures under "batched", the launches
 of every path under "launches_by_path") and, last, the result line
@@ -744,6 +795,19 @@ SHARDS = 4
 SHARD_DEPTH = {"sharded_headline": 512, "sharded_rung3": 256}
 SHARD_STAGE = 300
 RESHARD_CHUNK, RESHARD_AT = 128, 2
+# phase 17: headline units of the sharded pool (one more than its two
+# worker threads, so that one worker leases twice) and the capacity
+# trial's chunk (chaos/campaign.py's capacity workload)
+POOL_SHARD_UNITS = 3
+CAPACITY_CHUNK = 32
+# the `--child` groups started at the join: the main paths of
+# CHILD_MAIN_PATHS, multiprog_rung3 and cli_multiprog, phase 9, phases 10
+# and 12, phase 11
+JOIN_CHILDREN = ("main_paths", "multiprog", "fleets", "post_served", "post_streams")
+CHILD_MAIN_PATHS = ("rung4", "rung5", "zoo_smoke", "ipu")
+POST_BASELINE = {"supervised_faults": "headline_faults", "stream_headline": "headline",
+                 "stream_rung5": "rung5", "attest_headline": "headline"}
+SHARD_CHILD_NICE = 10  # phase 17's children yield the host's cores to the main thread
 # the kernels' launch modes on a core shard, held to their plain versions
 # and timed alone in phase 16's "mode" line
 SHARD_MODES = {"probe_classify": "probe_classify_staged",
@@ -907,12 +971,11 @@ def load_fleet_fixture(name, made: dict):
     return ffx, MachineConfig.from_dict(spec), trs, [e["overrides"] for e in ffx["elements"]]
 
 
-def stream_phases(dev, smi_line: str, headline, rung5, baselines: dict) -> dict:
+def stream_phases(dev, smi_line: str, headline, rung5) -> dict:
     """The streamed and captured paths: stream_headline, stream_rung5,
     stream_snapshot, cli_stream, online and the stream sync_check (module
     docstring). `headline` and `rung5` are the full-width fixtures
-    (record, machine, trace), `baselines` the preloaded runs' wall_s and
-    peak_memory_bytes by path. Returns each path's launch counts, set to
+    (record, machine, trace). Returns each path's launch counts, set to
     0 just before the path was driven."""
     import contextlib
     import gc
@@ -981,7 +1044,6 @@ def stream_phases(dev, smi_line: str, headline, rung5, baselines: dict) -> dict:
             tr.save(file)
             mapped[path] = Trace.load(file, mmap=True)
             sfx = stream_fixture(path)
-            base = path.removeprefix("stream_")  # the preloaded path
             gc.collect()
             torch.cuda.empty_cache()
             held = torch.cuda.memory_allocated()
@@ -999,7 +1061,6 @@ def stream_phases(dev, smi_line: str, headline, rung5, baselines: dict) -> dict:
             peak = torch.cuda.max_memory_allocated() - held
             got = digest(eng)
             ch = eng.window_chunks
-            pre = baselines[base]
             split = {k: float(np.sum([x["phases"][k] for x in eng.obs.store.samples()]))
                      for k in ("fill", "dispatch", "absorb")}
             window_bytes = mcfg.n_cores * (W + 1) * 4 * 4
@@ -1008,9 +1069,7 @@ def stream_phases(dev, smi_line: str, headline, rung5, baselines: dict) -> dict:
                                         "max": int(max(ch)), "total": int(sum(ch))},
                   "steps": eng.steps_run, "wall_s": wall,
                   "simulated_mips": got["instructions"] / wall / 1e6,
-                  "preloaded_wall_s": pre["wall_s"],
-                  "wall_over_preloaded": wall / pre["wall_s"],
-                  "peak_memory_bytes": peak, "preloaded_peak_memory_bytes": pre["peak_memory_bytes"],
+                  "peak_memory_bytes": peak,
                   "window_upload_bytes": window_bytes, "phase_s": split,
                   "trace_bytes": int(tr.events.nbytes),
                   "launches": launches[path], "instructions": got["instructions"],
@@ -1300,13 +1359,12 @@ def stream_phases(dev, smi_line: str, headline, rung5, baselines: dict) -> dict:
     return launches
 
 
-def resilience_phases(dev, smi_line: str, hf, made: dict, baseline: dict | None = None) -> dict:
+def resilience_phases(dev, smi_line: str, hf, made: dict) -> dict:
     """The supervised and forked paths: supervised_faults and fleet_fork
     (module docstring). `hf` is the headline_faults
     fixture (record, machine, trace), `made` the traces already made (see
-    load_fleet_fixture), `baseline` the unsupervised headline_faults run's
-    wall_s and peak_memory_bytes. Returns each path's launch counts, set
-    to 0 just before the path was driven."""
+    load_fleet_fixture). Returns each path's launch counts, set to 0 just
+    before the path was driven."""
     import gc
     import signal
 
@@ -1444,7 +1502,7 @@ def resilience_phases(dev, smi_line: str, hf, made: dict, baseline: dict | None 
             "rollback_copy_ms": float(np.median(copy_ms)),
             "wall_s": [wall1, wall2], "wall_total_s": wall1 + wall2,
             "peak_memory_bytes": peak,
-            "unsupervised": baseline, "launches": launches["supervised_faults"],
+            "launches": launches["supervised_faults"],
             "attest": eng.attest.payload(), "chain_at_resume": chain_at_resume,
             "attest_equals_jax": eng.attest.payload() == want_chain,
             "resilience_log": sup.log_lines(), "gpu": smi_line}
@@ -1630,11 +1688,10 @@ def spawn_daemon(args: list[str], env: dict | None = None):
         time.sleep(0.05)
 
 
-def attest_serve_phases(dev, smi_line: str, headline, baselines: dict, made: dict) -> dict:
+def attest_serve_phases(dev, smi_line: str, headline, made: dict) -> dict:
     """The attested and served paths: attest_headline and serve_headline
     (module docstring). `headline` is the headline fixture
-    (record, machine, trace), `baselines` the preloaded runs' wall_s and
-    peak_memory_bytes by path, `made` the traces already made (see
+    (record, machine, trace), `made` the traces already made (see
     load_fleet_fixture). Returns each path's launch counts, set to 0 just
     before the path was driven (a daemon's: its process's, from 0)."""
     import torch
@@ -1699,7 +1756,7 @@ def attest_serve_phases(dev, smi_line: str, headline, baselines: dict, made: dic
                      None)
     emit({"phase": "attest_headline", "chunk_steps": chunk, "steps": eng.steps_run,
           "chunks": len(heads), "wall_s": wall, "simulated_mips": got["instructions"] / wall / 1e6,
-          "unattested": baselines["headline"], "unattested_steps": hfx["digest"]["steps"],
+          "unattested_steps": hfx["digest"]["steps"],
           "peak_memory_bytes": peak,
           "bytes_hashed_per_chunk": [c["bytes"] for c in per_chunk],
           "transfer_s_per_chunk": [c["transfer_s"] for c in per_chunk],
@@ -2250,12 +2307,14 @@ def fixture_json(name: str) -> dict:
 
 
 def run_child(args: list[str], timeout: float = 900.0,
-              env: dict | None = None) -> tuple[int, str, str, float]:
+              env: dict | None = None, nice: int = 0) -> tuple[int, str, str, float]:
     """`python <args>` from the checkout's root, with `env` added to this
-    process's environment: (returncode, stdout, stderr, wall s)."""
+    process's environment and its CPU priority lowered by `nice`:
+    (returncode, stdout, stderr, wall s)."""
     t0 = time.perf_counter()
     r = subprocess.run([sys.executable, *args], cwd=ROOT, capture_output=True, text=True,
-                       timeout=timeout, env={**os.environ, **(env or {})})
+                       timeout=timeout, env={**os.environ, **(env or {})},
+                       preexec_fn=(lambda: os.nice(nice)) if nice else None)
     return r.returncode, r.stdout, r.stderr, time.perf_counter() - t0
 
 
@@ -2373,6 +2432,453 @@ def child_phase(path: str, smi_line: str) -> tuple[dict, dict]:
         fail(f"{path}: the child exited {rc}: {err[-3000:]}")
     line = json.loads(out.strip().splitlines()[-1])
     return {**line, "process_wall_s": wall, "gpu": smi_line}, {path: line["launches"]}
+
+
+def sharded_phase(path: str, smi_line: str) -> tuple[list, dict]:
+    """Phase 17's `chip_smoke.py --child sharded_streams|sharded_pool`
+    process: (its paths' lines, each with the script's elapsed seconds at
+    which it ended, and {path: launches} of its paths, counted in the
+    child from 0)."""
+    started = time.perf_counter() - T0
+    # niced: the main thread's phases before the join set the script's
+    # pace, and these children have time to spare beside them
+    rc, out, err, wall = run_child([os.path.join(ROOT, "chip_smoke.py"), "--child", path],
+                                   nice=SHARD_CHILD_NICE)
+    if rc != 0:
+        fail(f"{path}: the child exited {rc}: {err[-3000:]}")
+    rec = json.loads(out.strip().splitlines()[-1])
+    lines = [{**{k: v for k, v in ln.items() if k != "child_t_s"},
+              "ended_t_s": round(started + ln["child_t_s"], 1), "process_wall_s": wall,
+              "gpu": smi_line} for ln in rec["lines"]]
+    return lines, rec["launches"]
+
+
+def same_run(phase, gpu, cpu):
+    """Fail unless two engines (or a card_cut and an engine) agree in
+    steps, per-core cycles, every counter and every state field; returns
+    the card's state as numpy."""
+    from primesim_tpu_torch import convert
+
+    gs = gpu.state_np if hasattr(gpu, "state_np") else convert.state_to_numpy(gpu.state)
+    cs = convert.state_to_numpy(cpu.state)
+    for f in gs:
+        same = (all(np.array_equal(gs[f][k], cs[f][k]) for k in gs[f])
+                if f in ("knobs", "faults") else np.array_equal(gs[f], cs[f]))
+        if not same:
+            fail(f"{phase}: state field {f} differs between the card and the CPU")
+    if gpu.steps_run != cpu.steps_run or not np.array_equal(gpu.cycles, cpu.cycles):
+        fail(f"{phase}: steps or cycles differ between the card and the CPU")
+    gc, cc = gpu.counters, cpu.counters
+    for k in cc:
+        if not np.array_equal(gc[k], cc[k]):
+            fail(f"{phase}: counter {k} differs between the card and the CPU")
+    return gs
+
+
+def run_main_paths(dev, smi_line: str, paths: list, sums_of: dict) -> tuple[dict, dict]:
+    """Phases 6/7 on `paths` ((path, machine, fixture record, trace,
+    kernels it runs) each), each with the counts set to 0 just before it:
+    its line, its digest against the JAX package's, its invariants.
+    `sums_of` gains each path's counter sums. Returns ({path: launches},
+    {path: {wall_s, peak_memory_bytes}})."""
+    import torch
+
+    from primesim_tpu_torch.faults import inject
+    from primesim_tpu_torch.kernels import build
+    from primesim_tpu_torch.sim.engine import Engine
+    from primesim_tpu_torch.stats.digest import run_digest
+
+    launches, baselines = {}, {}
+    real_scrub = inject.scrub_dead
+    scrubs = []
+
+    def counted_scrub(*args):  # host-side count of the steps that scrub
+        scrubs.append(1)
+        return real_scrub(*args)
+
+    for path, pcfg, fx, ptrace, ran in paths:
+        held = torch.cuda.memory_allocated()  # the timed step's inputs, kept for phase 8
+        eng = Engine(pcfg, ptrace, chunk_steps=fx["chunk_steps"], device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.LAUNCHES.update(dict.fromkeys(build.LAUNCHES, 0))
+        scrubs.clear()
+        inject.scrub_dead = counted_scrub
+        cut_of = MAIN_CUT.get(path)
+        t0 = time.perf_counter()
+        try:
+            eng.run_steps(cut_of[1]) if cut_of else eng.run()
+            torch.cuda.synchronize()
+        finally:
+            inject.scrub_dead = real_scrub
+        wall = time.perf_counter() - t0
+        if cut_of:  # held to the JAX digest at the cut
+            fx = {**fx, "digest": load_cut(*cut_of)["digests"][0]}
+        launches[path] = dict(build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() - held
+        baselines[path] = {"wall_s": wall, "peak_memory_bytes": peak}
+        got = run_digest(eng.steps_run, eng.cycles, eng.counters,
+                         eng.state.link_free.cpu().numpy(),
+                         eng.state.dram_free.cpu().numpy())
+        ins = got["instructions"]
+        sums = sums_of[path] = got["counter_sums"]
+        fault_info = {"faults": {
+            **{k: sums[k] for k in (*FAULT_COUNTERS, "l1_writebacks")},
+            "dead_cores": np.flatnonzero(eng.state.faults.core_dead.cpu().numpy()).tolist(),
+            "scrub_steps": len(scrubs)}} if pcfg.faults_enabled else {}
+        emit({"phase": path, "steps": eng.steps_run, "wall_s": wall, **fault_info,
+              "simulated_mips": ins / wall / 1e6, "peak_memory_bytes": peak,
+              "launches": launches[path], "instructions": ins,
+              "max_core_cycles": got["max_core_cycles"],
+              "noc_msgs": sums["noc_msgs"],
+              "noc_contention_cycles": sums["noc_contention_cycles"],
+              "dram_queue_cycles": sums["dram_queue_cycles"],
+              **{k: sums[k] for k in ("probes", "barrier_waits", "prefetch_hits")},
+              "digest": {k: v for k, v in got.items() if k.endswith("sha256")},
+              "equals_jax_digest": got == fx["digest"],
+              "cut": list(cut_of) if cut_of else None, "gpu": smi_line})
+        for k, n in launches[path].items():
+            if n != (eng.steps_run if k in ran else 0):
+                fail(f"{path}: {k} launched {n} times in {eng.steps_run} steps")
+        if not (pcfg.faults_enabled or cut_of) and ins != ptrace.total_instructions():
+            fail(f"{path}: {ins} instructions retired, trace has {ptrace.total_instructions()}")
+        if pcfg.faults_enabled and not all(sums[k] for k in FAULT_COUNTERS):
+            fail(f"{path}: a fault counter sums to 0: {fault_info}")
+        if pcfg.faults_enabled and not 0 < len(scrubs) < eng.steps_run // 16:
+            fail(f"{path}: the scrub ran on {len(scrubs)} of {eng.steps_run} steps")
+        for k, want in fx["digest"].items():
+            if got[k] != want:
+                fail(f"{path}: {k} {got[k]} != the JAX package's {want}")
+        if not (cut_of or eng.done()):
+            fail(f"{path}: not every core reached END")
+        if path == "ipu" and not (sums["barrier_waits"] and sums["prefetch_hits"]):
+            fail(f"ipu: {sums['barrier_waits']} barrier waits and "
+                 f"{sums['prefetch_hits']} prefetch hits: both must be nonzero")
+        if path == "headline_moesi" and sums["probes"] == sums_of["headline"]["probes"]:
+            fail("headline_moesi: as many probes as the MESI headline")
+        if path == "zoo_smoke":
+            cpu = Engine(pcfg, ptrace, chunk_steps=fx["chunk_steps"], device="cpu")
+            cpu.run()
+            same_run(path, eng, cpu)
+            del cpu
+        t0 = time.perf_counter()
+        eng.verify_invariants()
+        if path in MODE_PATHS:
+            emit({"phase": f"{path} invariants", "seconds": time.perf_counter() - t0})
+        del eng
+        torch.cuda.empty_cache()
+    return launches, baselines
+
+
+def multiprog_phases(dev, smi_line: str) -> dict:
+    """multiprog_rung3 and cli_multiprog (module docstring). Returns
+    {"multiprog_rung3": its launch counts, set to 0 just before it}."""
+    import torch
+
+    from primesim_tpu_torch import cli as tcli
+    from primesim_tpu_torch.kernels import build, router_kernels
+    from primesim_tpu_torch.obs import Recorder
+    from primesim_tpu_torch.sim.engine import Engine
+    from primesim_tpu_torch.stats.digest import run_digest
+
+    def reset_launches():
+        build.LAUNCHES.update(dict.fromkeys(build.LAUNCHES, 0))
+
+    # ---- multiprog_rung3: four 256-core programs (an FFT, barriers, locks,
+    # a reader-writer), written as PTPU files by the port's synth verb and
+    # multiplexed into rung 3 by the CLI's loader; run with the flight
+    # recorder to step MP_CUT, checkpointed, freed, resumed in a fresh
+    # engine and run to the end. Then the same programs through the CLI.
+    launches = {}
+    mpfx, cfg_mp, trace_mp = load_fixture("multiprog_rung3")
+    mp_dir = tempfile.mkdtemp(prefix="chip_smoke_mp_")
+    try:
+        mp_paths = []
+        for i, prog in enumerate(mpfx["trace"]["multiplex"]):
+            args = dict(prog["args"])
+            n = args.pop("n_cores")
+            mp_paths.append(os.path.join(mp_dir, f"prog{i}.ptpu"))
+            spec = prog["generator"] + ":" + ",".join(f"{k}={v}" for k, v in args.items())
+            if tcli.main(["synth", spec, "--cores", str(n), "--out", mp_paths[-1]]) != 0:
+                fail(f"multiprog_rung3: synth {spec} failed")
+        mp_tr = tcli._load_trace(
+            SimpleNamespace(trace=mp_paths, synth=None, fold=mpfx["trace"]["fold"]),
+            cfg_mp.n_cores, line_bits=cfg_mp.line_bits)
+        if mp_tr.events.tobytes() != trace_mp.events.tobytes():
+            fail("multiprog_rung3: the CLI's multiplexed trace is not the fixture's")
+        rec = Recorder("full")
+        held = torch.cuda.memory_allocated()
+        eng = Engine(cfg_mp, mp_tr, chunk_steps=mpfx["chunk_steps"], device=dev)
+        if not eng.has_sync:
+            fail("multiprog_rung3: the trace has no sync events")
+        rec.attach(eng)
+        real_cascade, with_sync = router_kernels.router_cascade, [0]
+
+        def cascade_counted(*args, **kw):  # host-side count of three-leg calls
+            with_sync[0] += bool(kw.get("has_sync"))
+            return real_cascade(*args, **kw)
+
+        ck = os.path.join(mp_dir, "mid.npz")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        router_kernels.router_cascade = cascade_counted
+        try:
+            t0 = time.perf_counter()
+            eng.run_steps(MP_CUT)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            eng.save_checkpoint(ck)
+            save_s = time.perf_counter() - t0
+            del eng
+            torch.cuda.empty_cache()
+            eng = Engine(cfg_mp, mp_tr, chunk_steps=mpfx["chunk_steps"], device=dev)
+            t0 = time.perf_counter()
+            eng.load_checkpoint(ck)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            if eng.steps_run != MP_CUT:
+                fail(f"multiprog_rung3: resumed at step {eng.steps_run}, not {MP_CUT}")
+            rec.attach(eng)
+            t0 = time.perf_counter()
+            eng.run_steps(MP_DEPTH - MP_CUT)
+            torch.cuda.synchronize()
+            rest_s = time.perf_counter() - t0
+        finally:
+            router_kernels.router_cascade = real_cascade
+        launches["multiprog_rung3"] = dict(build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() - held
+        got = run_digest(eng.steps_run, eng.cycles, eng.counters,
+                         eng.state.link_free.cpu().numpy(), eng.state.dram_free.cpu().numpy())
+        mp_cut = load_cut("multiprog_rung3_cut", MP_DEPTH)["digests"][0]
+        sums = got["counter_sums"]
+        samples = rec.store.samples()
+        spans = [e for e in rec.trace.events if e["ph"] == "B" and e["name"] == "chunk"]
+        n_chunks = eng.steps_run // eng.chunk_steps
+        mean_phases = {k: float(np.mean([x["phases"][k] for x in samples]))
+                       for k in ("dispatch", "drain", "rebase")}
+        emit({"phase": "multiprog_rung3", "steps": eng.steps_run, "checkpoint_step": MP_CUT,
+              "wall_s": first_s + rest_s, "wall_s_before_after": [first_s, rest_s],
+              "simulated_mips": got["instructions"] / (first_s + rest_s) / 1e6,
+              "checkpoint_bytes": os.path.getsize(ck), "save_s": save_s, "load_s": load_s,
+              "peak_memory_bytes": peak, "launches": launches["multiprog_rung3"],
+              "router_cascade_with_sync": with_sync[0], "instructions": got["instructions"],
+              "max_core_cycles": got["max_core_cycles"],
+              **{k: sums[k] for k in ("noc_msgs", "lock_acquires", "barrier_waits",
+                                      "noc_contention_cycles", "dram_queue_cycles")},
+              "recorder": {"chunks": len(samples), "spans": len(spans),
+                           "mean_phase_s": mean_phases},
+              "digest": {k: v for k, v in got.items() if k.endswith("sha256")},
+              "depth": MP_DEPTH, "equals_jax_digest": got == mp_cut, "gpu": smi_line})
+        for k, n in launches["multiprog_rung3"].items():
+            if n != eng.steps_run:
+                fail(f"multiprog_rung3: {k} launched {n} times in {eng.steps_run} steps")
+        if with_sync[0] != eng.steps_run:
+            fail(f"multiprog_rung3: router_cascade ran {with_sync[0]} of "
+                 f"{eng.steps_run} steps with the barrier-arrival leg")
+        for k, want in mp_cut.items():
+            if got[k] != want:
+                fail(f"multiprog_rung3: {k} {got[k]} != the JAX package's {want} at "
+                     f"step {MP_DEPTH}")
+        if not (sums["lock_acquires"] and sums["barrier_waits"]):
+            fail("multiprog_rung3: no lock acquired or no barrier waited")
+        if eng.steps_run != MP_DEPTH:
+            fail(f"multiprog_rung3: stopped at step {eng.steps_run}, not {MP_DEPTH}")
+        if len(samples) != n_chunks or len(spans) != n_chunks:
+            fail(f"multiprog_rung3: {len(samples)} samples and {len(spans)} chunk spans "
+                 f"for {n_chunks} chunks")
+        if sum(x["deltas"]["instructions"] for x in samples) != got["instructions"]:
+            fail("multiprog_rung3: the recorder's instruction deltas miss the total")
+        eng.verify_invariants()
+        # the CLI below finishes the run from this state
+        mp_ck = os.path.join(mp_dir, "ck")
+        os.makedirs(mp_ck)
+        eng.save_checkpoint(os.path.join(mp_ck, "ckpt-00000001.npz"))
+        del eng
+        torch.cuda.empty_cache()
+
+        # the same programs through `python -m primesim_tpu_torch run`,
+        # resumed from the snapshot at MP_DEPTH and run to the end: its
+        # summary is the whole run's
+        out = {k: os.path.join(mp_dir, f) for k, f in (
+            ("metrics", "m.jsonl"), ("trace", "t.json"), ("report", "r.txt"))}
+        cmd = [sys.executable, "-m", "primesim_tpu_torch", "run", mpfx["config"],
+               *[a for p in mp_paths for a in ("--trace", p)], "--fold",
+               "--chunk-steps", str(mpfx["chunk_steps"]), "--obs", "full",
+               "--metrics-out", out["metrics"], "--trace-out", out["trace"],
+               "--report", out["report"], "--per-core-limit", "16",
+               "--checkpoint-dir", mp_ck, "--resume"]
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        if r.returncode != 0:
+            fail(f"cli_multiprog: exited {r.returncode}: {r.stderr[-500:]}")
+        detail = json.loads(r.stdout.strip().splitlines()[-1])["detail"]
+        with open(out["metrics"]) as f:
+            lines = [json.loads(ln) for ln in f]
+        with open(out["trace"]) as f:
+            n_events = len(json.load(f)["traceEvents"])
+        with open(out["report"]) as f:
+            has_timeline = "TIMELINE" in f.read()
+        want = {"instructions": mpfx["digest"]["instructions"],
+                "max_core_cycles": mpfx["digest"]["max_core_cycles"],
+                "noc_msgs": mpfx["digest"]["counter_sums"]["noc_msgs"]}
+        split = {k: float(np.mean([x["phases"][k] for x in lines]))
+                 for k in ("dispatch", "drain", "rebase")}
+        emit({"phase": "cli_multiprog", "summary": {k: detail[k] for k in want},
+              "resumed_from": os.path.basename(detail.get("resumed_from") or ""),
+              "steps": detail["steps"], "wall_s": detail["wall_s"], "command_s": cli_s,
+              "timeline": detail.get("timeline"), "metrics_lines": len(lines),
+              "trace_events": n_events, "report_has_timeline": has_timeline,
+              "mean_phase_s_per_chunk": split,
+              "chunk_wall_s": [x["wall_s"] for x in lines], "gpu": smi_line})
+        if {k: detail[k] for k in want} != want:
+            fail(f"cli_multiprog: summary {detail} != the JAX digest's {want}")
+        if len(lines) != (detail["steps"] - MP_DEPTH) // mpfx["chunk_steps"] \
+                or not has_timeline or detail["steps"] != mpfx["digest"]["steps"]:
+            fail(f"cli_multiprog: {len(lines)} metrics lines for {detail['steps']} steps "
+                 f"from {MP_DEPTH}, TIMELINE {has_timeline}")
+    finally:
+        shutil.rmtree(mp_dir, ignore_errors=True)
+    return launches
+
+
+def fleet_phases(dev, smi_line: str) -> dict:
+    """Phase 9 (module docstring): B elements of one geometry through one
+    set of launches a step. fleet_headline: the headline machine, B = 8
+    with its own overrides per element, one element on a shorter trace
+    that freezes early; fleet_rung3: rung 3, B = 4, checkpointed at
+    FLEET_CUT and resumed in a fresh fleet. Each element's digest against
+    the committed JAX one, element 0 against the solo path's. Returns
+    each path's launch counts, set to 0 just before it."""
+    import torch
+
+    from primesim_tpu_torch.kernels import build
+    from primesim_tpu_torch.sim.fleet import FleetEngine
+    from primesim_tpu_torch.stats.digest import run_digest
+
+    def reset_launches():
+        build.LAUNCHES.update(dict.fromkeys(build.LAUNCHES, 0))
+
+    hfx, _, trace = load_fixture("headline")
+    made = {json.dumps(hfx["trace"], sort_keys=True): trace}  # the headline trace, made once
+    fleet_launches = {}
+    for path, fname, solo_fx, ran, cut in (
+            ("fleet_headline", "fleet_headline", hfx, STEP_KERNELS, None),
+            ("fleet_rung3", "fleet_rung3", None, tuple(KERNEL_META), FLEET_CUT)):
+        ffx, fcfg, ftrs, fovs = load_fleet_fixture(fname, made)
+        if cut is not None:  # a shallower run, held to the JAX digests at its depth
+            ffx = {**ffx, "elements": [{**e, "digest": d} for e, d in zip(
+                ffx["elements"], load_cut("fleet_rung3_cut", FLEET_DEPTH)["digests"])]}
+        ck = os.path.join(tempfile.gettempdir(), f"chip_smoke_{os.getpid()}_{path}.npz")
+        held = torch.cuda.memory_allocated()
+        fl = FleetEngine(fcfg, ftrs, fovs, chunk_steps=ffx["chunk_steps"], device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        ck_info = {}
+        t0 = time.perf_counter()
+        try:
+            if cut is None:
+                fl.run()
+            else:
+                fl.run_steps(cut)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                fl.save_checkpoint(ck)
+                t2 = time.perf_counter()
+                del fl
+                torch.cuda.empty_cache()
+                fl = FleetEngine(fcfg, ftrs, fovs, chunk_steps=ffx["chunk_steps"], device=dev)
+                fl.load_checkpoint(ck)
+                torch.cuda.synchronize()
+                t3 = time.perf_counter()
+                if list(fl.steps_run) != [cut] * fl.n_elements:
+                    fail(f"{path}: resumed at steps {list(fl.steps_run)}, not {cut}")
+                ck_info = {"checkpoint_step": cut, "checkpoint_bytes": os.path.getsize(ck),
+                           "save_s": t2 - t1, "load_s": t3 - t2, "depth": FLEET_DEPTH}
+                fl.run_steps(FLEET_DEPTH - cut)
+            torch.cuda.synchronize()
+        finally:
+            if os.path.exists(ck):
+                os.unlink(ck)
+        wall = time.perf_counter() - t0 - ck_info.get("save_s", 0) - ck_info.get("load_s", 0)
+        fleet_launches[path] = dict(build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() - held
+        steps = int(fl.steps_run.max())
+        cnt, cyc = fl.counters, fl.cycles
+        got = [run_digest(fl.steps_run[i], cyc[i], {k: v[i] for k, v in cnt.items()},
+                          fl.state.link_free[i].cpu().numpy(), fl.state.dram_free[i].cpu().numpy())
+               for i in range(fl.n_elements)]
+        ins = sum(g["instructions"] for g in got)
+        same = [g == e["digest"] for g, e in zip(got, ffx["elements"])]
+        emit({
+            "phase": path, "B": fl.n_elements, "steps": steps,
+            "steps_by_element": fl.steps_run.tolist(), "wall_s": wall,
+            "aggregate_mips": ins / wall / 1e6, "instructions": ins,
+            "launches": fleet_launches[path],
+            "launches_per_step": {k: n / steps for k, n in fleet_launches[path].items()},
+            "peak_memory_bytes": peak, **ck_info,
+            "max_core_cycles": [g["max_core_cycles"] for g in got],
+            "equals_jax_digest": same,
+            "element0_equals_solo": got[0] == solo_fx["digest"] if cut is None else None,
+            "gpu": smi_line})
+        del fl
+        torch.cuda.empty_cache()
+        for k, n in fleet_launches[path].items():
+            if n != (steps if k in ran else 0):
+                fail(f"{path}: {k} launched {n} times in {steps} fleet steps")
+        for i, (g, e) in enumerate(zip(got, ffx["elements"])):
+            for k, want in e["digest"].items():
+                if g[k] != want:
+                    fail(f"{path}: element {i} {k} {g[k]} != the JAX package's {want}")
+        if cut is None and got[0] != solo_fx["digest"]:
+            fail(f"{path}: element 0 differs from the solo path's digest")
+        if path == "fleet_headline" and not max(fl_s := [g["steps"] for g in got]) > fl_s[-1]:
+            fail(f"{path}: the short element finished with the others ({fl_s})")
+    return fleet_launches
+
+
+def group_child(path: str, smi_line: str) -> tuple[list, list, dict]:
+    """A group of phases in a process of this script, started at the join
+    (JOIN_CHILDREN): (their phase lines, each with the script's elapsed
+    seconds at which it ended in place of the child's, the other lines the
+    child printed, and the child's last line: {"launches": {path: counts
+    from 0}} and, of main_paths, "baselines")."""
+    started = time.perf_counter() - T0
+    rc, out, err, wall = run_child([os.path.join(ROOT, "chip_smoke.py"), "--child",
+                                    path, smi_line])
+    sys.stderr.write(err)
+    if rc != 0:
+        fail(f"{path}: the child exited {rc}: {err[-3000:]}")
+    *body, last = out.strip().splitlines()
+    lines, other = [], []
+    for ln in body:
+        rec = json.loads(ln) if ln.startswith("{") else None
+        if rec is not None and "phase" in rec:
+            t = rec.pop("t_s")
+            lines.append({**rec, "ended_t_s": round(started + t, 1), "process_wall_s": wall})
+        else:
+            other.append(ln)
+    return lines, other, json.loads(last)
+
+
+def with_baseline(line: dict, baselines: dict) -> dict:
+    """A phase line of phases 10-12 with the main thread's run of the same
+    machine beside it (POST_BASELINE): the preloaded run of a stream, the
+    unsupervised run of supervised_faults, the unattested one of
+    attest_headline."""
+    base = POST_BASELINE.get(line["phase"])
+    if base is None:
+        return line
+    pre = baselines[base]
+    if line["phase"].startswith("stream_"):
+        return {**line, "preloaded_wall_s": pre["wall_s"],
+                "wall_over_preloaded": line["wall_s"] / pre["wall_s"],
+                "preloaded_peak_memory_bytes": pre["peak_memory_bytes"]}
+    key = "unsupervised" if line["phase"] == "supervised_faults" else "unattested"
+    return {**line, key: pre}
 
 
 def calib_chaos_phases(smi_line: str) -> tuple[list, dict]:
@@ -2620,9 +3126,13 @@ def overlap_supervised_child(dev) -> dict:
                                       on["enqueued"] * chunk)}
 
 
-def child_main(path: str) -> int:
-    """`chip_smoke.py --child PATH`: one phase in this process, its line
-    last on stdout (calib_ipu_matrix, chaos_classes: module docstring)."""
+def child_main(path: str, smi_line: str = "") -> int:
+    """`chip_smoke.py --child PATH [SMI_LINE]`: one phase in this process,
+    its line last on stdout (calib_ipu_matrix, chaos_classes: module
+    docstring), or a group of them (JOIN_CHILDREN: main_paths, phases 6/7
+    on CHILD_MAIN_PATHS; multiprog, multiprog_rung3 and cli_multiprog;
+    fleets, phase 9; post_served, phases 10 and 12; post_streams, phase
+    11; each line printed as it ends, the launches last)."""
     import torch
 
     sys.path.insert(0, ROOT)
@@ -2632,8 +3142,37 @@ def child_main(path: str) -> int:
     for k in build.KERNELS:
         build.library(k)
     build.LAUNCHES.update(dict.fromkeys(build.LAUNCHES, 0))
+    if path in ("sharded_streams", "sharded_pool"):
+        lines, launches = sharded_child(path, dev)
+        print(json.dumps({"lines": lines, "launches": launches}), flush=True)
+        return 0
     if path == "overlap_supervised":
         print(json.dumps(overlap_supervised_child(dev)), flush=True)
+        return 0
+    if path == "main_paths":
+        names = dict(LARGE + ZOO)
+        with ThreadPoolExecutor(len(CHILD_MAIN_PATHS)) as ex:
+            fxs = {p: ex.submit(load_fixture, names[p]) for p in CHILD_MAIN_PATHS}
+            paths = [(p, f.result()[1], f.result()[0], f.result()[2], STEP_KERNELS)
+                     for p, f in fxs.items()]
+        launches, baselines = run_main_paths(dev, smi_line, paths, {})
+        print(json.dumps({"launches": launches, "baselines": baselines}), flush=True)
+        return 0
+    if path in ("multiprog", "fleets"):
+        fn = multiprog_phases if path == "multiprog" else fleet_phases
+        print(json.dumps({"launches": fn(dev, smi_line)}), flush=True)
+        return 0
+    if path in JOIN_CHILDREN:
+        names = ("headline", "headline_faults" if path == "post_served" else dict(LARGE)["rung5"])
+        with ThreadPoolExecutor(2) as ex:
+            headline, other = [f.result() for f in [ex.submit(load_fixture, n) for n in names]]
+        if path == "post_streams":
+            launches = stream_phases(dev, smi_line, headline, other)
+        else:
+            made = {json.dumps(headline[0]["trace"], sort_keys=True): headline[2]}
+            launches = resilience_phases(dev, smi_line, other, made)
+            launches.update(attest_serve_phases(dev, smi_line, headline, made))
+        print(json.dumps({"launches": launches}), flush=True)
         return 0
     fx = fixture_json(path)
     t0 = time.perf_counter()
@@ -2691,6 +3230,403 @@ def child_main(path: str) -> int:
                 "launches": step_launches(path, build.LAUNCHES, None)}
     print(json.dumps(line), flush=True)
     return 0
+
+
+def sharded_child(path: str, dev) -> tuple[list, dict]:
+    """Phase 17 in a `--child` process of this script (module docstring),
+    on SHARDS virtual device ids of the card declared in this process, the
+    coordinators, workers and the dispatcher as threads: `sharded_streams`
+    (stream_sharded_headline, pipeline_rung5_sharded, capacity_sharded) or
+    `sharded_pool` (pool_sharded_headline with its audit,
+    dispatch_sharded_rung2). Returns (the paths' lines, each path's launch
+    counts, set to 0 just before the path)."""
+    import torch
+
+    from primesim_tpu_torch.attest import audit
+    from primesim_tpu_torch.chaos import campaign as chaos_campaign
+    from primesim_tpu_torch.chaos import plan as chaos_plan
+    from primesim_tpu_torch.chaos import sites as chaos_sites
+    from primesim_tpu_torch.config.machine import MachineConfig
+    from primesim_tpu_torch.ingest.pipeline import run_pipelined
+    from primesim_tpu_torch.ingest.stream import StreamEngine
+    from primesim_tpu_torch.kernels import build
+    from primesim_tpu_torch.parallel import sharding
+    from primesim_tpu_torch.pool import PoolCoordinator, PoolWorker
+    from primesim_tpu_torch.pool.units import build_units
+    from primesim_tpu_torch.serve import Job, JobJournal
+    from primesim_tpu_torch.serve.dispatch import DispatchScheduler
+    from primesim_tpu_torch.serve.protocol import request
+    from primesim_tpu_torch.serve.scheduler import PAGE_EVENTS, parse_synth_spec
+    from primesim_tpu_torch.sim.engine import window_chunk
+    from primesim_tpu_torch.stats.digest import run_digest
+    from primesim_tpu_torch.trace.format import Trace
+
+    launches, lines = {}, []
+
+    def line(obj):
+        lines.append({**obj, "child_t_s": round(time.perf_counter() - T0, 1)})
+
+    def reset_launches():
+        build.LAUNCHES.update(dict.fromkeys(build.LAUNCHES, 0))
+
+    def digest(eng, windows=True):
+        d = run_digest(eng.steps_run, eng.cycles, eng.counters,
+                       eng.state.link_free.cpu().numpy(), eng.state.dram_free.cpu().numpy())
+        return {**d, "windows": len(eng.window_chunks)} if windows else d
+
+    def against(path, got, want):
+        for k, v in want.items():
+            if got[k] != v:
+                fail(f"{path}: {k} {got[k]} != the JAX package's {v}")
+
+    def step_kernels_per_step(path, n_launch, per_step_steps):
+        """Each step kernel launched sum(shards * steps) times over the
+        (shards, steps) legs of the run, router_cascade never."""
+        want = sum(s * n for s, n in per_step_steps)
+        for k, n in n_launch.items():
+            if n != (want if k in STEP_KERNELS else 0):
+                fail(f"{path}: {k} launched {n} times, want {want if k in STEP_KERNELS else 0}")
+
+    def sync_calls(fn):
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        return [str(w.message)[:200] for w in caught if "synchroniz" in str(w.message)
+                and "prototype feature" not in str(w.message)]
+
+    sharding.virtual_devices(SHARDS, dev)  # SHARDS ids on this card: one can be lost
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    try:
+        hfx, cfg, trace = load_fixture("headline")
+        if path == "sharded_streams":
+            # ---- stream_sharded_headline: the headline streamed on SHARDS
+            # shards, a snapshot at half its events resumed unsharded
+            W = STREAM_W["stream_headline"]
+            sfx = fixture_json("stream_headline")
+            torch.cuda.empty_cache()
+            held = torch.cuda.memory_allocated()
+            eng = StreamEngine(cfg, trace, window_events=W, mesh=sharding.tile_mesh(SHARDS))
+            eng.warmup()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            sharding.reset_moves()
+            snap = os.path.join(tmp, "stream.npz")
+            t0 = time.perf_counter()
+            eng.run_events(int(eng.real_len.sum()) // 2)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            cut_steps, cut_events = eng.steps_run, int(eng.cursor.sum())
+            t1 = time.perf_counter()
+            eng.save_checkpoint(snap)
+            save_s = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            eng.run()
+            torch.cuda.synchronize()
+            wall = first_s + time.perf_counter() - t1
+            n_launch = launches["stream_sharded_headline"] = dict(build.LAUNCHES)
+            moves = {k: dict(v) for k, v in sharding.MOVES.items()}
+            peak = torch.cuda.max_memory_allocated() - held
+            got = digest(eng)
+            step_kernels_per_step("stream_sharded_headline", n_launch, [(SHARDS, eng.steps_run)])
+            against("stream_sharded_headline", got, sfx["digest"])
+            chunks = list(eng.window_chunks)
+            # one window chunk of a fresh sharded stream under CUDA's sync
+            # debug mode: its one transfer, nothing else
+            fresh = StreamEngine(cfg, trace, window_events=W, mesh=eng.mesh)
+            buf, exhausted, filled = fresh._fill_window()
+            events = fresh._place_core_axis(buf)
+            ex_dev = fresh._place_core_axis(exhausted)
+            st = fresh.state._replace(ptr=fresh._place_core_axis(np.zeros(cfg.n_cores, np.int32)))
+            n = int(min(64, (filled[~exhausted] // (cfg.local_run_len + 1)).min(initial=64)))
+            syncs = sync_calls(lambda: window_chunk(cfg, events, st, n, True, ex_dev, fresh.has_sync))
+            if len(syncs) != 1:
+                fail(f"stream_sharded_headline: a sharded window chunk made {len(syncs)} "
+                     f"synchronising calls ({syncs[:3]})")
+            del eng, fresh, events, ex_dev, st
+            torch.cuda.empty_cache()
+            reset_launches()
+            un = StreamEngine(cfg, trace, window_events=W, device=dev)
+            t1 = time.perf_counter()
+            un.load_checkpoint(snap)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            un.run()
+            torch.cuda.synchronize()
+            resume_s = time.perf_counter() - t1
+            resumed = digest(un, windows=False)
+            resume_launch = dict(build.LAUNCHES)
+            step_kernels_per_step("stream_sharded_headline", resume_launch,
+                                  [(1, un.steps_run - cut_steps)])
+            against("stream_sharded_headline (resumed unsharded)", resumed,
+                    {k: v for k, v in sfx["digest"].items() if k != "windows"})
+            line({"phase": "stream_sharded_headline", "shards": SHARDS, "window_events": W,
+                  "windows": len(chunks), "chunks": int(sum(chunks)), "steps": got["steps"],
+                  "wall_s": wall, "ms_per_step": 1e3 * wall / got["steps"],
+                  "simulated_mips": got["instructions"] / wall / 1e6,
+                  "peak_memory_bytes": peak, "launches": n_launch,
+                  "launches_per_step": {k: v / got["steps"] for k, v in n_launch.items()},
+                  "moved_bytes_per_step": sum(m["bytes"] for m in moves.values()) / got["steps"],
+                  "staged_in_bytes_per_step": sum(moves[k]["bytes"] for k in (
+                      "probe.vrows", "probe.mrows", "run.rows") if k in moves) / got["steps"],
+                  "moves_per_step": {k: m["moves"] / got["steps"] for k, m in sorted(moves.items())},
+                  "syncs_in_one_chunk": len(syncs), "snapshot_step": cut_steps,
+                  "snapshot_events": cut_events, "snapshot_bytes": os.path.getsize(snap),
+                  "save_s": save_s, "load_s": load_s,
+                  "unsharded_resume": {"steps": un.steps_run - cut_steps, "wall_s": resume_s,
+                                       "ms_per_step": 1e3 * resume_s / max(1, un.steps_run - cut_steps),
+                                       "launches": resume_launch},
+                  "equals_jax_digest": True, "resumed_equals_jax_digest": True})
+            del un
+            torch.cuda.empty_cache()
+
+            # ---- pipeline_rung5_sharded: rung 5 at full geometry on SHARDS
+            # shards, pipelined with PIPE_WORKERS ingest processes, supervised
+            fx5, cfg5, tr5 = load_fixture("rung5_full")
+            file = os.path.join(tmp, "rung5.ptpu")
+            tr5.save(file)
+            sfx5 = fixture_json("stream_rung5")
+            reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            eng, sup, ing = run_pipelined(
+                cfg5, Trace.load(file, mmap=True), trace_path=file,
+                window_events=STREAM_W["stream_rung5"], seg_events=PIPE_SEG,
+                ingest_workers=PIPE_WORKERS, pool_dir=os.path.join(tmp, "ingest_pool"),
+                mesh=sharding.tile_mesh(SHARDS))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n_launch = launches["pipeline_rung5_sharded"] = dict(build.LAUNCHES)
+            got = digest(eng)
+            step_kernels_per_step("pipeline_rung5_sharded", n_launch, [(SHARDS, eng.steps_run)])
+            against("pipeline_rung5_sharded", got, sfx5["digest"])
+            if ing["segments"] < 2 or ing["segments_preingested"] or not sup.summary()["supervised"]:
+                fail(f"pipeline_rung5_sharded: {ing}, {sup.summary()}")
+            line({"phase": "pipeline_rung5_sharded", "shards": SHARDS,
+                  "window_events": STREAM_W["stream_rung5"], "seg_events": ing["seg_events"],
+                  "ingest_workers": PIPE_WORKERS, "segments": ing["segments"],
+                  "pipeline_stalls": ing["pipeline_stalls"], "windows": got["windows"],
+                  "steps": eng.steps_run, "wall_s": wall, "ms_per_step": 1e3 * wall / eng.steps_run,
+                  "peak_memory_bytes": torch.cuda.max_memory_allocated() - held,
+                  "supervisor": sup.summary(), "launches": n_launch,
+                  "equals_jax_digest": True})
+            del eng, sup
+            torch.cuda.empty_cache()
+
+            # ---- capacity_sharded: the capacity trial's supervised half on the
+            # virtual mesh, a shard revoked at its second chunk boundary
+            ref = chaos_campaign._capacity_reference(dev)
+            reset_launches()
+            violations: list = []
+            plan = chaos_plan.FaultPlan(seed=0, events=(chaos_plan.FaultEvent(
+                site="devices.revoke", occurrence=2, action="revoke", args=(("n", 1),)),))
+            chaos_sites.install(plan, mode="raise")
+            t0 = time.perf_counter()
+            try:
+                out = chaos_campaign._capacity_supervisor_half(
+                    os.path.join(tmp, "capacity"), violations, ref, dev)
+            finally:
+                chaos_sites.deactivate()
+            wall = time.perf_counter() - t0
+            n_launch = launches["capacity_sharded"] = dict(build.LAUNCHES)
+            if violations or out["degrade_rungs"] != [f"reshard:{SHARDS}->2"]:
+                fail(f"capacity_sharded: {violations}, rungs {out['degrade_rungs']}")
+            after = n_launch["probe_classify"] - SHARDS * CAPACITY_CHUNK  # on 2 shards
+            if after <= 0 or after % 2:
+                fail(f"capacity_sharded: launches {n_launch}")
+            step_kernels_per_step("capacity_sharded", n_launch,
+                                  [(SHARDS, CAPACITY_CHUNK), (2, after // 2)])
+            line({"phase": "capacity_sharded", "shards": SHARDS,
+                  "degrade_rungs": out["degrade_rungs"], "violations": violations,
+                  "wall_s": wall, "launches": n_launch, "equals_reference": True})
+        else:
+            # ---- pool_sharded_headline: an in-process coordinator and two
+            # worker threads on headline units asking for SHARDS devices, cut
+            # to step SHARD_DEPTH["sharded_headline"]; a shard revoked before
+            # w0's second lease; then every unit audited on the mesh
+            depth = SHARD_DEPTH["sharded_headline"]
+            want = load_cut("sharded_headline_cut", depth)["digests"][0]
+            ts = hfx["trace"]
+            spec = ts["generator"] + ":" + ",".join(
+                f"{k}={v}" for k, v in ts["args"].items() if k != "n_cores")
+            units = build_units(cfg, [], [spec] * POOL_SHARD_UNITS, [{}] * POOL_SHARD_UNITS,
+                                fold=bool(ts.get("fold")), chunk_steps=depth, max_steps=depth,
+                                devices=SHARDS)
+            pool_dir = os.path.join(tmp, "pool")
+            coord = PoolCoordinator(units, pool_dir, lease_ttl_s=600.0, hedge=False,
+                                    attest="chain")
+            coord.start()
+            workers = [PoolWorker(coord.socket_path, f"w{i}", reconnect_timeout_s=60.0, device=dev)
+                       for i in range(2)]
+            errors = []
+
+            def lease_and_run(w):
+                try:
+                    w.run_unit(request(coord.socket_path, {"verb": "lease", "worker": w.worker_id}))
+                except BaseException as e:  # noqa: BLE001 — reported below
+                    errors.append(repr(e))
+
+            reset_launches()
+            t0 = time.perf_counter()
+            try:
+                threads = [threading.Thread(target=lease_and_run, args=(w,)) for w in workers]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join()
+                sharding.revoke_devices([SHARDS - 1])  # before w0's second lease
+                lease_and_run(workers[0])
+            finally:
+                sharding.restore_devices()
+                coord.close()
+            wall = time.perf_counter() - t0
+            n_launch = launches["pool_sharded_headline"] = dict(build.LAUNCHES)
+            records, _ = JobJournal(pool_dir).replay()
+            results = {r["unit_id"]: r["result"] for r in records if r.get("t") == "ack"}
+            capacity = [r for r in records if r.get("t") == "note" and r.get("kind") == "capacity"]
+            granted = {u: r["detail"].get("devices_granted") for u, r in sorted(results.items())}
+            if errors or len(results) != POOL_SHARD_UNITS:
+                fail(f"pool_sharded_headline: {errors}, results {sorted(results)}")
+            for u, r in results.items():
+                d = r["detail"]
+                if (r["metric"], d["devices"], d["instructions"], d["max_core_cycles"],
+                        d["noc_msgs"]) != ("simulated_MIPS", SHARDS, want["instructions"],
+                                           want["max_core_cycles"],
+                                           want["counter_sums"]["noc_msgs"]):
+                    fail(f"pool_sharded_headline: {u} {r} != the JAX package's {want}")
+            if sorted(granted.values(), key=str) != [2] + [None] * (POOL_SHARD_UNITS - 1) or [
+                    (c["devices_requested"], c["devices_granted"]) for c in capacity] != [(SHARDS, 2)]:
+                fail(f"pool_sharded_headline: granted {granted}, capacity notes {capacity}")
+            heads = {u: r["detail"]["attest"]["head"] for u, r in results.items()}
+            if len(set(heads.values())) != 1:
+                fail(f"pool_sharded_headline: the units' chains differ: {heads}")
+            step_kernels_per_step("pool_sharded_headline", n_launch,
+                                  [(SHARDS, depth * (POOL_SHARD_UNITS - 1)), (2, depth)])
+            reset_launches()
+            t1 = time.perf_counter()
+            verdicts = audit.run_audit(pool_dir, device=dev)
+            audit_s = time.perf_counter() - t1
+            audit_launch = launches["audit_sharded_headline"] = dict(build.LAUNCHES)
+            if verdicts["summary"]["ok"] != POOL_SHARD_UNITS or any(
+                    v["status"] != "ok" or v["detail"].get("ack") != "confirmed"
+                    for v in verdicts["units"]):
+                fail(f"audit_sharded_headline: verdicts {verdicts['units']}")
+            step_kernels_per_step("audit_sharded_headline", audit_launch,
+                                  [(SHARDS, depth * POOL_SHARD_UNITS)])
+            line({"phase": "pool_sharded_headline", "shards": SHARDS, "workers": 2,
+                  "units": POOL_SHARD_UNITS, "unit_steps": depth, "chunk_steps": depth,
+                  "wall_s": wall, "unit_walls_s": {w.worker_id: w.unit_walls for w in workers},
+                  "checkpoint_s": {w.worker_id: w.checkpoint_s for w in workers},
+                  "units_degraded": {w.worker_id: w.units_degraded for w in workers},
+                  "devices_granted": granted, "capacity_notes": capacity,
+                  "revoked_before": "w0's second lease", "launches": n_launch,
+                  "audit": {"verdicts": {v["unit_id"]: [v["status"], v["detail"].get("ack")]
+                                         for v in verdicts["units"]},
+                            "wall_s": audit_s, "replay_wall_s": verdicts["replay_wall_s"],
+                            "launches": audit_launch},
+                  "equals_jax_digest": True})
+
+            # ---- dispatch_sharded_rung2: the dispatcher with a SHARDS-device
+            # bucket serving two serve_rung2 jobs through an in-process
+            # coordinator and one worker thread; the worker first sees three
+            # devices, refuses the mesh with a DeviceMeshError, and the
+            # dispatcher rebuckets the job
+            rfx = fixture_json("serve_rung2")
+            with open(os.path.join(ROOT, rfx["config"])) as f:
+                rcfg = MachineConfig.from_json(f.read())
+            rjobs = rfx["jobs"][:2]
+            pages = -(-max(parse_synth_spec(j["synth"], rcfg.n_cores, True).max_len
+                           for j in rjobs) // PAGE_EVENTS)
+            d = os.path.join(tmp, "dispatch")
+            sched = DispatchScheduler(rcfg, JobJournal(d), d, os.path.join(tmp, "dispatch_pool"),
+                                      buckets=((len(rjobs), pages),), chunk_steps=rfx["chunk_steps"],
+                                      spawn=False, poll_every_s=0.0, devices=SHARDS,
+                                      attest="chain", device=dev)
+            dcoord = PoolCoordinator([], sched.pool_dir, socket_path=sched.pool_socket,
+                                     lease_ttl_s=POOL_TTL, hedge=False, dynamic=True,
+                                     attest="chain")
+            dcoord.start()
+
+            class NarrowFirstLease(PoolWorker):
+                """A worker that sees three devices at its first lease: the
+                bucket's mesh fails `validate_devices` there (DeviceMeshError,
+                visible 3), as on a host that lost a card."""
+
+                narrow = True
+
+                def _unit_mesh(self, unit, mcfg):
+                    if self.narrow:
+                        self.narrow = False
+                        sharding.virtual_devices(3, dev)
+                        try:
+                            sharding.validate_devices(mcfg, int(unit["devices"]), "gpu")
+                        finally:
+                            sharding.virtual_devices(SHARDS, dev)
+                    return super()._unit_mesh(unit, mcfg)
+
+            w = NarrowFirstLease(sched.pool_socket, "dw", reconnect_timeout_s=60.0,
+                                 idle_exit_s=2.0, device=dev)
+            wt = threading.Thread(target=w.run, daemon=True)
+            reset_launches()
+            t0 = time.perf_counter()
+            try:
+                jobs = [Job(job_id=f"j{i + 1:06d}", synth=j["synth"], overrides=j["overrides"],
+                            fold=True) for i, j in enumerate(rjobs)]
+                for job in jobs:
+                    sched.submit(job)
+                wt.start()
+                deadline = time.monotonic() + 600
+                while not all(job.terminal for job in jobs):
+                    sched.tick()
+                    if time.monotonic() > deadline:
+                        fail(f"dispatch_sharded_rung2: jobs {[j.state for j in jobs]}")
+                    time.sleep(0.1)  # a daemon's tick cadence, not a busy poll
+            finally:
+                wt.join(timeout=60)
+                dcoord.close()
+                sched.journal.close()
+            wall = time.perf_counter() - t0
+            n_launch = launches["dispatch_sharded_rung2"] = dict(build.LAUNCHES)
+            records, _ = JobJournal(d).replay()
+            rebuckets = [r["detail"]["rebucket"] for r in records
+                         if (r.get("detail") or {}).get("rebucket")]
+            same = []
+            for job, j in zip(jobs, rjobs):
+                r = job.result or {}
+                dg = run_digest(r.get("steps", 0), r.get("core_cycles", []),
+                                {k: np.asarray(v) for k, v in (r.get("counters") or {}).items()},
+                                [], []) if job.state == "DONE" else {}
+                same.append(job.state == "DONE" and all(dg.get(k) == v for k, v in j["digest"].items()
+                                                         if k not in ("link_free_sha256",
+                                                                      "dram_free_sha256"))
+                            and r.get("attest") == j["attest"])
+            if not all(same):
+                fail(f"dispatch_sharded_rung2: results differ from the JAX runs: {same} "
+                     f"{[(j.state, j.detail) for j in jobs]}")
+            if rebuckets != [{"devices_from": SHARDS, "devices_to": 2}] or sched.devices != 2:
+                fail(f"dispatch_sharded_rung2: rebuckets {rebuckets}, bucket {sched.devices}")
+            step_kernels_per_step("dispatch_sharded_rung2", n_launch, [
+                (SHARDS, rjobs[1]["digest"]["steps"]), (2, rjobs[0]["digest"]["steps"])])
+            line({"phase": "dispatch_sharded_rung2", "shards": SHARDS, "to_shards": sched.devices,
+                  "bucket": f"{len(rjobs)}x{pages}", "chunk_steps": rfx["chunk_steps"],
+                  "rebuckets": rebuckets, "unit_aliases": sched.unit_aliases,
+                  "job_steps": [j.result["steps"] for j in jobs], "wall_s": wall,
+                  "worker": {"units_done": w.units_done, "checkpoint_s": w.checkpoint_s,
+                             "unit_walls_s": w.unit_walls},
+                  "launches": n_launch, "results_equal_jax": same})
+    finally:
+        sharding.restore_devices()
+        sharding.virtual_devices(None)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return lines, launches
 
 
 def replicated_phase(smi_line: str, headline) -> tuple[list, dict]:
@@ -2907,33 +3843,50 @@ def main() -> int:
                 # ---- 15. the kernel build cache and overlapped dispatch:
                 # child processes in a third thread
                 calib_ex.submit(cache_overlap_phases, smi_line)]
+    # ---- 17. the rest of the multi-device paths: sharded streams, the
+    # pipelined rung 5, the pool's sharded units and their audit, the
+    # dispatcher's rebucketing and the capacity trial, in two `--child`
+    # processes (each declares SHARDS virtual ids of this card in its own
+    # process and runs its workers as threads), in two more background
+    # threads; their lines are printed before phase 5
+    shard_ex = ThreadPoolExecutor(2)
+    shard_fs = [shard_ex.submit(sharded_phase, p, smi_line)
+                for p in ("sharded_streams", "sharded_pool")]
 
     t0 = time.perf_counter()
     hfx, cfg, trace = fixture("headline")
     # ---- 13. the pooled paths: worker processes sharing the card, in two
     # background threads beside phases 3 and 4 (their checks time nothing),
-    # cli_supervised (child processes too) after dispatch_rung2; their lines
-    # are printed before phase 5
-    def dispatch_then_cli():
-        lines, launches_of = pool_phase("dispatch_rung2", smi_line, (hfx, cfg, trace))
+    # cli_supervised (child processes too) after replicated_headline, the
+    # shortest of the three; their lines are printed before phase 5
+    def replicated_then_cli():
+        lines, launches_of = replicated_phase(smi_line, (hfx, cfg, trace))
         return lines + cli_supervised_phase(), launches_of
 
     pool_ex = ThreadPoolExecutor(3)
     pool_fs = [pool_ex.submit(pool_phase, "pool_headline", smi_line, (hfx, cfg, trace)),
-               pool_ex.submit(dispatch_then_cli),
-               pool_ex.submit(replicated_phase, smi_line, (hfx, cfg, trace))]
-    r3fx, cfg3, trace3 = fixture("rung3_headline")
+               pool_ex.submit(pool_phase, "dispatch_rung2", smi_line, (hfx, cfg, trace)),
+               pool_ex.submit(replicated_then_cli)]
+    # the other fixtures' traces, synthesized in threads (numpy leaves the
+    # interpreter lock while it fills the large ones)
+    with ThreadPoolExecutor(4) as ex:
+        loaded = {n: ex.submit(fixture, n) for n in (
+            "rung3_headline", "headline_faults", "multiprog_rung3", "rung2_full",
+            *(name for _, name in LARGE + ZOO))}
+        loaded = {n: f.result() for n, f in loaded.items()}
+    r3fx, cfg3, trace3 = loaded["rung3_headline"]
     if trace3.events.tobytes() != trace.events.tobytes():
         fail("rung 3's fixture names another trace than the headline's")
-    large = {path: fixture(name) for path, name in LARGE}
+    large = {path: loaded[name] for path, name in LARGE}
     cfg4, cfg5 = large["rung4"][1], large["rung5"][1]
-    zoo = {path: fixture(name) for path, name in ZOO}
+    zoo = {path: loaded[name] for path, name in ZOO}
     cfg_ipu, cfg_hm = zoo["ipu"][1], zoo["headline_moesi"][1]
-    hffx, cfg_hf, trace_hf = fixture("headline_faults")
+    hffx, cfg_hf, trace_hf = loaded["headline_faults"]
     if trace_hf.events.tobytes() != trace.events.tobytes():
         fail("headline_faults' fixture names another trace than the headline's")
-    mpfx, cfg_mp, trace_mp = fixture("multiprog_rung3")
-    r2fx, cfg2, trace2 = fixture("rung2_full")
+    mpfx, cfg_mp, trace_mp = loaded["multiprog_rung3"]
+    r2fx, cfg2, trace2 = loaded["rung2_full"]
+    del loaded
     traces_s = time.perf_counter() - t0
     C, S1, W1 = cfg.n_cores, cfg.l1.sets, cfg.l1.ways
     W2, NW = cfg.llc.ways, cfg.n_sharer_words
@@ -2965,24 +3918,6 @@ def main() -> int:
         cpu.run_steps(depth) if depth else cpu.run()
         return cpu, time.perf_counter() - t0
 
-    def same_run(phase, gpu, cpu):
-        """Fail unless two engines (or a card_cut and an engine) agree in
-        steps, per-core cycles, every counter and every state field;
-        returns the card's state as numpy."""
-        gs = gpu.state_np if hasattr(gpu, "state_np") else convert.state_to_numpy(gpu.state)
-        cs = convert.state_to_numpy(cpu.state)
-        for f in gs:
-            same = (all(np.array_equal(gs[f][k], cs[f][k]) for k in gs[f])
-                    if f in ("knobs", "faults") else np.array_equal(gs[f], cs[f]))
-            if not same:
-                fail(f"{phase}: state field {f} differs between the card and the CPU")
-        if gpu.steps_run != cpu.steps_run or not np.array_equal(gpu.cycles, cpu.cycles):
-            fail(f"{phase}: steps or cycles differ between the card and the CPU")
-        gc, cc = gpu.counters, cpu.counters
-        for k in cc:
-            if not np.array_equal(gc[k], cc[k]):
-                fail(f"{phase}: counter {k} differs between the card and the CPU")
-        return gs
 
     def reset_launches():
         build.LAUNCHES.update(dict.fromkeys(build.LAUNCHES, 0))
@@ -3373,7 +4308,7 @@ def main() -> int:
         # the CLI paths of this phase, of cli_xml and of cli_sweep (printed
         # after the fleets) at once: six processes, each on its own; and
         # beside them serve_recover's daemons (no wall of theirs is a path
-        # measurement; its line is printed after cli_xml's)
+        # measurement; its line is printed at the join, before phase 5)
         recover_pool = ThreadPoolExecutor(1)
         recover_f = recover_pool.submit(serve_recover_phase, smi_line)
         with ThreadPoolExecutor(3) as pool:
@@ -3411,11 +4346,6 @@ def main() -> int:
     if xml["cuda"] != xml["cpu"]:
         fail(f"cli_xml: the card's summary {xml['cuda']} != the CPU's {xml['cpu']}")
     emit({"phase": "cli_xml", "summary": xml["cuda"], "card_equals_cpu": True})
-    recover_line, recover_launches, problems = recover_f.result()
-    recover_pool.shutdown()
-    emit(recover_line)
-    for msg in problems:
-        fail(msg)
 
     # ---- reduced: the coarse vector and the chunked full map at 256
     # cores, card == CPU to completion
@@ -3701,14 +4631,28 @@ def main() -> int:
     del eng, sup
     torch.cuda.empty_cache()
 
+    # ---- CHILD_MAIN_PATHS of 6./7., multiprog_rung3, 9. and 10.-12. (the
+    # supervised, forked, streamed, captured, attested and served paths):
+    # `--child` processes from the join on, beside phases 5-7, collected
+    # before phase 8
+    join_ex = ThreadPoolExecutor(len(JOIN_CHILDREN))
+    join_fs = [join_ex.submit(group_child, p, smi_line) for p in JOIN_CHILDREN]
+
+    # serve_recover's daemons ran beside the main thread since cli_faults
+    recover_line, recover_launches, problems = recover_f.result()
+    recover_pool.shutdown()
+    emit(recover_line)
+    for msg in problems:
+        fail(msg)
     pool_launches = {}
-    for f in pool_fs + calib_fs:
+    for f in pool_fs + calib_fs + shard_fs:
         pool_lines, launches_of = f.result()  # a failure there exits here
         pool_launches.update(launches_of)
         for line in pool_lines:
             emit(line)
     pool_ex.shutdown()
     calib_ex.shutdown()
+    shard_ex.shutdown()
 
     # ---- 5. capture: the first chunk of each main path, card == CPU, and
     # the kernel inputs it stages
@@ -4052,255 +4996,18 @@ def main() -> int:
           "event_floor_ms": event_floor_ms, "gpu": smi_line})
 
     # ---- 6./7. the main paths, each with the counts set to 0 just before
-    launches = {}
+    # it, CHILD_MAIN_PATHS in a `--child main_paths` process from the join on
     main_paths = [("headline", cfg, hfx, trace, STEP_KERNELS),
                   ("rung3", cfg3, r3fx, trace3, tuple(wrappers))]
     main_paths += [(path, fxs[path][1], fxs[path][0], fxs[path][2], STEP_KERNELS)
                    for fxs, paths in ((large, LARGE), (zoo, ZOO)) for path, _ in paths]
     main_paths.append(("headline_faults", cfg_hf, hffx, trace_hf, STEP_KERNELS))
     main_paths.append(("rung2", cfg2, r2fx, trace2, STEP_KERNELS))
-    sums_of, baselines = {}, {}
-    real_scrub = inject.scrub_dead
-    scrubs = []
+    sums_of = {}
+    launches, baselines = run_main_paths(
+        dev, smi_line, [p for p in main_paths if p[0] not in CHILD_MAIN_PATHS], sums_of)
 
-    def counted_scrub(*args):  # host-side count of the steps that scrub
-        scrubs.append(1)
-        return real_scrub(*args)
-
-    for path, pcfg, fx, ptrace, ran in main_paths:
-        held = torch.cuda.memory_allocated()  # the timed step's inputs, kept for phase 8
-        eng = Engine(pcfg, ptrace, chunk_steps=fx["chunk_steps"], device=dev)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_launches()
-        scrubs.clear()
-        inject.scrub_dead = counted_scrub
-        cut_of = MAIN_CUT.get(path)
-        t0 = time.perf_counter()
-        try:
-            eng.run_steps(cut_of[1]) if cut_of else eng.run()
-            torch.cuda.synchronize()
-        finally:
-            inject.scrub_dead = real_scrub
-        wall = time.perf_counter() - t0
-        if cut_of:  # held to the JAX digest at the cut
-            fx = {**fx, "digest": load_cut(*cut_of)["digests"][0]}
-        launches[path] = dict(build.LAUNCHES)
-        peak = torch.cuda.max_memory_allocated() - held
-        baselines[path] = {"wall_s": wall, "peak_memory_bytes": peak}
-        got = run_digest(eng.steps_run, eng.cycles, eng.counters,
-                         eng.state.link_free.cpu().numpy(),
-                         eng.state.dram_free.cpu().numpy())
-        ins = got["instructions"]
-        sums = sums_of[path] = got["counter_sums"]
-        fault_info = {"faults": {
-            **{k: sums[k] for k in (*FAULT_COUNTERS, "l1_writebacks")},
-            "dead_cores": np.flatnonzero(eng.state.faults.core_dead.cpu().numpy()).tolist(),
-            "scrub_steps": len(scrubs)}} if pcfg.faults_enabled else {}
-        emit({"phase": path, "steps": eng.steps_run, "wall_s": wall, **fault_info,
-              "simulated_mips": ins / wall / 1e6, "peak_memory_bytes": peak,
-              "launches": launches[path], "instructions": ins,
-              "max_core_cycles": got["max_core_cycles"],
-              "noc_msgs": sums["noc_msgs"],
-              "noc_contention_cycles": sums["noc_contention_cycles"],
-              "dram_queue_cycles": sums["dram_queue_cycles"],
-              **{k: sums[k] for k in ("probes", "barrier_waits", "prefetch_hits")},
-              "digest": {k: v for k, v in got.items() if k.endswith("sha256")},
-              "equals_jax_digest": got == fx["digest"],
-              "cut": list(cut_of) if cut_of else None, "gpu": smi_line})
-        for k, n in launches[path].items():
-            if n != (eng.steps_run if k in ran else 0):
-                fail(f"{path}: {k} launched {n} times in {eng.steps_run} steps")
-        if not (pcfg.faults_enabled or cut_of) and ins != ptrace.total_instructions():
-            fail(f"{path}: {ins} instructions retired, trace has {ptrace.total_instructions()}")
-        if pcfg.faults_enabled and not all(sums[k] for k in FAULT_COUNTERS):
-            fail(f"{path}: a fault counter sums to 0: {fault_info}")
-        if pcfg.faults_enabled and not 0 < len(scrubs) < eng.steps_run // 16:
-            fail(f"{path}: the scrub ran on {len(scrubs)} of {eng.steps_run} steps")
-        for k, want in fx["digest"].items():
-            if got[k] != want:
-                fail(f"{path}: {k} {got[k]} != the JAX package's {want}")
-        if not (cut_of or eng.done()):
-            fail(f"{path}: not every core reached END")
-        if path == "ipu" and not (sums["barrier_waits"] and sums["prefetch_hits"]):
-            fail(f"ipu: {sums['barrier_waits']} barrier waits and "
-                 f"{sums['prefetch_hits']} prefetch hits: both must be nonzero")
-        if path == "headline_moesi" and sums["probes"] == sums_of["headline"]["probes"]:
-            fail("headline_moesi: as many probes as the MESI headline")
-        if path == "zoo_smoke":
-            cpu = Engine(pcfg, ptrace, chunk_steps=fx["chunk_steps"], device="cpu")
-            cpu.run()
-            same_run(path, eng, cpu)
-            del cpu
-        t0 = time.perf_counter()
-        eng.verify_invariants()
-        if path in MODE_PATHS:
-            emit({"phase": f"{path} invariants", "seconds": time.perf_counter() - t0})
-        del eng
-        torch.cuda.empty_cache()
-
-    # ---- multiprog_rung3: four 256-core programs (an FFT, barriers, locks,
-    # a reader-writer), written as PTPU files by the port's synth verb and
-    # multiplexed into rung 3 by the CLI's loader; run with the flight
-    # recorder to step MP_CUT, checkpointed, freed, resumed in a fresh
-    # engine and run to the end. Then the same programs through the CLI.
-    mp_dir = tempfile.mkdtemp(prefix="chip_smoke_mp_")
-    try:
-        mp_paths = []
-        for i, prog in enumerate(mpfx["trace"]["multiplex"]):
-            args = dict(prog["args"])
-            n = args.pop("n_cores")
-            mp_paths.append(os.path.join(mp_dir, f"prog{i}.ptpu"))
-            spec = prog["generator"] + ":" + ",".join(f"{k}={v}" for k, v in args.items())
-            if tcli.main(["synth", spec, "--cores", str(n), "--out", mp_paths[-1]]) != 0:
-                fail(f"multiprog_rung3: synth {spec} failed")
-        mp_tr = tcli._load_trace(
-            SimpleNamespace(trace=mp_paths, synth=None, fold=mpfx["trace"]["fold"]),
-            cfg_mp.n_cores, line_bits=cfg_mp.line_bits)
-        if mp_tr.events.tobytes() != trace_mp.events.tobytes():
-            fail("multiprog_rung3: the CLI's multiplexed trace is not the fixture's")
-        rec = Recorder("full")
-        held = torch.cuda.memory_allocated()
-        eng = Engine(cfg_mp, mp_tr, chunk_steps=mpfx["chunk_steps"], device=dev)
-        if not eng.has_sync:
-            fail("multiprog_rung3: the trace has no sync events")
-        rec.attach(eng)
-        real_cascade, with_sync = router_kernels.router_cascade, [0]
-
-        def cascade_counted(*args, **kw):  # host-side count of three-leg calls
-            with_sync[0] += bool(kw.get("has_sync"))
-            return real_cascade(*args, **kw)
-
-        ck = os.path.join(mp_dir, "mid.npz")
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_launches()
-        router_kernels.router_cascade = cascade_counted
-        try:
-            t0 = time.perf_counter()
-            eng.run_steps(MP_CUT)
-            torch.cuda.synchronize()
-            first_s = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            eng.save_checkpoint(ck)
-            save_s = time.perf_counter() - t0
-            del eng
-            torch.cuda.empty_cache()
-            eng = Engine(cfg_mp, mp_tr, chunk_steps=mpfx["chunk_steps"], device=dev)
-            t0 = time.perf_counter()
-            eng.load_checkpoint(ck)
-            torch.cuda.synchronize()
-            load_s = time.perf_counter() - t0
-            if eng.steps_run != MP_CUT:
-                fail(f"multiprog_rung3: resumed at step {eng.steps_run}, not {MP_CUT}")
-            rec.attach(eng)
-            t0 = time.perf_counter()
-            eng.run_steps(MP_DEPTH - MP_CUT)
-            torch.cuda.synchronize()
-            rest_s = time.perf_counter() - t0
-        finally:
-            router_kernels.router_cascade = real_cascade
-        launches["multiprog_rung3"] = dict(build.LAUNCHES)
-        peak = torch.cuda.max_memory_allocated() - held
-        got = run_digest(eng.steps_run, eng.cycles, eng.counters,
-                         eng.state.link_free.cpu().numpy(), eng.state.dram_free.cpu().numpy())
-        mp_cut = load_cut("multiprog_rung3_cut", MP_DEPTH)["digests"][0]
-        sums = got["counter_sums"]
-        samples = rec.store.samples()
-        spans = [e for e in rec.trace.events if e["ph"] == "B" and e["name"] == "chunk"]
-        n_chunks = eng.steps_run // eng.chunk_steps
-        mean_phases = {k: float(np.mean([x["phases"][k] for x in samples]))
-                       for k in ("dispatch", "drain", "rebase")}
-        emit({"phase": "multiprog_rung3", "steps": eng.steps_run, "checkpoint_step": MP_CUT,
-              "wall_s": first_s + rest_s, "wall_s_before_after": [first_s, rest_s],
-              "simulated_mips": got["instructions"] / (first_s + rest_s) / 1e6,
-              "checkpoint_bytes": os.path.getsize(ck), "save_s": save_s, "load_s": load_s,
-              "peak_memory_bytes": peak, "launches": launches["multiprog_rung3"],
-              "router_cascade_with_sync": with_sync[0], "instructions": got["instructions"],
-              "max_core_cycles": got["max_core_cycles"],
-              **{k: sums[k] for k in ("noc_msgs", "lock_acquires", "barrier_waits",
-                                      "noc_contention_cycles", "dram_queue_cycles")},
-              "recorder": {"chunks": len(samples), "spans": len(spans),
-                           "mean_phase_s": mean_phases},
-              "digest": {k: v for k, v in got.items() if k.endswith("sha256")},
-              "depth": MP_DEPTH, "equals_jax_digest": got == mp_cut, "gpu": smi_line})
-        for k, n in launches["multiprog_rung3"].items():
-            if n != eng.steps_run:
-                fail(f"multiprog_rung3: {k} launched {n} times in {eng.steps_run} steps")
-        if with_sync[0] != eng.steps_run:
-            fail(f"multiprog_rung3: router_cascade ran {with_sync[0]} of "
-                 f"{eng.steps_run} steps with the barrier-arrival leg")
-        for k, want in mp_cut.items():
-            if got[k] != want:
-                fail(f"multiprog_rung3: {k} {got[k]} != the JAX package's {want} at "
-                     f"step {MP_DEPTH}")
-        if not (sums["lock_acquires"] and sums["barrier_waits"]):
-            fail("multiprog_rung3: no lock acquired or no barrier waited")
-        if eng.steps_run != MP_DEPTH:
-            fail(f"multiprog_rung3: stopped at step {eng.steps_run}, not {MP_DEPTH}")
-        if len(samples) != n_chunks or len(spans) != n_chunks:
-            fail(f"multiprog_rung3: {len(samples)} samples and {len(spans)} chunk spans "
-                 f"for {n_chunks} chunks")
-        if sum(x["deltas"]["instructions"] for x in samples) != got["instructions"]:
-            fail("multiprog_rung3: the recorder's instruction deltas miss the total")
-        eng.verify_invariants()
-        # the CLI below finishes the run from this state
-        mp_ck = os.path.join(mp_dir, "ck")
-        os.makedirs(mp_ck)
-        eng.save_checkpoint(os.path.join(mp_ck, "ckpt-00000001.npz"))
-        del eng
-        torch.cuda.empty_cache()
-
-        # the same programs through `python -m primesim_tpu_torch run`,
-        # resumed from the snapshot at MP_DEPTH and run to the end: its
-        # summary is the whole run's
-        out = {k: os.path.join(mp_dir, f) for k, f in (
-            ("metrics", "m.jsonl"), ("trace", "t.json"), ("report", "r.txt"))}
-        cmd = [sys.executable, "-m", "primesim_tpu_torch", "run", mpfx["config"],
-               *[a for p in mp_paths for a in ("--trace", p)], "--fold",
-               "--chunk-steps", str(mpfx["chunk_steps"]), "--obs", "full",
-               "--metrics-out", out["metrics"], "--trace-out", out["trace"],
-               "--report", out["report"], "--per-core-limit", "16",
-               "--checkpoint-dir", mp_ck, "--resume"]
-        t0 = time.perf_counter()
-        r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
-        cli_s = time.perf_counter() - t0
-        if r.returncode != 0:
-            fail(f"cli_multiprog: exited {r.returncode}: {r.stderr[-500:]}")
-        detail = json.loads(r.stdout.strip().splitlines()[-1])["detail"]
-        with open(out["metrics"]) as f:
-            lines = [json.loads(ln) for ln in f]
-        with open(out["trace"]) as f:
-            n_events = len(json.load(f)["traceEvents"])
-        with open(out["report"]) as f:
-            has_timeline = "TIMELINE" in f.read()
-        want = {"instructions": mpfx["digest"]["instructions"],
-                "max_core_cycles": mpfx["digest"]["max_core_cycles"],
-                "noc_msgs": mpfx["digest"]["counter_sums"]["noc_msgs"]}
-        split = {k: float(np.mean([x["phases"][k] for x in lines]))
-                 for k in ("dispatch", "drain", "rebase")}
-        emit({"phase": "cli_multiprog", "summary": {k: detail[k] for k in want},
-              "resumed_from": os.path.basename(detail.get("resumed_from") or ""),
-              "steps": detail["steps"], "wall_s": detail["wall_s"], "command_s": cli_s,
-              "timeline": detail.get("timeline"), "metrics_lines": len(lines),
-              "trace_events": n_events, "report_has_timeline": has_timeline,
-              "mean_phase_s_per_chunk": split,
-              "chunk_wall_s": [x["wall_s"] for x in lines], "gpu": smi_line})
-        if {k: detail[k] for k in want} != want:
-            fail(f"cli_multiprog: summary {detail} != the JAX digest's {want}")
-        if len(lines) != (detail["steps"] - MP_DEPTH) // mpfx["chunk_steps"] \
-                or not has_timeline or detail["steps"] != mpfx["digest"]["steps"]:
-            fail(f"cli_multiprog: {len(lines)} metrics lines for {detail['steps']} steps "
-                 f"from {MP_DEPTH}, TIMELINE {has_timeline}")
-    finally:
-        shutil.rmtree(mp_dir, ignore_errors=True)
-
-    # ---- 9. the fleet (FleetEngine): B elements of one geometry through
-    # one set of launches a step. fleet_headline: the headline machine,
-    # B = 8 with its own overrides per element, one element on a shorter
-    # trace that freezes early; fleet_rung3: rung 3, B = 4, checkpointed
-    # at FLEET_CUT and resumed in a fresh fleet. Each element's digest
-    # against the committed JAX one, element 0 against the solo path's.
+    # ---- 9. the fleets' traces and staging, for phase 8
     made = {json.dumps(hfx["trace"], sort_keys=True): trace}  # the headline trace, made once
 
     def fleet_fixture(name):
@@ -4322,81 +5029,9 @@ def main() -> int:
             setattr(mods[k], k, rec)
         return lambda: [setattr(mods[k], k, wrappers[k]) for k in names]
 
+    # (the fleets themselves ran in `--child fleets`: their lines and
+    # launches are collected before phase 8)
     fleet_staged, fleet_launches, fleet_lines = {}, {}, {}
-    for path, fname, solo_fx, ran, cut in (
-            ("fleet_headline", "fleet_headline", hfx, STEP_KERNELS, None),
-            ("fleet_rung3", "fleet_rung3", r3fx, tuple(wrappers), FLEET_CUT)):
-        ffx, fcfg, ftrs, fovs = fleet_fixture(fname)
-        if cut is not None:  # a shallower run, held to the JAX digests at its depth
-            ffx = {**ffx, "elements": [{**e, "digest": d} for e, d in zip(
-                ffx["elements"], load_cut("fleet_rung3_cut", FLEET_DEPTH)["digests"])]}
-        ck = os.path.join(tempfile.gettempdir(), f"chip_smoke_{os.getpid()}_{path}.npz")
-        held = torch.cuda.memory_allocated()
-        fl = FleetEngine(fcfg, ftrs, fovs, chunk_steps=ffx["chunk_steps"], device=dev)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_launches()
-        ck_info = {}
-        t0 = time.perf_counter()
-        try:
-            if cut is None:
-                fl.run()
-            else:
-                fl.run_steps(cut)
-                torch.cuda.synchronize()
-                t1 = time.perf_counter()
-                fl.save_checkpoint(ck)
-                t2 = time.perf_counter()
-                del fl
-                torch.cuda.empty_cache()
-                fl = FleetEngine(fcfg, ftrs, fovs, chunk_steps=ffx["chunk_steps"], device=dev)
-                fl.load_checkpoint(ck)
-                torch.cuda.synchronize()
-                t3 = time.perf_counter()
-                if list(fl.steps_run) != [cut] * fl.n_elements:
-                    fail(f"{path}: resumed at steps {list(fl.steps_run)}, not {cut}")
-                ck_info = {"checkpoint_step": cut, "checkpoint_bytes": os.path.getsize(ck),
-                           "save_s": t2 - t1, "load_s": t3 - t2, "depth": FLEET_DEPTH}
-                fl.run_steps(FLEET_DEPTH - cut)
-            torch.cuda.synchronize()
-        finally:
-            if os.path.exists(ck):
-                os.unlink(ck)
-        wall = time.perf_counter() - t0 - ck_info.get("save_s", 0) - ck_info.get("load_s", 0)
-        fleet_launches[path] = dict(build.LAUNCHES)
-        peak = torch.cuda.max_memory_allocated() - held
-        steps = int(fl.steps_run.max())
-        cnt, cyc = fl.counters, fl.cycles
-        got = [run_digest(fl.steps_run[i], cyc[i], {k: v[i] for k, v in cnt.items()},
-                          fl.state.link_free[i].cpu().numpy(), fl.state.dram_free[i].cpu().numpy())
-               for i in range(fl.n_elements)]
-        ins = sum(g["instructions"] for g in got)
-        same = [g == e["digest"] for g, e in zip(got, ffx["elements"])]
-        fleet_lines[path] = {
-            "phase": path, "B": fl.n_elements, "steps": steps,
-            "steps_by_element": fl.steps_run.tolist(), "wall_s": wall,
-            "aggregate_mips": ins / wall / 1e6, "instructions": ins,
-            "launches": fleet_launches[path],
-            "launches_per_step": {k: n / steps for k, n in fleet_launches[path].items()},
-            "peak_memory_bytes": peak, **ck_info,
-            "max_core_cycles": [g["max_core_cycles"] for g in got],
-            "equals_jax_digest": same,
-            "element0_equals_solo": got[0] == solo_fx["digest"] if cut is None else None,
-            "gpu": smi_line}
-        emit(fleet_lines[path])
-        del fl
-        torch.cuda.empty_cache()
-        for k, n in fleet_launches[path].items():
-            if n != (steps if k in ran else 0):
-                fail(f"{path}: {k} launched {n} times in {steps} fleet steps")
-        for i, (g, e) in enumerate(zip(got, ffx["elements"])):
-            for k, want in e["digest"].items():
-                if g[k] != want:
-                    fail(f"{path}: element {i} {k} {g[k]} != the JAX package's {want}")
-        if cut is None and got[0] != solo_fx["digest"]:
-            fail(f"{path}: element 0 differs from the solo path's digest")
-        if path == "fleet_headline" and not max(fl_s := [g["steps"] for g in got]) > fl_s[-1]:
-            fail(f"{path}: the short element finished with the others ({fl_s})")
 
     # ---- cli_sweep: `sweep` on rung 1 with three --vary sets, one a
     # duplicate, on the card and on the CPU side by side: the same lines
@@ -4423,17 +5058,22 @@ def main() -> int:
             or not warn["cuda"]:
         fail(f"cli_sweep: card {swl['cuda']} != CPU {swl['cpu']} (warnings {warn})")
 
-    # ---- 10. the supervised and forked paths, before any profiler session
-    # (the main paths' timing and theirs are comparable)
-    fleet_launches.update(resilience_phases(
-        dev, smi_line, (hffx, cfg_hf, trace_hf), made, baselines["headline_faults"]))
-
-    # ---- 11. the streamed and captured paths, before any profiler session
-    fleet_launches.update(stream_phases(
-        dev, smi_line, (hfx, cfg, trace), large["rung5"], baselines))
-
-    # ---- 12. the attested and served paths, before any profiler session
-    fleet_launches.update(attest_serve_phases(dev, smi_line, (hfx, cfg, trace), baselines, made))
+    # ---- the join's children, collected before any profiler session:
+    # the main paths' first, then 10.-12.'s lines with the main paths'
+    # runs of their machines beside them
+    for p, f in zip(JOIN_CHILDREN, join_fs):
+        lines, other, last = f.result()
+        for ln in other:
+            print(ln, flush=True)
+        if p == "main_paths":
+            baselines.update(last["baselines"])
+        for ln in lines:
+            emit(with_baseline(ln, baselines))
+        if p == "fleets":
+            fleet_lines.update((ln["phase"], ln) for ln in lines)
+        (launches if p in ("main_paths", "multiprog") else fleet_launches).update(
+            last["launches"])
+    join_ex.shutdown()
 
     fleet_launches.update(pool_launches)  # the pooled (13), calibrate and chaos (14) paths
     fleet_launches.update(shard_launches)  # the sharded paths (16)
@@ -4870,4 +5510,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(child_main(sys.argv[2]) if sys.argv[1:2] == ["--child"] else main())
+    sys.exit(child_main(*sys.argv[2:4]) if sys.argv[1:2] == ["--child"] else main())

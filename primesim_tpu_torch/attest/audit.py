@@ -3,8 +3,9 @@ package's `attest/audit.py` for the port: the replays run as B = 1
 fleets on the device the caller resolves (the card unless it asks for
 the CPU), and their chain heads are the JAX package's, so the port
 audits a pool directory either package wrote, verdict for verdict. A
-unit sharded over several devices (`devices` > 0) is skipped with the
-reason the port's pool worker quarantines it for.
+unit sharded over several devices (`devices` > 0) replays on a tile mesh
+of that many devices of the caller's platform, after the same checks a
+worker makes.
 
 A pool directory is self-describing: the ledger journals every unit's
 full SPEC (config JSON, workload, overrides, chunk cadence) next to the
@@ -98,7 +99,8 @@ def audit_targets(root: str) -> list:
 
 def replay_unit(spec: dict, device=None) -> dict:
     """Re-execute one unit from its journaled spec with a fresh chain,
-    on `device` (None: the card). Returns {attest, heads, result} where
+    on `device` (None: the card), or a sharded unit on a tile mesh of its
+    `devices` devices of that platform. Returns {attest, heads, result} where
     `heads` is the chain head after every committed chunk (the
     checkpoint cross-check index) and `result` carries the replayed
     counters summary."""
@@ -117,22 +119,26 @@ def replay_unit(spec: dict, device=None) -> dict:
         trace = Trace.load(spec["trace_path"])
         if spec.get("fold"):
             trace = fold_ins(trace)
+    mesh = None
     if int(spec.get("devices") or 0):
-        from ..pool.worker import MultiDeviceNotPorted
+        from ..parallel.sharding import tile_mesh, validate_devices, visible_devices
+        from ..sim.engine import resolve_device
 
-        raise MultiDeviceNotPorted(int(spec["devices"]))
+        platform = "gpu" if resolve_device(device).type == "cuda" else "cpu"
+        validate_devices(cfg, int(spec["devices"]), platform)
+        mesh = tile_mesh(devices=visible_devices(platform)[: int(spec["devices"])])
     cs = int(spec["chunk_steps"])
     if spec.get("capacity_pages") is not None:
         fleet = FleetEngine.make_slots(
             cfg, 1, int(spec["capacity_pages"]) * PAGE_EVENTS,
-            chunk_steps=cs, device=device,
+            chunk_steps=cs, device=device, mesh=mesh,
         )
         fleet.replace_element(0, trace,
                               override=dict(spec.get("overrides") or {}))
     else:
         fleet = FleetEngine(
             cfg, [trace], [dict(spec.get("overrides") or {})],
-            chunk_steps=cs, device=device,
+            chunk_steps=cs, device=device, mesh=mesh,
         )
     fa = FleetAttest()
     fa.track(0, cs, start=0)
@@ -201,11 +207,6 @@ def audit_unit(root: str, target: dict, device=None) -> dict:
     if at and int(at.get("start", 0)) != 0:
         return skip("chain starts mid-run (warm fork / resumed cadence "
                     "change); only start-0 chains replay from scratch")
-
-    if int(spec.get("devices") or 0):
-        from ..pool.worker import MultiDeviceNotPorted
-
-        return skip(str(MultiDeviceNotPorted(int(spec["devices"]))))
 
     replay = replay_unit(spec, device=device)
     rp = replay["attest"]

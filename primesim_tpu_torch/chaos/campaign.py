@@ -39,12 +39,13 @@ Every harness simulates on one device, `cuda` unless the caller passes
 `device` (the tests pass "cpu"): the schedulers, the server, the pool's
 worker threads and the capacity trial's engine all run there, and with
 no card and no device named every entry point raises before it starts.
-The capacity trial's supervised engine holds that one device unsharded:
-a `devices.revoke` event there takes a visible device from the pool
-when there are several (the CPU's `XLA_FLAGS` count), the run has no
-mesh to shrink and retries, and on one card it takes nothing; its result
-is held to the fault-free reference all the same. The trial on a mesh
-(the JAX 8-device one reshards) is not ported yet.
+The capacity trial's supervised engine is sharded, as the JAX trial's
+is, when the device's platform shows more than one visible device (the
+CPU's `XLA_FLAGS` count, or ids declared with
+`parallel.sharding.virtual_devices`): on `largest_valid_submesh` of
+them, so a `devices.revoke` event reshards it onto a smaller mesh. With
+one visible device it runs unsharded and a revocation takes nothing.
+Either way its result is held to the fault-free unsharded reference.
 """
 
 from __future__ import annotations
@@ -959,19 +960,25 @@ def _capacity_reference(device) -> dict:
 
 
 def _capacity_supervisor_half(tmp: str, violations: list, ref: dict,
-                              device) -> None:
-    """Run the capacity workload supervised under the installed plan's
-    `devices.revoke` events and hold the run to the fault-free reference
-    (invariant G, bit-exact half). The engine holds one device, so a
-    revocation clamps to a no-op and the run must simply complete."""
+                              device) -> dict:
+    """Run the capacity workload SHARDED under the installed plan's
+    `devices.revoke` events and hold the recovered run to the fault-free
+    reference (invariant G, bit-exact half). With one visible device the
+    revocation clamps to a no-op and the run must simply complete.
+    Returns the supervisor's degrade rungs."""
+    from ..parallel import sharding
     from ..sim.engine import Engine
     from ..sim.supervisor import RunSupervisor
 
-    from ..parallel import sharding
-
     cfg, trace = _capacity_workload()
     sharding.restore_devices()  # every trial starts from a healthy pool
-    eng = Engine(cfg, trace, chunk_steps=32, device=device)
+    mesh = None
+    visible = sharding.visible_devices("gpu" if device.type == "cuda" else "cpu")
+    if len(visible) > 1:
+        n = sharding.largest_valid_submesh(cfg, len(visible))
+        if n > 1:
+            mesh = sharding.tile_mesh(devices=visible[:n])
+    eng = Engine(cfg, trace, chunk_steps=32, device=device, mesh=mesh)
     sup = RunSupervisor(
         eng, snapshot_dir=os.path.join(tmp, "snaps"),
         checkpoint_every_chunks=1, handle_signals=False,
@@ -982,20 +989,22 @@ def _capacity_supervisor_half(tmp: str, violations: list, ref: dict,
         violations.append(
             f"invariant G: supervised run died under device loss: {e!r}"
         )
-        return
+        return {"degrade_rungs": list(sup.degrade_rungs)}
     finally:
         sharding.restore_devices()
     if not np.array_equal(eng.cycles, ref["cycles"]):
         violations.append(
-            "invariant G: cycles diverged after device-loss recovery"
+            "invariant G: cycles diverged after device-loss recovery "
+            f"(rungs: {sup.degrade_rungs})"
         )
     for k, v in eng.counters.items():
         if not np.array_equal(v, ref["counters"][k]):
             violations.append(
                 f"invariant G: counter {k} diverged after device-loss "
-                "recovery"
+                f"recovery (rungs: {sup.degrade_rungs})"
             )
             break
+    return {"degrade_rungs": list(sup.degrade_rungs)}
 
 
 def run_capacity_trial(
@@ -1011,9 +1020,10 @@ def run_capacity_trial(
 ) -> TrialResult:
     """One seeded capacity-loss trial. Two halves under ONE runtime:
 
-    - `devices.revoke` events fire at supervised chunk boundaries; the
-      run must stay bit-exact with the fault-free reference (on one card
-      a revocation has nothing to take);
+    - `devices.revoke` events fire at supervised chunk boundaries of a
+      sharded run; the reshard ladder must keep the result bit-exact
+      with the fault-free unsharded reference (with one visible device a
+      revocation has nothing to take);
     - `disk.preflight` events open sustained ENOSPC windows under the
       in-process serve stack; the harness retries on `DiskPressureError`
       the way a backpressured client would, and every ACKed job must

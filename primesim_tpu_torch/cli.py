@@ -451,10 +451,6 @@ def cmd_run(ns) -> int:
             "recorder OR the XLA profiler for a given run)"
         )
     if ns.stream_window:
-        if ns.devices:
-            from .pool.worker import MultiDeviceNotPorted
-
-            raise MultiDeviceNotPorted(ns.devices)  # the sharded stream
         return _run_stream(ns, cfg, tr, supervised, rec, cache, t_start)
     device = resolve_device(ns.device)
     mesh = _build_mesh(ns, cfg, device)
@@ -507,19 +503,23 @@ def _attest_extra(eng) -> dict:
 def _run_stream(ns, cfg, tr, supervised, rec, cache=None, t_start=None) -> int:
     """`run --stream-window N`: bounded-memory windowed ingest (device
     memory O(C * N), host O(1) beyond the file with --mmap), bit-exact
-    with the preloaded run."""
+    with the preloaded run; with --devices, over a tile mesh built
+    before the stream, as the JAX CLI builds it."""
     from .ingest.stream import StreamEngine
+    from .sim.engine import resolve_device
 
     if ns.xprof or ns.debug_invariants:
         raise SystemExit(
             "--xprof/--debug-invariants are not supported with "
             "--stream-window yet"
         )
+    device = resolve_device(ns.device)
+    mesh = _build_mesh(ns, cfg, device)
     if ns.ingest_workers:
         # the rung-5 pipelined path (DESIGN.md §22): pool workers ingest
         # trace segments ahead of a supervised stream engine
-        return _run_pipelined_cli(ns, cfg, tr, rec)
-    eng = StreamEngine(cfg, tr, window_events=ns.stream_window, device=ns.device)
+        return _run_pipelined_cli(ns, cfg, tr, device, mesh, rec)
+    eng = StreamEngine(cfg, tr, window_events=ns.stream_window, device=device, mesh=mesh)
     if ns.attest == "chain":
         # window-scoped chain: the stream engine's natural chunk is the
         # window, so the cadence field is the window size
@@ -554,7 +554,7 @@ def _run_stream(ns, cfg, tr, supervised, rec, cache=None, t_start=None) -> int:
     return 0
 
 
-def _run_pipelined_cli(ns, cfg, tr, rec) -> int:
+def _run_pipelined_cli(ns, cfg, tr, device, mesh, rec) -> int:
     """`run --stream-window W --ingest-workers K`: the pipelined rung-5
     path (DESIGN.md §22). Pool ingest workers materialize trace segments
     ahead of a supervised PipelineStreamEngine in THIS process; the
@@ -595,7 +595,8 @@ def _run_pipelined_cli(ns, cfg, tr, rec) -> int:
             seg_events=ns.seg_events or None,
             ingest_workers=ns.ingest_workers,
             pool_dir=ns.pool_dir,
-            device=ns.device,
+            device=device,
+            mesh=mesh,
             supervisor_kwargs=sup_kwargs,
             max_steps=ns.max_steps,
             resume=bool(ns.resume),
@@ -799,11 +800,6 @@ def cmd_sweep(ns) -> int:
         # elastic pool path (DESIGN.md §17): coordinator in-process, N
         # worker subprocesses leasing units over the serve protocol
         from .pool.campaign import run_pooled_sweep
-
-        if ns.devices:
-            from .pool.worker import MultiDeviceNotPorted
-
-            raise MultiDeviceNotPorted(ns.devices)  # the pool's sharded units
 
         return run_pooled_sweep(ns, cfg)
     if ns.report:
@@ -1176,11 +1172,16 @@ def cmd_serve(ns) -> int:
     rec = _build_recorder(ns)
     if ns.tcp and ns.socket:
         raise SystemExit("--tcp and --socket are mutually exclusive")
-    if ns.devices:
-        from .pool.worker import MultiDeviceNotPorted
-
-        raise MultiDeviceNotPorted(ns.devices)  # sharded serving buckets
+    if ns.devices and not ns.pool_dir:
+        raise SystemExit(
+            "serve: --devices needs dispatch mode (--pool-dir): sharded "
+            "fleets live on pool workers, not in the front-end process"
+        )
     device = resolve_device(ns.device)
+    if ns.devices:
+        from .parallel.sharding import validate_devices
+
+        validate_devices(cfg, ns.devices, "gpu" if device.type == "cuda" else "cpu")
     if device.type == "cuda" and not ns.pool_dir:
         build.libraries(build.KERNELS)  # build or load before the first job
     replicas = [t.strip() for t in (ns.replicas or "").split(",")
@@ -1231,6 +1232,7 @@ def cmd_serve(ns) -> int:
         replicas=replicas or None,
         quorum=ns.quorum,
         quorum_policy=ns.quorum_policy,
+        devices=ns.devices,
     )
     # bind before the readiness line so `--tcp HOST:0` prints the real
     # kernel-assigned port (tests and scripts scrape this line)
@@ -2151,7 +2153,8 @@ def build_parser() -> argparse.ArgumentParser:
     v.add_argument(
         "--devices", type=int, default=0, metavar="N",
         help="dispatch mode: every leased unit runs on a fleet sharded "
-             "over N devices (not ported yet: refused, exit 2)",
+             "over N devices (shard x vmap; the mesh shape joins the "
+             "unit's geometry bucket)",
     )
     v.add_argument(
         "--quota", default=None, metavar="RATE[:BURST]",
@@ -2489,14 +2492,13 @@ def main(argv=None) -> int:
     from .attest.errors import AttestationError
     from .calib.table import CalibError
     from .parallel.sharding import DeviceMeshError
-    from .pool.worker import MultiDeviceNotPorted
     from .sim.checkpoint import CheckpointCorrupt
 
     try:
         return ns.fn(ns)
     except (TraceError, ConfigError, FaultConfigError, CheckpointCorrupt,
             VarySpecError, AttestationError, FsckCorrupt, CalibError,
-            DeviceMeshError, MultiDeviceNotPorted) as e:
+            DeviceMeshError) as e:
         # typed errors exit 2 with ONE structured JSON line on stderr, as
         # `primetpu` prints them
         print(json.dumps(_error_obj(e)), file=sys.stderr)

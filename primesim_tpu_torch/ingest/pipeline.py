@@ -198,7 +198,7 @@ class PipelineStreamEngine(StreamEngine):
     come from differs, and those bytes are identical."""
 
     def __init__(self, cfg, trace: Trace, spool: SegmentSpool,
-                 window_events: int = 1024, device=None):
+                 window_events: int = 1024, device=None, mesh=None):
         if window_events > spool.seg_events:
             raise ValueError(
                 f"window_events={window_events} exceeds the ingest "
@@ -206,7 +206,7 @@ class PipelineStreamEngine(StreamEngine):
                 "most two segments"
             )
         super().__init__(cfg, trace, window_events=window_events,
-                         device=device)
+                         device=device, mesh=mesh)
         self.spool = spool
 
     def _fill_window(self):
@@ -265,6 +265,7 @@ def run_pipelined(
     ingest_workers: int = 2,
     pool_dir: str | None = None,
     device=None,
+    mesh=None,
     lease_ttl_s: float = 10.0,
     supervisor_kwargs: dict | None = None,
     max_steps: int | None = None,
@@ -278,9 +279,10 @@ def run_pipelined(
     (checkpoints/resume work exactly as for any supervised stream run —
     plus segments persist under `pool_dir`, so a resumed run re-uses
     every segment already ingested). The engine is made, and its device
-    resolved (the card unless `device` names another; no card raises)
-    and its kernels loaded, before any worker is spawned. Returns
-    (engine, supervisor, ingest_stats)."""
+    resolved (the card unless `device` names another; no card raises;
+    on `mesh`, its lead device) and its kernels loaded, before any
+    worker is spawned. Ingest units stay host-only on a mesh too: only
+    the engine is sharded. Returns (engine, supervisor, ingest_stats)."""
     import shutil
     import tempfile
 
@@ -329,7 +331,7 @@ def run_pipelined(
     try:
         eng = PipelineStreamEngine(
             cfg, trace, spool, window_events=int(window_events),
-            device=device,
+            device=device, mesh=mesh,
         )
         eng.warmup()  # the kernels load before the first window
         if log:

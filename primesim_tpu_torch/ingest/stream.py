@@ -25,6 +25,14 @@ by window, so a memory-mapped source is never copied whole.
 Fault injection is refused: the JAX package's CLI refuses it with
 `--stream-window` (its window prefetcher cannot know that a core died
 mid-window), and the port's engine refuses it with the same text.
+
+On a tile mesh (`mesh=`, `parallel/sharding.py`) the state is sharded at
+init, each window's events and its exhausted mask are laid out by core
+shard, and every step runs on the shards (`sim/engine.py::_ShardedStep`).
+A chunk still makes one host transfer: the pointers the host sizes the
+next chunk by are gathered on the mesh's lead device with the drained
+counters and the delta. A stream snapshot is written whole, so one taken
+on N shards resumes on M, unsharded, or in the JAX package.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ import torch
 
 from ..config.machine import MachineConfig, check_port_supported
 from ..kernels import build
+from ..parallel.sharding import shard_core_axis, shard_state
 from ..sim.engine import _ACC_BITS, group_tables, resolve_device, stream_loop
 from ..sim.state import init_state
 from ..stats.counters import COUNTER_NAMES, zero_counters
@@ -76,23 +85,28 @@ def absorb_stream_outputs(eng, out, buf):
     return out.steps, consumed, at_end
 
 
-def warm_kernels(cfg: MachineConfig, device: torch.device) -> None:
+def warm_kernels(cfg: MachineConfig, device: torch.device, mesh=None) -> None:
     """Build and load every kernel on the card, and upload a coarse
-    vector's group tables, before a timed region (no step runs)."""
+    vector's group tables (on every shard's device of a mesh), before a
+    timed region (no step runs)."""
     if device.type == "cuda":
         build.libraries(build.KERNELS)
     if cfg.sharer_group > 1:  # keyed by the device as the step names it (cuda:0)
-        group_tables(cfg, torch.empty(0, device=device).device)
+        devs = {device} if mesh is None else {mesh.shard_device(k) for k in mesh.local}
+        for d in devs:
+            group_tables(cfg, torch.empty(0, device=d).device)
 
 
 class StreamEngine:
     """Bounded-memory streaming runner, bit-exact with `Engine.run`, on
-    `cuda` unless `device` names another device."""
+    `cuda` unless `device` names another device, or laid over the tile
+    mesh `mesh` (its lead device holds the replicated fields)."""
 
     def __init__(self, cfg: MachineConfig, trace: Trace, window_events: int = 1024,
-                 device=None):
+                 device=None, mesh=None):
         check_port_supported(cfg)
-        self.device = resolve_device(device)
+        self.device = resolve_device(device) if mesh is None else mesh.lead
+        self.mesh = mesh
         if cfg.faults_enabled:
             raise ValueError(FAULTS_REFUSED)
         if trace.n_cores != cfg.n_cores:
@@ -129,6 +143,8 @@ class StreamEngine:
                 "streaming 64-step counter drain; split INS batches"
             )
         self.state = init_state(cfg, self.device)
+        if mesh is not None:
+            self.state = shard_state(mesh, self.state)
         self.cycle_base = 0
         self.host_counters = zero_counters(cfg.n_cores)
         self.steps_run = 0
@@ -169,7 +185,14 @@ class StreamEngine:
         """Build and load the kernels (and a coarse vector's tables) and
         run no step: called before a timed region, as the JAX package's
         warmup compiles its loop."""
-        warm_kernels(self.cfg, self.device)
+        warm_kernels(self.cfg, self.device, self.mesh)
+
+    def _place_core_axis(self, x):
+        """Upload a host array whose leading axis is the core axis, laid
+        out by core shard on a mesh (the JAX StreamEngine's
+        `_place_core_axis`)."""
+        t = torch.from_numpy(np.ascontiguousarray(x))
+        return t.to(self.device) if self.mesh is None else shard_core_axis(self.mesh, t)
 
     def _advance_window(self, budget: int) -> tuple[int, bool]:
         """Fill, upload and run ONE window, then drain it into the host's
@@ -181,10 +204,8 @@ class StreamEngine:
         t0 = time.perf_counter()
         buf, exhausted, filled = self._fill_window()
         t1 = time.perf_counter()
-        events = torch.from_numpy(buf).to(self.device)
-        st = self.state._replace(
-            ptr=torch.zeros(cfg.n_cores, dtype=torch.int32, device=self.device))
-        out = stream_loop(cfg, events, st, exhausted, filled,
+        st = self.state._replace(ptr=self._place_core_axis(np.zeros(cfg.n_cores, np.int32)))
+        out = stream_loop(cfg, self._place_core_axis(buf), st, exhausted, filled,
                           min(budget, 2**31 - 1), self.has_sync)
         t2 = time.perf_counter()
         k, consumed, at_end = absorb_stream_outputs(self, out, buf)

@@ -316,6 +316,13 @@ def shard_events(mesh: TileMesh, events: torch.Tensor) -> Shards:
     return _place(mesh, events, events_pspec())
 
 
+def shard_core_axis(mesh: TileMesh, x: torch.Tensor) -> Shards:
+    """A tensor whose leading axis is the core axis (a stream window's
+    exhausted mask, its pointer reset) laid out by core shard, as the
+    JAX StreamEngine's `_place_core_axis` places a fresh upload."""
+    return _place(mesh, x, (AXIS,))
+
+
 def shard_fleet_state(mesh: TileMesh, st: MachineState) -> MachineState:
     return _place_all(mesh, unshard_state(st), fleet_state_pspecs())
 

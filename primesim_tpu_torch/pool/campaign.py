@@ -141,12 +141,20 @@ def run_pooled_sweep(ns, cfg) -> int:
     _check_pool_flags(ns)
     traces, synths, ovs = _fan_sources(ns)
     device = resolve_device(ns.device)  # no card, no --device cpu: raise
+    devices = int(getattr(ns, "devices", 0) or 0)
+    if devices:
+        # fail the campaign up front (exit 2, typed) rather than letting
+        # every worker quarantine its first unit on the same bad mesh
+        from ..parallel.sharding import validate_devices
+
+        validate_devices(cfg, devices, "gpu" if device.type == "cuda" else "cpu")
     units = build_units(
         cfg, traces, synths, ovs,
         fold=ns.fold,
         chunk_steps=ns.chunk_steps,
         max_steps=ns.max_steps or 10_000_000,
         warm_cache=ns.warm_cache == "on",
+        devices=devices,
     )
     ephemeral = ns.pool_dir is None
     pool_dir = ns.pool_dir or tempfile.mkdtemp(prefix="primetpu-pool-")

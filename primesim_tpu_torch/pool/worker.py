@@ -38,9 +38,12 @@ tests use `simulate_crash=True`, which swaps the kill for a raised
 `SimulatedCrash` at the same site (the test then plays the role of the
 dead process by simply not acking).
 
-Not ported: the JAX worker's sharded units (`devices` > 0, its
-`_unit_mesh`) are not on the port's tile mesh (`parallel/sharding.py`)
-yet; such a unit is quarantined with `MultiDeviceNotPorted`.
+A unit with `devices` > 0 runs on a tile mesh (`parallel/sharding.py`)
+of that many healthy devices of the worker's platform (`_unit_mesh`):
+the full grant when enough remain, else a re-lease on the largest valid
+smaller mesh, recorded on the unit and in its result's `devices_granted`
+(the coordinator books it), and a typed `DeviceMeshError` quarantine
+when none is left. Sharded results are the unsharded run's, bit for bit.
 
 At a grant the unit's fleet loads (or builds) its kernels through the
 kernel build cache when `--exec-cache on` made one active
@@ -72,24 +75,6 @@ class LeaseLost(Exception):
 class SimulatedCrash(Exception):
     """In-process stand-in for SIGKILL: the test's worker vanishes
     mid-unit without acking or cleaning up."""
-
-
-class MultiDeviceNotPorted(ValueError):
-    """A unit, a serving daemon or a streamed run asked for a machine
-    sharded over several devices: the tile mesh drives `run` and `sweep`
-    (`parallel/sharding.py`), and these paths run one device until they
-    are ported onto it."""
-
-    def __init__(self, devices: int):
-        super().__init__(
-            f"devices={devices}: sharding a unit, a serving bucket or a "
-            "streamed run over several devices is not ported (they run "
-            "on one device; run and sweep take --devices)"
-        )
-        self.devices = int(devices)
-
-    def location(self) -> dict:
-        return {"devices": self.devices}
 
 
 class _Heartbeat:
@@ -203,6 +188,7 @@ class PoolWorker:
         self.kernel_load_s = None  # seconds to load the kernels, on a card
         self.units_done = 0
         self.units_lost = 0
+        self.units_degraded = 0  # leases re-granted on a smaller mesh
         self._toolchain_cache = None
         # per-unit seconds: element checkpoints written, and unit walls
         self.checkpoint_s = 0.0
@@ -317,7 +303,7 @@ class PoolWorker:
         cannot be had is not a workload error: it raises."""
         unit = grant["unit"]
         epoch = int(grant["epoch"])
-        if unit.get("kind") != "ingest" and not unit.get("devices"):
+        if unit.get("kind") != "ingest":
             self._ensure_device()
         t0 = time.perf_counter()
         try:
@@ -381,22 +367,59 @@ class PoolWorker:
         finally:
             hb.stop()
 
+    def _unit_mesh(self, unit, cfg):
+        """The tile mesh a unit's `devices` field asks for (None for the
+        solo layout), over the healthy devices of the worker's platform.
+        Validation is typed, so a bad mesh request quarantines with a
+        structured error.
+
+        Degraded-mode elasticity (DESIGN.md §26): when fewer healthy
+        devices remain than the lease asked for, the unit re-leases onto
+        the largest valid smaller mesh instead of quarantining; the
+        granted size is recorded on the unit (re-keying its geometry
+        bucket) and surfaced in the ack so the coordinator books the
+        capacity change. Sharded results do not depend on the mesh, so
+        the result is bit-exact either way."""
+        devices = int(unit.get("devices") or 0)
+        if not devices:
+            return None
+        from ..parallel.sharding import (
+            healthy_devices,
+            largest_valid_submesh,
+            tile_mesh,
+            validate_devices,
+        )
+
+        platform = "gpu" if self._ensure_device().type == "cuda" else "cpu"
+        healthy = healthy_devices(platform)
+        if len(healthy) >= devices:
+            validate_devices(cfg, devices, platform)  # geometry errors quarantine
+            return tile_mesh(devices=healthy[:devices])
+        n = largest_valid_submesh(cfg, len(healthy))  # raises at 0 healthy
+        unit["_granted_devices"] = n
+        self.units_degraded += 1
+        return tile_mesh(devices=healthy[:n])
+
     def _bucket_fleet(self, unit, cfg):
         """The warm slot fleet for a unit's geometry bucket
         (`capacity_pages` units = serve jobs dispatched by the elastic
-        front-end). Built once per (config, capacity, chunk_steps) and
-        reused across every unit in the bucket — `replace_element`
-        splices workloads in place."""
+        front-end). Built once per (config, capacity, chunk_steps,
+        devices) and reused across every unit in the bucket —
+        `replace_element` splices workloads in place."""
         from ..serve.scheduler import PAGE_EVENTS
         from ..sim.fleet import FleetEngine
 
         cap = int(unit["capacity_pages"]) * PAGE_EVENTS
-        key = (unit["config"], cap, int(unit["chunk_steps"]))
+        # the mesh resolves first: under capacity loss the GRANTED size
+        # keys the bucket, so degraded and full-size units never share a
+        # warm fleet laid out for the wrong mesh
+        mesh = self._unit_mesh(unit, cfg)
+        key = (unit["config"], cap, int(unit["chunk_steps"]), _unit_devices(unit))
         fleet = self._bucket_fleets.get(key)
         if fleet is None:
             fleet = FleetEngine.make_slots(
                 cfg, 1, cap, chunk_steps=int(unit["chunk_steps"]),
-                device=self.device,
+                device=self.device, mesh=mesh,
             )
             self._bucket_fleets[key] = fleet
         return fleet
@@ -415,8 +438,6 @@ class PoolWorker:
             # MPMD pipeline stage 1 (DESIGN.md §22): materialize one trace
             # segment to the pool dir instead of simulating anything
             return self._ingest_segment(grant, unit, cfg, hb)
-        if unit.get("devices"):
-            raise MultiDeviceNotPorted(int(unit["devices"]))
         if unit["synth"] is not None:
             trace = parse_synth_spec(unit["synth"], cfg.n_cores,
                                      unit["fold"])
@@ -432,7 +453,7 @@ class PoolWorker:
             fleet = FleetEngine(
                 cfg, [trace], [dict(unit["overrides"])],
                 chunk_steps=int(unit["chunk_steps"]),
-                device=self.device,
+                device=self.device, mesh=self._unit_mesh(unit, cfg),
             )
         fleet.overlap = self.overlap
         # the kernels from the build cache now, under the grant's
@@ -509,7 +530,7 @@ class PoolWorker:
                 except Exception:
                     self._bucket_fleets.pop(
                         (unit["config"], fleet.events_capacity,
-                         int(unit["chunk_steps"])), None)
+                         int(unit["chunk_steps"]), _unit_devices(unit)), None)
             raise
         wall = time.perf_counter() - t0
 
@@ -532,6 +553,14 @@ class PoolWorker:
                 "noc_msgs": int(ec["noc_msgs"].sum()),
             },
         }
+        if unit.get("devices"):
+            # present ONLY for sharded units, so unsharded records stay
+            # byte-identical
+            result["detail"]["devices"] = int(unit["devices"])
+            if unit.get("_granted_devices"):
+                # capacity loss: the lease ran on a SMALLER mesh than it
+                # asked for; the coordinator books the change
+                result["detail"]["devices_granted"] = int(unit["_granted_devices"])
         if unit.get("serve_job"):
             # the front-end maps this into the serve job's result —
             # present ONLY for serve units so sweep records stay the
@@ -626,6 +655,12 @@ class PoolWorker:
         return 0
 
 
+def _unit_devices(unit: dict) -> int:
+    """The mesh size a unit runs on: the granted size after a re-lease,
+    else the asked one (0: no mesh)."""
+    return int(unit.get("_granted_devices") or unit.get("devices") or 0)
+
+
 def _stderr_line(text: str) -> None:
     """One whole line in one write: the workers of a pool share their
     parent's stderr, and a line split over two writes can interleave
@@ -699,6 +734,7 @@ def run_worker(
     finally:
         _stderr_line(f"worker {worker_id}: exit {rc}, " + json.dumps({
             "units_done": w.units_done, "units_lost": w.units_lost,
+            "units_degraded": w.units_degraded,
             "checkpoint_s": round(w.checkpoint_s, 3),
             "unit_walls_s": {k: round(v, 3) for k, v in w.unit_walls.items()},
             "kernel_load_s": w.kernel_load_s, "launches": dict(build.LAUNCHES),

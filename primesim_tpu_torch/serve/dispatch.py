@@ -36,11 +36,13 @@ is mapped 1:1 onto the shape `Scheduler._element_result` produces — a
 job's result is identical whether it ran locally, remotely, or via a
 post-crash re-dispatch.
 
-Not ported: the JAX dispatcher's sharded geometry buckets (`devices`,
-and `_rebucket_devices` after a device loss) are not on the port's
-tile mesh (`parallel/sharding.py`) yet; `devices` > 0 is refused with the worker's
-`MultiDeviceNotPorted`, and a unit a worker quarantines stays
-quarantined.
+Sharded geometry buckets: with `devices` > 0 every unit asks its
+worker for a tile mesh of that many devices (`parallel/sharding.py`).
+When a worker cannot host it (devices revoked, too few visible) the unit
+comes back quarantined with a `DeviceMeshError`; the dispatcher then
+shrinks its bucket to the largest mesh the reported capacity can host
+and re-enqueues the job under a fresh unit id (`_rebucket_devices`),
+journaled with a `rebucket` detail and a serve event.
 """
 
 from __future__ import annotations
@@ -53,7 +55,6 @@ import time
 from ..obs.metrics import Histogram
 from ..pool.campaign import device_flag
 from ..pool.units import unit_key
-from ..pool.worker import MultiDeviceNotPorted
 from . import jobs as J
 from .protocol import error_obj, request, socket_alive
 from .scheduler import (
@@ -88,8 +89,6 @@ class DispatchScheduler:
         audit_rate: float = 0.0,
         device=None,
     ):
-        if devices:
-            raise MultiDeviceNotPorted(devices)
         self.cfg = cfg
         self.journal = journal
         self.obs = obs
@@ -110,10 +109,20 @@ class DispatchScheduler:
         from ..sim.engine import resolve_device
 
         self.device = resolve_device(device)
+        self.devices = int(devices)
+        if self.devices:
+            # fail service bring-up on a bad mesh shape, not every
+            # leased unit on every worker
+            from ..parallel.sharding import validate_devices
+
+            validate_devices(cfg, self.devices,
+                             "gpu" if self.device.type == "cuda" else "cpu")
 
         self.jobs: dict[str, J.Job] = {}
         self.queue: list[str] = []  # accepted, not yet enqueued remotely
         self.dispatched: set[str] = set()  # unit ids enqueued, not terminal
+        self.unit_aliases: dict[str, str] = {}  # rebucketed unit id -> job id
+        self._rebucket_gen = 0
         self.buckets = []  # API parity: no local fleets in dispatch mode
         self._seq = 0
         self._last_poll_t = 0.0
@@ -195,7 +204,10 @@ class DispatchScheduler:
     def _unit_spec(self, job: J.Job) -> dict:
         jid = job.job_id
         spec = {
-            "unit_id": jid,
+            # a rebucketed job re-enqueues under a FRESH unit id: the
+            # coordinator's enqueue is idempotent per (id, key) and the
+            # key covers `devices`, so the shrunken bucket is a new unit
+            "unit_id": getattr(job, "_unit_alias", None) or jid,
             "index": int(jid[1:]) if jid[1:].isdigit() else 0,
             "config": self.cfg.to_json(),
             "trace_path": job.trace_path,
@@ -211,6 +223,10 @@ class DispatchScheduler:
             "priority": int(job.priority),
             "client": str(job.client),
         }
+        if self.devices:
+            # geometry bucket with a mesh shape: the leasing worker owns
+            # a fleet sharded over this many devices (shard x vmap)
+            spec["devices"] = self.devices
         spec["key"] = unit_key(spec)
         return spec
 
@@ -239,6 +255,9 @@ class DispatchScheduler:
         # an already-dispatched unit may still finish on a worker; its
         # late collect result is discarded because terminal is sticky
         self.dispatched.discard(job_id)
+        alias = getattr(job, "_unit_alias", None)
+        if alias:
+            self.dispatched.discard(alias)
         self._terminal(job, J.CANCELLED, detail={"detail": "client cancel"})
         return job
 
@@ -391,14 +410,20 @@ class DispatchScheduler:
         return moved
 
     def _job_for_unit(self, unit_id: str) -> J.Job | None:
-        """Pool unit id -> serve job (a unit is enqueued under its job's
-        id)."""
-        return self.jobs.get(unit_id)
+        """Pool unit id -> serve job: identity for first-dispatch units,
+        via the alias map for rebucketed re-enqueues."""
+        job = self.jobs.get(unit_id)
+        if job is not None:
+            return job
+        return self.jobs.get(self.unit_aliases.get(unit_id, ""))
 
     def _finish_remote(self, job: J.Job, fin: dict) -> None:
         """Map a worker's unit outcome onto the serve job, producing the
         same result shape as `Scheduler._element_result`."""
         self.dispatched.discard(job.job_id)
+        alias = getattr(job, "_unit_alias", None)
+        if alias:
+            self.dispatched.discard(alias)
         if job.state == J.PENDING:
             # terminal transitions are only legal from RUNNING; the
             # lease happened while we weren't looking
@@ -444,6 +469,10 @@ class DispatchScheduler:
             )
             return
         if rec.get("metric") == "quarantined":
+            err = detail.get("error") or {}
+            if (err.get("type") == "DeviceMeshError"
+                    and self._rebucket_devices(job, err)):
+                return  # re-enqueued on a smaller geometry bucket
             self._terminal(
                 job, J.QUARANTINED,
                 detail=detail.get("error")
@@ -469,6 +498,44 @@ class DispatchScheduler:
         })
         self._serve_event("retire", job_id=job.job_id, state=J.DONE,
                           remote=True)
+
+    def _rebucket_devices(self, job: J.Job, err: dict) -> bool:
+        """Degraded-mode elasticity (DESIGN.md §26): a worker could not
+        host this job's mesh (devices revoked or too few visible), so the
+        unit came back quarantined with a DeviceMeshError. Instead of
+        quarantining the JOB, shrink the service's geometry bucket to the
+        largest mesh the reported capacity can host and re-enqueue under
+        a fresh unit id. False means the error is not recoverable this
+        way (no smaller valid mesh) and the caller quarantines as before."""
+        if not self.devices or self.devices <= 1:
+            return False
+        from ..parallel.sharding import DeviceMeshError, largest_valid_submesh
+
+        loc = err.get("location") or {}
+        try:
+            visible = int(loc.get("visible"))
+        except (TypeError, ValueError):
+            visible = self.devices - 1
+        try:
+            n = largest_valid_submesh(self.cfg, min(visible, self.devices - 1))
+        except DeviceMeshError:
+            return False  # zero capacity reported: nothing to shrink to
+        if n < 1 or n >= self.devices:
+            return False
+        prev, self.devices = self.devices, n
+        self._rebucket_gen += 1
+        alias = f"{job.job_id}r{self._rebucket_gen}"
+        job._unit_alias = alias
+        self.unit_aliases[alias] = job.job_id
+        job.transition(J.PENDING)
+        self.queue.append(job.job_id)
+        self.journal.state(
+            job.job_id, J.PENDING,
+            detail={"rebucket": {"devices_from": prev, "devices_to": n}},
+        )
+        self._serve_event("rebucket", job_id=job.job_id,
+                          devices_from=prev, devices_to=n)
+        return True
 
     def _expire_deadlines(self, now: float) -> None:
         for job_id in list(self.queue):

@@ -97,6 +97,7 @@ class PrimeServer:
         quorum: int | None = None,
         quorum_policy: str = "block",
         node: str | None = None,
+        devices: int = 0,
     ):
         self.state_dir = str(state_dir)
         os.makedirs(self.state_dir, exist_ok=True)
@@ -144,8 +145,17 @@ class PrimeServer:
                 attest=attest,
                 audit_rate=audit_rate,
                 device=device,
+                devices=devices,
             )
         else:
+            if devices:
+                # caller contract, not a user-reachable path: the serve verb
+                # rejects --devices without --pool-dir before constructing
+                raise ValueError(
+                    "serve --devices needs dispatch mode (--pool-dir): "
+                    "sharded fleets live on pool workers, not in the "
+                    "front-end process"
+                )
             self.sched = Scheduler(
                 cfg,
                 self.journal,

@@ -24,8 +24,8 @@ into any slot of any serving fleet of the same geometry.
 
 A sharded state (`parallel/sharding.py`) is written whole, in the same
 format, so a snapshot taken on N shards loads on M shards, unsharded, or
-in the JAX package; the solo and fleet loaders lay the state out again
-over the engine's mesh.
+in the JAX package; the solo, fleet and stream loaders lay the state out
+again over the engine's mesh.
 
 Attestation (DESIGN.md §24): when the engine carries a fingerprint chain
 (`engine.attest`), solo and stream snapshots add the chain's members
@@ -432,6 +432,10 @@ def load_stream_checkpoint(path: str, eng) -> None:
             f"!= engine {eng.W} (windows must match for bit-exact resume)"
         )
     eng.state = _state_from(z, eng.cfg, eng.device)
+    if getattr(eng, "mesh", None) is not None:  # re-laid over the engine's mesh
+        from ..parallel.sharding import shard_state
+
+        eng.state = shard_state(eng.mesh, eng.state)
     eng.cursor = z["cursor"].astype(np.int64)
     eng.cycle_base = int(z["cycle_base"])
     eng.steps_run = int(z["steps_run"])

@@ -1267,17 +1267,22 @@ def window_chunk(cfg: MachineConfig, events, st: MachineState, n_steps: int,
     bounds the delta unless it sits on END with no events beyond its
     window), with ONE host transfer. Returns (the new state, the [NC, C]
     int32 counters drained, the [C] window-relative pointers, the delta)
-    as host numpy but for the state."""
+    as host numpy but for the state. On a mesh the events and the mask
+    are laid out by core shard, and the counters (without a rebase) and
+    the pointers are gathered on the lead device for the one transfer."""
     st = run_chunk(cfg, n_steps, events, st, has_sync)
+    exch = st.l1.mesh.exchange if is_sharded(st) else None
     if rebase:
-        bev, bst = events[None], batch_state(st)
-        nd = not_done(cfg, bev, bst) | ~exhausted[None]
+        bev, bst = _batched(events), batch_state(st)
+        nd = not_done(cfg, bev, bst) | ~_lanes(_batched(exhausted), "stream.exhausted")
         new, cnt, delta, _ = drain_rebase(cfg, bev, bst, nd=nd)
         new = solo_state(new)
     else:
-        new = st._replace(counters=torch.zeros_like(st.counters))
-        cnt, delta = st.counters, torch.zeros(1, dtype=_i32, device=events.device)
-    host = torch.cat([cnt.flatten(), st.ptr, delta]).cpu().numpy()
+        new = st._replace(counters=_zeros_like(st.counters))
+        cnt = st.counters if exch is None else exch.gather("drain.counters", list(st.counters))
+        delta = torch.zeros(1, dtype=_i32, device=cnt.device)
+    ptr = st.ptr if exch is None else exch.gather("stream.ptr", list(st.ptr), 0)
+    host = torch.cat([cnt.flatten(), ptr, delta]).cpu().numpy()
     NC, C = len(COUNTER_NAMES), cfg.n_cores
     return new, host[: NC * C].reshape(NC, C), host[NC * C: -1], int(host[-1])
 
@@ -1285,10 +1290,11 @@ def window_chunk(cfg: MachineConfig, events, st: MachineState, n_steps: int,
 def stream_loop(cfg: MachineConfig, events, st: MachineState, exhausted,
                 filled, max_steps: int, has_sync: bool = True) -> WindowOut:
     """The device loop of one window of a stream (the JAX package's
-    `stream_loop`): `events` [C, W + 1, 4] on the device holds each core's
-    next events END-padded, `exhausted` ([C] bool, host) marks the cores
-    with none beyond the window and `filled` ([C], host) counts the real
-    events buffered. `st.ptr` must be 0.
+    `stream_loop`): `events` [C, W + 1, 4] on the device (or its core
+    shards on a mesh) holds each core's next events END-padded,
+    `exhausted` ([C] bool, host) marks the cores with none beyond the
+    window and `filled` ([C], host) counts the real events buffered.
+    `st.ptr` must be 0.
 
     JAX tests its exit on the device before every step: it stops once a
     core that is not exhausted holds fewer than `need = local_run_len +
@@ -1308,7 +1314,13 @@ def stream_loop(cfg: MachineConfig, events, st: MachineState, exhausted,
     C = cfg.n_cores
     ex = np.asarray(exhausted, bool)
     filled = np.asarray(filled, np.int64)
-    ex_dev = torch.from_numpy(ex).to(events.device)  # one upload a window
+    ex_t = torch.from_numpy(ex)  # one upload a window, laid out as the events
+    if isinstance(events, Shards):
+        from ..parallel.sharding import shard_core_axis
+
+        ex_dev = shard_core_axis(events.mesh, ex_t)
+    else:
+        ex_dev = ex_t.to(events.device)
     acc = np.zeros((len(COUNTER_NAMES), C), np.int64)
     ptr = np.zeros(C, np.int64)
     base = k = chunks = 0

@@ -620,13 +620,14 @@ class FleetEngine:
 
     @classmethod
     def make_slots(cls, cfg: MachineConfig, n_slots: int, capacity_events: int,
-                   chunk_steps: int = 256, device=None) -> "FleetEngine":
+                   chunk_steps: int = 256, device=None, mesh=None) -> "FleetEngine":
         """An all-idle serving fleet: `n_slots` elements holding the empty
         workload (`idle_trace`), with event rows reserved for traces of up
-        to `capacity_events` per core and the sync phase on. Jobs are
-        spliced into free slots with `replace_element` and retired with
-        `clear_element`; the shapes and the launches never change over
-        the fleet's service lifetime."""
+        to `capacity_events` per core and the sync phase on, on `device`
+        or laid over the tile mesh `mesh`. Jobs are spliced into free
+        slots with `replace_element` and retired with `clear_element`; the
+        shapes and the launches never change over the fleet's service
+        lifetime."""
         return cls(
             cfg,
             [idle_trace(cfg.n_cores)] * n_slots,
@@ -634,6 +635,7 @@ class FleetEngine:
             device=device,
             min_events_capacity=capacity_events,
             force_sync=True,
+            mesh=mesh,
         )
 
     @property

@@ -14,8 +14,8 @@ exit contract (one JSON verdict per unit, exit 2 with one structured line
 for a missing directory or a mismatch), equal `primetpu`'s. A unit served
 from a slot bucket, a hedged twin's retained losing ack and a terminal
 SUSPECT's held payloads are judged alike by both. A unit sharded over
-several devices is skipped with the pool worker's reason, and the verb
-asked for the card with none present raises.
+several devices replays on a tile mesh to the verdict JAX gives it
+unsharded, and the verb asked for the card with none present raises.
 """
 
 from __future__ import annotations
@@ -209,20 +209,34 @@ def test_audit_adjudicates_evidence_and_bucketed_units_equal_jax(drained_pool, t
 
 
 def test_audit_skips_a_sharded_unit_with_the_workers_reason(drained_pool, tmp_path):
+    """A unit whose spec asks for 2 devices is replayed on a 2-shard tile
+    mesh (skipped by nothing): its verdict is the one the JAX package
+    gives the same unit unsharded, ack confirmed; a spec asking for more
+    devices than are visible is refused with the JAX DeviceMeshError."""
+    from primesim_tpu.parallel.sharding import DeviceMeshError as JMeshError
+    from primesim_tpu_torch.parallel.sharding import DeviceMeshError
     from primesim_tpu_torch.pool.units import unit_key
-    from primesim_tpu_torch.pool.worker import MultiDeviceNotPorted
 
-    def edit(rec):
-        if rec.get("t") == "unit" and rec["unit"]["unit_id"] == "u00000":
-            spec = dict(rec["unit"], devices=2)
-            return [dict(rec, unit=dict(spec, key=unit_key(spec)))]
-        return [rec]
+    def sharded(n):
+        def edit(rec):
+            if rec.get("t") == "unit" and rec["unit"]["unit_id"] == "u00000":
+                spec = dict(rec["unit"], devices=n)
+                return [dict(rec, unit=dict(spec, key=unit_key(spec)))]
+            return [rec]
+        return edit
 
-    out = TA.run_audit(_rewrite(drained_pool, tmp_path, "sharded", edit), device="cpu")
+    out = TA.run_audit(_rewrite(drained_pool, tmp_path, "sharded", sharded(2)), device="cpu")
+    want = JA.run_audit(drained_pool)
+    assert out["units"] == want["units"] and out["summary"] == want["summary"]
     by = {v["unit_id"]: v for v in out["units"]}
-    assert by["u00000"]["status"] == "skipped"
-    assert by["u00000"]["detail"]["reason"] == str(MultiDeviceNotPorted(2))
-    assert by["u00001"]["status"] == "ok" and out["summary"]["skipped"] == 1
+    assert by["u00000"]["status"] == "ok" and by["u00000"]["detail"]["ack"] == "confirmed"
+    assert out["summary"]["skipped"] == 0
+    wide = _rewrite(drained_pool, tmp_path, "wide", sharded(16))
+    with pytest.raises(JMeshError) as je:
+        JA.run_audit(wide, unit_ids=["u00000"])
+    with pytest.raises(DeviceMeshError) as te:
+        TA.run_audit(wide, unit_ids=["u00000"], device="cpu")
+    assert str(te.value) == str(je.value)
 
 
 def test_cli_audit_exit_contract_equals_primetpu(drained_pool, tmp_path, capsys,

@@ -186,14 +186,46 @@ def test_attestation_trial_with_one_counter_flip():
 
 
 def test_capacity_trial_with_a_revocation_and_an_enospc_window(t_golden, tmp_path):
-    """Invariant G: the supervised run under a revocation (one device:
-    nothing to take) equals the fault-free reference, and every ACKed job
-    survives a sustained ENOSPC window."""
+    """Invariant G: the supervised run under a revocation (on the mesh of
+    the 8 visible devices: it reshards) equals the fault-free reference,
+    and every ACKed job survives a sustained ENOSPC window."""
     plan = _plan(TP, 8, ("devices.revoke", 1, "revoke", {"n": 1}),
                  ("disk.preflight", 2, "enospc_window", {"calls": 3}))
     res = TC.run_trial(plan, golden=t_golden, workdir=str(tmp_path), device="cpu")
     assert res.ok, res.violations
     assert {e["site"] for e in res.injected} == {"devices.revoke", "disk.preflight"}
+
+
+def test_capacity_supervisor_half_reshards_on_the_mesh_to_the_jax_reference(tmp_path):
+    """The capacity trial's sharded half: on the 8 visible devices the
+    engine holds a mesh of 8 (the capacity workload's 8 cores and banks),
+    a revocation of two shards at the second boundary reshards it 8 -> 4,
+    and the recovered run equals the JAX package's unsharded fault-free
+    reference (JAX shards its half over GSPMD; its reference does not
+    depend on the mesh). With one visible device the half runs unsharded
+    and the revocation takes nothing."""
+    import numpy as np
+
+    from primesim_tpu_torch.parallel import sharding
+
+    jref = JC._capacity_reference()
+    tref = TC._capacity_reference(torch.device("cpu"))
+    np.testing.assert_array_equal(tref["cycles"], np.asarray(jref["cycles"]))
+    for k, v in jref["counters"].items():
+        np.testing.assert_array_equal(tref["counters"][k], np.asarray(v), err_msg=k)
+    plan = _plan(TP, 8, ("devices.revoke", 2, "revoke", {"n": 2}))
+    for visible, rungs in ((None, ["reshard:8->4"]), (1, [])):
+        sharding.virtual_devices(visible, "cpu" if visible else None)
+        violations: list = []
+        t_sites.install(plan, mode="raise")
+        try:
+            out = TC._capacity_supervisor_half(str(tmp_path / f"v{visible}"), violations, jref,
+                                               torch.device("cpu"))
+        finally:
+            t_sites.deactivate()
+            sharding.virtual_devices(None)
+        assert violations == [] and out == {"degrade_rungs": rungs}
+        assert sharding.healthy_devices("cpu") == sharding.visible_devices("cpu")
 
 
 def test_campaign_without_a_card_or_a_device_raises(monkeypatch):

@@ -31,7 +31,6 @@ from primesim_tpu.serve import JobJournal as JJournal
 from primesim_tpu.serve.dispatch import DispatchScheduler as JDispatch
 from primesim_tpu.serve.scheduler import QueueFull as JQueueFull
 from primesim_tpu_torch.pool import PoolCoordinator, PoolWorker
-from primesim_tpu_torch.pool.worker import MultiDeviceNotPorted
 from primesim_tpu_torch.serve import Job, JobJournal
 from primesim_tpu_torch.serve.dispatch import DispatchScheduler
 from primesim_tpu_torch.serve.protocol import request
@@ -92,10 +91,36 @@ def test_admission_and_stats_equal_the_jax_dispatcher(tmp_path):
 
 
 def test_dispatch_refuses_a_multi_device_bucket(tmp_path):
-    d = str(tmp_path / "fe")
-    with pytest.raises(MultiDeviceNotPorted, match="not ported"):
-        DispatchScheduler(port_cfg(small_test_config(4)), JobJournal(d), d,
-                          str(tmp_path / "pool"), devices=2, spawn=False, device="cpu")
+    """A bucket whose mesh cannot be had (3 shards of 4 cores, 16 of 8
+    visible devices) is refused at bring-up with the JAX dispatcher's
+    typed DeviceMeshError; a valid one (2 devices) puts `devices` into
+    every unit spec, key included, as the JAX dispatcher does."""
+    from primesim_tpu.parallel.sharding import DeviceMeshError as JMeshError
+    from primesim_tpu_torch.parallel.sharding import DeviceMeshError
+
+    def make(D, journal, d, devices):
+        return D(small_test_config(4) if D is JDispatch else port_cfg(small_test_config(4)),
+                 journal, d, str(tmp_path / f"pool{devices}"), spawn=False, devices=devices,
+                 **({} if D is JDispatch else {"device": "cpu"}))
+
+    for devices in (3, 16):
+        with pytest.raises(JMeshError) as je:
+            make(JDispatch, JJournal(str(tmp_path / f"j{devices}")), str(tmp_path / f"j{devices}"),
+                 devices)
+        with pytest.raises(DeviceMeshError) as te:
+            make(DispatchScheduler, JobJournal(str(tmp_path / f"t{devices}")),
+                 str(tmp_path / f"t{devices}"), devices)
+        assert str(te.value) == str(je.value)
+        assert te.value.location() == je.value.location()
+    specs = []
+    for D, JobCls, Journal, d in ((JDispatch, JJob, JJournal, "j2"),
+                                  (DispatchScheduler, Job, JobJournal, "t2")):
+        sched = make(D, Journal(str(tmp_path / d)), str(tmp_path / d), 2)
+        job = JobCls(job_id="j000001", synth=SMALL_SYNTH.format(1), fold=True)
+        sched.submit(job)
+        specs.append(sched._unit_spec(sched.jobs["j000001"]))
+        sched.journal.close()
+    assert specs[1] == specs[0] and specs[1]["devices"] == 2
 
 
 def _result_is_jax(job):

@@ -464,23 +464,31 @@ def test_port_worker_resumes_a_jax_worker_checkpoint(tmp_path):
 
 
 def test_worker_quarantines_a_bad_unit_and_a_multi_device_unit(tmp_path):
+    """A bad workload quarantines with its typed error; a unit asking
+    for 2 devices runs on a 2-shard tile mesh to the JAX package's
+    unsharded result, its record adding only `devices` (no
+    `devices_granted`: the full grant)."""
+    from primesim_tpu_torch.parallel import sharding
+
     units = _units(U, 2)
     units[0]["synth"] = "no_such_kernel:oops=1"
     units[0]["key"] = U.unit_key(units[0])
     units[1]["devices"] = 2
     units[1]["key"] = U.unit_key(units[1])
-    coord = PoolCoordinator(units, str(tmp_path / "pool"))
+    coord = PoolCoordinator(units, str(tmp_path / "pool"), attest="chain")
     coord.start()
     try:
         w = PoolWorker(coord.socket_path, "w0", reconnect_timeout_s=10.0, device="cpu")
         assert w.run() == 0
         r0, r1 = coord.results()
-        for r in (r0, r1):
-            assert r["state"] == "DONE" and r["result"]["metric"] == "quarantined"
-            assert r["result"]["detail"]["status"] == "quarantined"
+        assert r0["state"] == "DONE" and r0["result"]["metric"] == "quarantined"
+        assert r0["result"]["detail"]["status"] == "quarantined"
         assert r0["result"]["detail"]["error"]["type"] == "WorkloadSpecError"
-        assert r1["result"]["detail"]["error"]["type"] == "MultiDeviceNotPorted"
-        assert r1["result"]["detail"]["error"]["location"] == {"devices": 2}
+        assert r1["state"] == "DONE" and r1["result"]["metric"] == "simulated_MIPS"
+        got = _stable(r1["result"])
+        assert got["detail"].pop("devices") == 2 and w.units_degraded == 0
+        assert got == jax_campaign(SMALL_SYNTH, 2, 16)[1][2]
+        assert len(sharding.healthy_devices("cpu")) == 8  # nothing revoked
     finally:
         coord.close()
 

@@ -177,6 +177,23 @@ def test_parallel_imports_torch_distributed_and_nothing_of_jax():
     assert "torch.distributed" in seen
 
 
+def test_no_path_refuses_a_mesh_as_not_ported():
+    """Every path of the port takes a tile mesh (`--devices`/`devices`):
+    no module of the port, and not chip_smoke.py, defines, raises or
+    names the refusal class the port carried while paths were still
+    unported (`MultiDeviceNotPorted`)."""
+    gone = "MultiDeviceNotPorted"
+    for path in _modules() + [os.path.join(REPO, "chip_smoke.py")]:
+        tree = ast.parse(open(path).read(), path)
+        for node in ast.walk(tree):
+            names = {getattr(node, k, None) for k in ("id", "attr", "name")}
+            if isinstance(node, ast.alias):
+                names |= {node.name, node.asname}
+            if isinstance(node, ast.Constant) and isinstance(node.value, str):
+                names.add(node.value if gone in node.value else None)
+            assert not any(n and gone in n for n in names), (path, node.lineno)
+
+
 def _is_cpu_test(test) -> bool:
     """`<x>.type == "cpu"`: the wrappers' test for a CPU tensor."""
     return (isinstance(test, ast.Compare) and isinstance(test.left, ast.Attribute)

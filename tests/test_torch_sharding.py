@@ -555,27 +555,34 @@ def test_cli_devices_runs_sharded(tmp_path, capsys):
         assert sharded["detail"][k] == single["detail"][k], k
 
 
-def test_cli_devices_errors_exit_2_with_structured_json(capsys):
+def test_cli_devices_errors_exit_2_with_structured_json(capsys, tmp_path):
     """test_pod_scale.py:150: a bad N exits 2 with JAX's one-line
-    DeviceMeshError; the paths not on the mesh yet refuse --devices."""
+    DeviceMeshError, on the run and sweep paths and on the streamed,
+    pooled and serving ones, which take --devices as JAX does; serve
+    --devices without --pool-dir exits with JAX's text."""
     from primesim_tpu.cli import main as jmain
 
     cfg = os.path.join(REPO, "configs", "rung1_64core_fft.json")
     for args in (["run", cfg, "--synth", "fft_like", "--devices", "5"],
-                 ["sweep", cfg, "--synth", "fft_like", "--devices", "48"]):
+                 ["sweep", cfg, "--synth", "fft_like", "--devices", "48"],
+                 ["run", cfg, "--synth", "fft_like", "--devices", "5", "--stream-window", "16"],
+                 ["run", cfg, "--synth", "fft_like", "--devices", "16", "--stream-window", "16",
+                  "--ingest-workers", "2"],
+                 ["serve", cfg, "--devices", "5", "--state-dir", str(tmp_path / "s"),
+                  "--pool-dir", str(tmp_path / "p")],
+                 ["sweep", cfg, "--synth", "fft_like", "--devices", "48", "--workers", "2"]):
         rc, _, err = _main(args + ["--device", "cpu"], capsys)
-        assert rc == 2
+        assert rc == 2, args
         obj = json.loads(err.strip().splitlines()[-1])
         assert jmain(args) == 2
         jerr = json.loads(capsys.readouterr().err.strip().splitlines()[-1])
-        assert obj == jerr
-    for args in (["run", cfg, "--synth", "fft_like", "--devices", "4", "--stream-window", "16"],
-                 ["serve", cfg, "--devices", "2", "--state-dir", "unused"],
-                 ["sweep", cfg, "--synth", "fft_like", "--devices", "2", "--workers", "2"]):
-        rc, _, err = _main(args + ["--device", "cpu"], capsys)
-        assert rc == 2
-        obj = json.loads(err.strip().splitlines()[-1])["error"]
-        assert obj["type"] == "MultiDeviceNotPorted" and "not ported" in obj["detail"]
+        assert obj == jerr and obj["error"]["type"] == "DeviceMeshError"
+    args = ["serve", cfg, "--devices", "2", "--state-dir", str(tmp_path / "unused")]
+    with pytest.raises(SystemExit) as je:
+        jmain(args)
+    with pytest.raises(SystemExit) as te:
+        tcli.main(args + ["--device", "cpu"])
+    assert str(te.value) == str(je.value) and "--pool-dir" in str(te.value)
 
 
 def _run_cli(args, n_devices, wait_snapshot_dir=None, kill=None, env_extra=None):
